@@ -35,3 +35,8 @@ def ref_cfg_dir():
     if not REF_CFG.exists():
         pytest.skip("reference cfg directory not available")
     return REF_CFG
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one")
