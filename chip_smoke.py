@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — tiny-yolo-voc-416 detection — through the
-entry points a user calls, builds the hand-written CUDA kernels from
+Drives the port's main paths — tiny-yolo-voc-416 detection at batch 1
+and batch-128 serving in bf16 and int8 — through the entry points a user
+calls, builds the hand-written CUDA kernels from
 ``sr_object_detection_tpu_torch/csrc`` and holds each against its plain
 PyTorch version. Phases, in order; any failure ends the run with a
 non-zero status and no result line:
@@ -15,20 +16,45 @@ non-zero status and no result line:
      tiny-yolo-416 pair shapes with random biases, then link by link
      along the chained stem: every element within one bf16 ulp (see
      bf16_err);
-  3. the slice at full width: Detector.detect on CUDA (random weights
-     with randomized BN and biases, written as a .weights file) against
-     the same Detector on the CPU, det for det; the C-oracle golden
-     detect_tiny_yolo.npz on CUDA; LatencyEngine(fused_stem=True) on u8
-     frames against fused_stem=False. Kernel launch counts are reset
-     just before this phase and read just after it;
+  3. the batch-1 slice at full width: Detector.detect on CUDA (random
+     weights with randomized BN and biases, written as a .weights file)
+     against the same Detector on the CPU, det for det; the C-oracle
+     golden detect_tiny_yolo.npz on CUDA; LatencyEngine(fused_stem=True)
+     on u8 frames against fused_stem=False. Kernel launch counts are
+     reset just before this phase and read just after it;
   4. the pipe server (infer/serve.py) on CUDA answers 3 requests, equal
      to the in-process Detector;
-  5. times from CUDA events: each kernel beside its plain version and
-     LatencyEngine per frame fused beside plain, each pair timed in turns
-     (plain, kernel, kernel, plain); Detector.predict_batch and detect.
+  5. times from CUDA events: each batch-1 kernel beside its plain
+     version and LatencyEngine per frame fused beside plain, each pair
+     timed in turns (plain, kernel, kernel, plain); Detector.predict_batch
+     and detect;
+  6. the int8 stem kernel (csrc/phase_stem.cu) against its plain version
+     at the four tiny-yolo-416 pair shapes at batch 128 with random int8
+     data (pair 1 also from u8 frames), then link by link along the
+     engine's own chain from u8 frames, and the whole chain: every one
+     torch.equal (the chain is exact);
+  7. the batch-128 slice at full width: ThroughputEngine (bf16) and
+     QuantizedThroughputEngine (int8, u8 frames) with and without the
+     phase stem; the two int8 engines' int8 trunks equal and their
+     outputs equal (or within one bf16 step of the head's logits, should
+     cuDNN pick another algorithm). Launch counts are reset just before
+     this phase and read just after it;
+  8. the int8 Detector on CUDA against the same Detector on the CPU, det
+     for det within a prob band (the two calibrations differ in the last
+     bits); the int8 LatencyEngine's candidates are finite;
+  9. the pipe server with --int8 answers 3 requests, equal to the
+     in-process int8 Detector calibrated on the same first frame;
+ 10. times from CUDA events, in turns: the int8 stem chain against its
+     plain chain; images/s of ThroughputEngine bf16 and of the int8
+     engine on u8 frames without and with the phase stem (host clock
+     around queued batches, one sync); the int8 LatencyEngine per frame
+     and best_latency_engine's selection;
+ 11. torch.profiler over each engine: wall and device busy time per
+     frame or batch, the device's idle share, the top kernels.
 
 The last lines are the card (nvidia-smi), one JSON object describing the
-kernels, and ``{"ok": true, "device": {...}}``.
+kernels (time, plain time, bound and launches of each), and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -47,7 +73,23 @@ ROOT = pathlib.Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden"
 WORK = ROOT / "build" / "chip_smoke"
 sys.path.insert(0, str(ROOT / "tests"))
-from torch_parity import assert_bf16_close, random_bn  # noqa: E402 (JAX-free)
+from torch_parity import (assert_bf16_close, phase_pair_case,  # noqa: E402
+                          random_bn)                           # (JAX-free)
+
+NET = 416          # tiny-yolo-voc's published width and height
+BATCH = 128        # the batch serving engines' batch
+# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): the bounds below
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
+IOU_FLOPS = 20     # float ops of one IoU test (nms.cu)
+
+
+def bound(n_bytes, n_ops, kind):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the operations over the peak rate of their type."""
+    t_bytes = n_bytes / HBM_BYTES_S * 1e3
+    t_ops = n_ops / PEAK_OPS_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def log(msg):
@@ -76,6 +118,37 @@ def cuda_ms(fn, iters=50, warmup=5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def profile(name, fn, iters, gpu, top=6):
+    """torch.profiler over ``iters`` calls of fn after one warm-up: wall
+    time per call (host clock, ending in a synchronize, profiler
+    overhead included), device busy time per call (the CUDA kernels'
+    self time; the port runs one stream, so kernels do not overlap),
+    the idle share, and the kernels that take the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / iters * 1e3
+    rows = [(e.self_device_time_total / iters / 1e3, e.key) for e in
+            prof.key_averages() if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy = sum(t for t, _ in rows)
+    if busy == 0:
+        log(f"profile {name}: wall {wall} ms; device time not measured "
+            f"(the profiler saw no kernel) [{gpu}]")
+        return
+    log(f"profile {name}: wall {wall} ms, device busy {busy} ms, idle "
+        f"share {1 - busy / wall} [{gpu}]")
+    for t, key in sorted(rows, reverse=True)[:top]:
+        log(f"  {t} ms ({t / busy:.1%}) {key[:90]}")
+
+
 def bf16_err(got, ref) -> float:
     """Assert every element within one bf16 ulp (tests/torch_parity.py);
     return the max absolute difference."""
@@ -84,11 +157,12 @@ def bf16_err(got, ref) -> float:
     return float(np.abs(got - ref).max())
 
 
-def match_dets(a, b, thr, margin):
+def match_dets(a, b, thr, margin, require=True):
     """Det for det within a prob band: every detection (class, prob, box)
     of either list with prob > thr + margin has one in the other list of
     the same class, a prob within margin and the same box (within bf16
-    resolution). Returns how many were matched."""
+    resolution). Returns how many were matched (with ``require``, at
+    least one)."""
     n = 0
     for x, y in ((a, b), (b, a)):
         for c, p, box in x:
@@ -98,8 +172,32 @@ def match_dets(a, b, thr, margin):
             assert any(c2 == c and abs(p2 - p) <= margin
                        and np.allclose(b2, box, rtol=2 ** -6, atol=1e-3)
                        for c2, p2, b2 in y), (c, p, box)
-    assert n > 0
+    assert n > 0 or not require
     return n
+
+
+def voc_map(det, paths, gt, thresh, nms):
+    """VOC mAP of a Detector on the synthetic A/B set (the port's
+    tests/test_torch_int8.py::test_int8_map_delta protocol)."""
+    from sr_object_detection_tpu_torch.eval.voc import mean_ap, voc_det_lines
+    from sr_object_detection_tpu_torch.kernels import nms as NMS
+    from sr_object_detection_tpu_torch.ops.image import load_image_rgb
+    from tools.synth_dataset import N_CLASSES, gt_corner_boxes
+    names = [str(c) for c in range(N_CLASSES)]
+    per_class = {c: [] for c in range(N_CLASSES)}
+    for path in paths:
+        img = load_image_rgb(path)
+        boxes, probs = det.predict_batch(det.preprocess(img)[None],
+                                         thresh=thresh)
+        probs = NMS.nms_sort_topk(boxes[0], probs[0], nms, k=boxes.shape[1])
+        lines = voc_det_lines(pathlib.Path(path).stem, boxes[0].cpu().numpy(),
+                              probs.cpu().numpy(), names, img.shape[1],
+                              img.shape[0])
+        for c in range(N_CLASSES):
+            for line in lines[names[c]]:
+                f = line.split()
+                per_class[c].append((f[0], *map(float, f[1:6])))
+    return mean_ap(per_class, gt_corner_boxes(gt))[0]
 
 
 def candidates(boxes, probs):
@@ -126,6 +224,7 @@ def main() -> int:
     from sr_object_detection_tpu_torch.kernels import _build
     from sr_object_detection_tpu_torch.kernels import b1_stem as BS
     from sr_object_detection_tpu_torch.kernels import nms as NMS
+    from sr_object_detection_tpu_torch.kernels import phase_stem as PS
     from sr_object_detection_tpu_torch.models.zoo import tiny_yolo_voc
     from sr_object_detection_tpu_torch.ops import boxes as B
 
@@ -233,6 +332,7 @@ def main() -> int:
 
     NMS.launches = 0
     BS.launches = 0
+    PS.launches = 0
     n_dets = 0
     for f in frames:
         got, want = (
@@ -267,12 +367,14 @@ def main() -> int:
         assert max(min(p for _, p, _ in c) for c in (cf, cp)) < thr - margin
         n_cands += match_dets(cf, cp, thr, margin)
     torch.cuda.synchronize()
-    launches = {"nms_per_class": NMS.launches, "stem_pair": BS.launches}
+    launches = {"nms_per_class": NMS.launches, "stem_pair": BS.launches,
+                "phase_stem_pair": PS.launches}
     log(f"phase 3 ok: {n_dets} detections matched on CUDA and CPU; golden "
         f"gates met on CUDA (max |prob err| {golden_err}); {n_cands} "
         f"candidates matched between the fused and plain engines; "
         f"launches {launches} [{gpu}]")
-    assert launches == {"nms_per_class": 4, "stem_pair": 12}, launches
+    assert launches == {"nms_per_class": 4, "stem_pair": 12,
+                        "phase_stem_pair": 0}, launches
 
     # ---------------------------------------------------------- phase 4
     req = b"".join(struct.pack("<3if", f.shape[1], f.shape[0], f.shape[2],
@@ -341,19 +443,274 @@ def main() -> int:
         f"{cuda_ms(lambda: det.detect(frames[0], thresh=thresh), iters=10)}"
         f" ms [{gpu}]")
 
+    # bounds of the batch-1 kernels at the timed shapes: NMS moves its
+    # candidates once and tests each pair of live boxes of a class once;
+    # the stem chain reads each pair's input, weights and bias and writes
+    # its output once
+    live = (tp > 0).sum(dim=1).tolist()
+    bounds = {"nms_per_class": bound(
+        tb.numel() * 4 + 2 * tp.numel() * 4,
+        IOU_FLOPS * sum(n * (n - 1) // 2 for n in live), "f32")}
+    n_bytes = n_ops = 0
+    for (w, b), (ci, _) in zip(packed, pairs):
+        l = fspec.layers[ci]
+        n_bytes += (2 * (l.h * l.w * l.c + l.out_h // 2 * l.out_w // 2
+                         * l.filters) + 2 * w.numel() + 4 * b.numel())
+        n_ops += 2 * l.h * l.w * l.filters * 9 * l.c
+    bounds["stem_pair"] = bound(n_bytes, n_ops, "bf16")
+
+    # ---------------------------------------------------------- phase 6
+    from sr_object_detection_tpu_torch.infer.engine import (
+        ThroughputEngine, best_latency_engine)
+    from sr_object_detection_tpu_torch.infer.quant import (
+        QuantizedThroughputEngine)
+    qspec = tiny_yolo_voc(width=NET, height=NET)
+    qparams_np = random_bn(init_params(qspec, seed=0), 1, head_gain=8.0)
+    calib_q = rng.uniform(0, 1, (8, NET, NET, 3)).astype(np.float32)
+    q_stem = QuantizedThroughputEngine(qspec, qparams_np, batch=BATCH,
+                                       device=dev, calib_x=calib_q,
+                                       phase_stem=True)
+    q_plain = QuantizedThroughputEngine(qspec, qparams_np, batch=BATCH,
+                                        device=dev, calib_x=calib_q)
+    qn = q_stem.qnet
+    qpairs = PS.plan_pairs(qn.spec)
+    assert qpairs == [(0, 1), (2, 3), (4, 5), (6, 7)], qpairs
+    ps_err = 0
+    ps_inputs = []
+    for k, (ci, _) in enumerate(qpairs):
+        l = qn.spec.layers[ci]
+        for x_dtype in ([np.uint8, np.int8] if k == 0 else [np.int8]):
+            case = phase_pair_case(100 + k, BATCH, l.h, l.c, l.filters,
+                                   x_dtype)
+            args = (*(torch.from_numpy(a).to(dev) for a in case[:4]),
+                    float(case[4]),
+                    None if case[5] is None else float(case[5]))
+            got = PS.stem_pair_i8(*args)
+            ref = PS.stem_pair_i8_plain(*args)
+            torch.cuda.synchronize()
+            err = (got.int() - ref.int()).abs().max().item()
+            assert torch.equal(got, ref), (l.c, l.filters, x_dtype, err)
+            ps_err = max(ps_err, err)
+            if x_dtype == np.int8:
+                ps_inputs.append((l, args))
+        log(f"  int8 stem pair {l.c}->{l.filters} @{l.h} B={BATCH}: "
+            f"kernel == plain")
+    # the engine's own chain from u8 frames, link by link (same input to
+    # kernel and plain), then whole
+    frames_u8 = torch.from_numpy(rng.integers(
+        0, 256, (BATCH, NET, NET, 3), dtype=np.uint8)).to(dev)
+    links = [(qn.qparams[ci]["weights"], qn.qparams[ci]["dequant"],
+              qn.qparams[ci]["biases"],
+              float(np.float32(1.0 / qn.act_scales[ci])))
+             for ci, _ in qpairs]
+    inv_u8 = float(np.float32(1.0 / (255.0 * qn.in_scale)))
+
+    def int8_chain(v, pair_fn):
+        for w, dq, b, inv_out in links:
+            v = pair_fn(v, w, dq, b, inv_out,
+                        inv_u8 if v.dtype == torch.uint8 else None)
+        return v
+    v = frames_u8
+    for w, dq, b, inv_out in links:
+        ii = inv_u8 if v.dtype == torch.uint8 else None
+        out = PS.stem_pair_i8(v, w, dq, b, inv_out, ii)
+        assert torch.equal(out, PS.stem_pair_i8_plain(v, w, dq, b, inv_out,
+                                                      ii))
+        v = out
+    n_stem = qpairs[-1][1] + 1
+    assert torch.equal(qn.forward(frames_u8, stop=n_stem), v)
+    assert torch.equal(int8_chain(frames_u8, PS.stem_pair_i8_plain), v)
+    assert v.abs().max().item() > 60
+    log(f"phase 6 ok: int8 stem kernel == plain at the 4 pair shapes at "
+        f"B={BATCH} (pair 1 also from u8 frames), link by link along the "
+        f"engine's chain and whole [{gpu}]")
+
+    # ---------------------------------------------------------- phase 7
+    bf = ThroughputEngine(qspec, qparams_np, batch=BATCH, device=dev)
+    head = len(qspec.layers) - 2
+    r = qspec.layers[-1]
+    n_out = r.h * r.w * r.n * (r.coords + r.classes + 1)
+    NMS.launches = 0
+    BS.launches = 0
+    PS.launches = 0
+    out_bf = bf(frames_u8.float() / 255.0)
+    out_s = q_stem(frames_u8)
+    out_p = q_plain(frames_u8)
+    torch.cuda.synchronize()
+    launches_b128 = {"nms_per_class": NMS.launches,
+                     "stem_pair": BS.launches,
+                     "phase_stem_pair": PS.launches}
+    assert launches_b128 == {"nms_per_class": 0, "stem_pair": 0,
+                             "phase_stem_pair": 4}, launches_b128
+    for o, dt in ((out_bf, torch.bfloat16), (out_s, torch.float32),
+                  (out_p, torch.float32)):
+        assert o.shape == (BATCH, n_out) and o.dtype == dt, o.shape
+        assert torch.isfinite(o.float()).all()
+    assert torch.equal(q_stem.qnet.forward(frames_u8, stop=head),
+                       q_plain.qnet.forward(frames_u8, stop=head))
+    out_diff = (out_s - out_p).abs().max().item()
+    # equal unless cuDNN picked another algorithm for the bf16 head of
+    # one engine: then within one bf16 step of the logits
+    assert out_diff <= 2 ** -7, out_diff
+    log(f"phase 7 ok: bf16 ThroughputEngine and int8 engines at B={BATCH} "
+        f"@{NET} on u8 frames: outputs finite, (B, {n_out}); int8 trunk "
+        f"equal with and without the phase stem, outputs "
+        f"{'equal' if out_diff == 0 else f'max |diff| {out_diff}'}; "
+        f"launches {launches_b128} [{gpu}]")
+
+    # ---------------------------------------------------------- phase 8
+    # the trained A/B model of tests/golden/map_ab.npz on its synthetic
+    # set: random weights give flat probs, closer together than the
+    # shift that a one-ulp change of a calibrated scale causes (CUDA and
+    # CPU calibrate with sums in other orders), so det-for-det matching
+    # needs a model that separates its detections
+    from sr_object_detection_tpu_torch.ops.image import load_image_rgb
+    from tools.synth_dataset import make_dataset
+    g = np.load(GOLDEN / "map_ab.npz")
+    list_path, gt = make_dataset(str(WORK / "map_ab"), int(g["n_images"]),
+                                 int(g["seed"]))
+    (WORK / "map_ab.cfg").write_text(bytes(g["cfg"]).decode())
+    (WORK / "map_ab.weights").write_bytes(bytes(g["weights"]))
+    ab = (str(WORK / "map_ab.cfg"), str(WORK / "map_ab.weights"))
+    paths = [l.strip() for l in open(list_path) if l.strip()]
+    d32 = Detector(*ab, device=dev)
+    calib_ab = np.stack([d32.preprocess(load_image_rgb(p))
+                         for p in paths[:8]])
+    d8 = Detector(*ab, device=dev, int8_calib=calib_ab)
+    d8_cpu = Detector(*ab, device="cpu", int8_calib=calib_ab)
+    thr8, margin8 = 0.15, 0.02
+    n_dets8, p_diff = 0, 0.0
+    for path in paths:
+        img = load_image_rgb(path)
+        xf = d8.preprocess(img)[None]
+        p_diff = max(p_diff, (d8.predict_batch(xf)[1].cpu()
+                              - d8_cpu.predict_batch(xf)[1]).abs().max()
+                     .item())
+        got, want = (
+            [(d.class_id, d.prob, np.asarray(d.box)) for d in
+             d_.detect(img, thresh=thr8 - margin8)] for d_ in (d8, d8_cpu))
+        n_dets8 += match_dets(got, want, thr8, margin8, require=False)
+    assert n_dets8 > 0 and p_diff <= margin8, (n_dets8, p_diff)
+    map32 = voc_map(d32, paths, gt, float(g["thresh"]), float(g["nms"]))
+    map8 = voc_map(d8, paths, gt, float(g["thresh"]), float(g["nms"]))
+    assert map32 > 0.2 and abs(map8 - map32) <= 0.05, (map32, map8)
+    # the 416 int8 Detector (served in phase 9) and LatencyEngine
+    calib8 = det.preprocess(frames[0])[None]
+    det8 = Detector(str(cfg), str(weights), device=dev, int8_calib=calib8)
+    lat8 = LatencyEngine(spec, params_np, device=dev, int8_calib=calib8)
+    bx8, pr8 = lat8(u8[0])
+    assert bx8.shape == (64, 4) and pr8.shape == (64, 20)
+    assert torch.isfinite(bx8).all() and torch.isfinite(pr8).all()
+    log(f"phase 8 ok: int8 Detector (map_ab model), {n_dets8} detections "
+        f"matched on CUDA and CPU within {margin8} (max |prob diff| before "
+        f"NMS {p_diff}); mAP on CUDA f32 {map32}, int8 {map8}; 416 int8 "
+        f"LatencyEngine candidates finite [{gpu}]")
+
+    # ---------------------------------------------------------- phase 9
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "sr_object_detection_tpu_torch.infer.serve",
+         str(cfg), str(weights), "--int8"], cwd=ROOT,
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE)
+    try:
+        out, err = proc.communicate(req, timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0, err.decode()[-2000:]
+    assert struct.unpack("<5i", out[:20]) == (0x53524456, 416, 416, 845, 20)
+    assert len(out) == 20 + 3 * per
+    for i, f in enumerate(frames):
+        blob = np.frombuffer(out[20 + i * per:20 + (i + 1) * per], "<f4")
+        wb, wp = det8.predict_batch(det8.preprocess(f)[None], thresh=thresh)
+        assert np.allclose(blob[:n_boxes * 4].reshape(-1, 4),
+                           wb[0].cpu().numpy(), rtol=1e-5, atol=1e-6)
+        assert np.allclose(blob[n_boxes * 4:].reshape(-1, classes),
+                           wp[0].cpu().numpy(), rtol=1e-5, atol=1e-6)
+    log(f"phase 9 ok: the server with --int8 answered 3 requests, equal to "
+        f"the in-process int8 Detector [{gpu}]")
+
+    # --------------------------------------------------------- phase 10
+    times["phase_stem_pair"] = abba(
+        f"int8 stem, 4 chained pairs @{NET} B={BATCH} from u8 frames",
+        lambda: int8_chain(frames_u8, PS.stem_pair_i8),
+        lambda: int8_chain(frames_u8, PS.stem_pair_i8_plain), iters=20,
+        plain_iters=5)
+    for l, args in ps_inputs:
+        abba(f"int8 stem pair {l.c}->{l.filters} @{l.h} B={BATCH}",
+             lambda: PS.stem_pair_i8(*args),
+             lambda: PS.stem_pair_i8_plain(*args), iters=20, plain_iters=5)
+    n_bytes = BATCH * NET * NET * 3
+    n_ops = 0
+    for k, (ci, _) in enumerate(qpairs):
+        l = qn.spec.layers[ci]
+        out_b = BATCH * (l.h // 2) * (l.w // 2) * l.filters
+        n_bytes += (9 * l.c * l.filters + 8 * l.filters
+                    + out_b * (1 if k == len(qpairs) - 1 else 2))
+        n_ops += 2 * BATCH * l.h * l.w * l.filters * 9 * l.c
+    bounds["phase_stem_pair"] = bound(n_bytes, n_ops, "int8")
+    log(f"bound int8 stem chain: {bounds['phase_stem_pair'][0]} ms by "
+        f"{bounds['phase_stem_pair'][1]} ({n_bytes} bytes, {n_ops} int8 "
+        f"ops) [{gpu}]")
+
+    bf.warmup()
+    r_bf = bf.benchmark(iters=20, warmup=3)
+    log(f"time ThroughputEngine bf16 B={BATCH} @{NET}: "
+        f"{r_bf['images_per_sec']} images/s ({r_bf['sec_per_batch']} "
+        f"s/batch) [{gpu}]")
+    q_plain.warmup()
+    q_stem.warmup()
+    turns = [(name, eng.benchmark(iters=20, warmup=3,
+                                  input_dtype=torch.uint8))
+             for name, eng in (("plain", q_plain), ("phase stem", q_stem),
+                               ("phase stem", q_stem), ("plain", q_plain))]
+    for name, rr in turns:
+        log(f"time int8 engine B={BATCH} @{NET} u8 frames, {name}: "
+            f"{rr['images_per_sec']} images/s ({rr['sec_per_batch']} "
+            f"s/batch) [{gpu}]")
+    i8_ms = lat8.device_benchmark(reps=50)["device_ms_per_frame"]
+    log(f"time int8 LatencyEngine @416 per frame (CUDA events, 50 queued "
+        f"frames): {i8_ms} ms [{gpu}]")
+    best = best_latency_engine(spec, params_np, device=dev,
+                               int8_calib=calib8, reps=50)
+    log(f"best_latency_engine selection @416: {best.selection} [{gpu}]")
+
+    # --------------------------------------------------------- phase 11
+    profile("LatencyEngine 416 bf16 fused stem, per frame",
+            lambda: fused(u8[0]), 20, gpu)
+    profile("LatencyEngine 416 bf16 plain, per frame",
+            lambda: plain(u8[0]), 20, gpu)
+    profile("Detector.predict_batch 416 f32, per frame",
+            lambda: det.predict_batch(xin), 20, gpu)
+    profile(f"ThroughputEngine bf16 B={BATCH} @{NET}, per batch",
+            lambda: bf(frames_u8.float() / 255.0), 5, gpu)
+    profile(f"int8 engine B={BATCH} @{NET} u8, phase stem, per batch",
+            lambda: q_stem(frames_u8), 5, gpu)
+    profile(f"int8 engine B={BATCH} @{NET} u8, plain, per batch",
+            lambda: q_plain(frames_u8), 3, gpu)
+
+    replaces = {
+        "nms_per_class": "sr_object_detection_tpu/kernels/nms_pallas.py:29",
+        "stem_pair": "sr_object_detection_tpu/kernels/b1_stem.py:82",
+        "phase_stem_pair":
+            "sr_object_detection_tpu/kernels/phase_stem.py:235"}
+    sources = {"nms_per_class": "nms.cu", "stem_pair": "b1_stem.cu",
+               "phase_stem_pair": "phase_stem.cu"}
+    launches.update(phase_stem_pair=launches_b128["phase_stem_pair"])
+    errs = {"nms_per_class": nms_err, "stem_pair": stem_err,
+            "phase_stem_pair": ps_err}
     kernels = [
-        {"name": "nms_per_class", "route": "cuda",
-         "source": "sr_object_detection_tpu_torch/csrc/nms.cu",
-         "replaces": "sr_object_detection_tpu/kernels/nms_pallas.py:29",
-         "launches": launches["nms_per_class"], "max_abs_err": nms_err,
-         "ms": times["nms_per_class"][0],
-         "plain_ms": times["nms_per_class"][1]},
-        {"name": "stem_pair", "route": "cuda",
-         "source": "sr_object_detection_tpu_torch/csrc/b1_stem.cu",
-         "replaces": "sr_object_detection_tpu/kernels/b1_stem.py:82",
-         "launches": launches["stem_pair"], "max_abs_err": stem_err,
-         "ms": times["stem_pair"][0], "plain_ms": times["stem_pair"][1]},
-    ]
+        {"name": name, "route": "cuda",
+         "source": f"sr_object_detection_tpu_torch/csrc/{sources[name]}",
+         "replaces": replaces[name], "launches": launches[name],
+         "max_abs_err": errs[name], "ms": times[name][0],
+         "plain_ms": times[name][1], "bound_ms": bounds[name][0],
+         "bound_by": bounds[name][1],
+         # no single PyTorch call computes per-class greedy NMS or
+         # conv + bias + leaky + maxpool (+ requant)
+         "library_ms": None}
+        for name in ("nms_per_class", "stem_pair", "phase_stem_pair")]
     log(gpu)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -16,8 +16,9 @@ Parity notes:
   * on CUDA, TF32 is switched off for convs and matmuls: cuDNN runs
     float32 convs in TF32 by default, which keeps about three digits.
 
-int8, the pre-split head and WordTree models are not ported yet (ROADMAP
-queue 1, items 4-6).
+``int8_calib`` / :meth:`Detector.quantize` swap the forward for the int8
+program of ``infer/quant.py``. The pre-split head and WordTree models
+are not ported yet (ROADMAP queue 1, items 4-5).
 """
 
 from __future__ import annotations
@@ -60,10 +61,6 @@ class Detector:
                  letterbox: bool = False, map_path: Optional[str] = None,
                  nms_topk: int = 128, int8_calib=None,
                  presplit: bool = False, quantize_head: bool = False):
-        if int8_calib is not None or quantize_head:
-            raise NotImplementedError(
-                "int8 detection is not ported yet (ROADMAP queue 1, "
-                "item 6)")
         if presplit:
             raise NotImplementedError(
                 "the pre-split head is not ported yet (ROADMAP queue 1, "
@@ -80,8 +77,11 @@ class Detector:
             params_np, self.seen = load_weights(self.spec, weights_path)
         else:
             params_np, self.seen = init_params(self.spec), 0
+        self.params_np = params_np
         self.params = params_to_torch(self.spec, params_np, self.device)
         self.net = Network(self.spec, self.params)
+        if int8_calib is not None:
+            self.quantize(int8_calib, quantize_head=quantize_head)
         self.names = list(names) if names else None
         self.letterbox = letterbox
         self.nms_topk = nms_topk
@@ -93,6 +93,17 @@ class Detector:
         self._anchors = torch.tensor(
             np.asarray(region.anchors, np.float32).reshape(region.n, 2),
             device=self.device)
+
+    def quantize(self, calib_x, *, quantize_head: bool = False,
+                 region_dtype=None):
+        """Swap the forward for the int8 program IN PLACE, calibrated on
+        ``calib_x`` (preprocessed NHWC float32 sample batch, or a path
+        saved with ``infer.quant.save_calib``). Reuses the loaded params
+        and keeps every constructor setting; decode is unchanged."""
+        from .quant import QuantizedForwardShim
+        self.net = QuantizedForwardShim(
+            self.spec, self.params_np, calib_x, device=self.device,
+            quantize_head=quantize_head, region_dtype=region_dtype)
 
     @torch.no_grad()
     def predict_batch(self, x_nhwc, thresh: float = 0.0):

@@ -14,11 +14,12 @@ byte:
                                get_region_boxes' thresh gating applied
 
 Usage: python -m sr_object_detection_tpu_torch.infer.serve <cfg> <weights>
-       [--cpu]
+       [--cpu] [--int8]
 
 The worker runs on CUDA unless --cpu is given; with no CUDA device and
-no --cpu it exits with status 2. --int8 is not ported yet (ROADMAP queue
-1, item 6) and raises NotImplementedError.
+no --cpu it exits with status 2. --int8 serves the quantized program
+(infer/quant.py), calibrating the activation scales on the FIRST frame
+the client sends — send a representative frame first.
 """
 
 from __future__ import annotations
@@ -34,9 +35,9 @@ def main(argv=None):
     use_cpu = "--cpu" in argv
     if use_cpu:
         argv.remove("--cpu")
-    if "--int8" in argv:
-        raise NotImplementedError(
-            "serve --int8 is not ported yet (ROADMAP queue 1, item 6)")
+    use_int8 = "--int8" in argv
+    if use_int8:
+        argv.remove("--int8")
     if len(argv) < 2:
         print(__doc__, file=sys.stderr)
         return 1
@@ -79,6 +80,11 @@ def main(argv=None):
             return 0
         img = np.frombuffer(buf, "<f4").reshape(h, w, c)
         x = det.preprocess(img)[None]
+        if use_int8:
+            # quantize in place on first use, calibrated on this first
+            # real frame
+            det.quantize(x)
+            use_int8 = False
         boxes, probs = det.predict_batch(x, thresh=thresh)
         out.write(np.asarray(boxes[0].cpu(), "<f4").tobytes())
         out.write(np.asarray(probs[0].cpu(), "<f4").tobytes())

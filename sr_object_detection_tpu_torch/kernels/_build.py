@@ -1,17 +1,19 @@
 """Build the CUDA kernels under ``csrc/`` and load them with ctypes.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` into ONE shared library with
-a plain C interface (no PyTorch headers, so the build takes seconds):
+Every ``csrc/*.cu`` is compiled by its own ``nvcc``, all started at once,
+and the objects are linked into ONE shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/torch_kernels/<hash>/libsrod_kernels.so
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -c csrc/<name>.cu -o <name>.o     (one per source)
+    nvcc -shared -o build/torch_kernels/<hash>/libsrod_kernels.so *.o
 
 The library lands under ``build/torch_kernels/`` at the root of the
 checkout (listed in ``.gitignore``), keyed by a hash of the sources and
 flags, and is built at first use: a fresh checkout builds it once, and
-every later process that finds it only loads it. The build writes to a
-temporary name and renames, so two processes building at once cannot
-load a half-written file.
+every later process that finds it only loads it. The build writes into a
+temporary directory and renames, so two processes building at once
+cannot load a half-written file.
 
 Each C entry point takes device pointers and the CUDA stream as
 ``c_void_p`` and ints as ``c_int``, launches on that stream, allocates
@@ -35,7 +37,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = (pathlib.Path(__file__).resolve().parent.parent.parent
               / "build" / "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 LIB_NAME = "libsrod_kernels.so"
 
 _P = ctypes.c_void_p
@@ -49,6 +51,11 @@ SIGNATURES = {
     # x (1,H,W,Cin) bf16, w (3,3,Cin,Cout) bf16, bias (Cout,) f32,
     # out (1,H/2,W/2,Cout) bf16, H, W, Cin, Cout, stream
     "srod_stem_pair": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    # x (B,H,W,Cin) int8 / uint8 / f32 (x_dtype 0 / 1 / 2), x_dtype,
+    # w (3,3,Cin,Cout) int8, dq (Cout,) f32, bias (Cout,) f32, inv_in,
+    # inv_out, out (B,H/2,W/2,Cout) int8, B, H, W, Cin, Cout, stream
+    "srod_phase_pair": ([_P, _I, _P, _P, _P, _F, _F, _P, _I, _I, _I, _I,
+                         _I, _P], _I),
     "srod_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -90,16 +97,32 @@ def build() -> pathlib.Path:
         return path
     path.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}")
-    os.replace(tmp, path)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=path.parent) as tmpdir:
+        objs, procs = [], []
+        for src in _sources():
+            obj = str(pathlib.Path(tmpdir) / (src.stem + ".o"))
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        failed = []
+        for cmd, proc in procs:
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{out}\n{err}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = str(pathlib.Path(tmpdir) / LIB_NAME)
+        cmd = [nvcc, "-shared", "-o", tmp, *objs]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({res.returncode}):\n{' '.join(cmd)}\n"
+                f"{res.stdout}\n{res.stderr}")
+        os.replace(tmp, path)
     build_seconds = time.perf_counter() - t0
     return path
 

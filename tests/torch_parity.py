@@ -80,3 +80,27 @@ def assert_bf16_close(got, ref, *, atol=1e-5):
             f"{bad.sum()} of {bad.size} elements differ by more than one "
             f"bf16 ulp: got {got.ravel()[i]}, want {ref.ravel()[i]}")
     return u
+
+
+def phase_pair_case(seed, batch, h, cin, cout, x_dtype=np.int8):
+    """Random inputs of one int8 stem pair (kernels/phase_stem.py):
+    (x, w, dq, bias, inv_out, inv_in) as numpy. ``x`` is (batch, h, h,
+    cin) int8 codes, or raw uint8/float32 frames with their requant
+    scale ``inv_in`` (None for codes). The dequant scales put the conv's
+    float values at about +-1.5 and ``inv_out`` maps those to codes of
+    about +-30, so few saturate and every rounding path is exercised."""
+    rng = np.random.default_rng(seed)
+    if x_dtype == np.int8:
+        x, inv_in = rng.integers(-127, 128, (batch, h, h, cin),
+                                 dtype=np.int8), None
+    elif x_dtype == np.uint8:
+        x, inv_in = rng.integers(0, 256, (batch, h, h, cin),
+                                 dtype=np.uint8), np.float32(127 / 255)
+    else:
+        x = rng.uniform(0, 1, (batch, h, h, cin)).astype(np.float32)
+        inv_in = np.float32(127.0)
+    w = rng.integers(-127, 128, (3, 3, cin, cout), dtype=np.int8)
+    acc_std = 127.0 ** 2 / 3 * np.sqrt(9 * cin)
+    dq = (rng.uniform(0.5, 1.5, cout) * 1.5 / acc_std).astype(np.float32)
+    bias = rng.uniform(-1, 1, cout).astype(np.float32)
+    return x, w, dq, bias, np.float32(20.0), inv_in
