@@ -33,9 +33,12 @@ non-zero status and no result line:
      data (pair 1 also from u8 frames), then link by link along the
      engine's own chain from u8 frames, and the whole chain: every one
      torch.equal (the chain is exact);
-  7. the batch-128 slice at full width: ThroughputEngine (bf16) and
-     QuantizedThroughputEngine (int8, u8 frames) with and without the
-     phase stem; the two int8 engines' int8 trunks equal and their
+  7. the batch-128 slice at full width: ThroughputEngine (bf16) with and
+     without its phase stem (the training pair's fwdstats + apply
+     kernels with identity BN, each link within one bf16 ulp of the plain
+     engine's layers) and QuantizedThroughputEngine (int8, u8 frames)
+     with and without the phase stem; the two int8 engines' int8 trunks
+     equal and their
      outputs equal (or within one bf16 step of the head's logits, should
      cuDNN pick another algorithm). Launch counts are reset just before
      this phase and read just after it;
@@ -45,12 +48,37 @@ non-zero status and no result line:
   9. the pipe server with --int8 answers 3 requests, equal to the
      in-process int8 Detector calibrated on the same first frame;
  10. times from CUDA events, in turns: the int8 stem chain against its
-     plain chain; images/s of ThroughputEngine bf16 and of the int8
-     engine on u8 frames without and with the phase stem (host clock
+     plain chain; images/s of ThroughputEngine bf16 without and with its
+     phase stem and of the int8 engine on u8 frames without and with the
+     phase stem (host clock
      around queued batches, one sync); the int8 LatencyEngine per frame
      and best_latency_engine's selection;
  11. torch.profiler over each engine: wall and device busy time per
-     frame or batch, the device's idle share, the top kernels.
+     frame or batch, the device's idle share, the top kernels;
+ 12. the three training kernels (csrc/phase_train.cu) against their
+     plain versions at the training pair's shape (416, B=128, 3 -> 16):
+     fwdstats' Z within one bf16 ulp, its argmax equal wherever the two
+     extreme taps differ by more than an ulp, its sums at 1e-4; apply
+     bit-equal; every bwdg reduction at 1e-3 of its largest magnitude;
+     then phase_train_block's gradient (on a case with no zero-variance
+     channel, the cotangent zeroed where the two tie rules route apart)
+     at 1e-3 of a float64 evaluation of the unfused chain's formulas,
+     and its scale and bias gradients at 1e-3 of the chain's (the bf16
+     chain's own weight gradient is several per cent off that
+     evaluation at this size: printed, not gated);
+ 13. the training slice at full width: Trainer on tiny-yolo-voc 416,
+     batch 128, bf16 with phase_train, three steps on one batch (losses
+     finite, the third below the first, each training kernel launched 3
+     times, counts reset just before and read just after), the first
+     loss within 0.03*|loss| + 0.05 of a trainer without the pair; the
+     float32 Trainer on CUDA reproduces the four train_region_* goldens;
+ 14. `cli detector train -bf16` on 256 synthetic PPM images: two
+     iterations, a _final.weights that loads and moved;
+ 15. times, in turns: each training kernel beside its plain version and
+     bound; Trainer.step images/s, TFLOP/s and MFU (3 x analytic_flops
+     per image against the bf16 dense peak) for bf16 + phase_train,
+     bf16 and float32;
+ 16. torch.profiler over one bf16 step with the pair and one without.
 
 The last lines are the card (nvidia-smi), one JSON object describing the
 kernels (time, plain time, bound and launches of each), and
@@ -59,6 +87,7 @@ kernels (time, plain time, bound and launches of each), and
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import struct
@@ -73,8 +102,10 @@ ROOT = pathlib.Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden"
 WORK = ROOT / "build" / "chip_smoke"
 sys.path.insert(0, str(ROOT / "tests"))
-from torch_parity import (assert_bf16_close, phase_pair_case,  # noqa: E402
-                          random_bn)                           # (JAX-free)
+from torch_parity import (  # noqa: E402  (JAX-free helpers)
+    TRAIN_GOLDENS, assert_bf16_close, assert_stem_link_close,
+    check_pair_gradient, check_train_golden, check_train_kernels, random_bn,
+    phase_pair_case, train_case, train_cfg_text, write_ppm_dataset)
 
 NET = 416          # tiny-yolo-voc's published width and height
 BATCH = 128        # the batch serving engines' batch
@@ -225,6 +256,7 @@ def main() -> int:
     from sr_object_detection_tpu_torch.kernels import b1_stem as BS
     from sr_object_detection_tpu_torch.kernels import nms as NMS
     from sr_object_detection_tpu_torch.kernels import phase_stem as PS
+    from sr_object_detection_tpu_torch.kernels import phase_train as PT
     from sr_object_detection_tpu_torch.models.zoo import tiny_yolo_voc
     from sr_object_detection_tpu_torch.ops import boxes as B
 
@@ -333,6 +365,7 @@ def main() -> int:
     NMS.launches = 0
     BS.launches = 0
     PS.launches = 0
+    PT.reset_launches()
     n_dets = 0
     for f in frames:
         got, want = (
@@ -375,6 +408,7 @@ def main() -> int:
         f"launches {launches} [{gpu}]")
     assert launches == {"nms_per_class": 4, "stem_pair": 12,
                         "phase_stem_pair": 0}, launches
+    assert not any(PT.launches.values()), PT.launches
 
     # ---------------------------------------------------------- phase 4
     req = b"".join(struct.pack("<3if", f.shape[1], f.shape[0], f.shape[2],
@@ -527,23 +561,53 @@ def main() -> int:
 
     # ---------------------------------------------------------- phase 7
     bf = ThroughputEngine(qspec, qparams_np, batch=BATCH, device=dev)
+    bf_stem = ThroughputEngine(qspec, qparams_np, batch=BATCH, device=dev,
+                               phase_stem=True)
+    assert bf_stem.phase_stem
     head = len(qspec.layers) - 2
     r = qspec.layers[-1]
     n_out = r.h * r.w * r.n * (r.coords + r.classes + 1)
+    x_b128 = frames_u8.float() / 255.0
     NMS.launches = 0
     BS.launches = 0
     PS.launches = 0
-    out_bf = bf(frames_u8.float() / 255.0)
+    PT.reset_launches()
+    out_bf = bf(x_b128)
+    out_bfs = bf_stem(x_b128)
     out_s = q_stem(frames_u8)
     out_p = q_plain(frames_u8)
     torch.cuda.synchronize()
     launches_b128 = {"nms_per_class": NMS.launches,
                      "stem_pair": BS.launches,
-                     "phase_stem_pair": PS.launches}
+                     "phase_stem_pair": PS.launches,
+                     **{f"phase_train_{k}": v for k, v in PT.launches.items()}}
     assert launches_b128 == {"nms_per_class": 0, "stem_pair": 0,
-                             "phase_stem_pair": 4}, launches_b128
-    for o, dt in ((out_bf, torch.bfloat16), (out_s, torch.float32),
-                  (out_p, torch.float32)):
+                             "phase_stem_pair": 4,
+                             "phase_train_fwdstats": 4,
+                             "phase_train_apply": 4,
+                             "phase_train_bwdg": 0}, launches_b128
+    # the bf16 phase stem link by link against the plain engine's conv +
+    # pool layers on the same input
+    v = x_b128.to(torch.bfloat16)
+    stem_link_err = 0.0
+    for ci in (0, 2, 4, 6):
+        p = bf_stem.params[ci]
+        cout = p["weights"].shape[0]
+        zero = torch.zeros(cout, device=dev)
+        one = torch.ones(cout, device=dev)
+        z, _, _ = PT.fwdstats(v, p["weights"].permute(2, 3, 1, 0)
+                              .contiguous(), zero, one)
+        got = PT.apply(z, zero, one, one, p["biases"].float())
+        with torch.no_grad():
+            ref = bf._net.layers[ci + 1](bf._net.layers[ci](
+                v.permute(0, 3, 1, 2))).permute(0, 2, 3, 1)
+        stem_link_err = max(stem_link_err, assert_stem_link_close(
+            got.float().cpu().numpy(), ref.float().cpu().numpy(),
+            z.float().cpu().numpy()))
+        v = got
+    bfs_diff = (out_bfs.float() - out_bf.float()).abs().max().item()
+    for o, dt in ((out_bf, torch.bfloat16), (out_bfs, torch.bfloat16),
+                  (out_s, torch.float32), (out_p, torch.float32)):
         assert o.shape == (BATCH, n_out) and o.dtype == dt, o.shape
         assert torch.isfinite(o.float()).all()
     assert torch.equal(q_stem.qnet.forward(frames_u8, stop=head),
@@ -552,7 +616,10 @@ def main() -> int:
     # equal unless cuDNN picked another algorithm for the bf16 head of
     # one engine: then within one bf16 step of the logits
     assert out_diff <= 2 ** -7, out_diff
-    log(f"phase 7 ok: bf16 ThroughputEngine and int8 engines at B={BATCH} "
+    log(f"phase 7 ok: bf16 ThroughputEngine with and without the phase "
+        f"stem (stem link by link within one bf16 ulp of the plain layers, "
+        f"max |err| {stem_link_err}; whole outputs max |diff| {bfs_diff}) "
+        f"and int8 engines at B={BATCH} "
         f"@{NET} on u8 frames: outputs finite, (B, {n_out}); int8 trunk "
         f"equal with and without the phase stem, outputs "
         f"{'equal' if out_diff == 0 else f'max |diff| {out_diff}'}; "
@@ -655,10 +722,13 @@ def main() -> int:
         f"ops) [{gpu}]")
 
     bf.warmup()
-    r_bf = bf.benchmark(iters=20, warmup=3)
-    log(f"time ThroughputEngine bf16 B={BATCH} @{NET}: "
-        f"{r_bf['images_per_sec']} images/s ({r_bf['sec_per_batch']} "
-        f"s/batch) [{gpu}]")
+    bf_stem.warmup()
+    for name, eng in (("plain", bf), ("phase stem", bf_stem),
+                      ("phase stem", bf_stem), ("plain", bf)):
+        r_bf = eng.benchmark(iters=20, warmup=3)
+        log(f"time ThroughputEngine bf16 B={BATCH} @{NET}, {name}: "
+            f"{r_bf['images_per_sec']} images/s ({r_bf['sec_per_batch']} "
+            f"s/batch) [{gpu}]")
     q_plain.warmup()
     q_stem.warmup()
     turns = [(name, eng.benchmark(iters=20, warmup=3,
@@ -690,16 +760,211 @@ def main() -> int:
     profile(f"int8 engine B={BATCH} @{NET} u8, plain, per batch",
             lambda: q_plain(frames_u8), 3, gpu)
 
+
+    # --------------------------------------------------------- phase 12
+    # the training kernels against their plain versions at the training
+    # pair's shape (416, B=128, 3 -> 16), TF32 off (disable_tf32 above)
+    from sr_object_detection_tpu_torch.graph import spec as TS
+    from sr_object_detection_tpu_torch.ops import conv as C
+    from sr_object_detection_tpu_torch.ops import pooling as P
+    from sr_object_detection_tpu_torch.train.trainer import Trainer
+    tcase = train_case(12, BATCH, NET, 3, 16, dev)
+    train_errs = check_train_kernels(PT, tcase)
+    pair_spec = TS.ConvSpec(
+        index=0, h=NET, w=NET, c=3, inputs=NET * NET * 3, out_h=NET,
+        out_w=NET, out_c=16, outputs=NET * NET * 16, size=3, stride=1,
+        pad=1, filters=16, activation="leaky", batch_normalize=True)
+    grad = check_pair_gradient(
+        PT, C, P, pair_spec, train_case(12, BATCH, NET, 3, 16, dev,
+                                        flat=False))
+    torch.cuda.synchronize()
+    log(f"phase 12 ok: training kernels == plain at {NET} B={BATCH} 3->16 "
+        f"(max |err| {train_errs}); phase_train_block gradient within "
+        f"{grad['fused']} of a float64 evaluation of the unfused chain's "
+        f"formulas (gate 1e-3), the bf16 unfused chain's weight gradient "
+        f"{grad['chain']} from it; cotangent zeroed on {grad['masked']} of "
+        f"the windows, where the two tie rules route apart [{gpu}]")
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------- phase 13
+    # the training slice at full width: tiny-yolo-voc 416, batch 128,
+    # subdivisions 1, bf16 with the fused pair; input as bench.py's
+    # training bench (uniform [0,1) from a seed, one box per image)
+    tbase = tiny_yolo_voc()
+    tspec = dataclasses.replace(tbase, net=dataclasses.replace(
+        tbase.net, batch=BATCH, subdivisions=1))
+    tparams = init_params(tspec, seed=0)
+    xt = torch.from_numpy(np.random.default_rng(13).uniform(
+        0, 1, (BATCH, NET, NET, 3)).astype(np.float32)).to(dev)
+    tt_np = np.zeros((BATCH, 30, 5), np.float32)
+    tt_np[:, 0] = [0.5, 0.5, 0.3, 0.3, 1]
+    tt = torch.from_numpy(tt_np).to(dev)
+    trainers = {
+        "bf16 + phase_train": Trainer(tspec, tparams, device=dev,
+                                      compute_dtype=torch.bfloat16,
+                                      phase_train=True),
+        "bf16": Trainer(tspec, tparams, device=dev,
+                        compute_dtype=torch.bfloat16),
+        "f32": Trainer(tspec, tparams, device=dev)}
+    NMS.launches = 0
+    BS.launches = 0
+    PS.launches = 0
+    PT.reset_launches()
+    tr = trainers["bf16 + phase_train"]
+    losses = [float(tr.step(xt, tt)["loss"]) for _ in range(3)]
+    torch.cuda.synchronize()
+    launches_train = {"nms_per_class": NMS.launches,
+                      "stem_pair": BS.launches,
+                      "phase_stem_pair": PS.launches,
+                      **{f"phase_train_{k}": v
+                         for k, v in PT.launches.items()}}
+    assert launches_train == {"nms_per_class": 0, "stem_pair": 0,
+                              "phase_stem_pair": 0,
+                              "phase_train_fwdstats": 3,
+                              "phase_train_apply": 3,
+                              "phase_train_bwdg": 3}, launches_train
+    assert all(np.isfinite(losses)) and losses[2] < losses[0], losses
+    loss_plain = float(trainers["bf16"].step(xt, tt)["loss"])
+    assert abs(losses[0] - loss_plain) <= 0.03 * abs(loss_plain) + 0.05, (
+        losses[0], loss_plain)
+    golden_cost_err = {name: check_train_golden(name, dev)
+                       for name in sorted(TRAIN_GOLDENS)}
+    log(f"phase 13 ok: Trainer tiny-yolo-voc {NET} B={BATCH} bf16 + "
+        f"phase_train, 3 steps: losses {losses}; first step without the "
+        f"pair {loss_plain}; launches {launches_train}; float32 Trainer on "
+        f"CUDA reproduces the C-oracle goldens (max relative cost error "
+        f"{golden_cost_err}) [{gpu}]")
+
+    # --------------------------------------------------------- phase 14
+    # `cli detector train -bf16` on the card, on 256 synthetic 500x375
+    # PPM images with labels
+    tcfg = WORK / "tiny-yolo-voc-train.cfg"
+    tcfg.write_text(train_cfg_text(cfg.read_text(), batch=BATCH,
+                                   subdivisions=1, max_batches=2))
+    lst = write_ppm_dataset(WORK / "voc", 256, seed=14)
+    backup = WORK / "backup"
+    data_cfg = WORK / "voc.data"
+    data_cfg.write_text(f"classes=20\ntrain={lst}\nbackup={backup}\n")
+    final = backup / "tiny-yolo-voc-train_final.weights"
+    final.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "sr_object_detection_tpu_torch.apps.cli",
+         "detector", "train", str(data_cfg), str(tcfg), "-bf16"], cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    iters = [l for l in res.stdout.splitlines()
+             if l.split(":")[0] in ("1", "2")]
+    assert len(iters) == 2, res.stdout[-2000:]
+    from sr_object_detection_tpu_torch.graph.spec import parse_network_cfg
+    from sr_object_detection_tpu_torch.io.weights import load_weights
+    cspec = parse_network_cfg(str(tcfg))
+    got_w, seen_w = load_weights(cspec, str(final))
+    init_w = init_params(cspec, seed=0)
+    assert seen_w == 2 * BATCH
+    assert not np.allclose(got_w[0]["weights"], init_w[0]["weights"])
+    log(f"phase 14 ok: cli detector train -bf16 ran 2 iterations in "
+        f"{time.perf_counter() - t0:.1f} s ({' | '.join(iters)}); "
+        f"{final.name} loads, seen {seen_w}, weights moved [{gpu}]")
+
+    # --------------------------------------------------------- phase 15
+    # times, in turns (plain, kernel, kernel, plain): the training kernels
+    # at the pair's shape beside their bounds; Trainer.step images/s
+    x0, w0 = tcase["x"], tcase["w"]
+    sh0, sc0, b0, dp0 = (tcase[k] for k in ("shift", "scales", "biases",
+                                            "dp"))
+    z0, am0, st0 = PT.fwdstats_plain(x0, w0, sh0, sc0)
+    n0 = BATCH * NET * NET
+    mean0, _, inv0 = PT._batch_stats(st0, sh0, n0)
+    times["phase_train_fwdstats"] = abba(
+        f"phase_train fwdstats {NET} B={BATCH} 3->16",
+        lambda: PT.fwdstats(x0, w0, sh0, sc0),
+        lambda: PT.fwdstats_plain(x0, w0, sh0, sc0), iters=20,
+        plain_iters=5)
+    times["phase_train_apply"] = abba(
+        f"phase_train apply {NET} B={BATCH} 16 ch",
+        lambda: PT.apply(z0, mean0, inv0, sc0, b0),
+        lambda: PT.apply_plain(z0, mean0, inv0, sc0, b0), iters=20,
+        plain_iters=10)
+    times["phase_train_bwdg"] = abba(
+        f"phase_train bwdg {NET} B={BATCH} 3->16",
+        lambda: PT.bwdg(x0, dp0, z0, am0, mean0, inv0, sc0, b0),
+        lambda: PT.bwdg_plain(x0, dp0, z0, am0, mean0, inv0, sc0, b0),
+        iters=10, plain_iters=3)
+    h2 = NET // 2
+    pooled_n = BATCH * h2 * h2 * 16
+    x_bytes = 2 * BATCH * NET * NET * 3
+    conv_ops = 2 * BATCH * NET * NET * 16 * 27
+    bounds["phase_train_fwdstats"] = bound(
+        x_bytes + 2 * 27 * 16 + 8 * 16 + 3 * pooled_n + 8 * 16, conv_ops,
+        "bf16")
+    bounds["phase_train_apply"] = bound(4 * pooled_n + 16 * 16,
+                                        6 * pooled_n, "bf16")
+    bounds["phase_train_bwdg"] = bound(
+        x_bytes + 5 * pooled_n + 16 * 16
+        + 4 * (2 * 16 + 27 * 16 + 27 + 27 * 27),
+        2 * BATCH * NET * NET * 27 * 27 + 2 * pooled_n * 27, "bf16")
+    for name in ("phase_train_fwdstats", "phase_train_apply",
+                 "phase_train_bwdg"):
+        log(f"bound {name}: {bounds[name][0]} ms by {bounds[name][1]} "
+            f"[{gpu}]")
+    del z0, am0
+    torch.cuda.empty_cache()
+
+    from sr_object_detection_tpu_torch.infer.engine import analytic_flops
+    step_flops = 3 * analytic_flops(tspec)           # per image
+    PEAK_BF16 = PEAK_OPS_S["bf16"]
+
+    def step_rate(trainer, iters):
+        """images/s: host clock around `iters` queued steps and one
+        .item() at the end."""
+        float(trainer.step(xt, tt)["loss"])
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            m = trainer.step(xt, tt)
+        float(m["loss"])
+        return iters * BATCH / (time.perf_counter() - t0)
+
+    order = ["bf16 + phase_train", "bf16", "f32", "f32", "bf16",
+             "bf16 + phase_train"]
+    rates = {}
+    for name in order:
+        ips = step_rate(trainers[name], 5)
+        rates.setdefault(name, []).append(ips)
+        log(f"time Trainer.step {name} {NET} B={BATCH}: {ips} images/s, "
+            f"{ips * step_flops / 1e12} TFLOP/s, MFU "
+            f"{ips * step_flops / PEAK_BF16} of the bf16 dense peak "
+            f"[{gpu}]")
+
+    # --------------------------------------------------------- phase 16
+    profile(f"Trainer.step bf16 + phase_train {NET} B={BATCH}, per step",
+            lambda: trainers["bf16 + phase_train"].step(xt, tt), 2, gpu,
+            top=8)
+    profile(f"Trainer.step bf16 (no pair) {NET} B={BATCH}, per step",
+            lambda: trainers["bf16"].step(xt, tt), 2, gpu, top=8)
+
     replaces = {
         "nms_per_class": "sr_object_detection_tpu/kernels/nms_pallas.py:29",
         "stem_pair": "sr_object_detection_tpu/kernels/b1_stem.py:82",
         "phase_stem_pair":
-            "sr_object_detection_tpu/kernels/phase_stem.py:235"}
+            "sr_object_detection_tpu/kernels/phase_stem.py:235",
+        "phase_train_fwdstats":
+            "sr_object_detection_tpu/kernels/phase_train.py:209",
+        "phase_train_apply":
+            "sr_object_detection_tpu/kernels/phase_train.py:722",
+        "phase_train_bwdg":
+            "sr_object_detection_tpu/kernels/phase_train.py:209"}
     sources = {"nms_per_class": "nms.cu", "stem_pair": "b1_stem.cu",
-               "phase_stem_pair": "phase_stem.cu"}
+               "phase_stem_pair": "phase_stem.cu",
+               "phase_train_fwdstats": "phase_train.cu",
+               "phase_train_apply": "phase_train.cu",
+               "phase_train_bwdg": "phase_train.cu"}
     launches.update(phase_stem_pair=launches_b128["phase_stem_pair"])
+    for k in ("fwdstats", "apply", "bwdg"):
+        launches[f"phase_train_{k}"] = launches_train[f"phase_train_{k}"]
     errs = {"nms_per_class": nms_err, "stem_pair": stem_err,
-            "phase_stem_pair": ps_err}
+            "phase_stem_pair": ps_err,
+            **{f"phase_train_{k}": v for k, v in train_errs.items()}}
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"sr_object_detection_tpu_torch/csrc/{sources[name]}",
@@ -707,10 +972,12 @@ def main() -> int:
          "max_abs_err": errs[name], "ms": times[name][0],
          "plain_ms": times[name][1], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1],
-         # no single PyTorch call computes per-class greedy NMS or
-         # conv + bias + leaky + maxpool (+ requant)
+         # no single PyTorch call computes per-class greedy NMS, conv +
+         # bias + leaky + maxpool (+ requant), conv + BN statistics +
+         # pool, the pooled BN apply with eps outside the sqrt, or the
+         # gram-factored backward
          "library_ms": None}
-        for name in ("nms_per_class", "stem_pair", "phase_stem_pair")]
+        for name in sources]
     log(gpu)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

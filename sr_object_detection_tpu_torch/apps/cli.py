@@ -1,4 +1,5 @@
-"""darknet-compatible CLI: the `detect`, `speed` and `ops` subcommands.
+"""darknet-compatible CLI: the `detect`, `speed`, `ops` and `detector`
+subcommands.
 
 Counterpart of ``sr_object_detection_tpu/apps/cli.py`` (cmd_detect,
 cmd_speed, cmd_ops; src_yolo2/darknet.c:98-131,366-499 surface):
@@ -8,8 +9,10 @@ cmd_speed, cmd_ops; src_yolo2/darknet.c:98-131,366-499 surface):
   python -m sr_object_detection_tpu_torch.apps.cli speed <cfg> [tics]
       [-batch N] [-int8 [-phase-stem] [-qhead]] [-cpu]
   python -m sr_object_detection_tpu_torch.apps.cli ops <cfg>
+  python -m sr_object_detection_tpu_torch.apps.cli detector train <data>
+      <cfg> [weights] [-bf16] [-clear] [-resume ckpt] [-cpu]
 
-`detect` and `speed` run on CUDA unless -cpu is given. The other
+`detect`, `speed` and `detector` run on CUDA unless -cpu is given. The other
 subcommands come with ROADMAP queue 1, item 9. Flag parsing follows the
 reference's argv-splicing helpers (utils.c:62-118): '-key value' pairs
 are plucked from anywhere.
@@ -121,7 +124,15 @@ def cmd_ops(argv):
     print(f"Floating Point Operations: {ops/1e9:.2f} Bn")
 
 
-COMMANDS = {"detect": cmd_detect, "speed": cmd_speed, "ops": cmd_ops}
+def cmd_detector(argv):
+    """run_detector (detector.c:600-651): `train` (apps/detector_app.py)."""
+    use_cpu = find_arg(argv, "-cpu")
+    from .detector_app import run_detector
+    return run_detector(argv, device="cpu" if use_cpu else "cuda")
+
+
+COMMANDS = {"detect": cmd_detect, "speed": cmd_speed, "ops": cmd_ops,
+            "detector": cmd_detector}
 
 
 def main(argv=None):

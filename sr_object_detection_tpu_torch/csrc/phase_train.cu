@@ -1,0 +1,533 @@
+// The fused leading pair of bf16 training:
+//   conv3x3 s1 p1 (bf16 operands, float32 sums, rounded to bf16)
+//   -> train-mode BN -> + bias -> leaky -> maxpool 2x2/2,
+// with the full-resolution conv output never written to device memory.
+//
+// Replaces the Pallas TPU kernels of sr_object_detection_tpu/kernels/
+// phase_train.py:
+//   * phase_train_fwdstats: _train_kernel (phase_train.py:209) in mode
+//     "fwdstats" with the int8 argmax (via _run, :573; _pair_fwd :1006);
+//   * phase_train_apply: _apply_kernel (:722, via _run_apply_nhwc :802);
+//   * phase_train_bwdg: _train_kernel in mode "bwdg", the gram-factored
+//     backward with no conv recompute (_pair_grads :1082).
+// The TPU kernels' phase-split columns, halo sidebands, 128-lane batch and
+// pool-variant M-packing answered Mosaic's limits; these kernels read and
+// write NHWC directly and take any batch and any even H and W.
+//
+// fwdstats: for each image, pooled pixel (i, j) and output channel f, the
+// four conv outputs y_k at (2i + k/2, 2j + k%2), k = 0..3 (window
+// row-major order), each rounded to bf16. Writes Z = max_k y_k if
+// scales[f] > 0 else min_k y_k (bf16), the first k with y_k == Z (int8),
+// and per-block partial sums of (y - shift) and (y - shift)^2 per
+// channel, which a second pass (colsum) reduces in a fixed order: no
+// float atomics, the same sums on every run. Cin <= 64 (staged 16 at a
+// time), Cout a multiple of 16 up to 128.
+//   Bound on an H100 at the training pair's shape (B=128, 416x416, 3 ->
+//   16): x 133 MB read, Z 177 MB and argmax 89 MB written, about 0.12 ms
+//   at 3.35 TB/s; its 19 GFLOP are small beside that, so the bytes bound
+//   it. Design: one block per (image, 8x8 pooled tile, 16 channels), 256
+//   threads, each thread one pooled pixel x 4 channels with the four
+//   pool variants' accumulators in registers; the 18x18 input halo tile
+//   in shared memory with even and odd columns apart (rows 20 floats
+//   apart), so a warp's 4x8 pooled pixels read 32 different banks; the
+//   weights of the channel group read as float4 broadcasts. The products
+//   run on the FP32 cores (wgmma tiles are later work).
+//
+// apply (kernel 5): zb = bf16(bf16((z - mean) * inv * scale) + bf16(bias)),
+// out = zb > 0 ? zb : bf16(0.10009765625 * zb) — the exact expressions of
+// _apply_kernel (phase_train.py:739-742), with __fmul_rn/__fsub_rn/
+// __fadd_rn so nvcc cannot contract them into FMAs: bit-equal to its plain
+// version. Elementwise, 8 bf16 (16 bytes) per thread and step; bound by
+// its bytes (Z read, output written: 354 MB at the pair's shape, 0.106 ms).
+//
+// bwdg: from x, the pooled cotangent dp, Z and the argmax, with no conv
+// recompute (phase_train.py:330-379): x_hat = (Z - mean) * inv; the leaky
+// sign from bf16(bf16(x_hat * scale) + bf16(bias)); dzs = pos ? dp :
+// bf16(0.10009765625 * dp). Sums Sdzs and Sdzs*x_hat per channel,
+// A = sum over pooled pixels of x_taps (9*Cin) (x) dzs at the selected
+// tap's full-resolution position, D = sum of x_taps and the Gram
+// G = sum of x_taps (x) x_taps over every full-resolution position (the
+// upper triangle; the wrapper mirrors it). The wrapper forms
+// dw = c1*A + c2*(G @ w - D (x) mean) + c3*D. Cin <= 16, Cout a multiple
+// of 16 up to 64.
+//   Bound at the pair's shape: x, dp, Z and argmax read once, about
+//   576 MB, 0.17 ms; the Gram's 2 x 22 M x 378 = 17 GFLOP would take
+//   0.25 ms on the FP32 cores, so on this design the Gram bounds it.
+//   Design: a fixed grid of persistent blocks (as many as fit on the
+//   card at once), each walking the work items (image, 8x8 pooled tile)
+//   in a fixed order; per item the block stages the 18x18xCin halo tile
+//   and the tile's dzs, x_hat and argmax in shared memory, and each
+//   thread owns fixed entries of S, A, D and G, sums them over the item
+//   in a register and adds the sum to its entry's shared-memory
+//   accumulator. Every sum has one owner and one order: deterministic.
+//   Each block writes its accumulators once; colsum reduces the blocks.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define PT_PT 8                         // pooled tile edge
+#define PT_NPIX (PT_PT * PT_PT)         // pooled pixels per tile
+#define PT_CO 16                        // output channels per fwdstats block
+#define PT_THREADS 256
+#define PT_TH (2 * PT_PT + 2)           // halo tile edge (18)
+#define PT_PH 10                        // floats per column parity
+#define PT_RS (2 * PT_PH)               // floats per halo row (fwdstats)
+#define PT_CI 16                        // input channels per fwdstats stage
+#define PT_MAX_CIN_FWD 64
+#define PT_MAX_CO_FWD 128
+#define PT_MAX_CIN_BWD 16
+#define PT_MAX_CO_BWD 64
+
+namespace {
+
+__device__ __forceinline__ float bf16r(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ unsigned short bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+__global__ void __launch_bounds__(PT_THREADS)
+fwdstats_kernel(const __nv_bfloat16* __restrict__ x,
+                const __nv_bfloat16* __restrict__ w,
+                const float* __restrict__ shift,
+                const float* __restrict__ scales,
+                __nv_bfloat16* __restrict__ z, int8_t* __restrict__ am,
+                float* __restrict__ partial, int H, int W, int Cin,
+                int Cout) {
+  __shared__ float xs[PT_CI][PT_TH][PT_RS];
+  __shared__ float4 ws[PT_CI][9][PT_CO / 4];
+  __shared__ float red[2][PT_CO][PT_NPIX + 1];
+
+  const int H2 = H / 2, W2 = W / 2;
+  const int tiles_x = (W2 + PT_PT - 1) / PT_PT;
+  const int tiles = tiles_x * ((H2 + PT_PT - 1) / PT_PT);
+  const int ty = blockIdx.x / tiles_x, tx = blockIdx.x % tiles_x;
+  const int co0 = blockIdx.y * PT_CO;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int pix = tid % PT_NPIX;
+  const int g = tid / PT_NPIX;                 // 4-channel group
+  const int py = pix / PT_PT, px = pix % PT_PT;
+  const int gy0 = 2 * ty * PT_PT - 1, gx0 = 2 * tx * PT_PT - 1;
+  float* wsf = reinterpret_cast<float*>(&ws[0][0][0]);
+
+  float acc[4][4];                             // [channel][pool variant]
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[j][v] = 0.f;
+
+  for (int ci0 = 0; ci0 < Cin; ci0 += PT_CI) {
+    const int nc = min(PT_CI, Cin - ci0);
+    for (int i = tid; i < nc * PT_TH * PT_TH; i += PT_THREADS) {
+      const int c = i % nc;
+      const int pos = i / nc;
+      const int yy = pos / PT_TH, xx = pos % PT_TH;
+      const int gy = gy0 + yy, gx = gx0 + xx;
+      float v = 0.f;
+      if (gy >= 0 && gy < H && gx >= 0 && gx < W)
+        v = __bfloat162float(
+            x[((static_cast<size_t>(b) * H + gy) * W + gx) * Cin + ci0 + c]);
+      xs[c][yy][(xx & 1) * PT_PH + (xx >> 1)] = v;
+    }
+    for (int i = tid; i < nc * 9 * PT_CO; i += PT_THREADS) {
+      const int o = i % PT_CO;
+      const int rest = i / PT_CO;
+      const int t = rest % 9, c = rest / 9;
+      wsf[(c * 9 + t) * PT_CO + o] = __bfloat162float(
+          w[(static_cast<size_t>(t) * Cin + ci0 + c) * Cout + co0 + o]);
+    }
+    __syncthreads();
+    for (int c = 0; c < nc; ++c) {
+      float in[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc)
+          in[r][cc] = xs[c][2 * py + r][(cc & 1) * PT_PH + px + (cc >> 1)];
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky) {
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx) {
+          const float4 wv = ws[c][ky * 3 + kx][g];
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            const float a = in[(v >> 1) + ky][(v & 1) + kx];
+            acc[0][v] = fmaf(a, wv.x, acc[0][v]);
+            acc[1][v] = fmaf(a, wv.y, acc[1][v]);
+            acc[2][v] = fmaf(a, wv.z, acc[2][v]);
+            acc[3][v] = fmaf(a, wv.w, acc[3][v]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  const int oy = ty * PT_PT + py, ox = tx * PT_PT + px;
+  const bool valid = oy < H2 && ox < W2;
+  const int cb = co0 + 4 * g;
+  unsigned short zb[4];
+  int8_t kb[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int co = cb + j;
+    float y[4];
+#pragma unroll
+    for (int v = 0; v < 4; ++v) y[v] = bf16r(acc[j][v]);
+    const float sh = shift[co];
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const float d = y[v] - sh;
+      s0 += d;
+      s1 += d * d;
+    }
+    red[0][4 * g + j][pix] = valid ? s0 : 0.f;
+    red[1][4 * g + j][pix] = valid ? s1 : 0.f;
+    // the extreme in the direction of the channel's BN slope: the
+    // monotone BN + bias + leaky map then commutes with the pool
+    const bool up = scales[co] > 0.f;
+    float zs = y[0];
+#pragma unroll
+    for (int v = 1; v < 4; ++v) zs = up ? fmaxf(zs, y[v]) : fminf(zs, y[v]);
+    int k = 3;
+#pragma unroll
+    for (int v = 3; v >= 0; --v)
+      if (y[v] == zs) k = v;                   // the first tap attaining it
+    zb[j] = bf16_bits(zs);
+    kb[j] = static_cast<int8_t>(k);
+  }
+  if (valid) {
+    const size_t o = ((static_cast<size_t>(b) * H2 + oy) * W2 + ox) * Cout + cb;
+    uint2 zw;
+    zw.x = static_cast<unsigned>(zb[0]) | (static_cast<unsigned>(zb[1]) << 16);
+    zw.y = static_cast<unsigned>(zb[2]) | (static_cast<unsigned>(zb[3]) << 16);
+    *reinterpret_cast<uint2*>(z + o) = zw;
+    *reinterpret_cast<int*>(am + o) =
+        static_cast<int>(static_cast<uint8_t>(kb[0]) |
+                         (static_cast<uint8_t>(kb[1]) << 8) |
+                         (static_cast<uint8_t>(kb[2]) << 16) |
+                         (static_cast<unsigned>(static_cast<uint8_t>(kb[3]))
+                          << 24));
+  }
+  __syncthreads();
+  if (tid < 2 * PT_CO) {
+    const int st = tid / PT_CO, c = tid % PT_CO;
+    float s = 0.f;
+    for (int p = 0; p < PT_NPIX; ++p) s += red[st][c][p];
+    partial[(static_cast<size_t>(b) * tiles + blockIdx.x) * 2 * Cout +
+            st * Cout + co0 + c] = s;
+  }
+}
+
+// out[c] = sum over rows of partial[row][c], in a fixed order: thread t
+// sums rows t, t + 256, ... and a tree in shared memory adds the threads.
+__global__ void __launch_bounds__(PT_THREADS)
+colsum_kernel(const float* __restrict__ partial, int rows, int cols,
+              float* __restrict__ out) {
+  __shared__ float red[PT_THREADS];
+  const int c = blockIdx.x;
+  float s = 0.f;
+  for (int r = threadIdx.x; r < rows; r += PT_THREADS)
+    s += partial[static_cast<size_t>(r) * cols + c];
+  red[threadIdx.x] = s;
+  __syncthreads();
+  for (int n = PT_THREADS / 2; n > 0; n >>= 1) {
+    if (threadIdx.x < n) red[threadIdx.x] += red[threadIdx.x + n];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) out[c] = red[0];
+}
+
+__global__ void apply_kernel(const __nv_bfloat16* __restrict__ z,
+                             const float* __restrict__ mean,
+                             const float* __restrict__ inv,
+                             const float* __restrict__ scales,
+                             const float* __restrict__ bias,
+                             __nv_bfloat16* __restrict__ out, size_t n8,
+                             int Cout) {
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+       i < n8; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const uint4 in = reinterpret_cast<const uint4*>(z)[i];
+    const unsigned short* zi = reinterpret_cast<const unsigned short*>(&in);
+    uint4 res;
+    unsigned short* ro = reinterpret_cast<unsigned short*>(&res);
+    const int c0 = static_cast<int>((i * 8) % Cout);   // Cout % 8 == 0
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int c = c0 + e;
+      const float zf = __bfloat162float(__ushort_as_bfloat16(zi[e]));
+      const float t = bf16r(__fmul_rn(
+          __fmul_rn(__fsub_rn(zf, __ldg(mean + c)), __ldg(inv + c)),
+          __ldg(scales + c)));
+      const float zb = bf16r(__fadd_rn(t, bf16r(__ldg(bias + c))));
+      ro[e] = bf16_bits(zb > 0.f ? zb : __fmul_rn(0.10009765625f, zb));
+    }
+    reinterpret_cast<uint4*>(out)[i] = res;
+  }
+}
+
+struct BwdgLayout {                 // offsets (floats) in shared memory
+  int xs, dz, xh, acc_s, acc_a, acc_d, acc_g, sel_bytes, total_bytes;
+  int n9;
+};
+
+__host__ __device__ inline BwdgLayout bwdg_layout(int Cin, int Cout) {
+  BwdgLayout L;
+  L.n9 = 9 * Cin;
+  L.xs = 0;
+  L.dz = L.xs + PT_TH * PT_TH * Cin;
+  L.xh = L.dz + PT_NPIX * Cout;
+  L.acc_s = L.xh + PT_NPIX * Cout;
+  L.acc_a = L.acc_s + 2 * Cout;
+  L.acc_d = L.acc_a + L.n9 * Cout;
+  L.acc_g = L.acc_d + L.n9;
+  const int floats = L.acc_g + L.n9 * L.n9;
+  L.sel_bytes = PT_NPIX * Cout;
+  L.total_bytes = floats * 4 + L.sel_bytes;
+  return L;
+}
+
+// partial row layout: [S (2*Cout) | A (9Cin*Cout) | D (9Cin) | G (9Cin^2)]
+__global__ void __launch_bounds__(PT_THREADS)
+bwdg_kernel(const __nv_bfloat16* __restrict__ x,
+            const __nv_bfloat16* __restrict__ dp,
+            const __nv_bfloat16* __restrict__ z,
+            const int8_t* __restrict__ am, const float* __restrict__ mean,
+            const float* __restrict__ inv, const float* __restrict__ scales,
+            const float* __restrict__ bias, float* __restrict__ partial,
+            int B, int H, int W, int Cin, int Cout) {
+  extern __shared__ float sm[];
+  const BwdgLayout L = bwdg_layout(Cin, Cout);
+  float* xs = sm + L.xs;
+  float* dz = sm + L.dz;
+  float* xh = sm + L.xh;
+  float* acc_s = sm + L.acc_s;
+  float* acc_a = sm + L.acc_a;
+  float* acc_d = sm + L.acc_d;
+  float* acc_g = sm + L.acc_g;
+  int8_t* sel = reinterpret_cast<int8_t*>(sm + L.acc_g + L.n9 * L.n9);
+  const int n9 = L.n9;
+  const int nacc = 2 * Cout + n9 * Cout + n9 + n9 * n9;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < nacc; i += PT_THREADS) acc_s[i] = 0.f;
+
+  const int H2 = H / 2, W2 = W / 2;
+  const int tiles_x = (W2 + PT_PT - 1) / PT_PT;
+  const int tiles = tiles_x * ((H2 + PT_PT - 1) / PT_PT);
+  const int items = tiles * B;
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int b = it / tiles, tile = it % tiles;
+    const int ty = tile / tiles_x, tx = tile % tiles_x;
+    const int gy0 = 2 * ty * PT_PT - 1, gx0 = 2 * tx * PT_PT - 1;
+    __syncthreads();                 // the previous item is done with smem
+    for (int i = tid; i < PT_TH * PT_TH * Cin; i += PT_THREADS) {
+      const int c = i % Cin, pos = i / Cin;
+      const int gy = gy0 + pos / PT_TH, gx = gx0 + pos % PT_TH;
+      xs[i] = (gy >= 0 && gy < H && gx >= 0 && gx < W)
+                  ? __bfloat162float(
+                        x[((static_cast<size_t>(b) * H + gy) * W + gx) *
+                              Cin + c])
+                  : 0.f;
+    }
+    for (int i = tid; i < PT_NPIX * Cout; i += PT_THREADS) {
+      const int c = i % Cout, p = i / Cout;
+      const int oy = ty * PT_PT + p / PT_PT, ox = tx * PT_PT + p % PT_PT;
+      float d = 0.f, xhat = 0.f;
+      int k = 0;
+      if (oy < H2 && ox < W2) {
+        const size_t o = ((static_cast<size_t>(b) * H2 + oy) * W2 + ox) *
+                             Cout + c;
+        const float zf = __bfloat162float(z[o]);
+        xhat = __fmul_rn(__fsub_rn(zf, mean[c]), inv[c]);
+        const float zb = bf16r(__fadd_rn(bf16r(__fmul_rn(xhat, scales[c])),
+                                         bf16r(bias[c])));
+        const float gct = __bfloat162float(dp[o]);
+        d = zb > 0.f ? gct : bf16r(__fmul_rn(0.10009765625f, gct));
+        k = am[o];
+      }
+      dz[i] = d;
+      xh[i] = xhat;
+      sel[i] = static_cast<int8_t>(k);
+    }
+    __syncthreads();
+    // per-channel sums of dzs and dzs * x_hat
+    for (int e = tid; e < 2 * Cout; e += PT_THREADS) {
+      const int st = e / Cout, c = e % Cout;
+      float s = 0.f;
+      for (int p = 0; p < PT_NPIX; ++p) {
+        const float d = dz[p * Cout + c];
+        s += st == 0 ? d : d * xh[p * Cout + c];
+      }
+      acc_s[e] += s;
+    }
+    // A: taps at the selected full-resolution position (x) dzs
+    for (int e = tid; e < n9 * Cout; e += PT_THREADS) {
+      const int r = e / Cout, c = e % Cout;
+      const int t = r / Cin, ci = r % Cin;
+      const int ky = t / 3, kx = t % 3;
+      float s = 0.f;
+      for (int p = 0; p < PT_NPIX; ++p) {
+        const int k = sel[p * Cout + c];
+        const int fy = 2 * (p / PT_PT) + (k >> 1) + ky;
+        const int fx = 2 * (p % PT_PT) + (k & 1) + kx;
+        s += xs[(fy * PT_TH + fx) * Cin + ci] * dz[p * Cout + c];
+      }
+      acc_a[e] += s;
+    }
+    // D and the Gram's upper triangle over the valid positions
+    const int vh = min(2 * PT_PT, H - 2 * ty * PT_PT);
+    const int vw = min(2 * PT_PT, W - 2 * tx * PT_PT);
+    for (int e = tid; e < n9 + n9 * n9; e += PT_THREADS) {
+      int r, s2;
+      if (e < n9) {
+        r = e;
+        s2 = -1;
+      } else {
+        r = (e - n9) / n9;
+        s2 = (e - n9) % n9;
+        if (s2 < r) continue;
+      }
+      const int tr = r / Cin, cr = r % Cin;
+      const int offr = ((tr / 3) * PT_TH + tr % 3) * Cin + cr;
+      int offs = 0;
+      if (s2 >= 0) {
+        const int ts = s2 / Cin, cs = s2 % Cin;
+        offs = ((ts / 3) * PT_TH + ts % 3) * Cin + cs;
+      }
+      float s = 0.f;
+      for (int fy = 0; fy < vh; ++fy) {
+        for (int fx = 0; fx < vw; ++fx) {
+          const int q = (fy * PT_TH + fx) * Cin;
+          const float a = xs[q + offr];
+          s += s2 < 0 ? a : a * xs[q + offs];
+        }
+      }
+      if (s2 < 0)
+        acc_d[r] += s;
+      else
+        acc_g[r * n9 + s2] += s;
+    }
+  }
+  __syncthreads();
+  float* row = partial + static_cast<size_t>(blockIdx.x) * nacc;
+  for (int i = tid; i < nacc; i += PT_THREADS) row[i] = acc_s[i];
+}
+
+int bwdg_grid(int B, int H, int W, int Cin, int Cout, int* smem) {
+  const BwdgLayout L = bwdg_layout(Cin, Cout);
+  *smem = L.total_bytes;
+  if (cudaFuncSetAttribute(bwdg_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           L.total_bytes) != cudaSuccess)
+    return -1;
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, bwdg_kernel, PT_THREADS, L.total_bytes) != cudaSuccess ||
+      per_sm < 1)
+    return -1;
+  const int H2 = H / 2, W2 = W / 2;
+  const long items = static_cast<long>(B) * ((H2 + PT_PT - 1) / PT_PT) *
+                     ((W2 + PT_PT - 1) / PT_PT);
+  return static_cast<int>(items < static_cast<long>(sms) * per_sm
+                              ? items
+                              : static_cast<long>(sms) * per_sm);
+}
+
+bool shapes_ok(int B, int H, int W, int Cin, int Cout, int max_cin,
+               int max_cout) {
+  return B > 0 && B <= 65535 && H > 0 && W > 0 && H % 2 == 0 && W % 2 == 0 &&
+         Cin > 0 && Cin <= max_cin && Cout > 0 && Cout % PT_CO == 0 &&
+         Cout <= max_cout;
+}
+
+}  // namespace
+
+// partial: (B * tiles, 2 * Cout) float32 scratch; stats: (2 * Cout,)
+// float32 out, [sum(y - shift) | sum((y - shift)^2)].
+extern "C" int srod_pt_fwdstats(const void* x, const void* w,
+                                const void* shift, const void* scales,
+                                void* z, void* am, void* partial, void* stats,
+                                int B, int H, int W, int Cin, int Cout,
+                                void* stream) {
+  if (!shapes_ok(B, H, W, Cin, Cout, PT_MAX_CIN_FWD, PT_MAX_CO_FWD))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int H2 = H / 2, W2 = W / 2;
+  const int tiles = ((H2 + PT_PT - 1) / PT_PT) * ((W2 + PT_PT - 1) / PT_PT);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  fwdstats_kernel<<<dim3(tiles, Cout / PT_CO, B), PT_THREADS, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(shift),
+      static_cast<const float*>(scales), static_cast<__nv_bfloat16*>(z),
+      static_cast<int8_t*>(am), static_cast<float*>(partial), H, W, Cin,
+      Cout);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  colsum_kernel<<<2 * Cout, PT_THREADS, 0, s>>>(
+      static_cast<const float*>(partial), B * tiles, 2 * Cout,
+      static_cast<float*>(stats));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// z, out: n bf16 values (n % 8 == 0), NHWC with Cout channels.
+extern "C" int srod_pt_apply(const void* z, const void* mean, const void* inv,
+                             const void* scales, const void* bias, void* out,
+                             long long n, int Cout, void* stream) {
+  if (n <= 0 || n % 8 || Cout <= 0 || Cout % 8 || n % Cout)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t n8 = static_cast<size_t>(n) / 8;
+  const size_t want = (n8 + PT_THREADS - 1) / PT_THREADS;
+  const int blocks = static_cast<int>(want < 132 * 64 ? want : 132 * 64);
+  apply_kernel<<<blocks, PT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(z), static_cast<const float*>(mean),
+      static_cast<const float*>(inv), static_cast<const float*>(scales),
+      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), n8,
+      Cout);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The number of blocks (rows of the partial scratch) srod_pt_bwdg uses,
+// or -1 for shapes it does not take.
+extern "C" int srod_pt_bwdg_blocks(int B, int H, int W, int Cin, int Cout) {
+  if (!shapes_ok(B, H, W, Cin, Cout, PT_MAX_CIN_BWD, PT_MAX_CO_BWD)) return -1;
+  int smem = 0;
+  return bwdg_grid(B, H, W, Cin, Cout, &smem);
+}
+
+// partial: (blocks, ncols) float32 scratch, blocks from
+// srod_pt_bwdg_blocks; out: (ncols,) float32, ncols = 2*Cout + 9*Cin*Cout +
+// 9*Cin + (9*Cin)^2 (the Gram's lower triangle is left 0).
+extern "C" int srod_pt_bwdg(const void* x, const void* dp, const void* z,
+                            const void* am, const void* mean, const void* inv,
+                            const void* scales, const void* bias,
+                            void* partial, int blocks, void* out, int B,
+                            int H, int W, int Cin, int Cout, void* stream) {
+  if (!shapes_ok(B, H, W, Cin, Cout, PT_MAX_CIN_BWD, PT_MAX_CO_BWD))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int smem = 0;
+  if (blocks != bwdg_grid(B, H, W, Cin, Cout, &smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n9 = 9 * Cin;
+  const int ncols = 2 * Cout + n9 * Cout + n9 + n9 * n9;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  bwdg_kernel<<<blocks, PT_THREADS, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(dp),
+      static_cast<const __nv_bfloat16*>(z), static_cast<const int8_t*>(am),
+      static_cast<const float*>(mean), static_cast<const float*>(inv),
+      static_cast<const float*>(scales), static_cast<const float*>(bias),
+      static_cast<float*>(partial), B, H, W, Cin, Cout);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  colsum_kernel<<<ncols, PT_THREADS, 0, s>>>(
+      static_cast<const float*>(partial), blocks, ncols,
+      static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}

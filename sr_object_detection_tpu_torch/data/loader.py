@@ -1,0 +1,176 @@
+"""Host-side detection input pipeline.
+
+Counterpart of the host path of ``sr_object_detection_tpu/data/loader.py``
+(the async analog of the reference's producer-thread loader,
+src_yolo2/data.c:664-798): a thread pool decodes and augments the next
+batch while the device trains on the current one. Images go through the
+port's numpy helpers (``ops/image.py``) and the verbatim copy of
+``data/augment.py``, so for the same seed the batches equal the JAX
+loader's.
+
+Truth layout matches the reference: (B, 30, 5) [x, y, w, h, id] relative
+(data.c:295-332); label paths derive from image paths via the
+find_replace chain (data.c:295-305).
+
+Not ported yet: ``device_augment=True`` and the packed loader (ROADMAP
+queue 1, item 8), the process-pool decoder (item 8), the per-process
+dataset sharding (item 11) and ``ClassificationLoader`` (item 10).
+"""
+
+from __future__ import annotations
+
+import concurrent.futures as cf
+import os
+import pathlib
+from typing import Iterator, Optional
+
+import numpy as np
+
+from ..ops.image import load_image_rgb, resize_image_np
+from . import augment as A
+
+
+def label_path_for(image_path: str) -> str:
+    """data.c fill_truth_detection's find_replace chain."""
+    p = image_path
+    for a, b in (("images", "labels"), ("JPEGImages", "labels"),
+                 ("raw", "labels")):
+        p = p.replace(a, b, 1) if a in p else p
+    root, _ = os.path.splitext(p)
+    return root + ".txt"
+
+
+def read_boxes(label_path: str) -> np.ndarray:
+    """(N, 5) [id, x, y, w, h]; a missing file gives an empty array (the
+    reference aborts; a loader skips instead)."""
+    if not os.path.exists(label_path):
+        return np.zeros((0, 5), np.float32)
+    rows = []
+    with open(label_path) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) >= 5:
+                rows.append([float(v) for v in parts[:5]])
+    if not rows:
+        return np.zeros((0, 5), np.float32)
+    return np.asarray(rows, np.float32)
+
+
+def load_detection_sample(path: str, rng: np.random.Generator, *,
+                          w: int, h: int, boxes: int, jitter: float,
+                          hue: float, saturation: float, exposure: float,
+                          augment: bool = True):
+    """One (image, truth) pair with the reference's jitter-crop pipeline
+    (load_data_detection, data.c:664-716)."""
+    orig = load_image_rgb(path)
+    oh, ow = orig.shape[:2]
+    if augment:
+        dw, dh = int(ow * jitter), int(oh * jitter)
+        pleft = int(rng.uniform(-dw, dw))
+        pright = int(rng.uniform(-dw, dw))
+        ptop = int(rng.uniform(-dh, dh))
+        pbot = int(rng.uniform(-dh, dh))
+        swidth = ow - pleft - pright
+        sheight = oh - ptop - pbot
+        sx = swidth / ow
+        sy = sheight / oh
+        flip = bool(rng.integers(0, 2))
+        cropped = A.crop_image(orig, pleft, ptop, swidth, sheight)
+        dx = (pleft / ow) / sx
+        dy = (ptop / oh) / sy
+        sized = resize_image_np(cropped, w, h)
+        if flip:
+            sized = A.flip_horizontal(sized)
+        sized = A.random_distort_image(sized, rng, hue, saturation,
+                                       exposure)
+    else:
+        sized = resize_image_np(orig, w, h)
+        dx = dy = 0.0
+        sx = sy = 1.0
+        flip = False
+
+    labels = read_boxes(label_path_for(path))
+    if len(labels):
+        rng.shuffle(labels)         # randomize_boxes (data.c:161-170)
+        labels = A.correct_boxes(labels, dx, dy, 1.0 / sx, 1.0 / sy, flip)
+    truth = np.zeros((boxes, 5), np.float32)
+    kept = 0
+    for row in labels[:boxes]:
+        cid, x, y, bw, bh = row
+        if bw < 0.01 or bh < 0.01:   # data.c:322 skips slivers
+            continue
+        truth[kept] = [x, y, bw, bh, cid]
+        kept += 1
+    return sized, truth
+
+
+class DetectionLoader:
+    """Prefetching detection batch loader (analog of load_data +
+    load_threads double-buffering, data.c:717-798 + detector.c:86-113)."""
+
+    def __init__(self, list_file_or_paths, *, w: int, h: int,
+                 batch: int, classes: int, boxes: int = 30,
+                 jitter: float = 0.2, hue: float = 0.1,
+                 saturation: float = 1.5, exposure: float = 1.5,
+                 augment: bool = True, seed: int = 0, workers: int = 8,
+                 device_augment: bool = False, decoder: str = "thread"):
+        if device_augment:
+            raise NotImplementedError(
+                "device augmentation is not ported yet (ROADMAP queue 1, "
+                "item 8)")
+        if decoder != "thread":
+            raise NotImplementedError(
+                f"decoder={decoder!r}: only the thread decoder is ported "
+                "(ROADMAP queue 1, item 8)")
+        if isinstance(list_file_or_paths, (str, pathlib.Path)):
+            with open(list_file_or_paths) as f:
+                self.paths = [l.strip() for l in f if l.strip()]
+        else:
+            self.paths = list(list_file_or_paths)
+        if not self.paths:
+            raise ValueError("empty image list")
+        self.w, self.h = w, h
+        self.batch = batch
+        self.boxes = boxes
+        self.classes = classes
+        self.aug = dict(jitter=jitter, hue=hue, saturation=saturation,
+                        exposure=exposure, augment=augment)
+        self.rng = np.random.default_rng(seed)
+        self.pool = cf.ThreadPoolExecutor(max_workers=workers)
+        self._pending: Optional[list] = None
+        self._submit()
+
+    def set_dims(self, w: int, h: int):
+        """Multi-scale resize hook (detector.c:91-109): batches submitted
+        from now on load at the new resolution."""
+        self.w, self.h = w, h
+
+    def _submit(self):
+        picks = [self.paths[self.rng.integers(0, len(self.paths))]
+                 for _ in range(self.batch)]
+        seeds = self.rng.integers(0, 2**63, size=self.batch)
+        w, h = self.w, self.h
+        self._pending = [
+            self.pool.submit(
+                load_detection_sample, p, np.random.default_rng(int(s)),
+                w=w, h=h, boxes=self.boxes, **self.aug)
+            for p, s in zip(picks, seeds)]
+
+    def next_batch(self):
+        """Returns (x NHWC float32, truth (B,30,5)); prefetches the next."""
+        results = [f.result() for f in self._pending]
+        self._submit()
+        x = np.stack([r[0] for r in results])
+        t = np.stack([r[1] for r in results])
+        return x, t
+
+    def close(self):
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+    def __iter__(self) -> Iterator:
+        while True:
+            yield self.next_batch()
+
+
+__all__ = ["DetectionLoader", "load_detection_sample", "read_boxes",
+           "label_path_for"]

@@ -10,13 +10,15 @@ the network is converted back — spatial outputs as NHWC, the region
 output as the flat darknet raster ``[row][col][anchor][field]``
 (compiler.py:417-424 of the JAX package).
 
-This slice holds the kinds tiny-yolo-voc runs: conv, maxpool and region.
+This slice holds the kinds tiny-yolo-voc runs: conv, maxpool and region,
+for inference and for training (``Network.forward(x, train=True)``).
 Any other kind raises ``NotImplementedError`` when the network is built,
 naming the ROADMAP queue item that ports it.
 """
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from . import spec as S
@@ -102,14 +104,44 @@ def _to_public(t):
     return t.permute(0, 2, 3, 1) if t.ndim == 4 else t
 
 
+def _phase_pair_ok(layers, ci: int) -> bool:
+    """The JAX compiler's fused-pair predicate (compiler.py:156-165): conv
+    3x3 s1 p1 with BN and leaky, then maxpool 2/2/0."""
+    if ci + 1 >= len(layers):
+        return False
+    l, nxt = layers[ci], layers[ci + 1]
+    return (isinstance(l, S.ConvSpec) and l.batch_normalize
+            and l.size == 3 and l.stride == 1 and l.pad == 1
+            and l.activation == "leaky" and not l.xnor and not l.binary
+            and isinstance(nxt, S.MaxPoolSpec)
+            and nxt.size == 2 and nxt.stride == 2 and nxt.pad == 0)
+
+
+def _live_set(spec: S.NetworkSpec) -> set[int]:
+    """Indices whose outputs a later non-adjacent layer reads."""
+    live: set[int] = set()
+    for l in spec.layers:
+        if isinstance(l, S.RouteSpec):
+            live.update(l.layers)
+        elif isinstance(l, S.ShortcutSpec):
+            live.add(l.from_index)
+    return live
+
+
 class Network(nn.Module):
     """A NetworkSpec bound to torch params (see ``io.convert``).
 
     ``params``: per-layer dicts of tensors with OIHW conv weights, all
     on one device. ``compute_dtype`` (e.g. ``torch.bfloat16``) runs the
-    convs in that dtype as the JAX package's ``compute_dtype`` does."""
+    convs in that dtype as the JAX package's ``compute_dtype`` does.
+    ``phase_train`` (bf16 training only) runs the leading [conv3x3 + BN +
+    leaky, maxpool 2x2/2] pair through the fused training kernels
+    (``kernels/phase_train.py``) when the JAX predicate holds and the
+    kernels take the layer's shape; the JAX package's batch-128 and VMEM
+    planner gates were TPU rules and are dropped."""
 
-    def __init__(self, spec: S.NetworkSpec, params, *, compute_dtype=None):
+    def __init__(self, spec: S.NetworkSpec, params, *, compute_dtype=None,
+                 phase_train: bool = False):
         super().__init__()
         self.spec = spec
         self.compute_dtype = compute_dtype
@@ -117,18 +149,59 @@ class Network(nn.Module):
             build_layer(l, p, compute_dtype)
             for l, p in zip(spec.layers, params))
         self.out_idx = spec.output_layer_index()
+        self.phase_pair = False
+        if phase_train and compute_dtype == torch.bfloat16:
+            from ..kernels import phase_train as PT
+            self.phase_pair = (_phase_pair_ok(spec.layers, 0)
+                               and 0 not in _live_set(spec)
+                               and PT.supported(spec.layers[0]))
 
-    def forward(self, x, keep_all: bool = False):
+    def forward(self, x, keep_all: bool = False, *, train: bool = False,
+                params=None):
         """x: NHWC input. Returns (out, aux): out is the output layer's
         tensor in the public layout, aux = {'outputs': {i: tensor}}
-        (every layer when ``keep_all``, else only the output layer)."""
+        (every layer when ``keep_all``, else only the output layer).
+
+        ``train=True`` runs the training forward (batch-statistics BN with
+        darknet's hand-written backward) over ``params`` (default: the
+        network's own tensors) and adds aux['bn'] = {i: rolling-stat
+        updates}."""
+        if not train:
+            cur = x.permute(0, 3, 1, 2)
+            saved = {}
+            for i, layer in enumerate(self.layers):
+                cur = layer(cur)
+                if keep_all or i == self.out_idx:
+                    saved[i] = _to_public(cur)
+            return saved[self.out_idx], {"outputs": saved}
+        return self._forward_train(x, keep_all, params)
+
+    def _forward_train(self, x, keep_all, params):
+        if params is None:
+            params = [dict(layer.named_buffers()) for layer in self.layers]
+        saved, bn_updates = {}, {}
         cur = x.permute(0, 3, 1, 2)
-        saved = {}
-        for i, layer in enumerate(self.layers):
-            cur = layer(cur)
+        start = 0
+        if self.phase_pair and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0:
+            from ..kernels.phase_train import phase_train_block
+            pooled, bn_updates[0] = phase_train_block(
+                x, params[0], self.spec.layers[0])
+            cur = pooled.permute(0, 3, 1, 2)
+            start = 2
+            if keep_all or self.out_idx == 1:
+                saved[1] = pooled
+        for i in range(start, len(self.layers)):
+            l = self.spec.layers[i]
+            if isinstance(l, S.ConvSpec):
+                cur, bn = C.conv_block_train(cur, params[i], l,
+                                             compute_dtype=self.compute_dtype)
+                if bn is not None:
+                    bn_updates[i] = bn
+            else:
+                cur = self.layers[i](cur)
             if keep_all or i == self.out_idx:
                 saved[i] = _to_public(cur)
-        return saved[self.out_idx], {"outputs": saved}
+        return saved[self.out_idx], {"outputs": saved, "bn": bn_updates}
 
 
 __all__ = ["Network", "ConvLayer", "MaxPoolLayer", "RegionLayer",

@@ -7,7 +7,10 @@ perf-path analog of the reference's ``darknet speed`` harness
 src_yolo2/KinectUtil.cpp:379-487).
 
 * :class:`ThroughputEngine` runs a batch through the network in bf16
-  with BN folded; its ``benchmark`` follows the JAX module's checksum
+  with BN folded; with ``phase_stem=True`` its leading conv+pool pairs
+  run through the training pair's fwdstats + apply kernels with identity
+  BN constants (``kernels/phase_train.build_bf16_stem``, TPU kernel 4's
+  ``fwd`` mode in the JAX package). Its ``benchmark`` follows the JAX module's checksum
   protocol (:func:`checksum_benchmark`): ``iters`` queued forwards of a
   checksum that depends on every output element, one ``.item()`` at the
   end. The int8 sibling is ``infer.quant.QuantizedThroughputEngine``.
@@ -26,8 +29,7 @@ src_yolo2/KinectUtil.cpp:379-487).
 
 Not ported: ``fuse_pool`` (the polyphase conv+pool rewrite, measured
 slower in the JAX package; ROADMAP "Not ported"), ``align_head`` /
-``presplit`` (queue 1, item 5), the bf16 ``phase_stem`` (it runs TPU
-kernel 4's ``fwd`` mode, queue 2 row 4), the checksum protocol's
+``presplit`` (queue 1, item 5), the checksum protocol's
 ``chunk`` probe (measured negative in the JAX package) and the sharded
 engine (queue 1, item 11).
 """
@@ -46,6 +48,7 @@ from ..graph.compiler import Network
 from ..io.convert import params_to_torch
 from ..kernels import _build
 from ..kernels import b1_stem as BS
+from ..kernels import phase_train as PT
 from ..ops import boxes as B
 from ..ops import conv as C
 from ..ops import image as I
@@ -130,22 +133,32 @@ class ThroughputEngine:
             raise NotImplementedError(
                 "the aligned/pre-split region head is not ported yet "
                 "(ROADMAP queue 1, item 5)")
-        if phase_stem:
-            raise NotImplementedError(
-                "the bf16 phase stem runs TPU kernel 4's fwd mode, which "
-                "is not ported yet (ROADMAP queue 2, row 4)")
         self.batch = batch
         self.device = torch.device(device)
         self.params, self.spec = fold_params_for_inference(
             spec, params_to_torch(spec, params, self.device), self.DTYPE)
-        self._net = Network(self.spec, self.params,
-                            compute_dtype=self.DTYPE)
+        self._stem, n = None, 0
+        if phase_stem:
+            self._stem, n = PT.build_bf16_stem(self.spec, self.params)
+            if self._stem is not None and self.device.type == "cuda":
+                _build.load()            # build now: fail at construction
+        self.phase_stem = self._stem is not None
+        tail = self.spec if n == 0 else BS.truncate_spec(self.spec, n)
+        self._net = Network(tail, self.params[n:], compute_dtype=self.DTYPE)
         self.input_shape = (batch, spec.net.h, spec.net.w, spec.net.c)
 
     @torch.no_grad()
+    def forward(self, x):
+        """(out, aux) of the bf16 network on an NHWC batch; with the
+        phase stem, aux['outputs'] are numbered from the first layer after
+        it."""
+        x = torch.as_tensor(x).to(self.device, self.DTYPE)
+        if self._stem is not None:
+            x = self._stem(x)
+        return self._net(x)
+
     def _run(self, x):
-        out, _ = self._net(torch.as_tensor(x).to(self.device, self.DTYPE))
-        return out
+        return self.forward(x)[0]
 
     def warmup(self):
         sync_checksum(self._run(torch.zeros(self.input_shape))).item()

@@ -1,0 +1,99 @@
+"""Checkpoint / resume for training state.
+
+Counterpart of ``sr_object_detection_tpu/io/checkpoint.py``, in the same
+two formats (SURVEY §5.4):
+  * ``.weights`` export — the bit-compatible interchange format (weights
+    + seen counter; the reference's .backup cadence, detector.c:150-157);
+  * ``.npz`` train-state checkpoints carrying params + momentum velocity
+    + seen, in the JAX package's layout (keys ``p/<layer>/<name>``,
+    ``v/<layer>/<name>``, ``seen``; conv weights HWIO), so a state saved
+    by either package loads in the other.
+
+The port's params hold conv weights OIHW; they are its only 4-D
+``weights`` (connected weights are 2-D), which is how the conversion
+below finds them.
+"""
+
+from __future__ import annotations
+
+import os
+import tempfile
+
+import numpy as np
+import torch
+
+from ..graph import spec as S
+from .convert import params_to_numpy
+from .weights import save_weights
+
+
+def _hwio(k, t):
+    a = t.detach().to("cpu", torch.float32).numpy()
+    if k == "weights" and a.ndim == 4:
+        a = np.transpose(a, (2, 3, 1, 0))          # OIHW -> HWIO
+    return np.ascontiguousarray(a)
+
+
+def save_train_state(path: str, state):
+    """state: train.trainer.TrainState. Written to a temporary file and
+    renamed, so a crash never leaves a half-written checkpoint."""
+    arrays = {}
+    for tag, tree in (("p", state.params), ("v", state.velocity)):
+        for i, p in enumerate(tree):
+            for k, v in p.items():
+                arrays[f"{tag}/{i}/{k}"] = _hwio(k, v)
+    arrays["seen"] = np.asarray(int(state.seen), np.int64)
+    d = os.path.dirname(os.path.abspath(path)) or "."
+    fd, tmp = tempfile.mkstemp(dir=d, suffix=".npz")
+    os.close(fd)
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
+
+
+def load_train_state(path: str, template_state):
+    """Restore into the structure, device and dtypes of template_state."""
+    from ..train.trainer import TrainState
+    z = np.load(path)
+
+    def rebuild(tag, tree):
+        out = []
+        for i, p in enumerate(tree):
+            q = {}
+            for k, t in p.items():
+                a = np.asarray(z[f"{tag}/{i}/{k}"], np.float32)
+                if k == "weights" and a.ndim == 4:
+                    a = np.transpose(a, (3, 2, 0, 1))   # HWIO -> OIHW
+                q[k] = torch.from_numpy(np.ascontiguousarray(a)).to(
+                    device=t.device, dtype=t.dtype)
+            out.append(q)
+        return out
+
+    return TrainState(params=rebuild("p", template_state.params),
+                      velocity=rebuild("v", template_state.velocity),
+                      seen=torch.tensor(int(z["seen"]), dtype=torch.int64))
+
+
+def export_weights(path: str, spec: S.NetworkSpec, state):
+    """Write the interchange .weights with the live seen counter."""
+    save_weights(spec, params_to_numpy(spec, state.params), path,
+                 seen=int(state.seen))
+
+
+def checkpoint_name(backup_dir: str, base: str, batch_num: int,
+                    final: bool = False) -> str:
+    """The reference's naming scheme (detector.c:150-165):
+    <base>_<N>.weights every 1000 (100 below 1000), <base>_final.weights."""
+    if final:
+        return os.path.join(backup_dir, f"{base}_final.weights")
+    return os.path.join(backup_dir, f"{base}_{batch_num}.weights")
+
+
+def should_checkpoint(batch_num: int) -> bool:
+    """detector.c:150: every 1000 iters, every 100 below 1000."""
+    if batch_num >= 1000:
+        return batch_num % 1000 == 0
+    return batch_num % 100 == 0
+
+
+__all__ = ["save_train_state", "load_train_state", "export_weights",
+           "checkpoint_name", "should_checkpoint"]

@@ -1,4 +1,4 @@
-"""numpy params (the JAX package's layout) -> the port's torch tensors.
+"""numpy params (the JAX package's layout) <-> the port's torch tensors.
 
 ``io/weights.py`` (a verbatim copy of the JAX package's reader) returns
 one dict per layer with conv weights in HWIO. The port runs its convs
@@ -45,4 +45,23 @@ def params_to_torch(spec: S.NetworkSpec, params_np, device,
     return out
 
 
-__all__ = ["params_to_torch"]
+def params_to_numpy(spec: S.NetworkSpec, params) -> list[dict]:
+    """The inverse of :func:`params_to_torch`: torch tensors (any device
+    and float dtype) -> float32 numpy arrays, conv ``weights`` from OIHW
+    back to HWIO."""
+    if not isinstance(spec, S.NetworkSpec):
+        raise TypeError(f"want this package's NetworkSpec, got "
+                        f"{type(spec).__module__}.{type(spec).__name__}")
+    out: list[dict] = []
+    for l, p in zip(spec.layers, params):
+        q = {}
+        for k, v in p.items():
+            a = v.detach().to("cpu", torch.float32).numpy()
+            if k == "weights" and isinstance(l, S.ConvSpec):
+                a = np.transpose(a, (2, 3, 1, 0))
+            q[k] = np.ascontiguousarray(a)
+        out.append(q)
+    return out
+
+
+__all__ = ["params_to_torch", "params_to_numpy"]

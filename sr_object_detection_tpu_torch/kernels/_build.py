@@ -56,6 +56,20 @@ SIGNATURES = {
     # inv_out, out (B,H/2,W/2,Cout) int8, B, H, W, Cin, Cout, stream
     "srod_phase_pair": ([_P, _I, _P, _P, _P, _F, _F, _P, _I, _I, _I, _I,
                          _I, _P], _I),
+    # x (B,H,W,Cin) bf16, w (3,3,Cin,Cout) bf16, shift, scales (Cout,) f32,
+    # z (B,H/2,W/2,Cout) bf16, am int8, partial scratch, stats (2*Cout,)
+    # f32, B, H, W, Cin, Cout, stream
+    "srod_pt_fwdstats": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _I, _P], _I),
+    # z bf16, mean, inv, scales, bias (Cout,) f32, out bf16, n, Cout, stream
+    "srod_pt_apply": ([_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _P],
+                      _I),
+    # B, H, W, Cin, Cout -> the partial scratch's rows, or -1
+    "srod_pt_bwdg_blocks": ([_I, _I, _I, _I, _I], _I),
+    # x, dp, z bf16, am int8, mean, inv, scales, bias f32, partial,
+    # blocks, out f32, B, H, W, Cin, Cout, stream
+    "srod_pt_bwdg": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I,
+                      _I, _I, _I, _P], _I),
     "srod_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -1,0 +1,355 @@
+"""The fused leading pair of bf16 training: the CUDA kernels
+``csrc/phase_train.cu`` and their wrappers.
+
+Counterpart of ``sr_object_detection_tpu/kernels/phase_train.py``
+(``phase_train_block``, ``build_bf16_stem``). A pair is [conv3x3 s1 p1 +
+train-mode BN + bias + leaky, maxpool 2x2/2]; the JAX trainer with
+``phase_train=True`` runs the network's leading pair through it, so the
+full-resolution conv output never reaches device memory:
+
+* forward: :func:`fwdstats` (the four bf16 conv outputs under each pooled
+  pixel, their extreme in the direction of the channel's BN slope, the
+  first tap attaining it, and the shifted moments) -> the batch
+  statistics -> :func:`apply` (BN + bias + leaky on the pooled values);
+* backward: :func:`bwdg` (no conv recompute: the cotangent routed by the
+  saved argmax, the BN reductions, and the weight gradient in its Gram
+  form) -> darknet's hand-written BN constants -> ``dw``.
+
+:func:`build_bf16_stem` reuses fwdstats + apply with identity constants
+as the bf16 serving stem of ``ThroughputEngine(phase_stem=True)``.
+
+Each kernel has a plain PyTorch version beside it (``*_plain``); a CPU
+tensor takes it, a CUDA tensor launches the kernel or raises.
+``launches`` counts each kernel's launches and nothing else.
+
+Not ported: the TPU layout (``to_phase_np``/``from_phase_np``, the halo
+sidebands, ``Geom``/``plan_pair``'s VMEM planner, ``_pack_w`` and the
+pool-variant M-packing): Mosaic's limits, not the function. Modes
+``stats`` and ``bwd`` are TPU packing fallbacks of ``fwdstats`` and
+``bwdg``. Modes ``dy``/``red`` and the dgrad kernel (the opt-in two-pair
+chain) come with the next slice (ROADMAP queue 2, rows 4 and 6).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.activations import LEAKY_BF16
+from ..ops.conv import BN_EPS, EPS_B, _sqrt_rn
+from . import _build
+
+launches = {"fwdstats": 0, "apply": 0, "bwdg": 0}
+
+# the kernels' shape limits (csrc/phase_train.cu)
+MAX_CIN_FWD, MAX_COUT_FWD = 64, 128
+MAX_CIN_BWD, MAX_COUT_BWD = 16, 64
+
+
+def reset_launches():
+    for k in launches:
+        launches[k] = 0
+
+
+def supported(spec) -> bool:
+    """Whether the training pair's kernels take a conv layer's shape (the
+    compiler's predicate on the layer kind comes first)."""
+    return (spec.c <= MAX_CIN_BWD and spec.filters % 16 == 0
+            and spec.filters <= MAX_COUT_BWD)
+
+
+def _f32(*ts):
+    return [t.to(torch.float32).contiguous() for t in ts]
+
+
+# ------------------------------------------------------------ fwdstats
+
+def fwdstats_plain(x, w_hwio, shift, scales):
+    """Plain version of the fwdstats kernel, same inputs and outputs.
+
+    x (B,H,W,Cin) bf16 NHWC, w_hwio (3,3,Cin,Cout) bf16, shift and scales
+    (Cout,) f32 -> (Z (B,H/2,W/2,Cout) bf16, argmax int8 (0..3, window
+    row-major), stats (2, Cout) f32 = [sum(y - shift), sum((y - shift)^2)])
+    where y is the bf16 conv output."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w_hwio.permute(3, 2, 0, 1),
+                 padding=1).float()
+    b, c, h, w = y.shape
+    taps = y.reshape(b, c, h // 2, 2, w // 2, 2).permute(
+        0, 2, 4, 1, 3, 5).reshape(b, h // 2, w // 2, c, 4)
+    z = torch.where(scales > 0, taps.amax(-1), taps.amin(-1))
+    am = (taps == z[..., None]).float().argmax(-1)     # the first tap
+    xs = y - shift.reshape(1, -1, 1, 1)
+    stats = torch.stack([xs.sum(dim=(0, 2, 3)),
+                         (xs * xs).sum(dim=(0, 2, 3))])
+    return z.to(torch.bfloat16), am.to(torch.int8), stats
+
+
+def fwdstats(x, w_hwio, shift, scales):
+    """The fwdstats kernel; arguments and results as :func:`fwdstats_plain`."""
+    if x.device.type == "cpu":
+        return fwdstats_plain(x, w_hwio, shift, scales)
+    n, h, w, cin = x.shape
+    cout = w_hwio.shape[3]
+    if (x.dtype != torch.bfloat16 or w_hwio.dtype != torch.bfloat16
+            or w_hwio.shape != (3, 3, cin, cout) or h % 2 or w % 2
+            or cin > MAX_CIN_FWD or cout % 16 or cout > MAX_COUT_FWD
+            or shift.shape != (cout,) or scales.shape != (cout,)
+            or not (x.device == w_hwio.device == shift.device
+                    == scales.device)):
+        raise ValueError(
+            "phase_train.fwdstats: want x (B,H,W,Cin<=64) bf16 with H, W "
+            "even, w (3,3,Cin,Cout) bf16 with Cout a multiple of 16 up to "
+            "128, shift and scales (Cout,) on one device; got "
+            f"{tuple(x.shape)} {x.dtype}, {tuple(w_hwio.shape)} "
+            f"{w_hwio.dtype}, {tuple(shift.shape)}, {tuple(scales.shape)}")
+    x, w_hwio = x.contiguous(), w_hwio.contiguous()
+    shift, scales = _f32(shift, scales)
+    h2, w2 = h // 2, w // 2
+    tiles = -(-h2 // 8) * -(-w2 // 8)
+    z = torch.empty((n, h2, w2, cout), dtype=torch.bfloat16, device=x.device)
+    am = torch.empty((n, h2, w2, cout), dtype=torch.int8, device=x.device)
+    partial = torch.empty((n * tiles, 2 * cout), dtype=torch.float32,
+                          device=x.device)
+    stats = torch.empty((2, cout), dtype=torch.float32, device=x.device)
+    err = _build.load().srod_pt_fwdstats(
+        x.data_ptr(), w_hwio.data_ptr(), shift.data_ptr(), scales.data_ptr(),
+        z.data_ptr(), am.data_ptr(), partial.data_ptr(), stats.data_ptr(),
+        n, h, w, cin, cout, _build.stream_ptr(x.device))
+    _build.check(err, "srod_pt_fwdstats")
+    launches["fwdstats"] += 1
+    return z, am, stats
+
+
+# --------------------------------------------------------------- apply
+
+def apply_plain(z, mean, inv, scales, biases):
+    """Plain version of the apply kernel: z (...,Cout) bf16 and per-channel
+    float32 constants -> bf16(bf16((z - mean) * inv * scale) + bf16(bias))
+    through the bf16-slope leaky (phase_train.py:739-742 of the JAX
+    package)."""
+    t = ((z.float() - mean) * inv * scales).to(torch.bfloat16)
+    zb = t + biases.to(torch.bfloat16)
+    return torch.where(zb > 0, zb, zb * LEAKY_BF16)
+
+
+def apply(z, mean, inv, scales, biases):
+    """The apply kernel; arguments and result as :func:`apply_plain`."""
+    if z.device.type == "cpu":
+        return apply_plain(z, mean, inv, scales, biases)
+    cout = z.shape[-1]
+    consts = (mean, inv, scales, biases)
+    if (z.dtype != torch.bfloat16 or cout % 8
+            or any(c.shape != (cout,) or c.device != z.device
+                   for c in consts)):
+        raise ValueError(
+            "phase_train.apply: want z (...,Cout) bf16 with Cout a multiple "
+            "of 8 and four (Cout,) constants on its device; got "
+            f"{tuple(z.shape)} {z.dtype}, "
+            f"{[tuple(c.shape) for c in consts]}")
+    z = z.contiguous()
+    mean, inv, scales, biases = _f32(*consts)
+    out = torch.empty_like(z)
+    err = _build.load().srod_pt_apply(
+        z.data_ptr(), mean.data_ptr(), inv.data_ptr(), scales.data_ptr(),
+        biases.data_ptr(), out.data_ptr(), z.numel(), cout,
+        _build.stream_ptr(z.device))
+    _build.check(err, "srod_pt_apply")
+    launches["apply"] += 1
+    return out
+
+
+# ---------------------------------------------------------------- bwdg
+
+def _taps(x):
+    """x (B,H,W,Cin) -> (9*Cin, B*H*W) float32 tap vectors of the 3x3 s1
+    p1 conv, row t*Cin + ci for tap t = ky*3 + kx (HWIO order)."""
+    b, h, w, cin = x.shape
+    cols = F.unfold(x.permute(0, 3, 1, 2).float(), 3, padding=1)
+    return cols.reshape(b, cin, 9, h * w).permute(2, 1, 0, 3).reshape(
+        9 * cin, b * h * w)
+
+
+def bwdg_plain(x, dp, z, am, mean, inv, scales, biases):
+    """Plain version of the bwdg kernel, same inputs and outputs.
+
+    x (B,H,W,Cin) bf16, dp, z (B,H/2,W/2,Cout) bf16, am int8 and four
+    (Cout,) f32 constants -> (S (2, Cout) = [sum dzs, sum dzs * x_hat],
+    A (9Cin, Cout), D (9Cin,), G (9Cin, 9Cin)), all float32."""
+    xhat = (z.float() - mean) * inv
+    zb = (xhat * scales).to(torch.bfloat16) + biases.to(torch.bfloat16)
+    g = dp.float()
+    neg = (g * LEAKY_BF16).to(torch.bfloat16).float()
+    dzs = torch.where(zb > 0, g, neg)
+    s = torch.stack([dzs.sum(dim=(0, 1, 2)),
+                     (dzs * xhat).sum(dim=(0, 1, 2))])
+    b, h2, w2, cout = dzs.shape
+    # dzs at the selected tap of each window, zero elsewhere: (Cout, BHW)
+    sel = F.one_hot(am.long(), 4).to(dzs.dtype) * dzs[..., None]
+    full = sel.reshape(b, h2, w2, cout, 2, 2).permute(3, 0, 1, 4, 2, 5)
+    full = full.reshape(cout, b * 2 * h2 * 2 * w2)
+    taps = _taps(x)
+    return s, taps @ full.T, taps.sum(dim=1), taps @ taps.T
+
+
+def bwdg(x, dp, z, am, mean, inv, scales, biases):
+    """The bwdg kernel; arguments and results as :func:`bwdg_plain`."""
+    if x.device.type == "cpu":
+        return bwdg_plain(x, dp, z, am, mean, inv, scales, biases)
+    n, h, w, cin = x.shape
+    cout = z.shape[-1]
+    pooled = (n, h // 2, w // 2, cout)
+    consts = (mean, inv, scales, biases)
+    if (x.dtype != torch.bfloat16 or dp.dtype != torch.bfloat16
+            or z.dtype != torch.bfloat16 or am.dtype != torch.int8
+            or tuple(dp.shape) != pooled or tuple(z.shape) != pooled
+            or tuple(am.shape) != pooled or h % 2 or w % 2
+            or cin > MAX_CIN_BWD or cout % 16 or cout > MAX_COUT_BWD
+            or any(c.shape != (cout,) for c in consts)
+            or any(t.device != x.device for t in (dp, z, am, *consts))):
+        raise ValueError(
+            "phase_train.bwdg: want x (B,H,W,Cin<=16) bf16 with H, W even, "
+            "dp and z (B,H/2,W/2,Cout) bf16 with Cout a multiple of 16 up "
+            "to 64, am of that shape int8 and four (Cout,) constants on "
+            f"one device; got {tuple(x.shape)} {x.dtype}, "
+            f"{tuple(dp.shape)} {dp.dtype}, {tuple(z.shape)} {z.dtype}, "
+            f"{tuple(am.shape)} {am.dtype}")
+    lib = _build.load()
+    blocks = lib.srod_pt_bwdg_blocks(n, h, w, cin, cout)
+    if blocks < 1:
+        raise RuntimeError("phase_train.bwdg: no launch configuration for "
+                           f"B={n} H={h} W={w} Cin={cin} Cout={cout}")
+    x, dp, z, am = (t.contiguous() for t in (x, dp, z, am))
+    mean, inv, scales, biases = _f32(*consts)
+    n9 = 9 * cin
+    ncols = 2 * cout + n9 * cout + n9 + n9 * n9
+    partial = torch.empty((blocks, ncols), dtype=torch.float32,
+                          device=x.device)
+    out = torch.empty(ncols, dtype=torch.float32, device=x.device)
+    err = lib.srod_pt_bwdg(
+        x.data_ptr(), dp.data_ptr(), z.data_ptr(), am.data_ptr(),
+        mean.data_ptr(), inv.data_ptr(), scales.data_ptr(),
+        biases.data_ptr(), partial.data_ptr(), blocks, out.data_ptr(), n, h,
+        w, cin, cout, _build.stream_ptr(x.device))
+    _build.check(err, "srod_pt_bwdg")
+    launches["bwdg"] += 1
+    s, a, d, g = torch.split(out, [2 * cout, n9 * cout, n9, n9 * n9])
+    g = g.reshape(n9, n9).triu()                 # the upper triangle
+    g = g + g.triu(1).T
+    return s.reshape(2, cout), a.reshape(n9, cout), d, g
+
+
+# ------------------------------------------------------- the fused op
+
+def _batch_stats(stats, shift, n):
+    """mean, clamped variance and inv = 1/(sqrt(var) + eps) from the
+    shifted moments (phase_train.py:1019-1023 of the JAX package)."""
+    sx, sxx = stats[0], stats[1]
+    mean = shift + sx / n
+    var = torch.clamp_min((sxx - sx * sx / n) / max(n - 1, 1), 0.0)
+    return mean, var, 1.0 / (_sqrt_rn(var) + BN_EPS)
+
+
+class _Pair(torch.autograd.Function):
+    """fwdstats -> stats -> apply; backward bwdg -> BN constants -> dw.
+    The input's gradient is not computed: the leading pair's input is the
+    image."""
+
+    @staticmethod
+    def forward(ctx, x, w, scales, biases, shift):
+        w_hwio = w.permute(2, 3, 1, 0).to(torch.bfloat16).contiguous()
+        z, am, stats = fwdstats(x, w_hwio, shift, scales)
+        n = x.shape[0] * x.shape[1] * x.shape[2]
+        mean, var, inv = _batch_stats(stats, shift, n)
+        pooled = apply(z, mean, inv, scales, biases)
+        ctx.save_for_backward(x, w, scales, biases, mean, var, z, am)
+        ctx.mark_non_differentiable(mean, var)
+        return pooled, mean, var
+
+    @staticmethod
+    def backward(ctx, gpooled, _gm, _gv):
+        x, w, scales, biases, mean, var, z, am = ctx.saved_tensors
+        n = x.shape[0] * x.shape[1] * x.shape[2]
+        sd = _sqrt_rn(var)
+        inv = 1.0 / (sd + BN_EPS)
+        s, a, d, g = bwdg(x, gpooled.to(torch.bfloat16), z, am, mean, inv,
+                          scales, biases)
+        dbiases, dscales = s[0], s[1]
+        # darknet's hand-written BN backward (batchnorm_layer.c:147-157),
+        # linear in (dz, y, 1) per out channel: dw = c1*A + c2*E' + c3*D
+        sum_d = scales * dbiases
+        sum_dxm = scales * (sd + BN_EPS) * dscales
+        variance_delta = sum_dxm * (-0.5) * torch.pow(var + EPS_B, -1.5)
+        mean_delta = sum_d * (-1.0 / _sqrt_rn(var + EPS_B))
+        c1 = scales / (sd + EPS_B)
+        c2 = variance_delta * 2.0 / n
+        c3 = mean_delta / n
+        cout, cin = w.shape[0], w.shape[1]
+        w9 = w.permute(2, 3, 1, 0).reshape(9 * cin, cout).float()
+        e = g @ w9                           # sum x (x) y, y linear in w
+        dw9 = c1 * a + c2 * (e - d[:, None] * mean) + c3 * d[:, None]
+        dw = dw9.reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
+        return (None, dw.to(w.dtype), dscales.to(scales.dtype),
+                dbiases.to(biases.dtype), None)
+
+
+def phase_train_block(x_nhwc, params, spec):
+    """One fused [conv3x3 + BN + bias + leaky, maxpool 2x2/2] training
+    pair. x_nhwc: (B, H, W, C) input of any float dtype (cast to bf16 like
+    the bf16 conv), H and W even; ``params`` the layer's tensors (OIHW
+    weights). Returns (pooled NHWC bf16, bn_updates) — a drop-in for the
+    conv_block + maxpool pair in bf16 training."""
+    pooled, mean, var = _Pair.apply(
+        x_nhwc.to(torch.bfloat16).contiguous(), params["weights"],
+        params["scales"], params["biases"], params["rolling_mean"].detach())
+    bn = {"rolling_mean": 0.9 * params["rolling_mean"].detach() + 0.1 * mean,
+          "rolling_variance":
+              0.9 * params["rolling_variance"].detach() + 0.1 * var}
+    return pooled, bn
+
+
+# ------------------------------------------------ the bf16 serving stem
+
+def build_bf16_stem(spec, params):
+    """bf16 serving stem: the leading [conv3x3 + bias + leaky, maxpool
+    2x2/2] pairs of a BN-folded spec through fwdstats + apply with
+    identity BN constants (mean 0, inv 1, scale 1: z = y + bias, the
+    JAX package's ``build_bf16_stem`` through its ``fwd`` mode). For a
+    positive scale and a monotone leaky, pooling the raw values and then
+    applying equals the per-tap expression.
+
+    ``params``: the folded torch params (OIHW bf16 weights, bf16 biases).
+    Returns (stem_fn, n_consumed) or (None, 0); stem_fn takes the NHWC
+    input and returns the bf16 NHWC activation after the last pair."""
+    from .phase_stem import plan_pairs
+    pairs = plan_pairs(spec)
+    for k, (ci, _) in enumerate(pairs):
+        l = spec.layers[ci]
+        if (l.c > MAX_CIN_FWD or l.filters % 16
+                or l.filters > MAX_COUT_FWD):
+            pairs = pairs[:k]
+            break
+    if not pairs:
+        return None, 0
+    packed = []
+    for ci, _ in pairs:
+        p = params[ci]
+        cout = p["weights"].shape[0]
+        dev = p["weights"].device
+        zero = torch.zeros(cout, dtype=torch.float32, device=dev)
+        one = torch.ones(cout, dtype=torch.float32, device=dev)
+        packed.append((p["weights"].permute(2, 3, 1, 0).to(torch.bfloat16)
+                       .contiguous(), p["biases"].float(), zero, one))
+
+    def stem_fn(x):
+        cur = x.to(torch.bfloat16)
+        for w_hwio, bias, zero, one in packed:
+            z, _, _ = fwdstats(cur, w_hwio, zero, one)
+            cur = apply(z, zero, one, one, bias)
+        return cur
+
+    return stem_fn, pairs[-1][1] + 1
+
+
+__all__ = ["phase_train_block", "build_bf16_stem", "fwdstats",
+           "fwdstats_plain", "apply", "apply_plain", "bwdg", "bwdg_plain",
+           "supported", "launches", "reset_launches"]

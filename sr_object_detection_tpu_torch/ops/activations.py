@@ -88,8 +88,26 @@ ACTIVATIONS = {
 }
 
 
-def get_activation(name: str):
-    """Mirror get_activation (activations.c:43): unknown -> relu + warning."""
+# 0.1 rounded to bf16. In the JAX package's bf16 training chain the
+# weak-typed 0.1 of ``leaky`` becomes this bf16 constant; torch would
+# multiply a bf16 tensor by a float32 0.1 and round, which gives another
+# bf16 value for some inputs.
+LEAKY_BF16 = 0.10009765625
+
+
+def leaky_bf16(x):
+    """leaky on a bf16 tensor with the bf16 slope, forward and backward
+    (autograd multiplies the cotangent by the same constant and rounds
+    it to bf16, as the JAX gradient does)."""
+    return torch.where(x > 0, x, x * LEAKY_BF16)
+
+
+def get_activation(name: str, dtype=None):
+    """Mirror get_activation (activations.c:43): unknown -> relu + warning.
+    ``dtype=torch.bfloat16`` selects the bf16-slope leaky of the bf16
+    training chain."""
+    if name == "leaky" and dtype == torch.bfloat16:
+        return leaky_bf16
     fn = ACTIVATIONS.get(name)
     if fn is None:
         print(f"Couldn't find activation function {name}, going with ReLU",
@@ -98,4 +116,5 @@ def get_activation(name: str):
     return fn
 
 
-__all__ = ["ACTIVATIONS", "get_activation"] + list(ACTIVATIONS)
+__all__ = ["ACTIVATIONS", "get_activation", "leaky_bf16",
+           "LEAKY_BF16"] + list(ACTIVATIONS)

@@ -1,8 +1,9 @@
-"""Convolution / batchnorm / bias ops for inference, NCHW inside.
+"""Convolution / batchnorm / bias ops, NCHW inside.
 
 Counterpart of ``sr_object_detection_tpu/ops/conv.py`` (``conv2d``,
-``batchnorm_inference``, ``bias_add``, the inference half of
-``conv_block``, ``fold_batchnorm``). The JAX package runs NHWC/HWIO;
+``batchnorm_inference``, ``batchnorm_train`` with both hand-written
+backwards, ``bias_add`` with its float32 bias gradient, ``conv_block``
+for inference and training, ``fold_batchnorm``). The JAX package runs NHWC/HWIO;
 here the tensors handed between layers are NCHW with OIHW weights, the
 layout ``F.conv2d`` takes natively. ``graph/compiler.py`` converts at
 the network's boundary, so public layouts stay NHWC.
@@ -22,6 +23,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from .activations import get_activation
 
 BN_EPS = 1e-6  # blas.c:122 — added outside sqrt
 
@@ -108,9 +111,158 @@ def batchnorm_inference(x, scales, rolling_mean, rolling_var):
     return x * _channel(inv) + _channel(-rolling_mean * inv)
 
 
+class _BiasAdd(torch.autograd.Function):
+    """y + b with the bias gradient summed in float32 (the JAX package's
+    ``bias_add`` custom_vjp): autograd of ``y + b.to(bfloat16)`` would
+    return a bf16-rounded sum, and a bf16 accumulator saturates."""
+
+    @staticmethod
+    def forward(ctx, y, b):
+        ctx.b_dtype = b.dtype
+        return y + _channel(b.to(y.dtype))
+
+    @staticmethod
+    def backward(ctx, g):
+        db = g.sum(dim=(0, 2, 3), dtype=torch.float32)
+        return g, db.to(ctx.b_dtype)
+
+
 def bias_add(y, b):
-    """y + b over the channel axis of NCHW y (b cast to y's dtype)."""
-    return y + _channel(b.to(y.dtype))
+    """y + b over the channel axis of NCHW y (b cast to y's dtype); the
+    bias gradient is summed in float32."""
+    return _BiasAdd.apply(y, b)
+
+
+# batchnorm_layer.c:74-115: the hand-written backward adds .00001f
+EPS_B = 1e-5
+
+
+def _moments_n(x):
+    return x.shape[0] * x.shape[2] * x.shape[3]
+
+
+class _BNCore(torch.autograd.Function):
+    """float32 train-mode batchnorm (the JAX package's ``_bn_core``): the
+    1/(N-1) variance, eps outside the sqrt, and darknet's hand-written
+    backward (backward_batchnorm_layer, batchnorm_layer.c:147-157), which
+    is not the autodiff gradient of the forward. NCHW, per channel."""
+
+    @staticmethod
+    def forward(ctx, x, scales):
+        n = _moments_n(x)
+        mean = x.mean(dim=(0, 2, 3))
+        var = ((x - _channel(mean)) ** 2).sum(dim=(0, 2, 3)) / max(n - 1, 1)
+        x_hat = (x - _channel(mean)) / _channel(_sqrt_rn(var) + BN_EPS)
+        ctx.save_for_backward(x, scales, x_hat, mean, var)
+        ctx.mark_non_differentiable(mean, var)
+        return x_hat * _channel(scales), mean, var
+
+    @staticmethod
+    def backward(ctx, g, _gm, _gv):
+        # the cotangents of mean/var are ignored: the reference propagates
+        # through the output only, rolling updates are not differentiated
+        x, scales, x_hat, mean, var = ctx.saved_tensors
+        n = _moments_n(x)
+        dscales = (g * x_hat).sum(dim=(0, 2, 3))
+        d = g * _channel(scales)
+        sum_d = d.sum(dim=(0, 2, 3))
+        mean_delta = sum_d * (-1.0 / _sqrt_rn(var + EPS_B))
+        xm = x - _channel(mean)
+        variance_delta = (d * xm).sum(dim=(0, 2, 3)) * (-0.5) * torch.pow(
+            var + EPS_B, -1.5)
+        dx = (d / _channel(_sqrt_rn(var) + EPS_B)
+              + _channel(variance_delta) * 2.0 * xm / n
+              + _channel(mean_delta) / n)
+        return dx, dscales
+
+
+class _BNCoreFast(torch.autograd.Function):
+    """bf16 train-mode batchnorm (the JAX package's ``_bn_core_fast``):
+    the same formulas with single-pass moments shifted by the rolling
+    mean (no gradient), the variance clamped at 0 against a negative
+    cancellation, the output rounded to bf16, and a backward that
+    recomputes x_hat from (x, mean, var) instead of saving it."""
+
+    @staticmethod
+    def forward(ctx, x, scales, shift):
+        n = _moments_n(x)
+        xf = x.float()
+        xs = xf - _channel(shift)
+        sx = xs.sum(dim=(0, 2, 3))
+        sxx = (xs * xs).sum(dim=(0, 2, 3))
+        mean = shift + sx / n
+        var = torch.clamp_min((sxx - sx * sx / n) / max(n - 1, 1), 0.0)
+        inv = 1.0 / (_sqrt_rn(var) + BN_EPS)
+        y = ((xf - _channel(mean)) * _channel(inv) * _channel(scales)).to(
+            x.dtype)
+        ctx.save_for_backward(x, scales, mean, var)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, g, _gm, _gv):
+        x, scales, mean, var = ctx.saved_tensors
+        n = _moments_n(x)
+        dy = g.float()
+        xm = x.float() - _channel(mean)
+        x_hat = xm / _channel(_sqrt_rn(var) + BN_EPS)
+        dscales = (dy * x_hat).sum(dim=(0, 2, 3))
+        d = dy * _channel(scales)
+        sum_d = d.sum(dim=(0, 2, 3))
+        mean_delta = sum_d * (-1.0 / _sqrt_rn(var + EPS_B))
+        variance_delta = (d * xm).sum(dim=(0, 2, 3)) * (-0.5) * torch.pow(
+            var + EPS_B, -1.5)
+        dx = (d / _channel(_sqrt_rn(var) + EPS_B)
+              + _channel(variance_delta) * 2.0 * xm / n
+              + _channel(mean_delta) / n).to(x.dtype)
+        return dx, dscales, None
+
+
+def batchnorm_train(x, scales, rolling_mean, rolling_var):
+    """Train-mode batchnorm over NCHW x. Returns (normalized * scale,
+    new_rolling_mean, new_rolling_var, batch_mean, batch_var): the
+    1/(N-1) variance (blas.c:101), eps outside the sqrt (blas.c:122),
+    the 0.9/0.1 rolling update (batchnorm_layer.c:133-136). A bf16 x
+    takes the shifted single-pass core, float32 the two-pass one; both
+    backwards are darknet's hand-written gradient."""
+    if x.dtype == torch.bfloat16:
+        y, mean, var = _BNCoreFast.apply(x, scales, rolling_mean.detach())
+    else:
+        y, mean, var = _BNCore.apply(x, scales)
+    mean, var = mean.detach(), var.detach()
+    return (y, 0.9 * rolling_mean.detach() + 0.1 * mean,
+            0.9 * rolling_var.detach() + 0.1 * var, mean, var)
+
+
+def conv_block_train(x, params, spec, *, compute_dtype=None):
+    """Training darknet conv layer: conv [+BN] + bias + activation on
+    NCHW x. Returns (y, bn_updates or None).
+
+    Rounds where the JAX source rounds (``ops/conv.conv_block(train=
+    True)``): with a compute dtype the conv output is that dtype, BN
+    runs on it and returns it, the bias is added in it and the
+    activation runs on it (leaky with the bf16 slope); a conv without BN
+    adds its bias in float32 and is rounded after the activation."""
+    w = params["weights"]
+    if compute_dtype is not None:
+        y = F.conv2d(x.to(compute_dtype), w.to(compute_dtype),
+                     stride=spec.stride, padding=spec.pad)
+    else:
+        y = F.conv2d(x.to(w.dtype), w, stride=spec.stride,
+                     padding=spec.pad)
+    bn = None
+    if spec.batch_normalize:
+        y, new_rm, new_rv, _, _ = batchnorm_train(
+            y, params["scales"], params["rolling_mean"],
+            params["rolling_variance"])
+        bn = {"rolling_mean": new_rm, "rolling_variance": new_rv}
+    else:
+        y = y.float()
+    y = bias_add(y, params["biases"])
+    y = get_activation(spec.activation, y.dtype)(y)
+    if compute_dtype is not None:
+        y = y.to(compute_dtype)
+    return y, bn
 
 
 def conv_block(x, params, spec, activation_fn, *, compute_dtype=None):
@@ -143,5 +295,6 @@ def fold_batchnorm(params):
     return {"weights": w, "biases": b}
 
 
-__all__ = ["conv2d", "conv2d_i8", "conv_block", "batchnorm_inference",
-           "bias_add", "fold_batchnorm", "BN_EPS"]
+__all__ = ["conv2d", "conv2d_i8", "conv_block", "conv_block_train",
+           "batchnorm_inference", "batchnorm_train", "bias_add",
+           "fold_batchnorm", "BN_EPS", "EPS_B"]

@@ -6,7 +6,9 @@ at -pad, every out-of-bounds tap reading -FLT_MAX. The right/bottom
 overhang is padded with -inf explicitly: tiny-yolo's layer 11 (size 2,
 stride 1, pad 0 on 13x13) has a last window that overhangs by one, which
 ``F.max_pool2d``'s symmetric padding cannot express. avgpool and lrn come
-with the classifier and lrn slices (ROADMAP queue 1, item 2).
+with the classifier and lrn slices (ROADMAP queue 1, item 2). The JAX
+package's ``train_mode="amax"`` (a first-max-rank residual, measured a
+loss there) is not ported.
 
 :func:`maxpool_i8` is the int8 serving path's pool (the JAX package's
 ``infer.quant._maxpool_q``) on NHWC int8.
@@ -20,7 +22,14 @@ import torch.nn.functional as F
 
 def maxpool(x, *, size: int, stride: int, pad: int, pad_value=None):
     """Darknet maxpool on NCHW x. ``pad_value`` replaces the -inf pad
-    identity (the int8 path pads with iinfo(int8).min)."""
+    identity (the int8 path pads with iinfo(int8).min).
+
+    The same formulation serves training: ``F.max_pool2d`` keeps the
+    first strict maximum of each window in row-major order, so its
+    backward routes each window's gradient to the first maximal tap —
+    darknet's rule (maxpool_layer.c:95-108) and the JAX package's
+    ``maxpool(for_training=True)``. Where windows overlap (size 2, stride
+    1) the CUDA backward adds with atomics, in no fixed order."""
     h, w = x.shape[2], x.shape[3]
     out_h = (h + 2 * pad) // stride
     out_w = (w + 2 * pad) // stride

@@ -14,15 +14,20 @@ import torch
 import sr_object_detection_tpu_torch.kernels.b1_stem as TBS
 import sr_object_detection_tpu_torch.kernels.nms as TN
 import sr_object_detection_tpu_torch.kernels.phase_stem as TPS
-from sr_object_detection_tpu_torch.infer.engine import LatencyEngine
+import sr_object_detection_tpu_torch.kernels.phase_train as TPT
+from sr_object_detection_tpu_torch.graph import spec as TS
+from sr_object_detection_tpu_torch.infer.engine import (LatencyEngine,
+                                                        ThroughputEngine)
 from sr_object_detection_tpu_torch.infer.quant import (
     QuantizedThroughputEngine)
 from sr_object_detection_tpu_torch.io.weights import init_params
 from sr_object_detection_tpu_torch.models.zoo import tiny_yolo_voc
 from sr_object_detection_tpu_torch.ops import boxes as TB
 from sr_object_detection_tpu_torch.ops import conv as TC
-from torch_parity import (assert_bf16_close, nms_case, phase_pair_case,
-                          random_bn)
+from sr_object_detection_tpu_torch.ops import pooling as TP
+from torch_parity import (assert_bf16_close, assert_stem_link_close,
+                          check_pair_gradient, check_train_kernels,
+                          nms_case, phase_pair_case, random_bn, train_case)
 
 # tiny-yolo-voc-416's four stem pairs: (H, Cin, Cout)
 STEM_PAIRS = [(416, 3, 16), (208, 16, 32), (104, 32, 64), (52, 64, 128)]
@@ -207,3 +212,108 @@ def test_quantized_engine_phase_stem_on_cuda(cuda):
     assert TPS.launches == before + 8
     assert torch.equal(trunk, plain.qnet.forward(x, stop=13))
     assert torch.equal(out, plain(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(3, 16), (16, 32), (3, 32), (16, 16)])
+def test_train_kernels_match_plain(cuda, cin, cout):
+    """fwdstats, apply and bwdg at B=8, 32x32 against their plain
+    versions, at chip_smoke's phase-12 tolerances; the cases hold a
+    channel with a negative BN scale and an all-equal channel."""
+    case = train_case(cin * cout, 8, 32, cin, cout, cuda)
+    before = dict(TPT.launches)
+    check_train_kernels(TPT, case)
+    torch.cuda.synchronize()
+    assert {k: TPT.launches[k] - before[k] for k in before} == {
+        "fwdstats": 1, "apply": 1, "bwdg": 1}
+
+
+@pytest.mark.cuda
+def test_train_kernels_uneven_tiles(cuda):
+    """H/2 and W/2 that are no multiple of the 8x8 pooled tile, Cin > 16
+    for fwdstats (a second input-channel stage)."""
+    case = train_case(7, 3, 22, 3, 16, cuda)
+    check_train_kernels(TPT, case)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.rand((2, 12, 12, 40), device=cuda, generator=g).to(
+        torch.bfloat16)
+    w = (torch.randn((3, 3, 40, 48), device=cuda, generator=g) * 0.2).to(
+        torch.bfloat16)
+    s = torch.linspace(-1, 1, 48, device=cuda)
+    got = TPT.fwdstats(x, w, torch.zeros(48, device=cuda), s)
+    want = TPT.fwdstats_plain(x, w, torch.zeros(48, device=cuda), s)
+    assert_bf16_close(got[0].float().cpu().numpy(),
+                      want[0].float().cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_phase_train_block_gradient_on_cuda(cuda):
+    """The fused pair's gradient on the card against a float64
+    evaluation of the unfused bf16 chain's formulas at 1e-3, the scale
+    and bias gradients against the chain's (torch_parity.
+    check_pair_gradient)."""
+    case = train_case(5, 8, 32, 3, 16, cuda, flat=False)
+    spec = TS.ConvSpec(index=0, h=32, w=32, c=3, inputs=32 * 32 * 3,
+                       out_h=32, out_w=32, out_c=16, outputs=32 * 32 * 16,
+                       size=3, stride=1, pad=1, filters=16,
+                       activation="leaky", batch_normalize=True)
+    before = dict(TPT.launches)
+    check_pair_gradient(TPT, TC, TP, spec, case)
+    assert TPT.launches["bwdg"] == before["bwdg"] + 1
+
+
+@pytest.mark.cuda
+def test_train_wrappers_reject_bad_inputs(cuda):
+    case = train_case(0, 2, 8, 3, 16, cuda)
+    with pytest.raises(ValueError):
+        TPT.fwdstats(case["x"].float(), case["w"], case["shift"],
+                     case["scales"])
+    with pytest.raises(ValueError):
+        TPT.fwdstats(case["x"][:, :7], case["w"], case["shift"],
+                     case["scales"])
+    z, am, st = TPT.fwdstats(case["x"], case["w"], case["shift"],
+                             case["scales"])
+    with pytest.raises(ValueError):
+        TPT.apply(z.float(), *([case["scales"]] * 4))
+    with pytest.raises(ValueError):
+        TPT.bwdg(torch.zeros((2, 8, 8, 17), device=cuda,
+                             dtype=torch.bfloat16), case["dp"], z, am,
+                 *([case["scales"]] * 4))
+
+
+@pytest.mark.cuda
+def test_throughput_engine_phase_stem_on_cuda(cuda):
+    """ThroughputEngine(phase_stem=True) on the card: four pairs through
+    fwdstats + apply, each link within one bf16 ulp of the plain engine's
+    layers on the same input (see assert_stem_link_close for where the
+    two conv sums round apart)."""
+    spec = tiny_yolo_voc(width=64, height=64)
+    params = random_bn(init_params(spec, seed=0), 1)
+    eng = ThroughputEngine(spec, params, device=cuda, batch=8,
+                           phase_stem=True)
+    plain = ThroughputEngine(spec, params, device=cuda, batch=8)
+    assert eng.phase_stem
+    x = torch.from_numpy(np.random.default_rng(2).uniform(
+        0, 1, (8, 64, 64, 3)).astype(np.float32)).to(cuda, torch.bfloat16)
+    before = dict(TPT.launches)
+    out = eng(x)
+    torch.cuda.synchronize()
+    assert TPT.launches["fwdstats"] == before["fwdstats"] + 4
+    assert TPT.launches["apply"] == before["apply"] + 4
+    assert out.shape == plain(x).shape
+    v = x
+    for ci in (0, 2, 4, 6):
+        p = eng.params[ci]
+        cout = p["weights"].shape[0]
+        zero = torch.zeros(cout, device=cuda)
+        one = torch.ones(cout, device=cuda)
+        z, _, _ = TPT.fwdstats(v, p["weights"].permute(2, 3, 1, 0)
+                               .contiguous(), zero, one)
+        got = TPT.apply(z, zero, one, one, p["biases"].float())
+        with torch.no_grad():
+            ref = plain._net.layers[ci + 1](plain._net.layers[ci](
+                v.permute(0, 3, 1, 2))).permute(0, 2, 3, 1)
+        assert_stem_link_close(got.float().cpu().numpy(),
+                               ref.float().cpu().numpy(),
+                               z.float().cpu().numpy())
+        v = got

@@ -104,3 +104,304 @@ def phase_pair_case(seed, batch, h, cin, cout, x_dtype=np.int8):
     dq = (rng.uniform(0.5, 1.5, cout) * 1.5 / acc_std).astype(np.float32)
     bias = rng.uniform(-1, 1, cout).astype(np.float32)
     return x, w, dq, bias, np.float32(20.0), inv_in
+
+
+def train_cfg_text(text, *, size=None, batch=None, subdivisions=None,
+                   max_batches=None, random=None):
+    """A darknet cfg's text with [net] width/height, batch, subdivisions
+    and max_batches, and the region's random flag, replaced."""
+    import re
+
+    def put(t, key, val):
+        return re.sub(rf"(?m)^{key}\s*=.*$", f"{key}={val}", t)
+    if size is not None:
+        text = put(put(text, "width", size), "height", size)
+    for key, val in (("batch", batch), ("subdivisions", subdivisions),
+                     ("max_batches", max_batches), ("random", random)):
+        if val is not None:
+            text = put(text, key, val)
+    return text
+
+
+def write_ppm_dataset(root, n, *, w=500, h=375, classes=20, seed=0):
+    """``n`` random binary PPM images under root/images with darknet
+    label files under root/labels (1-3 boxes each), and root/train.list.
+    PPM needs no PIL to decode. Returns the list's path."""
+    import pathlib
+    root = pathlib.Path(root)
+    (root / "images").mkdir(parents=True, exist_ok=True)
+    (root / "labels").mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i in range(n):
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        p = root / "images" / f"{i:05d}.ppm"
+        p.write_bytes(f"P6\n{w} {h}\n255\n".encode() + img.tobytes())
+        rows = [f"{rng.integers(0, classes)} {rng.uniform(.2, .8):.6f} "
+                f"{rng.uniform(.2, .8):.6f} {rng.uniform(.1, .4):.6f} "
+                f"{rng.uniform(.1, .4):.6f}"
+                for _ in range(rng.integers(1, 4))]
+        (root / "labels" / f"{i:05d}.txt").write_text("\n".join(rows) + "\n")
+        paths.append(str(p))
+    lst = root / "train.list"
+    lst.write_text("\n".join(paths) + "\n")
+    return str(lst)
+
+
+def _bf16_ulp(v):
+    """One bf16 unit in the last place at |v| (float32 array)."""
+    a = np.maximum(np.abs(v), np.finfo(np.float32).tiny)
+    return np.exp2(np.floor(np.log2(a)) - 7)
+
+
+def train_case(seed, batch, h, cin, cout, device, *, flat=True):
+    """Random inputs of the training pair's kernels (kernels/
+    phase_train.py) as torch tensors on ``device``: x (B,h,h,Cin) bf16,
+    w_hwio (3,3,Cin,Cout) bf16, shift/scales/biases (Cout,) f32 with one
+    negative scale (channel 1) and, with ``flat``, one all-zero weight
+    channel (the last: every tap equal, variance 0), the pooled
+    cotangent dp bf16."""
+    import torch
+    rng = np.random.default_rng(seed)
+    w = rng.normal(0, 0.3, (3, 3, cin, cout)).astype(np.float32)
+    if flat:
+        w[..., -1] = 0
+    scales = rng.uniform(0.6, 1.4, cout).astype(np.float32)
+    scales[1] = -0.8
+    arrays = dict(
+        x=rng.uniform(0, 1, (batch, h, h, cin)).astype(np.float32), w=w,
+        shift=rng.normal(0, 0.1, cout).astype(np.float32), scales=scales,
+        biases=rng.normal(0, 0.2, cout).astype(np.float32),
+        dp=rng.normal(0, 1, (batch, h // 2, h // 2, cout)).astype(
+            np.float32))
+    t = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+    for k in ("x", "w", "dp"):
+        t[k] = t[k].to(torch.bfloat16)
+    return t
+
+
+def check_train_kernels(PT, case):
+    """The three training kernels against their plain versions on the
+    same inputs: fwdstats' Z within one bf16 ulp, its argmax equal
+    wherever the two extreme taps are more than an ulp apart, its sums at
+    1e-4 of their largest magnitude; apply equal bit for bit; every bwdg
+    reduction at 1e-3 of its largest magnitude. Returns the max absolute
+    error of each kernel."""
+    import torch
+    import torch.nn.functional as F
+    x, w, dp = case["x"], case["w"], case["dp"]
+    shift, scales, biases = case["shift"], case["scales"], case["biases"]
+    errs = {}
+    z, am, st = PT.fwdstats(x, w, shift, scales)
+    zp, amp, stp = PT.fwdstats_plain(x, w, shift, scales)
+    zf, zpf = z.float().cpu().numpy(), zp.float().cpu().numpy()
+    assert_bf16_close(zf, zpf)
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                 padding=1).float()
+    b, c, h, wd = y.shape
+    taps = y.reshape(b, c, h // 2, 2, wd // 2, 2).permute(
+        0, 2, 4, 1, 3, 5).reshape(b, h // 2, wd // 2, c, 4)
+    taps = torch.where(scales.reshape(-1, 1) > 0, taps, -taps)
+    top2 = taps.topk(2, dim=-1).values.cpu().numpy()
+    del taps, y
+    sep = (top2[..., 0] - top2[..., 1]) > _bf16_ulp(top2[..., 0])
+    same = (am == amp).cpu().numpy()
+    assert same[sep].all(), f"{(~same[sep]).sum()} argmax differ"
+    rel = ((st - stp).abs().max(dim=1).values
+           / stp.abs().max(dim=1).values.clamp_min(1e-30)).max().item()
+    assert rel <= 1e-4, rel
+    errs["fwdstats"] = float(np.abs(zf - zpf).max())
+    n = x.shape[0] * x.shape[1] * x.shape[2]
+    mean, _, inv = PT._batch_stats(stp, shift, n)
+    a = PT.apply(zp, mean, inv, scales, biases)
+    ap = PT.apply_plain(zp, mean, inv, scales, biases)
+    assert torch.equal(a, ap)
+    errs["apply"] = 0.0
+    got = PT.bwdg(x, dp, zp, amp, mean, inv, scales, biases)
+    want = PT.bwdg_plain(x, dp, zp, amp, mean, inv, scales, biases)
+    errs["bwdg"] = 0.0
+    for name, g, wv in zip(("S", "A", "D", "G"), got, want):
+        err = (g - wv).abs().max().item()
+        assert err <= 1e-3 * wv.abs().max().item(), (name, err)
+        errs["bwdg"] = max(errs["bwdg"], err)
+    return errs
+
+
+def same_route(PT, C, spec, x, p):
+    """Where the fused pair and the unfused chain route a pooled pixel's
+    gradient to the same tap: (B, H/2, W/2, Cout) bool. The pair takes
+    the first tap attaining the raw bf16 conv extreme in the direction
+    of the channel's BN slope (the JAX kernel's rule), the chain the
+    first maximum of its bf16 output after BN, bias and leaky, whose
+    roundings can tie taps that the raw values keep apart (ROADMAP queue
+    3, item 4). x NHWC; p the layer's params (OIHW weights)."""
+    import torch
+    with torch.no_grad():
+        w_hwio = p["weights"].permute(2, 3, 1, 0).to(torch.bfloat16)
+        am = PT.fwdstats(x.to(torch.bfloat16), w_hwio.contiguous(),
+                         p["rolling_mean"], p["scales"])[1]
+        y, _ = C.conv_block_train(x.permute(0, 3, 1, 2), p, spec,
+                                  compute_dtype=torch.bfloat16)
+        b, c, h, w = y.shape
+        taps = y.reshape(b, c, h // 2, 2, w // 2, 2).permute(
+            0, 2, 4, 1, 3, 5).reshape(b, h // 2, w // 2, c, 4)
+        first = (taps == taps.amax(-1, keepdim=True)).to(
+            torch.uint8).argmax(-1)
+    return first == am.long()
+
+
+def check_pair_gradient(PT, C, P, spec, case, tol=1e-3):
+    """phase_train_block's gradient against the unfused chain's
+    (conv_block_train + maxpool) on the same inputs. The cotangent is
+    zeroed where the two tie rules pick different taps
+    (:func:`same_route`; a misrouted window moves a whole x(x)dz term,
+    which on a random cotangent is a few per cent of the weight gradient
+    from well under 1% of the windows).
+
+    The weight gradient is held at ``tol`` of its largest magnitude to a
+    float64 evaluation of the chain's own formulas (its bf16 conv output,
+    batch statistics and BN-output cotangent, darknet's BN backward, the
+    conv's weight gradient): the bf16 chain rounds the conv's input
+    cotangent and its weight gradient to bf16, and over a large batch
+    those roundings add up to several per cent (its distance is
+    returned). The scale and bias gradients, float32 sums on both sides,
+    are held to the chain's at ``tol``. Channels of zero variance are
+    ill-conditioned here (1/(sqrt(var) + eps) of a var that is a
+    cancellation of float32 sums): give a case without one.
+
+    Returns {"fused": the pair's largest relative difference, "chain":
+    the bf16 chain's weight-gradient distance from the float64
+    evaluation, "masked": the share of windows zeroed}."""
+    import torch
+    import torch.nn.functional as F
+    from sr_object_detection_tpu_torch.ops.activations import leaky_bf16
+
+    def params():
+        p = {"weights": case["w"].float().permute(3, 2, 0, 1).contiguous(),
+             "scales": case["scales"].clone(),
+             "biases": case["biases"].clone(),
+             "rolling_mean": case["shift"].clone(),
+             "rolling_variance": torch.ones_like(case["shift"])}
+        for k in ("weights", "scales", "biases"):
+            p[k].requires_grad_(True)
+        return p
+
+    x = case["x"]
+    keep = same_route(PT, C, spec, x, params())
+    dp = case["dp"].float() * keep
+
+    def grads(fn):
+        p = params()
+        (fn(x, p).float() * dp).sum().backward()
+        return {k: p[k].grad for k in ("weights", "scales", "biases")}
+
+    def chain(v, p):
+        y, _ = C.conv_block_train(v.permute(0, 3, 1, 2), p, spec,
+                                  compute_dtype=torch.bfloat16)
+        return P.maxpool(y, size=2, stride=2, pad=0).permute(0, 2, 3, 1)
+
+    gf = grads(lambda v, p: PT.phase_train_block(v, p, spec)[0])
+    gc = grads(chain)
+    out = {"masked": 1.0 - keep.float().mean().item(), "fused": 0.0}
+    for k in ("scales", "biases"):
+        rel = ((gf[k] - gc[k]).abs().max()
+               / gc[k].abs().max().clamp_min(1e-3)).item()
+        assert rel <= tol, (k, rel)
+        out["fused"] = max(out["fused"], rel)
+    del gc["scales"], gc["biases"]
+
+    # the chain's formulas in float64 on its own intermediates
+    p = params()
+    xb = x.permute(0, 3, 1, 2)
+    y = F.conv2d(xb, p["weights"].to(torch.bfloat16), padding=1)
+    ybn, mean, var = C._BNCoreFast.apply(y, p["scales"], p["rolling_mean"])
+    ybn.retain_grad()
+    z = P.maxpool(leaky_bf16(C.bias_add(ybn, p["biases"])), size=2,
+                  stride=2, pad=0)
+    (z.permute(0, 2, 3, 1).float() * dp).sum().backward()
+    with torch.no_grad():
+        d = ybn.grad.double() * p["scales"].double().reshape(1, -1, 1, 1)
+        del ybn, z
+        n = d.shape[0] * d.shape[2] * d.shape[3]
+        var, ch = var.double(), (lambda t: t.reshape(1, -1, 1, 1))
+        xm = y.double() - ch(mean.double())
+        del y
+        mean_delta = d.sum(dim=(0, 2, 3)) * -(var + 1e-5).rsqrt()
+        var_delta = ((d * xm).sum(dim=(0, 2, 3)) * -0.5
+                     * (var + 1e-5) ** -1.5)
+        d = (d / ch(var.sqrt() + 1e-5) + ch(var_delta) * 2 * xm / n
+             + ch(mean_delta) / n)
+        del xm
+        ref = torch.nn.grad.conv2d_weight(xb.double(), p["weights"].shape,
+                                          d, padding=1)
+        del d
+        scale = ref.abs().max()
+        rel = ((gf["weights"].double() - ref).abs().max() / scale).item()
+        assert rel <= tol, ("weights", rel)
+        out["fused"] = max(out["fused"], rel)
+        out["chain"] = ((gc["weights"].double() - ref).abs().max()
+                        / scale).item()
+    return out
+
+
+# C-oracle training goldens and the weight tolerance each is held to
+# (tests/test_train_parity.py:72-93); costs at 1e-3
+TRAIN_GOLDENS = {"train_region_nobn": 1e-4, "train_region_bn": 2e-4,
+                 "train_region_classfix2": 1e-4,
+                 "train_region_bn_subdiv": 2e-4}
+
+
+def check_train_golden(name, device):
+    """The port's float32 Trainer against a C-oracle training golden on
+    ``device``: the weights after N SGD steps at the golden's tolerance,
+    the cost trajectory at 1e-3. Returns the max relative cost error."""
+    import pathlib
+    import tempfile
+    from sr_object_detection_tpu_torch.config import parse_cfg_text
+    from sr_object_detection_tpu_torch.graph import spec as S
+    from sr_object_detection_tpu_torch.io.convert import params_to_numpy
+    from sr_object_detection_tpu_torch.io.weights import (init_params,
+                                                          load_weights)
+    from sr_object_detection_tpu_torch.train.trainer import Trainer
+    wtol = TRAIN_GOLDENS[name]
+    g = np.load(pathlib.Path(__file__).parent / "golden" / f"{name}.npz")
+    net = S.build_network_spec(parse_cfg_text(bytes(g["cfg"]).decode()))
+    steps = int(g["steps"])
+    x = np.transpose(g["x_chw"], (0, 2, 3, 1)).copy()
+    truth = g["truth"].astype(np.float32)
+    trainer = Trainer(net, params=init_params(net, seed=int(g["seed"])),
+                      device=device)
+    costs = [float(trainer.step(x, truth)["loss"]) for _ in range(steps)]
+    with tempfile.NamedTemporaryFile(suffix=".weights") as f:
+        f.write(bytes(g["weights_after"]))
+        f.flush()
+        ref, seen = load_weights(net, f.name)
+    assert seen == int(trainer.state.seen) == \
+        steps * net.net.batch * net.net.subdivisions
+    mine = params_to_numpy(net, trainer.state.params)
+    for i in range(len(net.layers)):
+        for k, want in ref[i].items():
+            np.testing.assert_allclose(mine[i][k], want, rtol=wtol,
+                                       atol=wtol,
+                                       err_msg=f"{name}: layer {i} {k}")
+    want = g["costs"].reshape(steps, -1).sum(1)
+    np.testing.assert_allclose(costs, want, rtol=1e-3)
+    return float(np.max(np.abs(np.asarray(costs) - want) / np.abs(want)))
+
+
+def assert_stem_link_close(got, ref, z):
+    """One link of the bf16 phase stem against the plain engine's conv +
+    bias + leaky + pool: within one bf16 ulp, except where the two conv
+    sums (the kernel's and cuDNN's, in other orders) round to bf16 values
+    one ulp of the conv output apart. Adding the bias and rounding once
+    more then leaves the results at most one ulp of the pooled raw conv
+    value z plus one ulp of the result apart, which where the bias
+    cancels part of z is several ulps of the result: such an element is
+    held to that bound. Arrays are float32 NHWC."""
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    bound = (_bf16_ulp(np.abs(np.asarray(z, np.float32)))
+             + _bf16_ulp(np.maximum(np.abs(got), np.abs(ref))))
+    bad = (bf16_ulps(got, ref) > 1) & (np.abs(got - ref) > bound)
+    assert not bad.any(), (f"{bad.sum()} of {bad.size} elements beyond one "
+                           f"bf16 ulp: got {got[bad][:8]}, want {ref[bad][:8]}")
+    return float(np.abs(got - ref).max())
