@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's main paths — tiny-yolo-voc-416 detection at batch 1
-and batch-128 serving in bf16 and int8 — through the entry points a user
-calls, builds the hand-written CUDA kernels from
+Drives the port's main paths — tiny-yolo-voc-416 detection at batch 1,
+batch-128 serving in bf16 and int8, and bf16 training at batch 128 with
+the fused pair, the two-pair chain and the fused stem — through the
+entry points a user calls, builds the hand-written CUDA kernels from
 ``sr_object_detection_tpu_torch/csrc`` and holds each against its plain
 PyTorch version. Phases, in order; any failure ends the run with a
 non-zero status and no result line:
@@ -78,10 +79,37 @@ non-zero status and no result line:
      bound; Trainer.step images/s, TFLOP/s and MFU (3 x analytic_flops
      per image against the bf16 dense peak) for bf16 + phase_train,
      bf16 and float32;
- 16. torch.profiler over one bf16 step with the pair and one without.
+ 16. torch.profiler over one bf16 step with the pair and one without;
+ 17. the opt-in training paths' kernels against their plain versions at
+     the main path's shapes: kernel 4's modes red and dy (+ its weight
+     gradient) and the dgrad kernel at the chain's second pair (208x208,
+     16 -> 32, B=128; inputs on a coarse grid where the conv's sums are
+     exact, so both recompute the same conv): red's sums at 1e-4, dy
+     bit-equal, dw at 1e-3, dgrad within one bf16 ulp; F2, B1 and B2
+     (csrc/fused_stem.cu) at the five fusable pairs' conv outputs
+     (416x16 ... 26x256, B=128): F2 and B2 bit-equal, B1's sums at 1e-4;
+ 18. the chain's second pair's gradient (dw, dscales, dbiases, dx) at
+     416 B=128 against a float64 evaluation of the unfused chain's
+     formulas (dy rounded to bf16 where the pair rounds it): 3e-3 (the
+     two round dy from float32 and float64, an ulp apart at a boundary),
+     dx at 1e-2; the fused stem op against the unfused chain on the same conv
+     output at pair 2's shape: forward and statistics equal, scale and
+     bias gradients at 1e-3, dy within one bf16 ulp;
+ 19. Trainer bf16 at 416 B=128 with phase_train="chain", with
+     phase_train=True + fused_stem=True and with fused_stem=True, three
+     steps each, counts reset just before and read just after each: per
+     step fwdstats 2, apply 2, red 1, dy 1, dgrad 1, bwdg 1 / the pair's
+     three + F2, B1, B2 4 each / F2, B1, B2 5 each; losses finite and
+     falling, the first within 0.03*|loss| + 0.05 of the step without
+     kernels;
+ 20. times, in turns: the six new kernels beside their plain versions
+     and bounds, F.conv_transpose2d (dgrad's function in one library
+     call), the bf16 serving stem (mode fwd) at its four pair shapes;
+     Trainer.step images/s of the three paths against bf16 + phase_train;
+ 21. torch.profiler over one step of each of the three paths.
 
 The last lines are the card (nvidia-smi), one JSON object describing the
-kernels (time, plain time, bound and launches of each), and
+kernels (time, plain time, bound, launches and library call of each), and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -103,9 +131,11 @@ GOLDEN = ROOT / "tests" / "golden"
 WORK = ROOT / "build" / "chip_smoke"
 sys.path.insert(0, str(ROOT / "tests"))
 from torch_parity import (  # noqa: E402  (JAX-free helpers)
-    TRAIN_GOLDENS, assert_bf16_close, assert_stem_link_close,
+    TRAIN_GOLDENS, assert_bf16_close, assert_stem_link_close, chain_case,
+    check_chain_kernels, check_fused_op, check_fused_stem_kernels,
     check_pair_gradient, check_train_golden, check_train_kernels, random_bn,
-    phase_pair_case, train_case, train_cfg_text, write_ppm_dataset)
+    phase_pair_case, stem_case, train_case, train_cfg_text,
+    write_ppm_dataset)
 
 NET = 416          # tiny-yolo-voc's published width and height
 BATCH = 128        # the batch serving engines' batch
@@ -123,7 +153,13 @@ def bound(n_bytes, n_ops, kind):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+T0 = time.perf_counter()
+
+
 def log(msg):
+    """Print a line; a phase's line ends with the run's elapsed seconds."""
+    if msg.startswith("phase "):
+        msg += f" ({time.perf_counter() - T0:.1f} s)"
     print(msg, flush=True)
 
 
@@ -254,6 +290,7 @@ def main() -> int:
         init_params, save_weights)
     from sr_object_detection_tpu_torch.kernels import _build
     from sr_object_detection_tpu_torch.kernels import b1_stem as BS
+    from sr_object_detection_tpu_torch.kernels import fused_stem as FS
     from sr_object_detection_tpu_torch.kernels import nms as NMS
     from sr_object_detection_tpu_torch.kernels import phase_stem as PS
     from sr_object_detection_tpu_torch.kernels import phase_train as PT
@@ -262,6 +299,21 @@ def main() -> int:
 
     disable_tf32()
     dev = torch.device("cuda")
+
+    def reset_counts():
+        """Every kernel's launch count to 0."""
+        NMS.launches = BS.launches = PS.launches = 0
+        PT.reset_launches()
+        FS.reset_launches()
+
+    def counts(**expected):
+        """(every kernel's launch count, the counts ``expected`` names with
+        0 for the rest), under the names of the kernels JSON line."""
+        got = {"nms_per_class": NMS.launches, "stem_pair": BS.launches,
+               "phase_stem_pair": PS.launches,
+               **{f"phase_train_{k}": v for k, v in PT.launches.items()},
+               **{f"fused_stem_{k}": v for k, v in FS.launches.items()}}
+        return got, {k: expected.get(k, 0) for k in got}
     t0 = time.perf_counter()
     _build.load()
     log(f"phase 0 ok: kernels built and loaded in "
@@ -362,10 +414,7 @@ def main() -> int:
     plain = LatencyEngine(spec, params_np, device=dev)
     assert fused.fused_stem and not plain.fused_stem
 
-    NMS.launches = 0
-    BS.launches = 0
-    PS.launches = 0
-    PT.reset_launches()
+    reset_counts()
     n_dets = 0
     for f in frames:
         got, want = (
@@ -400,15 +449,12 @@ def main() -> int:
         assert max(min(p for _, p, _ in c) for c in (cf, cp)) < thr - margin
         n_cands += match_dets(cf, cp, thr, margin)
     torch.cuda.synchronize()
-    launches = {"nms_per_class": NMS.launches, "stem_pair": BS.launches,
-                "phase_stem_pair": PS.launches}
+    launches, want = counts(nms_per_class=4, stem_pair=12)
     log(f"phase 3 ok: {n_dets} detections matched on CUDA and CPU; golden "
         f"gates met on CUDA (max |prob err| {golden_err}); {n_cands} "
         f"candidates matched between the fused and plain engines; "
         f"launches {launches} [{gpu}]")
-    assert launches == {"nms_per_class": 4, "stem_pair": 12,
-                        "phase_stem_pair": 0}, launches
-    assert not any(PT.launches.values()), PT.launches
+    assert launches == want, launches
 
     # ---------------------------------------------------------- phase 4
     req = b"".join(struct.pack("<3if", f.shape[1], f.shape[0], f.shape[2],
@@ -444,9 +490,10 @@ def main() -> int:
     # every comparison in turns (plain, kernel, kernel, plain): readings
     # drift within a run and differ between machines
     def abba(name, kernel_fn, plain_fn, iters=50, plain_iters=50):
-        p1 = cuda_ms(plain_fn, plain_iters)
+        warm = min(5, plain_iters)      # slow plain versions: few warm-ups
+        p1 = cuda_ms(plain_fn, plain_iters, warm)
         k1, k2 = cuda_ms(kernel_fn, iters), cuda_ms(kernel_fn, iters)
-        p2 = cuda_ms(plain_fn, plain_iters)
+        p2 = cuda_ms(plain_fn, plain_iters, warm)
         log(f"time {name}: kernel {(k1 + k2) / 2} ms ({k1}, {k2}), plain "
             f"{(p1 + p2) / 2} ms ({p1}, {p2}) [{gpu}]")
         return (k1 + k2) / 2, (p1 + p2) / 2
@@ -568,24 +615,15 @@ def main() -> int:
     r = qspec.layers[-1]
     n_out = r.h * r.w * r.n * (r.coords + r.classes + 1)
     x_b128 = frames_u8.float() / 255.0
-    NMS.launches = 0
-    BS.launches = 0
-    PS.launches = 0
-    PT.reset_launches()
+    reset_counts()
     out_bf = bf(x_b128)
     out_bfs = bf_stem(x_b128)
     out_s = q_stem(frames_u8)
     out_p = q_plain(frames_u8)
     torch.cuda.synchronize()
-    launches_b128 = {"nms_per_class": NMS.launches,
-                     "stem_pair": BS.launches,
-                     "phase_stem_pair": PS.launches,
-                     **{f"phase_train_{k}": v for k, v in PT.launches.items()}}
-    assert launches_b128 == {"nms_per_class": 0, "stem_pair": 0,
-                             "phase_stem_pair": 4,
-                             "phase_train_fwdstats": 4,
-                             "phase_train_apply": 4,
-                             "phase_train_bwdg": 0}, launches_b128
+    launches_b128, want = counts(phase_stem_pair=4, phase_train_fwdstats=4,
+                                 phase_train_apply=4)
+    assert launches_b128 == want, launches_b128
     # the bf16 phase stem link by link against the plain engine's conv +
     # pool layers on the same input
     v = x_b128.to(torch.bfloat16)
@@ -806,23 +844,13 @@ def main() -> int:
         "bf16": Trainer(tspec, tparams, device=dev,
                         compute_dtype=torch.bfloat16),
         "f32": Trainer(tspec, tparams, device=dev)}
-    NMS.launches = 0
-    BS.launches = 0
-    PS.launches = 0
-    PT.reset_launches()
+    reset_counts()
     tr = trainers["bf16 + phase_train"]
     losses = [float(tr.step(xt, tt)["loss"]) for _ in range(3)]
     torch.cuda.synchronize()
-    launches_train = {"nms_per_class": NMS.launches,
-                      "stem_pair": BS.launches,
-                      "phase_stem_pair": PS.launches,
-                      **{f"phase_train_{k}": v
-                         for k, v in PT.launches.items()}}
-    assert launches_train == {"nms_per_class": 0, "stem_pair": 0,
-                              "phase_stem_pair": 0,
-                              "phase_train_fwdstats": 3,
-                              "phase_train_apply": 3,
-                              "phase_train_bwdg": 3}, launches_train
+    launches_train, want = counts(phase_train_fwdstats=3,
+                                  phase_train_apply=3, phase_train_bwdg=3)
+    assert launches_train == want, launches_train
     assert all(np.isfinite(losses)) and losses[2] < losses[0], losses
     loss_plain = float(trainers["bf16"].step(xt, tt)["loss"])
     assert abs(losses[0] - loss_plain) <= 0.03 * abs(loss_plain) + 0.05, (
@@ -943,6 +971,206 @@ def main() -> int:
     profile(f"Trainer.step bf16 (no pair) {NET} B={BATCH}, per step",
             lambda: trainers["bf16"].step(xt, tt), 2, gpu, top=8)
 
+    # --------------------------------------------------------- phase 17
+    # the opt-in training paths' kernels against their plain versions at
+    # the main path's shapes: red, dy (+ dw) and dgrad at the chain's
+    # second pair (416 -> 208x208, 16 -> 32, B=128), F2/B1/B2 at the five
+    # fusable pairs' conv outputs (channels-last, as the conv writes them)
+    import torch.nn.functional as F
+    h1 = NET // 2
+    ccase = chain_case(17, BATCH, h1, 16, 32, dev)
+    chain_errs = check_chain_kernels(PT, ccase)
+    stem_shapes = [(NET >> k, 16 << k) for k in range(5)]      # (H, C)
+    stem_errs = {"f2": 0.0, "b1": 0.0, "b2": 0.0}
+    for k, (h, c) in enumerate(stem_shapes):
+        e = check_fused_stem_kernels(FS, stem_case(170 + k, BATCH, h, c,
+                                                   dev))
+        stem_errs = {n: max(stem_errs[n], e[n]) for n in e}
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    log(f"phase 17 ok: red, dy and dgrad == plain at {NET} B={BATCH} "
+        f"{h1}x{h1} 16->32 (max |err| {chain_errs}); F2, B1, B2 == plain "
+        f"at (H, C) {stem_shapes} (max |err| {stem_errs}) [{gpu}]")
+
+    # --------------------------------------------------------- phase 18
+    # the chain's second pair's gradient (dw, dscales, dbiases, dx) against
+    # a float64 evaluation of the unfused chain's formulas; the fused op
+    # against the unfused chain on the same conv output, at pair 2's shape
+    # dw at 3e-3: the pair rounds its float32 dy to bf16, the evaluation
+    # its float64 one; where the two sit on either side of a rounding
+    # boundary they part by an ulp, which over 5.5 M positions moves dw
+    # by about 1e-3 of its largest magnitude (1.25e-3 in the first run)
+    l2 = tspec.layers[2]
+    grad2 = check_pair_gradient(
+        PT, C, P, l2, train_case(18, BATCH, h1, 16, 32, dev, flat=False),
+        tol=3e-3, dx=1e-2)
+    torch.cuda.empty_cache()
+    y_fmt = F.conv2d(torch.zeros((1, h1, h1, 16), device=dev,
+                                 dtype=torch.bfloat16).permute(0, 3, 1, 2),
+                     torch.zeros((32, 16, 3, 3), device=dev,
+                                 dtype=torch.bfloat16), padding=1)
+    y_cl = y_fmt.is_contiguous(memory_format=torch.channels_last)
+    fused_rel, fused_dy = check_fused_op(FS, C, P, stem_case(
+        18, BATCH, h1, 32, dev, channels_last=y_cl))
+    torch.cuda.synchronize()
+    log(f"phase 18 ok: the chain's second pair at {NET} B={BATCH}: dw, "
+        f"dscales, dbiases within {grad2['fused']} of a float64 evaluation "
+        f"of the unfused chain's formulas (dy rounded to bf16 as the pair "
+        f"rounds it; gate 3e-3), dx within {grad2['dx']} (gate 1e-2), the "
+        f"unfused bf16 chain's weight gradient {grad2['chain']} from it, "
+        f"cotangent zeroed on {grad2['masked']} of the windows; the fused "
+        f"stem op at {h1}x{h1}x32 equals the unfused chain forward, scale "
+        f"and bias gradients within {fused_rel}, dy max |diff| {fused_dy} "
+        f"(one bf16 ulp); the conv writes "
+        f"{'channels-last' if y_cl else 'NCHW'} [{gpu}]")
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------- phase 19
+    # the opt-in paths at full width: Trainer bf16 at 416 B=128, three
+    # steps each, every kernel's launches counted from 0
+    cfgs = {"bf16 + chain": dict(phase_train="chain"),
+            "bf16 + phase_train + fused_stem": dict(phase_train=True,
+                                                    fused_stem=True),
+            "bf16 + fused_stem": dict(fused_stem=True)}
+    per_step = {
+        "bf16 + chain": dict(phase_train_fwdstats=2, phase_train_apply=2,
+                             phase_train_red=1, phase_train_dy=1,
+                             phase_train_dgrad=1, phase_train_bwdg=1),
+        "bf16 + phase_train + fused_stem": dict(
+            phase_train_fwdstats=1, phase_train_apply=1, phase_train_bwdg=1,
+            fused_stem_f2=4, fused_stem_b1=4, fused_stem_b2=4),
+        "bf16 + fused_stem": dict(fused_stem_f2=5, fused_stem_b1=5,
+                                  fused_stem_b2=5)}
+    launches_opt = {}
+    for name, kw in cfgs.items():
+        trainers[name] = Trainer(tspec, tparams, device=dev,
+                                 compute_dtype=torch.bfloat16, **kw)
+        reset_counts()
+        ls = [float(trainers[name].step(xt, tt)["loss"]) for _ in range(3)]
+        torch.cuda.synchronize()
+        got, want = counts(**{k: 3 * v for k, v in per_step[name].items()})
+        assert got == want, (name, got)
+        assert all(np.isfinite(ls)) and ls[2] < ls[0], (name, ls)
+        assert abs(ls[0] - loss_plain) <= 0.03 * abs(loss_plain) + 0.05, (
+            name, ls[0], loss_plain)
+        launches_opt[name] = got
+        log(f"  Trainer {name} {NET} B={BATCH}, 3 steps: losses {ls}; "
+            f"launches {dict((k, v) for k, v in got.items() if v)}")
+    log(f"phase 19 ok: the chain, the pair + fused stem and the fused stem "
+        f"train at {NET} B={BATCH} with the launch counts per step "
+        f"{per_step}; first losses within 0.03*|loss| + 0.05 of the step "
+        f"without kernels ({loss_plain}) [{gpu}]")
+
+    # --------------------------------------------------------- phase 20
+    # times, in turns: the six kernels beside their bounds, dgrad's
+    # library call, the bf16 serving stem (mode fwd) per pair; Trainer.step
+    # images/s of the opt-in paths against bf16 + phase_train
+    cargs = [ccase[k] for k in ("x", "w", "dp", "mean", "inv", "scales",
+                                "biases")]
+    c123 = [ccase[k] for k in ("c1", "c2", "c3")]
+    times["phase_train_red"] = abba(
+        f"phase_train red {h1}x{h1} B={BATCH} 16->32",
+        lambda: PT.red(*cargs), lambda: PT.red_plain(*cargs), iters=10,
+        plain_iters=3)
+    times["phase_train_dy"] = abba(
+        f"phase_train dy (+dw) {h1}x{h1} B={BATCH} 16->32",
+        lambda: PT.dy(*cargs, *c123), lambda: PT.dy_plain(*cargs, *c123),
+        iters=10, plain_iters=2)
+    times["phase_train_dgrad"] = abba(
+        f"phase_train dgrad {h1}x{h1} B={BATCH} 32->16",
+        lambda: PT.dgrad(ccase["d"], ccase["w"]),
+        lambda: PT.dgrad_plain(ccase["d"], ccase["w"]), iters=10,
+        plain_iters=5)
+    d_nchw = ccase["d"].permute(0, 3, 1, 2)
+    w_oihw = ccase["w"].permute(3, 2, 0, 1).contiguous()
+    library = {"phase_train_dgrad": (
+        cuda_ms(lambda: F.conv_transpose2d(d_nchw, w_oihw, padding=1), 10)
+        + cuda_ms(lambda: F.conv_transpose2d(d_nchw, w_oihw, padding=1),
+                  10)) / 2}
+    log(f"time library F.conv_transpose2d bf16 (cuDNN) {h1}x{h1} B={BATCH} "
+        f"32->16: {library['phase_train_dgrad']} ms [{gpu}]")
+    n1 = BATCH * h1 * h1
+    conv1 = 2 * n1 * 32 * 9 * 16
+    bytes_w = 2 * 9 * 16 * 32 + 4 * 7 * 32
+    bounds["phase_train_red"] = bound(
+        2 * n1 * 16 + bytes_w + 2 * n1 // 4 * 32 + 4 * 2 * 32, conv1, "bf16")
+    bounds["phase_train_dy"] = bound(
+        2 * n1 * 16 + bytes_w + 2 * n1 // 4 * 32 + 2 * n1 * 32
+        + 4 * 9 * 16 * 32, 2 * conv1, "bf16")
+    bounds["phase_train_dgrad"] = bound(2 * n1 * 32 + 2 * 9 * 16 * 32
+                                        + 2 * n1 * 16, conv1, "bf16")
+    # F2, B1, B2 at pair 2 (208x208, 32 channels); per window about 36,
+    # 52 and 64 float32 operations
+    scase = stem_case(20, BATCH, h1, 32, dev, channels_last=y_cl)
+    y2, dp2 = scase["y"], scase["dp"]
+    k4 = [scase[k] for k in ("mean", "inv", "scales", "biases")]
+    s123 = [scase[k] for k in ("c1", "c2", "c3")]
+    times["fused_stem_f2"] = abba(
+        f"fused_stem F2 {h1}x{h1}x32 B={BATCH}", lambda: FS.f2(y2, *k4),
+        lambda: FS.f2_plain(y2, *k4), iters=20, plain_iters=5)
+    times["fused_stem_b1"] = abba(
+        f"fused_stem B1 {h1}x{h1}x32 B={BATCH}",
+        lambda: FS.b1(y2, dp2, *k4), lambda: FS.b1_plain(y2, dp2, *k4),
+        iters=20, plain_iters=5)
+    times["fused_stem_b2"] = abba(
+        f"fused_stem B2 {h1}x{h1}x32 B={BATCH}",
+        lambda: FS.b2(y2, dp2, *k4, *s123),
+        lambda: FS.b2_plain(y2, dp2, *k4, *s123), iters=20, plain_iters=5)
+    yb, win = y2.numel() * 2, y2.numel() // 4
+    bounds["fused_stem_f2"] = bound(yb + yb // 4 + 16 * 32, 36 * win, "f32")
+    bounds["fused_stem_b1"] = bound(yb + yb // 4 + 16 * 32 + 8 * 32,
+                                    52 * win, "f32")
+    bounds["fused_stem_b2"] = bound(2 * yb + yb // 4 + 28 * 32, 64 * win,
+                                    "f32")
+    del ccase, cargs, scase, y2, dp2, d_nchw
+    torch.cuda.empty_cache()
+    # the bf16 serving stem (kernel 4's mode fwd: fwdstats + apply with
+    # identity BN) at its four pair shapes, B=128
+    g20 = torch.Generator(device=dev).manual_seed(20)
+    for h, cin, cout in ((NET, 3, 16), (NET // 2, 16, 32),
+                         (NET // 4, 32, 64), (NET // 8, 64, 128)):
+        xs = torch.rand((BATCH, h, h, cin), generator=g20,
+                        device=dev).to(torch.bfloat16)
+        ws = (0.3 * torch.randn((3, 3, cin, cout), generator=g20,
+                                device=dev)).to(torch.bfloat16)
+        bs = 0.2 * torch.randn(cout, generator=g20, device=dev)
+        zero = torch.zeros(cout, device=dev)
+        one = torch.ones(cout, device=dev)
+
+        def stem_fwd(fwdstats, app):
+            z, _, _ = fwdstats(xs, ws, zero, one)
+            return app(z, zero, one, one, bs)
+        k_ms, p_ms = abba(
+            f"bf16 serving stem pair (mode fwd) {cin}->{cout} @{h} "
+            f"B={BATCH}", lambda: stem_fwd(PT.fwdstats, PT.apply),
+            lambda: stem_fwd(PT.fwdstats_plain, PT.apply_plain), iters=10,
+            plain_iters=3)
+        pooled = BATCH * (h // 2) * (h // 2) * cout
+        b_ms, b_by = bound(2 * BATCH * h * h * cin + 2 * 9 * cin * cout
+                           + 4 * cout + 2 * pooled,
+                           2 * BATCH * h * h * cout * 9 * cin, "bf16")
+        log(f"bound bf16 serving stem pair {cin}->{cout} @{h}: {b_ms} ms "
+            f"by {b_by} [{gpu}]")
+    del xs
+    torch.cuda.empty_cache()
+    for name in ("phase_train_red", "phase_train_dy", "phase_train_dgrad",
+                 "fused_stem_f2", "fused_stem_b1", "fused_stem_b2"):
+        log(f"bound {name}: {bounds[name][0]} ms by {bounds[name][1]} "
+            f"[{gpu}]")
+    order = ["bf16 + phase_train", *cfgs, *reversed(cfgs),
+             "bf16 + phase_train"]
+    for name in order:
+        ips = step_rate(trainers[name], 5)
+        log(f"time Trainer.step {name} {NET} B={BATCH}: {ips} images/s, "
+            f"{ips * step_flops / 1e12} TFLOP/s, MFU "
+            f"{ips * step_flops / PEAK_BF16} of the bf16 dense peak "
+            f"[{gpu}]")
+
+    # --------------------------------------------------------- phase 21
+    for name in cfgs:
+        profile(f"Trainer.step {name} {NET} B={BATCH}, per step",
+                lambda: trainers[name].step(xt, tt), 2, gpu, top=8)
+
     replaces = {
         "nms_per_class": "sr_object_detection_tpu/kernels/nms_pallas.py:29",
         "stem_pair": "sr_object_detection_tpu/kernels/b1_stem.py:82",
@@ -953,31 +1181,52 @@ def main() -> int:
         "phase_train_apply":
             "sr_object_detection_tpu/kernels/phase_train.py:722",
         "phase_train_bwdg":
-            "sr_object_detection_tpu/kernels/phase_train.py:209"}
-    sources = {"nms_per_class": "nms.cu", "stem_pair": "b1_stem.cu",
-               "phase_stem_pair": "phase_stem.cu",
-               "phase_train_fwdstats": "phase_train.cu",
-               "phase_train_apply": "phase_train.cu",
-               "phase_train_bwdg": "phase_train.cu"}
-    launches.update(phase_stem_pair=launches_b128["phase_stem_pair"])
-    for k in ("fwdstats", "apply", "bwdg"):
-        launches[f"phase_train_{k}"] = launches_train[f"phase_train_{k}"]
+            "sr_object_detection_tpu/kernels/phase_train.py:209",
+        "phase_train_red":
+            "sr_object_detection_tpu/kernels/phase_train.py:209",
+        "phase_train_dy":
+            "sr_object_detection_tpu/kernels/phase_train.py:209",
+        "phase_train_dgrad":
+            "sr_object_detection_tpu/kernels/phase_train.py:1256",
+        "fused_stem_f2": "sr_object_detection_tpu/kernels/fused_stem.py:135",
+        "fused_stem_b1": "sr_object_detection_tpu/kernels/fused_stem.py:170",
+        "fused_stem_b2": "sr_object_detection_tpu/kernels/fused_stem.py:187"}
+    sources = {name: "phase_train.cu" for name in replaces
+               if name.startswith("phase_train")}
+    sources.update(nms_per_class="nms.cu", stem_pair="b1_stem.cu",
+                   phase_stem_pair="phase_stem.cu", fused_stem_f2=
+                   "fused_stem.cu", fused_stem_b1="fused_stem.cu",
+                   fused_stem_b2="fused_stem.cu")
+    # launches: each kernel's count on the main path that runs it
+    main_counts = {**launches,
+                   "phase_stem_pair": launches_b128["phase_stem_pair"],
+                   **{k: v for k, v in launches_train.items()
+                      if k.startswith("phase_train")},
+                   **{k: launches_opt["bf16 + chain"][k] for k in
+                      ("phase_train_red", "phase_train_dy",
+                       "phase_train_dgrad")},
+                   **{k: v for k, v in launches_opt["bf16 + fused_stem"]
+                      .items() if k.startswith("fused_stem")}}
     errs = {"nms_per_class": nms_err, "stem_pair": stem_err,
             "phase_stem_pair": ps_err,
-            **{f"phase_train_{k}": v for k, v in train_errs.items()}}
+            **{f"phase_train_{k}": v for k, v in train_errs.items()},
+            **{f"phase_train_{k}": v for k, v in chain_errs.items()},
+            **{f"fused_stem_{k}": v for k, v in stem_errs.items()}}
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"sr_object_detection_tpu_torch/csrc/{sources[name]}",
-         "replaces": replaces[name], "launches": launches[name],
+         "replaces": replaces[name], "launches": main_counts[name],
          "max_abs_err": errs[name], "ms": times[name][0],
          "plain_ms": times[name][1], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1],
-         # no single PyTorch call computes per-class greedy NMS, conv +
-         # bias + leaky + maxpool (+ requant), conv + BN statistics +
-         # pool, the pooled BN apply with eps outside the sqrt, or the
-         # gram-factored backward
-         "library_ms": None}
-        for name in sources]
+         # one PyTorch call computes dgrad's function (the conv's input
+         # gradient); none computes per-class greedy NMS, conv + bias +
+         # leaky + maxpool (+ requant), conv + BN statistics + pool, the
+         # pooled BN apply with eps outside the sqrt, the gram-factored
+         # backward, the recomputing BN-backward passes or the fused
+         # BN/leaky/pool passes
+         "library_ms": library.get(name)}
+        for name in replaces]
     log(gpu)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

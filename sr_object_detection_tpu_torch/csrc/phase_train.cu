@@ -61,6 +61,39 @@
 //   in a register and adds the sum to its entry's shared-memory
 //   accumulator. Every sum has one owner and one order: deterministic.
 //   Each block writes its accumulators once; colsum reduces the blocks.
+//
+// The opt-in two-pair chain (phase_train="chain") adds the second pair's
+// backward with an input gradient:
+//   * phase_train_red: _train_kernel in mode "red" (phase_train.py:547-
+//     557; call via _pair_grads(want_dx=True), :1079): recompute the bf16
+//     conv, BN + bias + leaky per tap, route the pooled cotangent to the
+//     FIRST maximum of the recomputed activation (:498-512), and sum
+//     dz and dz * x_hat per channel;
+//   * phase_train_dy: mode "dy" with_wgrad (:514-545, :1113): the same
+//     recompute and routing, then dy = bf16(dz*c1 + (y - mean)*c2 + c3)
+//     at full resolution, and in the same pass the direct weight gradient
+//     dw = sum x_taps (x) dy (the product lies in the TPU kernel's body,
+//     so it is computed here, not by a library GEMM);
+//   * phase_train_dgrad: _dgrad_kernel (:1256, call :1328): dx = dy conv
+//     w with flipped taps and swapped channels, float32 sums, bf16 out.
+//   red and dy share fwdstats' block shape (image, 8x8 pooled tile, 16
+//   channels) and its conv loop, so y is bit-equal to the forward's; a
+//   block walks a fixed set of an image's tiles (a chunk) and keeps its
+//   sums in registers, one owner per sum; colsum reduces the chunks in a
+//   fixed order. dy's weight-gradient step: thread (ci, co) sums the 9
+//   taps over the tile's 16x16 positions from the staged halo and dy,
+//   a sliding 3x3 window in registers. Cin <= 16, Cout a multiple of 16
+//   up to 128.
+//   Bound on an H100 at the chain's second pair (416, B=128, 208x208,
+//   16 -> 32): red reads x (177 MB) and dp (89 MB): 0.079 ms; dy also
+//   writes dy (354 MB): 0.185 ms; the conv recompute (51 GFLOP, twice
+//   that in dy with the weight gradient) runs on the FP32 cores here, so
+//   on this design the operations bound both.
+//   dgrad: one block per (image, 8x32 output tile), 256 threads, one
+//   output pixel x all Cin (<= 16) channels a thread; the 10x34 dy halo
+//   (16 channels a stage) in shared memory, a warp reading one row
+//   (conflict-free); bound at that shape 0.159 ms by bytes (dy read, dx
+//   written, 532 MB), 51 GFLOP on the FP32 cores in this design.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,6 +111,12 @@
 #define PT_MAX_CO_FWD 128
 #define PT_MAX_CIN_BWD 16
 #define PT_MAX_CO_BWD 64
+#define PT_MAX_CIN_CHAIN 16
+#define PT_FULL (2 * PT_PT)             // full-resolution tile edge (16)
+#define PT_DYS (PT_FULL * PT_FULL + 1)  // dy floats per channel in smem
+#define DG_TX 32                        // dgrad output tile: 32 wide
+#define DG_TY 8                         //   and 8 tall
+#define DG_CO 16                        // dy channels per dgrad stage
 
 namespace {
 
@@ -418,6 +457,299 @@ bwdg_kernel(const __nv_bfloat16* __restrict__ x,
   for (int i = tid; i < nacc; i += PT_THREADS) row[i] = acc_s[i];
 }
 
+// Modes "red" (DY false) and "dy" (DY true). kc: (7, Cout) float32 rows
+// mean, inv, scales, bias, c1, c2, c3 (c1..c3 read in "dy" only). Grid
+// (nchunk, Cout / 16, B); block (chunk, group, b) walks the image's tiles
+// chunk, chunk + nchunk, ... Partial rows (B * nchunk): "red" 2 * Cout
+// columns [sum dz | sum dz * x_hat], "dy" 9 * Cin * Cout (HWIO order).
+template <bool DY>
+__global__ void __launch_bounds__(PT_THREADS)
+chain_bwd_kernel(const __nv_bfloat16* __restrict__ x,
+                 const __nv_bfloat16* __restrict__ w,
+                 const __nv_bfloat16* __restrict__ dp,
+                 const float* __restrict__ kc, __nv_bfloat16* __restrict__ dy,
+                 float* __restrict__ partial, int H, int W, int Cin,
+                 int Cout) {
+  __shared__ float xs[PT_CI][PT_TH][PT_RS];
+  __shared__ float4 ws[PT_CI][9][PT_CO / 4];
+  // "dy": the tile's dy, [channel][position]; "red": [2][channel][pixel]
+  __shared__ float aux[DY ? PT_CO * PT_DYS : 2 * PT_CO * (PT_NPIX + 1)];
+
+  const int H2 = H / 2, W2 = W / 2;
+  const int tiles_x = (W2 + PT_PT - 1) / PT_PT;
+  const int tiles = tiles_x * ((H2 + PT_PT - 1) / PT_PT);
+  const int chunk = blockIdx.x, nchunk = gridDim.x;
+  const int co0 = blockIdx.y * PT_CO;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int pix = tid % PT_NPIX;
+  const int g = tid / PT_NPIX;                 // 4-channel group
+  const int py = pix / PT_PT, px = pix % PT_PT;
+  float* wsf = reinterpret_cast<float*>(&ws[0][0][0]);
+
+  for (int i = tid; i < Cin * 9 * PT_CO; i += PT_THREADS) {
+    const int o = i % PT_CO;
+    const int rest = i / PT_CO;
+    const int t = rest % 9, c = rest / 9;
+    wsf[(c * 9 + t) * PT_CO + o] = __bfloat162float(
+        w[(static_cast<size_t>(t) * Cin + c) * Cout + co0 + o]);
+  }
+  float run = 0.f;                   // "red": thread tid < 32's sum
+  float dwacc[9];                    // "dy": thread (ci, co)'s 9 taps
+#pragma unroll
+  for (int t = 0; t < 9; ++t) dwacc[t] = 0.f;
+  const int wci = tid / PT_CO, wco = tid % PT_CO;
+
+  for (int tile = chunk; tile < tiles; tile += nchunk) {
+    const int ty = tile / tiles_x, tx = tile % tiles_x;
+    const int gy0 = 2 * ty * PT_PT - 1, gx0 = 2 * tx * PT_PT - 1;
+    __syncthreads();                 // the previous tile is done with smem
+    for (int i = tid; i < Cin * PT_TH * PT_TH; i += PT_THREADS) {
+      const int c = i % Cin;
+      const int pos = i / Cin;
+      const int yy = pos / PT_TH, xx = pos % PT_TH;
+      const int gy = gy0 + yy, gx = gx0 + xx;
+      float v = 0.f;
+      if (gy >= 0 && gy < H && gx >= 0 && gx < W)
+        v = __bfloat162float(
+            x[((static_cast<size_t>(b) * H + gy) * W + gx) * Cin + c]);
+      xs[c][yy][(xx & 1) * PT_PH + (xx >> 1)] = v;
+    }
+    __syncthreads();
+    float acc[4][4];                 // [channel][pool tap], as fwdstats
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[j][v] = 0.f;
+    for (int c = 0; c < Cin; ++c) {
+      float in[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc)
+          in[r][cc] = xs[c][2 * py + r][(cc & 1) * PT_PH + px + (cc >> 1)];
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky) {
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx) {
+          const float4 wv = ws[c][ky * 3 + kx][g];
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            const float a = in[(v >> 1) + ky][(v & 1) + kx];
+            acc[0][v] = fmaf(a, wv.x, acc[0][v]);
+            acc[1][v] = fmaf(a, wv.y, acc[1][v]);
+            acc[2][v] = fmaf(a, wv.z, acc[2][v]);
+            acc[3][v] = fmaf(a, wv.w, acc[3][v]);
+          }
+        }
+      }
+    }
+
+    const int oy = ty * PT_PT + py, ox = tx * PT_PT + px;
+    const bool valid = oy < H2 && ox < W2;
+    const int cb = co0 + 4 * g;
+    float dyv[4][4];                 // [channel][tap], "dy" only
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int co = cb + j;
+      const float mean = __ldg(kc + co), inv = __ldg(kc + Cout + co);
+      const float sc = __ldg(kc + 2 * Cout + co);
+      const float bias = bf16r(__ldg(kc + 3 * Cout + co));
+      float xm[4], xh[4], a[4];
+      bool pos[4];
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        xm[v] = __fsub_rn(bf16r(acc[j][v]), mean);
+        xh[v] = __fmul_rn(xm[v], inv);
+        const float z = bf16r(__fadd_rn(bf16r(__fmul_rn(xh[v], sc)), bias));
+        pos[v] = z > 0.f;
+        a[v] = pos[v] ? z : bf16r(__fmul_rn(0.10009765625f, z));
+      }
+      const float m = fmaxf(fmaxf(a[0], a[1]), fmaxf(a[2], a[3]));
+      int first = 3;
+#pragma unroll
+      for (int v = 3; v >= 0; --v)
+        if (a[v] == m) first = v;    // the first tap attaining the max
+      float gct = 0.f;
+      if (valid)
+        gct = __bfloat162float(
+            dp[((static_cast<size_t>(b) * H2 + oy) * W2 + ox) * Cout + co]);
+      const float neg = bf16r(__fmul_rn(0.10009765625f, gct));
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const float dz = v == first ? (pos[v] ? gct : neg) : 0.f;
+        if constexpr (DY) {
+          dyv[j][v] = bf16r(__fadd_rn(
+              __fadd_rn(__fmul_rn(dz, __ldg(kc + 4 * Cout + co)),
+                        __fmul_rn(xm[v], __ldg(kc + 5 * Cout + co))),
+              __ldg(kc + 6 * Cout + co)));
+        } else {
+          s0 += dz;
+          s1 += dz * xh[v];
+        }
+      }
+      if constexpr (!DY) {
+        aux[(4 * g + j) * (PT_NPIX + 1) + pix] = valid ? s0 : 0.f;
+        aux[(PT_CO + 4 * g + j) * (PT_NPIX + 1) + pix] = valid ? s1 : 0.f;
+      }
+    }
+    if constexpr (DY) {
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int fy = 2 * py + (v >> 1), fx = 2 * px + (v & 1);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          aux[(4 * g + j) * PT_DYS + fy * PT_FULL + fx] =
+              valid ? dyv[j][v] : 0.f;
+        if (valid) {
+          const size_t o =
+              ((static_cast<size_t>(b) * H + 2 * oy + (v >> 1)) * W +
+               2 * ox + (v & 1)) * Cout + cb;
+          uint2 dw2;
+          dw2.x = static_cast<unsigned>(bf16_bits(dyv[0][v])) |
+                  (static_cast<unsigned>(bf16_bits(dyv[1][v])) << 16);
+          dw2.y = static_cast<unsigned>(bf16_bits(dyv[2][v])) |
+                  (static_cast<unsigned>(bf16_bits(dyv[3][v])) << 16);
+          *reinterpret_cast<uint2*>(dy + o) = dw2;
+        }
+      }
+      __syncthreads();
+      // dw[ky][kx][ci][co] += sum over the tile's positions of
+      // x(position + (ky - 1, kx - 1), ci) * dy(position, co)
+      if (wci < Cin) {
+        const float* dr = aux + wco * PT_DYS;
+        for (int fy = 0; fy < PT_FULL; ++fy) {
+          float c0[3], c1[3];
+#pragma unroll
+          for (int r = 0; r < 3; ++r) {
+            c0[r] = xs[wci][fy + r][0];
+            c1[r] = xs[wci][fy + r][PT_PH];
+          }
+          for (int fx = 0; fx < PT_FULL; ++fx) {
+            const int xx = fx + 2;
+            float c2[3];
+#pragma unroll
+            for (int r = 0; r < 3; ++r)
+              c2[r] = xs[wci][fy + r][(xx & 1) * PT_PH + (xx >> 1)];
+            const float d = dr[fy * PT_FULL + fx];
+#pragma unroll
+            for (int r = 0; r < 3; ++r) {
+              dwacc[r * 3 + 0] = fmaf(c0[r], d, dwacc[r * 3 + 0]);
+              dwacc[r * 3 + 1] = fmaf(c1[r], d, dwacc[r * 3 + 1]);
+              dwacc[r * 3 + 2] = fmaf(c2[r], d, dwacc[r * 3 + 2]);
+              c0[r] = c1[r];
+              c1[r] = c2[r];
+            }
+          }
+        }
+      }
+    } else {
+      __syncthreads();
+      if (tid < 2 * PT_CO) {
+        float s = 0.f;
+        for (int p = 0; p < PT_NPIX; ++p) s += aux[tid * (PT_NPIX + 1) + p];
+        run += s;
+      }
+    }
+  }
+
+  const size_t row = static_cast<size_t>(b) * nchunk + chunk;
+  if constexpr (DY) {
+    if (wci < Cin)
+#pragma unroll
+      for (int t = 0; t < 9; ++t)
+        partial[row * 9 * Cin * Cout + (t * Cin + wci) * Cout + co0 + wco] =
+            dwacc[t];
+  } else if (tid < 2 * PT_CO) {
+    partial[row * 2 * Cout + (tid / PT_CO) * Cout + co0 + tid % PT_CO] = run;
+  }
+}
+
+// dx[b, y, x, ci] = sum over ky, kx, co of dy[b, y + 1 - ky, x + 1 - kx, co]
+// * w[ky, kx, ci, co], float32 sums rounded to bf16. Grid (tiles, 1, B),
+// tiles of DG_TY x DG_TX output pixels; Cin <= 16 and a multiple of 8,
+// Cout a multiple of 16.
+__global__ void __launch_bounds__(PT_THREADS)
+dgrad_kernel(const __nv_bfloat16* __restrict__ dy,
+             const __nv_bfloat16* __restrict__ w,
+             __nv_bfloat16* __restrict__ dx, int H, int W, int Cin,
+             int Cout) {
+  __shared__ float ds[DG_CO][DG_TY + 2][DG_TX + 2];
+  __shared__ float4 ws[DG_CO][9][4];          // [co][flipped tap][ci / 4]
+  const int tiles_x = (W + DG_TX - 1) / DG_TX;
+  const int ty = blockIdx.x / tiles_x, tx = blockIdx.x % tiles_x;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int px = tid % DG_TX, py = tid / DG_TX;
+  const int y0 = ty * DG_TY - 1, x0 = tx * DG_TX - 1;
+  float* wsf = reinterpret_cast<float*>(&ws[0][0][0]);
+  float acc[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+
+  for (int co0 = 0; co0 < Cout; co0 += DG_CO) {
+    __syncthreads();                 // the previous stage is done with smem
+    for (int i = tid; i < DG_CO * (DG_TY + 2) * (DG_TX + 2);
+         i += PT_THREADS) {
+      const int c = i % DG_CO;
+      const int pos = i / DG_CO;
+      const int yy = pos / (DG_TX + 2), xx = pos % (DG_TX + 2);
+      const int gy = y0 + yy, gx = x0 + xx;
+      float v = 0.f;
+      if (gy >= 0 && gy < H && gx >= 0 && gx < W)
+        v = __bfloat162float(
+            dy[((static_cast<size_t>(b) * H + gy) * W + gx) * Cout + co0 + c]);
+      ds[c][yy][xx] = v;
+    }
+    for (int i = tid; i < DG_CO * 9 * 16; i += PT_THREADS) {
+      const int ci = i % 16;
+      const int rest = i / 16;
+      const int t = rest % 9, c = rest / 9;
+      const int ky = 2 - t / 3, kx = 2 - t % 3;   // flipped taps
+      wsf[(c * 9 + t) * 16 + ci] =
+          ci < Cin ? __bfloat162float(
+                         w[((ky * 3 + kx) * Cin + ci) * Cout + co0 + c])
+                   : 0.f;
+    }
+    __syncthreads();
+    for (int c = 0; c < DG_CO; ++c) {
+#pragma unroll
+      for (int t = 0; t < 9; ++t) {
+        const float v = ds[c][py + t / 3][px + t % 3];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float4 wv = ws[c][t][q];
+          acc[4 * q + 0] = fmaf(v, wv.x, acc[4 * q + 0]);
+          acc[4 * q + 1] = fmaf(v, wv.y, acc[4 * q + 1]);
+          acc[4 * q + 2] = fmaf(v, wv.z, acc[4 * q + 2]);
+          acc[4 * q + 3] = fmaf(v, wv.w, acc[4 * q + 3]);
+        }
+      }
+    }
+  }
+  const int oy = ty * DG_TY + py, ox = tx * DG_TX + px;
+  if (oy < H && ox < W) {
+    uint4* out = reinterpret_cast<uint4*>(
+        dx + ((static_cast<size_t>(b) * H + oy) * W + ox) * Cin);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (8 * h < Cin) {
+        uint4 r;
+        r.x = static_cast<unsigned>(bf16_bits(acc[8 * h + 0])) |
+              (static_cast<unsigned>(bf16_bits(acc[8 * h + 1])) << 16);
+        r.y = static_cast<unsigned>(bf16_bits(acc[8 * h + 2])) |
+              (static_cast<unsigned>(bf16_bits(acc[8 * h + 3])) << 16);
+        r.z = static_cast<unsigned>(bf16_bits(acc[8 * h + 4])) |
+              (static_cast<unsigned>(bf16_bits(acc[8 * h + 5])) << 16);
+        r.w = static_cast<unsigned>(bf16_bits(acc[8 * h + 6])) |
+              (static_cast<unsigned>(bf16_bits(acc[8 * h + 7])) << 16);
+        out[h] = r;
+      }
+    }
+  }
+}
+
 int bwdg_grid(int B, int H, int W, int Cin, int Cout, int* smem) {
   const BwdgLayout L = bwdg_layout(Cin, Cout);
   *smem = L.total_bytes;
@@ -529,5 +861,76 @@ extern "C" int srod_pt_bwdg(const void* x, const void* dp, const void* z,
   colsum_kernel<<<ncols, PT_THREADS, 0, s>>>(
       static_cast<const float*>(partial), blocks, ncols,
       static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Modes "red" and "dy" of the chain's second pair. kc: (7 * Cout,) float32
+// [mean | inv | scales | bias | c1 | c2 | c3]; partial: (B * nchunk, cols)
+// float32 scratch, 1 <= nchunk <= the image's 8x8 pooled tiles; out:
+// (cols,) float32, cols = 2 * Cout ("red": [sum dz | sum dz * x_hat]) or
+// 9 * Cin * Cout ("dy": dw in HWIO order); dy ("dy" only): (B, H, W,
+// Cout) bf16.
+static int chain_bwd(bool with_dy, const void* x, const void* w,
+                     const void* dp, const void* kc, void* dy, void* partial,
+                     int nchunk, void* out, int B, int H, int W, int Cin,
+                     int Cout, void* stream) {
+  if (!shapes_ok(B, H, W, Cin, Cout, PT_MAX_CIN_CHAIN, PT_MAX_CO_FWD))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int H2 = H / 2, W2 = W / 2;
+  const int tiles = ((H2 + PT_PT - 1) / PT_PT) * ((W2 + PT_PT - 1) / PT_PT);
+  if (nchunk < 1 || nchunk > tiles)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(nchunk, Cout / PT_CO, B);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* wb = static_cast<const __nv_bfloat16*>(w);
+  const auto* dpb = static_cast<const __nv_bfloat16*>(dp);
+  const auto* kcf = static_cast<const float*>(kc);
+  if (with_dy)
+    chain_bwd_kernel<true><<<grid, PT_THREADS, 0, s>>>(
+        xb, wb, dpb, kcf, static_cast<__nv_bfloat16*>(dy),
+        static_cast<float*>(partial), H, W, Cin, Cout);
+  else
+    chain_bwd_kernel<false><<<grid, PT_THREADS, 0, s>>>(
+        xb, wb, dpb, kcf, nullptr, static_cast<float*>(partial), H, W, Cin,
+        Cout);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int cols = with_dy ? 9 * Cin * Cout : 2 * Cout;
+  colsum_kernel<<<cols, PT_THREADS, 0, s>>>(
+      static_cast<const float*>(partial), B * nchunk, cols,
+      static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int srod_pt_red(const void* x, const void* w, const void* dp,
+                           const void* kc, void* partial, int nchunk,
+                           void* out, int B, int H, int W, int Cin, int Cout,
+                           void* stream) {
+  return chain_bwd(false, x, w, dp, kc, nullptr, partial, nchunk, out, B, H,
+                   W, Cin, Cout, stream);
+}
+
+extern "C" int srod_pt_dy(const void* x, const void* w, const void* dp,
+                          const void* kc, void* dy, void* partial, int nchunk,
+                          void* out, int B, int H, int W, int Cin, int Cout,
+                          void* stream) {
+  return chain_bwd(true, x, w, dp, kc, dy, partial, nchunk, out, B, H, W,
+                   Cin, Cout, stream);
+}
+
+// dy (B, H, W, Cout) bf16, w (3, 3, Cin, Cout) bf16 -> dx (B, H, W, Cin)
+// bf16. Cin a multiple of 8 up to 16, Cout a multiple of 16.
+extern "C" int srod_pt_dgrad(const void* dy, const void* w, void* dx, int B,
+                             int H, int W, int Cin, int Cout, void* stream) {
+  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || Cin <= 0 || Cin > 16 ||
+      Cin % 8 || Cout <= 0 || Cout % DG_CO)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = ((H + DG_TY - 1) / DG_TY) * ((W + DG_TX - 1) / DG_TX);
+  dgrad_kernel<<<dim3(tiles, 1, B), PT_THREADS, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(dy),
+      static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(dx),
+      H, W, Cin, Cout);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,7 +11,8 @@ output as the flat darknet raster ``[row][col][anchor][field]``
 (compiler.py:417-424 of the JAX package).
 
 This slice holds the kinds tiny-yolo-voc runs: conv, maxpool and region,
-for inference and for training (``Network.forward(x, train=True)``).
+for inference and for training (``Network.forward(x, train=True)``, with
+the bf16 training kernels of ``phase_train`` and ``fused_stem``).
 Any other kind raises ``NotImplementedError`` when the network is built,
 naming the ROADMAP queue item that ports it.
 """
@@ -134,14 +135,20 @@ class Network(nn.Module):
     ``params``: per-layer dicts of tensors with OIHW conv weights, all
     on one device. ``compute_dtype`` (e.g. ``torch.bfloat16``) runs the
     convs in that dtype as the JAX package's ``compute_dtype`` does.
-    ``phase_train`` (bf16 training only) runs the leading [conv3x3 + BN +
-    leaky, maxpool 2x2/2] pair through the fused training kernels
+
+    bf16 training only, as the JAX compiler (compiler.py:147-203):
+    ``phase_train=True`` runs the leading [conv3x3 + BN + leaky, maxpool
+    2x2/2] pair through the fused training kernels
     (``kernels/phase_train.py``) when the JAX predicate holds and the
-    kernels take the layer's shape; the JAX package's batch-128 and VMEM
-    planner gates were TPU rules and are dropped."""
+    kernels take the layer's shape; ``phase_train="chain"`` runs the
+    leading two pairs (layers 0-3) that way, the second with its input
+    gradient. ``fused_stem=True`` runs every later [conv + BN + leaky,
+    maxpool 2x2/2] pair as the library conv followed by the fused
+    BN/leaky/pool kernels (``kernels/fused_stem.py``). The JAX package's
+    batch-128 and VMEM planner gates were TPU rules and are dropped."""
 
     def __init__(self, spec: S.NetworkSpec, params, *, compute_dtype=None,
-                 phase_train: bool = False):
+                 phase_train=False, fused_stem: bool = False):
         super().__init__()
         self.spec = spec
         self.compute_dtype = compute_dtype
@@ -149,12 +156,30 @@ class Network(nn.Module):
             build_layer(l, p, compute_dtype)
             for l, p in zip(spec.layers, params))
         self.out_idx = spec.output_layer_index()
-        self.phase_pair = False
-        if phase_train and compute_dtype == torch.bfloat16:
+        self.phase_pair = self.phase_chain = False
+        self.fusable: set[int] = set()
+        layers, live = spec.layers, _live_set(spec)
+        bf16 = compute_dtype == torch.bfloat16
+        if phase_train and bf16:
             from ..kernels import phase_train as PT
-            self.phase_pair = (_phase_pair_ok(spec.layers, 0)
-                               and 0 not in _live_set(spec)
-                               and PT.supported(spec.layers[0]))
+            self.phase_pair = (_phase_pair_ok(layers, 0) and 0 not in live
+                               and PT.supported(layers[0]))
+            self.phase_chain = (self.phase_pair and phase_train == "chain"
+                                and _phase_pair_ok(layers, 2)
+                                and not live & {1, 2}
+                                and PT.supported_chain(layers[0],
+                                                       layers[2]))
+        if fused_stem and bf16:
+            from ..kernels import fused_stem as FS
+            for i, (l, nxt) in enumerate(zip(layers, layers[1:])):
+                if (isinstance(l, S.ConvSpec) and l.batch_normalize
+                        and l.activation == "leaky" and not l.xnor
+                        and not l.binary and isinstance(nxt, S.MaxPoolSpec)
+                        and nxt.size == 2 and nxt.stride == 2
+                        and nxt.pad == 0 and nxt.h % 2 == 0
+                        and nxt.w % 2 == 0 and i not in live
+                        and FS.supported(l)):
+                    self.fusable.add(i)
 
     def forward(self, x, keep_all: bool = False, *, train: bool = False,
                 params=None):
@@ -180,18 +205,43 @@ class Network(nn.Module):
         if params is None:
             params = [dict(layer.named_buffers()) for layer in self.layers]
         saved, bn_updates = {}, {}
+        layers = self.spec.layers
         cur = x.permute(0, 3, 1, 2)
         start = 0
-        if self.phase_pair and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0:
+        if self.phase_chain and x.shape[1] % 4 == 0 and x.shape[2] % 4 == 0:
+            # the leading two pairs (compiler.py:219-236 of the JAX
+            # package); pair 0's pooled output is not kept
+            from ..kernels.phase_train import phase_train_chain2
+            pooled, bn_updates[0], bn_updates[2] = phase_train_chain2(
+                x, params[0], layers[0], params[2], layers[2])
+            cur = pooled.permute(0, 3, 1, 2)
+            start = 4
+            if keep_all or self.out_idx == 3:
+                saved[3] = pooled
+        elif (self.phase_pair and x.shape[1] % 2 == 0
+              and x.shape[2] % 2 == 0):
             from ..kernels.phase_train import phase_train_block
-            pooled, bn_updates[0] = phase_train_block(
-                x, params[0], self.spec.layers[0])
+            pooled, bn_updates[0] = phase_train_block(x, params[0],
+                                                      layers[0])
             cur = pooled.permute(0, 3, 1, 2)
             start = 2
             if keep_all or self.out_idx == 1:
                 saved[1] = pooled
+        consumed = set()
         for i in range(start, len(self.layers)):
-            l = self.spec.layers[i]
+            l = layers[i]
+            if i in consumed:
+                continue
+            if i in self.fusable:
+                # conv + fused BN/leaky/pool (compiler.py:255-285 of the
+                # JAX package): the conv output is never kept, the pool
+                # output when asked for
+                from ..kernels.fused_stem import fused_stem_block
+                cur, bn_updates[i] = fused_stem_block(cur, params[i], l)
+                consumed.add(i + 1)
+                if keep_all or self.out_idx == i + 1:
+                    saved[i + 1] = _to_public(cur)
+                continue
             if isinstance(l, S.ConvSpec):
                 cur, bn = C.conv_block_train(cur, params[i], l,
                                              compute_dtype=self.compute_dtype)

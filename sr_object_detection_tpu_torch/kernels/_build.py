@@ -70,6 +70,26 @@ SIGNATURES = {
     # blocks, out f32, B, H, W, Cin, Cout, stream
     "srod_pt_bwdg": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I,
                       _I, _I, _I, _P], _I),
+    # x, w, dp bf16, kc (7*Cout,) f32, partial, nchunk, out f32, B, H, W,
+    # Cin, Cout, stream
+    "srod_pt_red": ([_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+                    _I),
+    # x, w, dp bf16, kc f32, dy bf16, partial, nchunk, out f32, B, H, W,
+    # Cin, Cout, stream
+    "srod_pt_dy": ([_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+                   _I),
+    # dy (B,H,W,Cout) bf16, w (3,3,Cin,Cout) bf16, dx bf16, B, H, W, Cin,
+    # Cout, stream
+    "srod_pt_dgrad": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    # y bf16, kc (7*C,) f32, out bf16, strides (12 int64, host), B, C, H,
+    # W, cfast, stream
+    "srod_fs_f2": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    # y, dp bf16, kc, partial, nblk, per_block, out f32, strides, B, C, H,
+    # W, stream
+    "srod_fs_b1": ([_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P],
+                   _I),
+    # y, dp bf16, kc, out bf16, strides, B, C, H, W, cfast, stream
+    "srod_fs_b2": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "srod_error_string": ([_I], ctypes.c_char_p),
 }
 

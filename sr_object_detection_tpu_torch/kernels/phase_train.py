@@ -18,16 +18,27 @@ full-resolution conv output never reaches device memory:
 :func:`build_bf16_stem` reuses fwdstats + apply with identity constants
 as the bf16 serving stem of ``ThroughputEngine(phase_stem=True)``.
 
+:func:`phase_train_chain2` (``phase_train="chain"``) runs the leading two
+pairs: pair 0 as above, and pair 1 (whose input gradient is needed)
+forward through fwdstats + apply, backward through :func:`red` (conv
+recompute, first-max routing of the recomputed activation, the BN
+reductions) -> the BN constants -> :func:`dy` (the full-resolution
+cotangent and the direct weight gradient) -> :func:`dgrad` (the input
+gradient, which pair 0's bwdg takes as its pooled cotangent).
+
 Each kernel has a plain PyTorch version beside it (``*_plain``); a CPU
 tensor takes it, a CUDA tensor launches the kernel or raises.
 ``launches`` counts each kernel's launches and nothing else.
 
 Not ported: the TPU layout (``to_phase_np``/``from_phase_np``, the halo
 sidebands, ``Geom``/``plan_pair``'s VMEM planner, ``_pack_w`` and the
-pool-variant M-packing): Mosaic's limits, not the function. Modes
-``stats`` and ``bwd`` are TPU packing fallbacks of ``fwdstats`` and
-``bwdg``. Modes ``dy``/``red`` and the dgrad kernel (the opt-in two-pair
-chain) come with the next slice (ROADMAP queue 2, rows 4 and 6).
+pool-variant M-packing; for dgrad ``DgradGeom``/``plan_dgrad``,
+``_pack_w_dgrad``, ``_halo_rows_3d``, ``_dy_side_cols`` and ``_DG_CSL``):
+Mosaic's limits, not the function. Modes ``stats`` and ``bwd`` are TPU
+packing fallbacks of ``fwdstats`` and ``bwdg``; the JAX chain runs pair
+0's backward in mode ``bwd``, the port runs bwdg on the argmax its
+forward saved (the same function up to the tie rule and the bf16
+rounding of y in the Gram term).
 """
 
 from __future__ import annotations
@@ -39,11 +50,14 @@ from ..ops.activations import LEAKY_BF16
 from ..ops.conv import BN_EPS, EPS_B, _sqrt_rn
 from . import _build
 
-launches = {"fwdstats": 0, "apply": 0, "bwdg": 0}
+launches = {"fwdstats": 0, "apply": 0, "bwdg": 0, "red": 0, "dy": 0,
+            "dgrad": 0}
 
 # the kernels' shape limits (csrc/phase_train.cu)
 MAX_CIN_FWD, MAX_COUT_FWD = 64, 128
 MAX_CIN_BWD, MAX_COUT_BWD = 16, 64
+MAX_CIN_CHAIN = 16          # red, dy and dgrad (dgrad: a multiple of 8)
+CHAIN_BLOCKS = 2048         # red/dy blocks to aim for (B x groups x chunks)
 
 
 def reset_launches():
@@ -56,6 +70,16 @@ def supported(spec) -> bool:
     compiler's predicate on the layer kind comes first)."""
     return (spec.c <= MAX_CIN_BWD and spec.filters % 16 == 0
             and spec.filters <= MAX_COUT_BWD)
+
+
+def supported_chain(spec0, spec2) -> bool:
+    """Whether the two-pair chain's kernels take pair 0 (layer 0) and
+    pair 1 (layer 2); the compiler checks the layer kinds first. The JAX
+    package's batch-128 and planner gates (phase_train.py:1384-1393) were
+    TPU rules and are dropped."""
+    return (supported(spec0) and spec2.c <= MAX_CIN_CHAIN
+            and spec2.c % 8 == 0 and spec2.filters % 16 == 0
+            and spec2.filters <= MAX_COUT_FWD)
 
 
 def _f32(*ts):
@@ -238,6 +262,175 @@ def bwdg(x, dp, z, am, mean, inv, scales, biases):
     return s.reshape(2, cout), a.reshape(n9, cout), d, g
 
 
+# ------------------------------------------ red and dy (the chain's pair 1)
+
+def _routed(x, w_hwio, dp, mean, inv, scales, biases):
+    """The conv recompute and pool routing shared by modes "red" and "dy"
+    (phase_train.py:454-512 of the JAX package): per tap of each 2x2
+    window (B, H/2, W/2, Cout, 4 taps in row-major order), the bf16 conv
+    output's y - mean, x_hat and the cotangent dz. The window's pooled
+    cotangent goes to the first tap attaining the maximum of the
+    recomputed bf16 BN + bias + leaky activation, through the bf16 leaky
+    slope."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w_hwio.permute(3, 2, 0, 1),
+                 padding=1).float()
+    b, c, h, w = y.shape
+    taps = y.reshape(b, c, h // 2, 2, w // 2, 2).permute(
+        0, 2, 4, 1, 3, 5).reshape(b, h // 2, w // 2, c, 4)
+    xm = taps - mean[:, None]
+    xhat = xm * inv[:, None]
+    zb = ((xhat * scales[:, None]).to(torch.bfloat16)
+          + biases.to(torch.bfloat16)[:, None])
+    pos = zb > 0
+    a = torch.where(pos, zb, zb * LEAKY_BF16).float()
+    first = (a == a.amax(-1, keepdim=True)).float().argmax(-1)
+    g = dp.float()[..., None]
+    neg = (g * LEAKY_BF16).to(torch.bfloat16).float()
+    sel = F.one_hot(first, 4).bool()
+    dz = torch.where(sel, torch.where(pos, g, neg), 0.0)
+    return xm, xhat, dz
+
+
+def kernel_consts(cout, device, *consts):
+    """The (7, Cout) float32 constant rows of red/dy (and of
+    fused_stem's kernels): mean, inv, scales, bias, c1, c2, c3 (zeros
+    where not given)."""
+    rows = [c.to(torch.float32) for c in consts]
+    rows += [torch.zeros(cout, device=device)] * (7 - len(rows))
+    return torch.stack(rows).contiguous()
+
+
+def _chain_check(name, x, w_hwio, dp, consts):
+    n, h, w, cin = x.shape
+    cout = w_hwio.shape[3]
+    if (x.dtype != torch.bfloat16 or w_hwio.dtype != torch.bfloat16
+            or dp.dtype != torch.bfloat16
+            or w_hwio.shape != (3, 3, cin, cout)
+            or tuple(dp.shape) != (n, h // 2, w // 2, cout) or h % 2
+            or w % 2 or cin > MAX_CIN_CHAIN or cout % 16
+            or cout > MAX_COUT_FWD
+            or any(c.shape != (cout,) for c in consts)
+            or any(t.device != x.device for t in (w_hwio, dp, *consts))):
+        raise ValueError(
+            f"phase_train.{name}: want x (B,H,W,Cin<=16) bf16 with H, W "
+            "even, w (3,3,Cin,Cout) bf16 with Cout a multiple of 16 up to "
+            "128, dp (B,H/2,W/2,Cout) bf16 and (Cout,) constants on one "
+            f"device; got {tuple(x.shape)} {x.dtype}, {tuple(w_hwio.shape)} "
+            f"{w_hwio.dtype}, {tuple(dp.shape)} {dp.dtype}, "
+            f"{[tuple(c.shape) for c in consts]}")
+
+
+def _chain_launch(entry, x, w_hwio, dp, kc, cols, dy=None):
+    """Launch red or dy: per-chunk partial rows, colsum -> (cols,)."""
+    n, h, w, cin = x.shape
+    cout = w_hwio.shape[3]
+    tiles = -(-h // 16) * -(-w // 16)
+    nchunk = max(1, min(tiles, -(-CHAIN_BLOCKS // (n * cout // 16))))
+    x, w_hwio, dp = (t.contiguous() for t in (x, w_hwio, dp))
+    partial = torch.empty((n * nchunk, cols), dtype=torch.float32,
+                          device=x.device)
+    out = torch.empty(cols, dtype=torch.float32, device=x.device)
+    lib = _build.load()
+    args = [x.data_ptr(), w_hwio.data_ptr(), dp.data_ptr(), kc.data_ptr()]
+    if dy is not None:
+        args.append(dy.data_ptr())
+    err = getattr(lib, entry)(*args, partial.data_ptr(), nchunk,
+                              out.data_ptr(), n, h, w, cin, cout,
+                              _build.stream_ptr(x.device))
+    _build.check(err, entry)
+    return out
+
+
+def red_plain(x, w_hwio, dp, mean, inv, scales, biases):
+    """Plain version of mode "red": x (B,H,W,Cin) bf16, w_hwio
+    (3,3,Cin,Cout) bf16, the pooled cotangent dp (B,H/2,W/2,Cout) bf16 and
+    four (Cout,) float32 constants -> S (2, Cout) float32 = [sum dz,
+    sum dz * x_hat] (dbiases, dscales)."""
+    _, xhat, dz = _routed(x, w_hwio, dp, mean, inv, scales, biases)
+    return torch.stack([dz.sum(dim=(0, 1, 2, 4)),
+                        (dz * xhat).sum(dim=(0, 1, 2, 4))])
+
+
+def red(x, w_hwio, dp, mean, inv, scales, biases):
+    """The red kernel; arguments and result as :func:`red_plain`."""
+    if x.device.type == "cpu":
+        return red_plain(x, w_hwio, dp, mean, inv, scales, biases)
+    consts = (mean, inv, scales, biases)
+    _chain_check("red", x, w_hwio, dp, consts)
+    cout = w_hwio.shape[3]
+    s = _chain_launch("srod_pt_red", x, w_hwio, dp,
+                      kernel_consts(cout, x.device, *consts), 2 * cout)
+    launches["red"] += 1
+    return s.reshape(2, cout)
+
+
+def dy_plain(x, w_hwio, dp, mean, inv, scales, biases, c1, c2, c3):
+    """Plain version of mode "dy" with the weight gradient: the routing of
+    :func:`red_plain`, then the full-resolution cotangent of the conv
+    output dy = bf16(dz*c1 + (y - mean)*c2 + c3) (B,H,W,Cout) and the
+    direct weight gradient dw = sum x_taps (x) dy (3,3,Cin,Cout) float32."""
+    xm, _, dz = _routed(x, w_hwio, dp, mean, inv, scales, biases)
+    b, h2, w2, c, _ = dz.shape
+    t = (dz * c1[:, None] + xm * c2[:, None] + c3[:, None]).to(
+        torch.bfloat16)
+    dyf = t.reshape(b, h2, w2, c, 2, 2).permute(0, 1, 4, 2, 5, 3).reshape(
+        b, 2 * h2, 2 * w2, c)
+    dw = _taps(x) @ dyf.reshape(-1, c).float()
+    return dyf, dw.reshape(3, 3, x.shape[3], c)
+
+
+def dy(x, w_hwio, dp, mean, inv, scales, biases, c1, c2, c3):
+    """The dy kernel; arguments and results as :func:`dy_plain`."""
+    if x.device.type == "cpu":
+        return dy_plain(x, w_hwio, dp, mean, inv, scales, biases, c1, c2, c3)
+    consts = (mean, inv, scales, biases, c1, c2, c3)
+    _chain_check("dy", x, w_hwio, dp, consts)
+    n, h, w, cin = x.shape
+    cout = w_hwio.shape[3]
+    out = torch.empty((n, h, w, cout), dtype=torch.bfloat16, device=x.device)
+    dw = _chain_launch("srod_pt_dy", x, w_hwio, dp,
+                       kernel_consts(cout, x.device, *consts),
+                       9 * cin * cout, dy=out)
+    launches["dy"] += 1
+    return out, dw.reshape(3, 3, cin, cout)
+
+
+# --------------------------------------------------------------- dgrad
+
+def dgrad_plain(dy_, w_hwio):
+    """Plain version of the dgrad kernel: the input gradient of the 3x3
+    s1 p1 conv, dx = dy conv w with flipped taps and swapped channels, as
+    float32 sums rounded to bf16. dy_ (B,H,W,Cout) bf16, w_hwio
+    (3,3,Cin,Cout) bf16 -> dx (B,H,W,Cin) bf16."""
+    dx = F.conv_transpose2d(dy_.permute(0, 3, 1, 2).float(),
+                            w_hwio.permute(3, 2, 0, 1).float(), padding=1)
+    return dx.permute(0, 2, 3, 1).to(torch.bfloat16)
+
+
+def dgrad(dy_, w_hwio):
+    """The dgrad kernel; arguments and result as :func:`dgrad_plain`."""
+    if dy_.device.type == "cpu":
+        return dgrad_plain(dy_, w_hwio)
+    n, h, w, cout = dy_.shape
+    cin = w_hwio.shape[2]
+    if (dy_.dtype != torch.bfloat16 or w_hwio.dtype != torch.bfloat16
+            or w_hwio.shape != (3, 3, cin, cout) or cin > MAX_CIN_CHAIN
+            or cin % 8 or cout % 16 or w_hwio.device != dy_.device):
+        raise ValueError(
+            "phase_train.dgrad: want dy (B,H,W,Cout) bf16 with Cout a "
+            "multiple of 16 and w (3,3,Cin,Cout) bf16 with Cin 8 or 16 on "
+            f"its device; got {tuple(dy_.shape)} {dy_.dtype}, "
+            f"{tuple(w_hwio.shape)} {w_hwio.dtype}")
+    dy_, w_hwio = dy_.contiguous(), w_hwio.contiguous()
+    dx = torch.empty((n, h, w, cin), dtype=torch.bfloat16, device=dy_.device)
+    err = _build.load().srod_pt_dgrad(
+        dy_.data_ptr(), w_hwio.data_ptr(), dx.data_ptr(), n, h, w, cin, cout,
+        _build.stream_ptr(dy_.device))
+    _build.check(err, "srod_pt_dgrad")
+    launches["dgrad"] += 1
+    return dx
+
+
 # ------------------------------------------------------- the fused op
 
 def _batch_stats(stats, shift, n):
@@ -247,6 +440,19 @@ def _batch_stats(stats, shift, n):
     mean = shift + sx / n
     var = torch.clamp_min((sxx - sx * sx / n) / max(n - 1, 1), 0.0)
     return mean, var, 1.0 / (_sqrt_rn(var) + BN_EPS)
+
+
+def bn_backward_consts(scales, var, dbiases, dscales, n):
+    """darknet's hand-written BN backward (batchnorm_layer.c:147-157)
+    folded to per-channel constants: dy = dz*c1 + (y - mean)*c2 + c3
+    (phase_train.py:1093-1099 and fused_stem.py:326-332 of the JAX
+    package). Returns (c1, c2, c3)."""
+    sd = _sqrt_rn(var)
+    sum_d = scales * dbiases
+    sum_dxm = scales * (sd + BN_EPS) * dscales
+    variance_delta = sum_dxm * (-0.5) * torch.pow(var + EPS_B, -1.5)
+    mean_delta = sum_d * (-1.0 / _sqrt_rn(var + EPS_B))
+    return scales / (sd + EPS_B), variance_delta * 2.0 / n, mean_delta / n
 
 
 class _Pair(torch.autograd.Function):
@@ -274,15 +480,9 @@ class _Pair(torch.autograd.Function):
         s, a, d, g = bwdg(x, gpooled.to(torch.bfloat16), z, am, mean, inv,
                           scales, biases)
         dbiases, dscales = s[0], s[1]
-        # darknet's hand-written BN backward (batchnorm_layer.c:147-157),
-        # linear in (dz, y, 1) per out channel: dw = c1*A + c2*E' + c3*D
-        sum_d = scales * dbiases
-        sum_dxm = scales * (sd + BN_EPS) * dscales
-        variance_delta = sum_dxm * (-0.5) * torch.pow(var + EPS_B, -1.5)
-        mean_delta = sum_d * (-1.0 / _sqrt_rn(var + EPS_B))
-        c1 = scales / (sd + EPS_B)
-        c2 = variance_delta * 2.0 / n
-        c3 = mean_delta / n
+        # darknet's BN backward is linear in (dz, y, 1) per out channel:
+        # dw = c1*A + c2*E' + c3*D
+        c1, c2, c3 = bn_backward_consts(scales, var, dbiases, dscales, n)
         cout, cin = w.shape[0], w.shape[1]
         w9 = w.permute(2, 3, 1, 0).reshape(9 * cin, cout).float()
         e = g @ w9                           # sum x (x) y, y linear in w
@@ -301,10 +501,67 @@ def phase_train_block(x_nhwc, params, spec):
     pooled, mean, var = _Pair.apply(
         x_nhwc.to(torch.bfloat16).contiguous(), params["weights"],
         params["scales"], params["biases"], params["rolling_mean"].detach())
-    bn = {"rolling_mean": 0.9 * params["rolling_mean"].detach() + 0.1 * mean,
-          "rolling_variance":
-              0.9 * params["rolling_variance"].detach() + 0.1 * var}
-    return pooled, bn
+    return pooled, _bn_roll(params, mean, var)
+
+
+def _bn_roll(params, mean, var):
+    return {"rolling_mean": 0.9 * params["rolling_mean"].detach() + 0.1 * mean,
+            "rolling_variance":
+                0.9 * params["rolling_variance"].detach() + 0.1 * var}
+
+
+class _DxPair(torch.autograd.Function):
+    """The chain's second pair: fwdstats -> stats -> apply forward; backward
+    red -> BN constants -> dy (+ dw) -> dgrad, with the input's gradient
+    (the JAX package's _pair_grads(want_dx=True), phase_train.py:1075-
+    1118)."""
+
+    @staticmethod
+    def forward(ctx, x, w, scales, biases, shift):
+        w_hwio = w.permute(2, 3, 1, 0).to(torch.bfloat16).contiguous()
+        z, _, stats = fwdstats(x, w_hwio, shift, scales)
+        n = x.shape[0] * x.shape[1] * x.shape[2]
+        mean, var, inv = _batch_stats(stats, shift, n)
+        pooled = apply(z, mean, inv, scales, biases)
+        ctx.save_for_backward(x, w, scales, biases, mean, var)
+        ctx.mark_non_differentiable(mean, var)
+        return pooled, mean, var
+
+    @staticmethod
+    def backward(ctx, gpooled, _gm, _gv):
+        x, w, scales, biases, mean, var = ctx.saved_tensors
+        n = x.shape[0] * x.shape[1] * x.shape[2]
+        inv = 1.0 / (_sqrt_rn(var) + BN_EPS)
+        w_hwio = w.permute(2, 3, 1, 0).to(torch.bfloat16).contiguous()
+        dp = gpooled.to(torch.bfloat16)
+        s = red(x, w_hwio, dp, mean, inv, scales, biases)
+        dbiases, dscales = s[0], s[1]
+        c1, c2, c3 = bn_backward_consts(scales, var, dbiases, dscales, n)
+        dyf, dw = dy(x, w_hwio, dp, mean, inv, scales, biases, c1, c2, c3)
+        dx = dgrad(dyf, w_hwio)
+        return (dx, dw.permute(3, 2, 0, 1).to(w.dtype),
+                dscales.to(scales.dtype), dbiases.to(biases.dtype), None)
+
+
+def phase_train_dx_block(x_nhwc, params, spec):
+    """:func:`phase_train_block` with the input's gradient (the chain's
+    second pair): backward through red, dy and dgrad. x_nhwc: (B, H, W, C)
+    with C <= 16 and H, W even. Returns (pooled NHWC bf16, bn_updates)."""
+    pooled, mean, var = _DxPair.apply(
+        x_nhwc.to(torch.bfloat16).contiguous(), params["weights"],
+        params["scales"], params["biases"], params["rolling_mean"].detach())
+    return pooled, _bn_roll(params, mean, var)
+
+
+def phase_train_chain2(x_nhwc, params0, spec0, params2, spec2):
+    """The leading two [conv3x3 + BN + bias + leaky, maxpool 2x2/2] pairs
+    (layers 0-3), neither full-resolution conv output kept for the
+    backward: :func:`phase_train_block`, then :func:`phase_train_dx_block`,
+    whose input gradient (dgrad's output) is pair 0's pooled cotangent.
+    Returns (pooled NHWC bf16 after the second pool, bn0, bn2)."""
+    p0, bn0 = phase_train_block(x_nhwc, params0, spec0)
+    p1, bn2 = phase_train_dx_block(p0, params2, spec2)
+    return p1, bn0, bn2
 
 
 # ------------------------------------------------ the bf16 serving stem
@@ -350,6 +607,9 @@ def build_bf16_stem(spec, params):
     return stem_fn, pairs[-1][1] + 1
 
 
-__all__ = ["phase_train_block", "build_bf16_stem", "fwdstats",
-           "fwdstats_plain", "apply", "apply_plain", "bwdg", "bwdg_plain",
-           "supported", "launches", "reset_launches"]
+__all__ = ["phase_train_block", "phase_train_dx_block", "phase_train_chain2",
+           "build_bf16_stem",
+           "fwdstats", "fwdstats_plain", "apply", "apply_plain", "bwdg",
+           "bwdg_plain", "red", "red_plain", "dy", "dy_plain", "dgrad",
+           "dgrad_plain", "bn_backward_consts", "supported",
+           "supported_chain", "launches", "reset_launches"]

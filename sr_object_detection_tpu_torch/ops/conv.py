@@ -176,6 +176,20 @@ class _BNCore(torch.autograd.Function):
         return dx, dscales
 
 
+def shifted_moments(x, shift):
+    """Batch mean and variance of NCHW x per channel, float32, from
+    single-pass moments shifted by ``shift`` (the rolling mean, no
+    gradient): the 1/(N-1) variance clamped at 0 against a negative
+    cancellation (the JAX package's ``_bn_core_fast`` and fused-stem
+    ``_fused_stats``)."""
+    n = _moments_n(x)
+    xs = x.float() - _channel(shift)
+    sx = xs.sum(dim=(0, 2, 3))
+    sxx = (xs * xs).sum(dim=(0, 2, 3))
+    mean = shift + sx / n
+    return mean, torch.clamp_min((sxx - sx * sx / n) / max(n - 1, 1), 0.0)
+
+
 class _BNCoreFast(torch.autograd.Function):
     """bf16 train-mode batchnorm (the JAX package's ``_bn_core_fast``):
     the same formulas with single-pass moments shifted by the rolling
@@ -185,16 +199,10 @@ class _BNCoreFast(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, scales, shift):
-        n = _moments_n(x)
-        xf = x.float()
-        xs = xf - _channel(shift)
-        sx = xs.sum(dim=(0, 2, 3))
-        sxx = (xs * xs).sum(dim=(0, 2, 3))
-        mean = shift + sx / n
-        var = torch.clamp_min((sxx - sx * sx / n) / max(n - 1, 1), 0.0)
+        mean, var = shifted_moments(x, shift)
         inv = 1.0 / (_sqrt_rn(var) + BN_EPS)
-        y = ((xf - _channel(mean)) * _channel(inv) * _channel(scales)).to(
-            x.dtype)
+        y = ((x.float() - _channel(mean)) * _channel(inv)
+             * _channel(scales)).to(x.dtype)
         ctx.save_for_backward(x, scales, mean, var)
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
@@ -296,5 +304,6 @@ def fold_batchnorm(params):
 
 
 __all__ = ["conv2d", "conv2d_i8", "conv_block", "conv_block_train",
-           "batchnorm_inference", "batchnorm_train", "bias_add",
+           "batchnorm_inference", "batchnorm_train", "shifted_moments",
+           "bias_add",
            "fold_batchnorm", "BN_EPS", "EPS_B"]

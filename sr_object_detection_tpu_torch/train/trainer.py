@@ -10,9 +10,13 @@ statistics are carried from one micro-batch to the next as the scan
 carries them (the reference's sequential cadence,
 batchnorm_layer.c:133-136, pinned by ``train_region_bn_subdiv.npz``).
 
+The bf16 step takes the JAX trainer's kernel options: ``phase_train``
+(False, True for the fused leading pair, "chain" for the leading two
+pairs) and ``fused_stem`` (the fused BN/leaky/pool kernels on every later
+conv + maxpool pair); ``graph/compiler.Network`` says how they combine.
+
 Not ported here: ``mesh`` (ROADMAP queue 1, item 11), ``remat`` (a later
-slice: yolov2-608 is the configuration that needs it), ``fused_stem``
-and ``phase_train="chain"`` (queue 2, rows 7 and 6), the detection and
+slice: yolov2-608 is the configuration that needs it), the detection and
 cost heads (queue 1, item 10) and ``make_multi_step`` (a scan-dispatch
 experiment that lost in the JAX package; ROADMAP "Not ported").
 """
@@ -87,14 +91,6 @@ def make_train_step(spec: S.NetworkSpec, *, mesh=None, compute_dtype=None,
         raise NotImplementedError(
             "remat is not ported yet: it comes with the yolov2-608 training "
             "slice, the configuration that needs it")
-    if fused_stem:
-        raise NotImplementedError(
-            "fused_stem (TPU kernel 7) is not ported yet (ROADMAP queue 2, "
-            "row 7)")
-    if phase_train == "chain":
-        raise NotImplementedError(
-            "phase_train='chain' (TPU kernel 6 and kernel 4's dy/red modes) "
-            "is not ported yet (ROADMAP queue 2, row 6)")
     net = spec.net
     head_idx = _find_head(spec)
     head = spec.layers[head_idx]
@@ -108,7 +104,8 @@ def make_train_step(spec: S.NetworkSpec, *, mesh=None, compute_dtype=None,
         # passes its params), so one Network per step function will do
         if "net" not in holder:
             holder["net"] = Network(spec, params, compute_dtype=compute_dtype,
-                                    phase_train=bool(phase_train))
+                                    phase_train=phase_train,
+                                    fused_stem=fused_stem)
         return holder["net"]
 
     def train_step(state: TrainState, x, truth):

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import sr_object_detection_tpu_torch.kernels.b1_stem as TBS
+import sr_object_detection_tpu_torch.kernels.fused_stem as TFS
 import sr_object_detection_tpu_torch.kernels.nms as TN
 import sr_object_detection_tpu_torch.kernels.phase_stem as TPS
 import sr_object_detection_tpu_torch.kernels.phase_train as TPT
@@ -26,8 +27,10 @@ from sr_object_detection_tpu_torch.ops import boxes as TB
 from sr_object_detection_tpu_torch.ops import conv as TC
 from sr_object_detection_tpu_torch.ops import pooling as TP
 from torch_parity import (assert_bf16_close, assert_stem_link_close,
-                          check_pair_gradient, check_train_kernels,
-                          nms_case, phase_pair_case, random_bn, train_case)
+                          chain_case, check_chain_kernels,
+                          check_fused_stem_kernels, check_pair_gradient,
+                          check_train_kernels, nms_case, phase_pair_case,
+                          random_bn, stem_case, train_case)
 
 # tiny-yolo-voc-416's four stem pairs: (H, Cin, Cout)
 STEM_PAIRS = [(416, 3, 16), (208, 16, 32), (104, 32, 64), (52, 64, 128)]
@@ -225,7 +228,7 @@ def test_train_kernels_match_plain(cuda, cin, cout):
     check_train_kernels(TPT, case)
     torch.cuda.synchronize()
     assert {k: TPT.launches[k] - before[k] for k in before} == {
-        "fwdstats": 1, "apply": 1, "bwdg": 1}
+        "fwdstats": 1, "apply": 1, "bwdg": 1, "red": 0, "dy": 0, "dgrad": 0}
 
 
 @pytest.mark.cuda
@@ -317,3 +320,65 @@ def test_throughput_engine_phase_stem_on_cuda(cuda):
                                ref.float().cpu().numpy(),
                                z.float().cpu().numpy())
         v = got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,cin,cout", [(4, 32, 16, 32), (3, 40, 16, 16),
+                                          (2, 24, 8, 48)])
+def test_chain_kernels_match_plain(cuda, b, h, cin, cout):
+    """red, dy (+ dw) and dgrad at small shapes against their plain
+    versions (torch_parity.check_chain_kernels); 40 x 40 and 24 x 24
+    leave partial 8 x 8 pooled tiles, Cin = 8 half of dgrad's widest."""
+    before = dict(TPT.launches)
+    check_chain_kernels(TPT, chain_case(h + cin, b, h, cin, cout, cuda))
+    torch.cuda.synchronize()
+    assert {k: TPT.launches[k] - before[k] for k in before} == {
+        "fwdstats": 0, "apply": 0, "bwdg": 0, "red": 1, "dy": 1, "dgrad": 1}
+
+
+@pytest.mark.cuda
+def test_dx_pair_gradient_on_cuda(cuda):
+    """The chain's second pair on the card against a float64 evaluation of
+    the unfused chain's formulas, its input gradient included
+    (torch_parity.check_pair_gradient; the cotangent zeroed where the
+    kernel's recomputed conv routes a window apart from cuDNN's)."""
+    case = train_case(6, 8, 32, 16, 32, cuda, flat=False)
+    spec = TS.ConvSpec(index=2, h=32, w=32, c=16, inputs=32 * 32 * 16,
+                       out_h=32, out_w=32, out_c=32, outputs=32 * 32 * 32,
+                       size=3, stride=1, pad=1, filters=32,
+                       activation="leaky", batch_normalize=True)
+    before = dict(TPT.launches)
+    check_pair_gradient(TPT, TC, TP, spec, case, dx=1e-2)
+    assert TPT.launches["dgrad"] == before["dgrad"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,h,channels_last", [
+    (16, 32, True), (32, 16, True), (256, 6, True), (512, 4, True),
+    (16, 12, False), (64, 8, False)])
+def test_fused_stem_kernels_match_plain(cuda, c, h, channels_last):
+    """F2, B1 and B2 against their plain versions, y channels-last (the
+    port's conv output on the card) or NCHW in memory
+    (torch_parity.check_fused_stem_kernels)."""
+    before = dict(TFS.launches)
+    check_fused_stem_kernels(TFS, stem_case(c + h, 4, h, c, cuda,
+                                            channels_last))
+    torch.cuda.synchronize()
+    assert {k: TFS.launches[k] - before[k] for k in before} == {
+        "f2": 1, "b1": 1, "b2": 1}
+
+
+@pytest.mark.cuda
+def test_chain_and_fused_stem_wrappers_reject_bad_inputs(cuda):
+    case = chain_case(0, 2, 8, 16, 32, cuda)
+    consts = [case[k] for k in ("mean", "inv", "scales", "biases")]
+    with pytest.raises(ValueError):
+        TPT.red(case["x"].float(), case["w"], case["dp"], *consts)
+    with pytest.raises(ValueError):
+        TPT.dgrad(case["d"], case["w"][:, :, :12])     # Cin not 8 or 16
+    stem = stem_case(0, 2, 8, 48, cuda)                # 48 does not divide 256
+    k4 = [stem[k] for k in ("mean", "inv", "scales", "biases")]
+    with pytest.raises(ValueError):
+        TFS.b1(stem["y"], stem["dp"], *k4)
+    with pytest.raises(ValueError):
+        TFS.f2(stem["y"][:, :, :7], *k4)

@@ -24,6 +24,8 @@ from sr_object_detection_tpu.train import sgd as JSGD
 from sr_object_detection_tpu.train.trainer import (TrainState as JState,
                                                    make_train_step as j_step)
 from sr_object_detection_tpu_torch.graph import spec as S
+from sr_object_detection_tpu_torch.graph.compiler import Network
+from sr_object_detection_tpu_torch.io.convert import params_to_torch
 from sr_object_detection_tpu_torch.io.weights import init_params
 from sr_object_detection_tpu_torch.models import zoo as TZ
 from sr_object_detection_tpu_torch.train import region_loss as TRL
@@ -247,8 +249,37 @@ def test_nan_guarded_keeps_state_on_poisoned_input():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"mesh": object()}, "item 11"), ({"remat": True}, "yolov2-608"),
-    ({"fused_stem": True}, "row 7"), ({"phase_train": "chain"}, "row 6")])
+    ({"mesh": object()}, "item 11"), ({"remat": True}, "yolov2-608")])
 def test_trainer_unported_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         Trainer(_bf16_spec(TZ), device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw,fused", [
+    ({"phase_train": "chain"}, set()), ({"fused_stem": True}, {0, 2, 4, 6, 8}),
+    ({"phase_train": True, "fused_stem": True}, {2, 4, 6, 8}),
+    ({"phase_train": "chain", "fused_stem": True}, {4, 6, 8})])
+def test_bf16_kernel_options_step_like_unfused(kw, fused):
+    """The opt-in bf16 training paths on tiny-yolo-voc at 32x32, batch
+    128: the network takes the layers the options name (the pair or chain
+    first, the fused stem on every later fusable pair; layer 10's pool has
+    stride 1), the first loss lies within 0.03*|loss| + 0.05 of the
+    unfused bf16 step's (tests/test_phase_train.py:336-338) and the second
+    below the first."""
+    x, t = _bf16_batch()
+    spec = _bf16_spec(TZ)
+    params = init_params(spec, seed=0)
+    net = Network(spec, params_to_torch(spec, params, "cpu"),
+                  compute_dtype=torch.bfloat16, **kw)
+    start = 4 if net.phase_chain else 2 if net.phase_pair else 0
+    assert net.phase_chain == (kw.get("phase_train") == "chain")
+    assert {i for i in net.fusable if i >= start} == fused
+    plain = Trainer(spec, params=params, device="cpu",
+                    compute_dtype=torch.bfloat16)
+    want = float(plain.step(x, t)["loss"])
+    tr = Trainer(spec, params=params, device="cpu",
+                 compute_dtype=torch.bfloat16, **kw)
+    l1 = float(tr.step(x, t)["loss"])
+    l2 = float(tr.step(x, t)["loss"])
+    assert abs(l1 - want) <= 0.03 * abs(want) + 0.05, (l1, want)
+    assert l2 < l1

@@ -227,19 +227,28 @@ def check_train_kernels(PT, case):
     return errs
 
 
-def same_route(PT, C, spec, x, p):
+def same_route(PT, C, spec, x, p, dx=False):
     """Where the fused pair and the unfused chain route a pooled pixel's
     gradient to the same tap: (B, H/2, W/2, Cout) bool. The pair takes
     the first tap attaining the raw bf16 conv extreme in the direction
     of the channel's BN slope (the JAX kernel's rule), the chain the
     first maximum of its bf16 output after BN, bias and leaky, whose
     roundings can tie taps that the raw values keep apart (ROADMAP queue
-    3, item 4). x NHWC; p the layer's params (OIHW weights)."""
+    3, item 4). With ``dx`` the pair is the chain's second pair, whose
+    red/dy kernels take the chain's rule on their own recomputed conv;
+    its routing is read off the dy kernel (with a unit cotangent and
+    c1 = 1, c2 = c3 = 0 the routed tap holds the window's one nonzero
+    dy: 1 where the pre-activation is positive, the bf16 leaky slope
+    where not), and a window also counts as apart where the two leaky
+    signs at the routed tap differ (a conv output one ulp apart next to
+    z = 0 moves dz by 0.9 of the cotangent there). x NHWC; p the layer's
+    params (OIHW weights)."""
     import torch
     with torch.no_grad():
-        w_hwio = p["weights"].permute(2, 3, 1, 0).to(torch.bfloat16)
-        am = PT.fwdstats(x.to(torch.bfloat16), w_hwio.contiguous(),
-                         p["rolling_mean"], p["scales"])[1]
+        xb = x.to(torch.bfloat16)
+        w_hwio = p["weights"].permute(2, 3, 1, 0).to(
+            torch.bfloat16).contiguous()
+        _, am, st = PT.fwdstats(xb, w_hwio, p["rolling_mean"], p["scales"])
         y, _ = C.conv_block_train(x.permute(0, 3, 1, 2), p, spec,
                                   compute_dtype=torch.bfloat16)
         b, c, h, w = y.shape
@@ -247,10 +256,22 @@ def same_route(PT, C, spec, x, p):
             0, 2, 4, 1, 3, 5).reshape(b, h // 2, w // 2, c, 4)
         first = (taps == taps.amax(-1, keepdim=True)).to(
             torch.uint8).argmax(-1)
+        if dx:
+            mean, _, inv = PT._batch_stats(st, p["rolling_mean"], b * h * w)
+            one, zero = torch.ones_like(mean), torch.zeros_like(mean)
+            unit = torch.ones_like(am, dtype=torch.bfloat16)
+            dyv, _ = PT.dy(xb, w_hwio, unit, mean, inv, p["scales"],
+                           p["biases"], one, zero, zero)
+            routed = dyv.reshape(b, h // 2, 2, w // 2, 2, c).permute(
+                0, 1, 3, 5, 2, 4).reshape(b, h // 2, w // 2, c, 4)
+            am = (routed != 0).to(torch.uint8).argmax(-1)
+            pos = routed.gather(-1, am[..., None].long())[..., 0] == 1
+            cpos = taps.gather(-1, first[..., None].long())[..., 0] > 0
+            return (first == am.long()) & (pos == cpos)
     return first == am.long()
 
 
-def check_pair_gradient(PT, C, P, spec, case, tol=1e-3):
+def check_pair_gradient(PT, C, P, spec, case, tol=1e-3, dx=None):
     """phase_train_block's gradient against the unfused chain's
     (conv_block_train + maxpool) on the same inputs. The cotangent is
     zeroed where the two tie rules pick different taps
@@ -269,9 +290,20 @@ def check_pair_gradient(PT, C, P, spec, case, tol=1e-3):
     ill-conditioned here (1/(sqrt(var) + eps) of a var that is a
     cancellation of float32 sums): give a case without one.
 
+    ``dx`` (a tolerance) checks phase_train_dx_block, the chain's second
+    pair, instead, and its input gradient too. That pair materializes the
+    conv output's cotangent dy in bf16 (the JAX kernel's mode "dy") and
+    takes both its weight and its input gradient from it; dy's rounding
+    moves the weight gradient by up to a few per cent of its largest
+    magnitude (the BN backward leaves it a sum with heavy cancellation),
+    so the float64 evaluation rounds dy to bf16 where the pair does. The
+    input gradient, bf16 itself, is held at ``dx`` of its largest
+    magnitude.
+
     Returns {"fused": the pair's largest relative difference, "chain":
     the bf16 chain's weight-gradient distance from the float64
-    evaluation, "masked": the share of windows zeroed}."""
+    evaluation, "masked": the share of windows zeroed, and with ``dx``
+    "dx": the input gradient's relative difference}."""
     import torch
     import torch.nn.functional as F
     from sr_object_detection_tpu_torch.ops.activations import leaky_bf16
@@ -287,20 +319,24 @@ def check_pair_gradient(PT, C, P, spec, case, tol=1e-3):
         return p
 
     x = case["x"]
-    keep = same_route(PT, C, spec, x, params())
+    keep = same_route(PT, C, spec, x, params(), dx=dx is not None)
     dp = case["dp"].float() * keep
+    block = PT.phase_train_block if dx is None else PT.phase_train_dx_block
 
     def grads(fn):
         p = params()
-        (fn(x, p).float() * dp).sum().backward()
-        return {k: p[k].grad for k in ("weights", "scales", "biases")}
+        xr = x.detach().clone().requires_grad_(dx is not None)
+        (fn(xr, p).float() * dp).sum().backward()
+        out = {k: p[k].grad for k in ("weights", "scales", "biases")}
+        out["x"] = xr.grad
+        return out
 
     def chain(v, p):
         y, _ = C.conv_block_train(v.permute(0, 3, 1, 2), p, spec,
                                   compute_dtype=torch.bfloat16)
         return P.maxpool(y, size=2, stride=2, pad=0).permute(0, 2, 3, 1)
 
-    gf = grads(lambda v, p: PT.phase_train_block(v, p, spec)[0])
+    gf = grads(lambda v, p: block(v, p, spec)[0])
     gc = grads(chain)
     out = {"masked": 1.0 - keep.float().mean().item(), "fused": 0.0}
     for k in ("scales", "biases"):
@@ -308,7 +344,7 @@ def check_pair_gradient(PT, C, P, spec, case, tol=1e-3):
                / gc[k].abs().max().clamp_min(1e-3)).item()
         assert rel <= tol, (k, rel)
         out["fused"] = max(out["fused"], rel)
-    del gc["scales"], gc["biases"]
+    del gc["scales"], gc["biases"], gc["x"]
 
     # the chain's formulas in float64 on its own intermediates
     p = params()
@@ -332,16 +368,178 @@ def check_pair_gradient(PT, C, P, spec, case, tol=1e-3):
         d = (d / ch(var.sqrt() + 1e-5) + ch(var_delta) * 2 * xm / n
              + ch(mean_delta) / n)
         del xm
+        if dx is not None:
+            d = d.to(torch.bfloat16).double()     # dy is bf16 in the pair
         ref = torch.nn.grad.conv2d_weight(xb.double(), p["weights"].shape,
                                           d, padding=1)
-        del d
         scale = ref.abs().max()
         rel = ((gf["weights"].double() - ref).abs().max() / scale).item()
         assert rel <= tol, ("weights", rel)
         out["fused"] = max(out["fused"], rel)
         out["chain"] = ((gc["weights"].double() - ref).abs().max()
                         / scale).item()
+        del ref
+        if dx is not None:
+            wb = p["weights"].detach().to(torch.bfloat16).double()
+            ref = F.conv_transpose2d(d, wb, padding=1).permute(0, 2, 3, 1)
+            out["dx"] = ((gf["x"].double() - ref).abs().max()
+                         / ref.abs().max()).item()
+            assert out["dx"] <= dx, ("x", out["dx"])
     return out
+
+
+def chain_case(seed, batch, h, cin, cout, device):
+    """Random inputs of the chain's second-pair kernels (red, dy, dgrad) as
+    torch tensors made on ``device`` from a seed: x (B,h,h,Cin) and w_hwio
+    (3,3,Cin,Cout) bf16 on a coarse grid (x in eighths of [0, 1], w in
+    sixteenths), where the bf16 conv's float32 sums are exact in any
+    order, so a kernel and its plain version recompute the same y and
+    route every window alike; the batch statistics of that conv, scales
+    with one negative, biases, c1..c3 of the BN backward's size, the
+    pooled cotangent dp and a full-resolution cotangent d for dgrad,
+    bf16."""
+    import torch
+    import sr_object_detection_tpu_torch.kernels.phase_train as PT
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=device)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    bf = torch.bfloat16
+    t = {"x": (rand(batch, h, h, cin) * 8).round().div(8).to(bf),
+         "w": (randn(3, 3, cin, cout) * 0.3 * 16).round().div(16).to(bf),
+         "dp": randn(batch, h // 2, h // 2, cout).to(bf),
+         "d": randn(batch, h, h, cout).to(bf),
+         "scales": 0.6 + 0.8 * rand(cout), "biases": 0.2 * randn(cout),
+         "c1": 0.5 + rand(cout), "c2": 1e-3 * randn(cout),
+         "c3": 1e-3 * randn(cout)}
+    t["scales"][1] = -0.8
+    zero = torch.zeros(cout, device=device)
+    _, _, st = PT.fwdstats_plain(t["x"], t["w"], zero, t["scales"])
+    t["mean"], _, t["inv"] = PT._batch_stats(st, zero, batch * h * h)
+    return t
+
+
+def check_chain_kernels(PT, case):
+    """red, dy (+ dw) and dgrad against their plain versions on the same
+    inputs (:func:`chain_case`): red's sums at 1e-4 of their largest
+    magnitude and dy's weight gradient at 1e-3 (float32 sums in other
+    orders; dw is a sum with heavy cancellation, as bwdg's reductions,
+    which are held at 1e-3), dy bit-equal, dgrad within one bf16 ulp
+    (float32 sums in other orders, rounded to bf16). Returns the max
+    absolute error of each kernel."""
+    import torch
+    args = [case[k] for k in ("x", "w", "dp", "mean", "inv", "scales",
+                              "biases")]
+    c123 = [case[k] for k in ("c1", "c2", "c3")]
+    errs = {}
+    s, sp = PT.red(*args), PT.red_plain(*args)
+    rel = ((s - sp).abs().max(dim=1).values
+           / sp.abs().max(dim=1).values.clamp_min(1e-30)).max().item()
+    assert rel <= 1e-4, ("red", rel)
+    errs["red"] = (s - sp).abs().max().item()
+    (dyk, dwk), (dyp, dwp) = PT.dy(*args, *c123), PT.dy_plain(*args, *c123)
+    assert torch.equal(dyk, dyp), ("dy", (dyk != dyp).sum().item())
+    err = (dwk - dwp).abs().max().item()
+    assert err <= 1e-3 * dwp.abs().max().item(), ("dw", err)
+    errs["dy"] = err
+    dx, dxp = PT.dgrad(case["d"], case["w"]), PT.dgrad_plain(case["d"],
+                                                              case["w"])
+    assert_bf16_close(dx.float().cpu().numpy(), dxp.float().cpu().numpy())
+    errs["dgrad"] = (dx.float() - dxp.float()).abs().max().item()
+    return errs
+
+
+def stem_case(seed, batch, h, c, device, channels_last=True):
+    """Random inputs of the fused stem's kernels (kernels/fused_stem.py)
+    made on ``device`` from a seed: y (B,C,h,h) bf16 (channels-last in
+    memory, as the port's conv writes it on the card, or NCHW) with exact
+    ties in some windows, its batch statistics, scales with one negative,
+    biases, c1..c3, and the pooled cotangent dp (B,C,h/2,h/2) bf16."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=device)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    fmt = (torch.channels_last if channels_last
+           else torch.contiguous_format)
+    y = 1.5 * randn(batch, c, h, h)
+    y[:, :, 0:2, 0:2] = 0.75
+    y[:, :, -2:, -1] = y[:, :, -2:, -2]
+    t = {"y": y.to(torch.bfloat16).contiguous(memory_format=fmt),
+         "dp": randn(batch, c, h // 2, h // 2).to(torch.bfloat16).contiguous(
+             memory_format=fmt),
+         "scales": 0.5 + rand(c), "biases": rand(c) - 0.5,
+         "c1": 0.5 + rand(c), "c2": 1e-3 * randn(c), "c3": 1e-3 * randn(c)}
+    t["scales"][1] = -0.8
+    yf = t["y"].float()
+    t["mean"] = yf.mean(dim=(0, 2, 3))
+    t["inv"] = 1.0 / (yf.var(dim=(0, 2, 3)).sqrt() + 1e-6)
+    return t
+
+
+def check_fused_stem_kernels(FS, case):
+    """F2, B1 and B2 against their plain versions on the same inputs
+    (:func:`stem_case`): F2 and B2 (at fixed constants) bit-equal, B1's
+    sums at 1e-4 of their largest magnitude (float32 sums in other
+    orders). Returns the max absolute error of each kernel."""
+    import torch
+    y, dp = case["y"], case["dp"]
+    k4 = [case[k] for k in ("mean", "inv", "scales", "biases")]
+    c123 = [case[k] for k in ("c1", "c2", "c3")]
+    p, pp = FS.f2(y, *k4), FS.f2_plain(y, *k4)
+    assert torch.equal(p, pp), ("f2", (p != pp).sum().item())
+    s, sp = FS.b1(y, dp, *k4), FS.b1_plain(y, dp, *k4)
+    rel = ((s - sp).abs().max(dim=0).values
+           / sp.abs().max(dim=0).values.clamp_min(1e-30)).max().item()
+    assert rel <= 1e-4, ("b1", rel)
+    d, dpl = FS.b2(y, dp, *k4, *c123), FS.b2_plain(y, dp, *k4, *c123)
+    assert torch.equal(d, dpl), ("b2", (d != dpl).sum().item())
+    return {"f2": 0.0, "b1": (s - sp).abs().max().item(), "b2": 0.0}
+
+
+def check_fused_op(FS, C, P, case):
+    """fused_bn_leaky_pool against the port's unfused bf16 chain from the
+    same conv output y (:func:`stem_case`; the BN core, the bias, the bf16
+    leaky and the maxpool), the cotangent dp on the pooled output: the
+    pooled output and the batch statistics bit-equal (the same statistics
+    code), the scale and bias gradients (float32 sums on both sides) at
+    1e-3 of their largest magnitude, the cotangent of y within one bf16
+    ulp (darknet's BN backward folded to c1..c3 rounds otherwise than the
+    chain's expression). Returns the largest relative difference of the
+    scale and bias gradients and the largest |difference| of y's."""
+    import torch
+    from sr_object_detection_tpu_torch.ops.activations import leaky_bf16
+
+    def run(fn):
+        y = case["y"].detach().clone().requires_grad_(True)
+        s, b = (case[k].clone().requires_grad_(True)
+                for k in ("scales", "biases"))
+        out, mean, var = fn(y, s, b)
+        (out.float() * case["dp"].float()).sum().backward()
+        return out, mean, var, y.grad, s.grad, b.grad
+
+    def chain(y, s, b):
+        ybn, mean, var = C._BNCoreFast.apply(y, s, case["mean"])
+        z = leaky_bf16(C.bias_add(ybn, b))
+        return P.maxpool(z, size=2, stride=2, pad=0), mean, var
+
+    f = run(lambda y, s, b: FS.fused_bn_leaky_pool(y, s, b, case["mean"]))
+    c = run(chain)
+    for a, b in zip(f[:3], c[:3]):
+        assert torch.equal(a, b)
+    rel = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-3)).item()
+              for a, b in zip(f[4:], c[4:]))
+    assert rel <= 1e-3, rel
+    assert_bf16_close(f[3].float().cpu().numpy(), c[3].float().cpu().numpy())
+    return rel, (f[3].float() - c[3].float()).abs().max().item()
 
 
 # C-oracle training goldens and the weight tolerance each is held to
