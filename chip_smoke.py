@@ -82,7 +82,8 @@ non-zero status and no result line:
  16. torch.profiler over one bf16 step with the pair and one without;
  17. the opt-in training paths' kernels against their plain versions at
      the main path's shapes: kernel 4's modes red and dy (+ its weight
-     gradient) and the dgrad kernel at the chain's second pair (208x208,
+     gradient) and the dgrad kernel (an implicit GEMM on the bf16 tensor
+     cores, mma.sync) at the chain's second pair (208x208,
      16 -> 32, B=128; inputs on a coarse grid where the conv's sums are
      exact, so both recompute the same conv): red's sums at 1e-4, dy
      bit-equal, dw at 1e-3, dgrad within one bf16 ulp; F2, B1 and B2
@@ -102,15 +103,17 @@ non-zero status and no result line:
      three + F2, B1, B2 4 each / F2, B1, B2 5 each; losses finite and
      falling, the first within 0.03*|loss| + 0.05 of the step without
      kernels;
- 20. times, in turns: the six new kernels beside their plain versions
-     and bounds, F.conv_transpose2d (dgrad's function in one library
-     call), the bf16 serving stem (mode fwd) at its four pair shapes;
+ 20. times, in turns: red, dy, dgrad, F2, B1 and B2 beside their plain
+     versions and bounds, F.conv_transpose2d (dgrad's function in one
+     library call, cuDNN, timed in the same run), the bf16 serving stem
+     (mode fwd) at its four pair shapes;
      Trainer.step images/s of the three paths against bf16 + phase_train;
  21. torch.profiler over one step of each of the three paths.
 
 The last lines are the card (nvidia-smi), one JSON object describing the
-kernels (time, plain time, bound, launches and library call of each), and
-``{"ok": true, "device": {...}}``.
+12 kernels (time, plain time, bound, launches and library call of each;
+``phase_train_dgrad`` is the tensor-core implicit GEMM in
+csrc/phase_train.cu), and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations

@@ -74,8 +74,10 @@
 //     at full resolution, and in the same pass the direct weight gradient
 //     dw = sum x_taps (x) dy (the product lies in the TPU kernel's body,
 //     so it is computed here, not by a library GEMM);
-//   * phase_train_dgrad: _dgrad_kernel (:1256, call :1328): dx = dy conv
-//     w with flipped taps and swapped channels, float32 sums, bf16 out.
+//   * phase_train_dgrad: _dgrad_kernel (:1256, call :1328), which forms
+//     dx = dy conv w with flipped taps and swapped channels as one bf16
+//     dot_general on the MXU with float32 sums (:1292-1294); here the
+//     same product runs on the tensor cores (mma.sync), bf16 out.
 //   red and dy share fwdstats' block shape (image, 8x8 pooled tile, 16
 //   channels) and its conv loop, so y is bit-equal to the forward's; a
 //   block walks a fixed set of an image's tiles (a chunk) and keeps its
@@ -89,11 +91,41 @@
 //   writes dy (354 MB): 0.185 ms; the conv recompute (51 GFLOP, twice
 //   that in dy with the weight gradient) runs on the FP32 cores here, so
 //   on this design the operations bound both.
-//   dgrad: one block per (image, 8x32 output tile), 256 threads, one
-//   output pixel x all Cin (<= 16) channels a thread; the 10x34 dy halo
-//   (16 channels a stage) in shared memory, a warp reading one row
-//   (conflict-free); bound at that shape 0.159 ms by bytes (dy read, dx
-//   written, 532 MB), 51 GFLOP on the FP32 cores in this design.
+//   dgrad: an implicit GEMM on the bf16 tensor cores. M = the output
+//   pixels, N = Cin (one or two n8 tiles), K = 9 taps x Cout, taken 16
+//   dy channels (one k16 step) at a time; mma.sync m16n8k16 with float32
+//   accumulators. Bound at the chain's shape by bytes: dy read and dx
+//   written, 532 MB, 0.159 ms at 3.35 TB/s; its 51 GFLOP take 0.052 ms at
+//   the bf16 dense peak. So the design streams dy through shared memory
+//   at HBM rate and keeps the products cheap:
+//   - a fixed grid of persistent blocks (two of 256 threads an SM, as
+//     many as fit at once, as bwdg), each walking items (image, 16x32
+//     output tile, group of 32 dy channels, or 16 where Cout is not a
+//     multiple of 32) in a fixed order through a ring of stages (2 for
+//     32-channel items, 3 for 16): cp.async (16 bytes, src-size 0 for
+//     the zero padding) fetches the next items while the tensor cores
+//     work on this one. A 32-channel item reads whole 64-byte runs of a
+//     pixel (at Cout 32 its whole row of dy), which the measurement
+//     showed to stream faster than two 32-byte halves a pixel apart.
+//     Neighbouring blocks walk neighbouring tiles, so the 18x34 halo's
+//     extra rows and columns come from L2 (dy is read 1.2x over from L2,
+//     once from HBM);
+//   - a stage holds the item's dy halo, NHWC, 32 or 64 bytes a pixel, its
+//     16-byte units XOR-swizzled by the pixel's halo column, so the eight
+//     row addresses of an ldmatrix phase fall in distinct banks and every
+//     ldmatrix address is a per-thread base plus a constant; and the
+//     group's weights [tap][ci][32 or 16 co], swizzled by ci;
+//   - A fragments: ldmatrix.x4 straight from the halo, a row = one
+//     pixel's 16 channels at the tap's shifted position (no im2col).
+//     Warp w owns output rows 4(w/2)..+3 of one 16-pixel column half:
+//     each of its 6 halo rows x 3 column shifts is loaded once a k16 step
+//     and feeds every output row it is a tap of (18 ldmatrix for 36 tap
+//     products, not 36); B fragments: one ldmatrix.x4 per tap and step;
+//   - epilogue: the float32 sums rounded to bf16 once, staged per warp in
+//     shared memory and written as 16-byte stores, one pixel's Cin
+//     channels contiguous. No atomics: every output has one owner and one
+//     summation order (channel groups, then taps in a fixed order), so
+//     two runs are bit-equal.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -115,8 +147,11 @@
 #define PT_FULL (2 * PT_PT)             // full-resolution tile edge (16)
 #define PT_DYS (PT_FULL * PT_FULL + 1)  // dy floats per channel in smem
 #define DG_TX 32                        // dgrad output tile: 32 wide
-#define DG_TY 8                         //   and 8 tall
-#define DG_CO 16                        // dy channels per dgrad stage
+#define DG_TY 16                        //   and 16 tall
+#define DG_HX (DG_TX + 2)               // dy halo: 34 wide
+#define DG_HY (DG_TY + 2)               //   and 18 tall
+#define DG_KC 16                        // dy channels per k16 step
+#define DG_EPI (4 * 16 * 32)            // epilogue bytes a warp
 
 namespace {
 
@@ -666,88 +701,255 @@ chain_bwd_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; src_bytes 0 writes zeros
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned addr, unsigned (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// d += a (16x16, row) * b (16x8, col): bf16 operands, float32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// byte offset of 16-byte unit u of row r (KG x 32 bytes) in a staged
+// array: the units are XOR-swizzled by the low bits of `key` (the halo
+// column of a pixel, the ci of a weight row), so the eight row addresses
+// of an ldmatrix phase (eight consecutive columns of one halo row, or
+// eight consecutive ci, one unit) fall in distinct banks
+template <int KG>
+__device__ __forceinline__ int swz(int r, int key, int u) {
+  return r * 32 * KG + ((u ^ ((key >> (3 - KG)) & (2 * KG - 1))) << 4);
+}
+
+// bytes of one stage: the halo (KG x 16 dy channels a pixel) and the
+// group's weights [tap][ci][KG x 16 co]
+__host__ __device__ constexpr int dgrad_stage_bytes(int nt, int kg) {
+  return (DG_HY * DG_HX + 9 * 8 * nt) * 32 * kg;
+}
+
+// stages in the ring: two blocks of 256 threads fit on an SM
+__host__ __device__ constexpr int dgrad_stages(int kg) { return 4 - kg; }
+
 // dx[b, y, x, ci] = sum over ky, kx, co of dy[b, y + 1 - ky, x + 1 - kx, co]
-// * w[ky, kx, ci, co], float32 sums rounded to bf16. Grid (tiles, 1, B),
-// tiles of DG_TY x DG_TX output pixels; Cin <= 16 and a multiple of 8,
-// Cout a multiple of 16.
-__global__ void __launch_bounds__(PT_THREADS)
+// * w[ky, kx, ci, co], float32 sums rounded to bf16 (see the note at the
+// top). NT = Cin / 8 n8 tiles; KG k16 steps (16 dy channels each) an
+// item, Cout a multiple of 16 KG. A persistent block walks its tiles
+// t = blockIdx.x, + gridDim.x, ..., each in Cout / (16 KG) items. 8 warps:
+// warp w owns output rows 4 (w / 2) .. + 3 of the tile, pixels
+// 16 (w % 2) .. + 15 of each: 4 M-tiles x NT n8 tiles.
+template <int NT, int KG>
+__global__ void __launch_bounds__(PT_THREADS, 2)
 dgrad_kernel(const __nv_bfloat16* __restrict__ dy,
              const __nv_bfloat16* __restrict__ w,
-             __nv_bfloat16* __restrict__ dx, int H, int W, int Cin,
-             int Cout) {
-  __shared__ float ds[DG_CO][DG_TY + 2][DG_TX + 2];
-  __shared__ float4 ws[DG_CO][9][4];          // [co][flipped tap][ci / 4]
+             __nv_bfloat16* __restrict__ dx, int B, int H, int W, int Cout) {
+  constexpr int Cin = 8 * NT;
+  constexpr int NS = dgrad_stages(KG);
+  constexpr int STAGE = dgrad_stage_bytes(NT, KG);
+  constexpr int HALO = DG_HY * DG_HX * 32 * KG;
+  constexpr int U = 2 * KG;                    // 16-byte units a row
+  extern __shared__ __align__(128) unsigned char dsm[];
+  unsigned char* epi = dsm + NS * STAGE;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ngr = Cout / (DG_KC * KG);
   const int tiles_x = (W + DG_TX - 1) / DG_TX;
-  const int ty = blockIdx.x / tiles_x, tx = blockIdx.x % tiles_x;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int px = tid % DG_TX, py = tid / DG_TX;
-  const int y0 = ty * DG_TY - 1, x0 = tx * DG_TX - 1;
-  float* wsf = reinterpret_cast<float*>(&ws[0][0][0]);
-  float acc[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+  const int tiles_img = tiles_x * ((H + DG_TY - 1) / DG_TY);
+  const int tiles = B * tiles_img;
+  const int items = ((tiles - 1 - static_cast<int>(blockIdx.x)) /
+                         static_cast<int>(gridDim.x) + 1) * ngr;
 
-  for (int co0 = 0; co0 < Cout; co0 += DG_CO) {
-    __syncthreads();                 // the previous stage is done with smem
-    for (int i = tid; i < DG_CO * (DG_TY + 2) * (DG_TX + 2);
-         i += PT_THREADS) {
-      const int c = i % DG_CO;
-      const int pos = i / DG_CO;
-      const int yy = pos / (DG_TX + 2), xx = pos % (DG_TX + 2);
-      const int gy = y0 + yy, gx = x0 + xx;
-      float v = 0.f;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-        v = __bfloat162float(
-            dy[((static_cast<size_t>(b) * H + gy) * W + gx) * Cout + co0 + c]);
-      ds[c][yy][xx] = v;
+  // stage item `it` (or commit an empty group past the last item).
+  // Thread tid copies unit tid % U of halo pixels tid / U, + 256 / U, ...
+  // (row-major in the 18 x 34 halo, stepped without a division), then
+  // unit tid % U of weight rows tid / U, + 256 / U, ...
+  constexpr int PSTEP = PT_THREADS / U;
+  const int u_ld = tid % U;
+  const int hy_ld = (tid / U) / DG_HX, hx_ld = (tid / U) % DG_HX;
+  auto load = [&](int it) {
+    if (it < items) {
+      const int t = blockIdx.x + (it / ngr) * gridDim.x;
+      const int c0 = (it % ngr) * DG_KC * KG + 8 * u_ld;
+      const int b = t / tiles_img, r = t % tiles_img;
+      const int y0 = (r / tiles_x) * DG_TY - 1;
+      const int x0 = (r % tiles_x) * DG_TX - 1;
+      const __nv_bfloat16* img = dy + static_cast<size_t>(b) * H * W * Cout;
+      const unsigned st = smem_u32(dsm + (it % NS) * STAGE);
+      for (int hy = hy_ld, hx = hx_ld; hy < DG_HY;) {
+        const int gy = y0 + hy, gx = x0 + hx;
+        const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+        const __nv_bfloat16* src =
+            in ? img + (static_cast<size_t>(gy) * W + gx) * Cout + c0 : dy;
+        cp_async16(st + swz<KG>(hy * DG_HX + hx, hx, u_ld), src,
+                   in ? 16 : 0);
+        hx += PSTEP % DG_HX;
+        hy += PSTEP / DG_HX;
+        if (hx >= DG_HX) {
+          hx -= DG_HX;
+          ++hy;
+        }
+      }
+      // weight row = tap * Cin + ci
+      for (int row = tid / U; row < 9 * Cin; row += PSTEP)
+        cp_async16(st + HALO + swz<KG>(row, row, u_ld),
+                   w + static_cast<size_t>(row) * Cout + c0, 16);
     }
-    for (int i = tid; i < DG_CO * 9 * 16; i += PT_THREADS) {
-      const int ci = i % 16;
-      const int rest = i / 16;
-      const int t = rest % 9, c = rest / 9;
-      const int ky = 2 - t / 3, kx = 2 - t % 3;   // flipped taps
-      wsf[(c * 9 + t) * 16 + ci] =
-          ci < Cin ? __bfloat162float(
-                         w[((ky * 3 + kx) * Cin + ci) * Cout + co0 + c])
-                   : 0.f;
+    cp_async_commit();
+  };
+
+  const int rg = warp >> 1, mcol = warp & 1;
+  const int g = lane >> 2, q = lane & 3;
+  // ldmatrix row addresses: A, pixel lane % 16 of the M-tile, unit
+  // lane / 16 of the k16 step; B, ci (lane % 8) + 8 (lane / 16), unit
+  // (lane / 8) % 2 of the k16 step
+  const int a_px = 16 * mcol + (lane & 15), a_h = lane >> 4;
+  const int b_ci = (lane & 7) + (NT == 2 ? 8 * (lane >> 4) : 0);
+  const int b_h = (lane >> 3) & 1;
+  // halo row hr of the warp, column shift fx, step kk: a_off[fx][kk] +
+  // hr * the row's bytes; tap f of step kk: b_off[kk] + (8 - f) * Cin rows
+  int a_off[3][KG], b_off[KG];
+#pragma unroll
+  for (int kk = 0; kk < KG; ++kk) {
+#pragma unroll
+    for (int fx = 0; fx < 3; ++fx)
+      a_off[fx][kk] = swz<KG>(4 * rg * DG_HX + a_px + fx, a_px + fx,
+                              2 * kk + a_h);
+    b_off[kk] = HALO + swz<KG>(b_ci, b_ci, 2 * kk + b_h);
+  }
+  float acc[4][NT][4];
+
+  for (int s = 0; s < NS - 1; ++s) load(s);
+  for (int it = 0; it < items; ++it) {
+    cp_async_wait<NS - 2>();         // item it has landed ...
+    __syncthreads();                 // ... for all, and it - 1 is done
+    load(it + NS - 1);
+    const int gr = it % ngr;
+    if (gr == 0) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[r][n][e] = 0.f;
     }
-    __syncthreads();
-    for (int c = 0; c < DG_CO; ++c) {
+    const unsigned st = smem_u32(dsm + (it % NS) * STAGE);
 #pragma unroll
-      for (int t = 0; t < 9; ++t) {
-        const float v = ds[c][py + t / 3][px + t % 3];
+    for (int kk = 0; kk < KG; ++kk) {
+      unsigned bf[9][4];             // [flipped tap fy * 3 + fx]
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float4 wv = ws[c][t][q];
-          acc[4 * q + 0] = fmaf(v, wv.x, acc[4 * q + 0]);
-          acc[4 * q + 1] = fmaf(v, wv.y, acc[4 * q + 1]);
-          acc[4 * q + 2] = fmaf(v, wv.z, acc[4 * q + 2]);
-          acc[4 * q + 3] = fmaf(v, wv.w, acc[4 * q + 3]);
+      for (int f = 0; f < 9; ++f)
+        ldmatrix_x4(st + b_off[kk] + (8 - f) * Cin * 32 * KG, bf[f]);
+#pragma unroll
+      for (int hr = 0; hr < 6; ++hr) {
+#pragma unroll
+        for (int fx = 0; fx < 3; ++fx) {
+          unsigned a[4];
+          ldmatrix_x4(st + a_off[fx][kk] + hr * DG_HX * 32 * KG, a);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int fy = hr - r;
+            if (fy >= 0 && fy < 3) {
+#pragma unroll
+              for (int n = 0; n < NT; ++n)
+                mma_bf16(acc[r][n], a, bf[fy * 3 + fx][2 * n],
+                         bf[fy * 3 + fx][2 * n + 1]);
+            }
+          }
         }
       }
     }
-  }
-  const int oy = ty * DG_TY + py, ox = tx * DG_TX + px;
-  if (oy < H && ox < W) {
-    uint4* out = reinterpret_cast<uint4*>(
-        dx + ((static_cast<size_t>(b) * H + oy) * W + ox) * Cin);
+    if (gr == ngr - 1) {
+      // round once, stage the warp's 4 x 16 pixels x Cin, 16-byte stores
+      unsigned char* e = epi + warp * DG_EPI;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (8 * h < Cin) {
-        uint4 r;
-        r.x = static_cast<unsigned>(bf16_bits(acc[8 * h + 0])) |
-              (static_cast<unsigned>(bf16_bits(acc[8 * h + 1])) << 16);
-        r.y = static_cast<unsigned>(bf16_bits(acc[8 * h + 2])) |
-              (static_cast<unsigned>(bf16_bits(acc[8 * h + 3])) << 16);
-        r.z = static_cast<unsigned>(bf16_bits(acc[8 * h + 4])) |
-              (static_cast<unsigned>(bf16_bits(acc[8 * h + 5])) << 16);
-        r.w = static_cast<unsigned>(bf16_bits(acc[8 * h + 6])) |
-              (static_cast<unsigned>(bf16_bits(acc[8 * h + 7])) << 16);
-        out[h] = r;
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int px = 16 * r + g + 8 * hh;
+            const __nv_bfloat162 v = __floats2bfloat162_rn(
+                acc[r][n][2 * hh], acc[r][n][2 * hh + 1]);
+            const int off = NT == 2 ? swz<1>(px, px, n) : px * 16;
+            *reinterpret_cast<__nv_bfloat162*>(e + off + 4 * q) = v;
+          }
+      __syncwarp();
+      const int t = blockIdx.x + (it / ngr) * gridDim.x;
+      const int b = t / tiles_img, rr = t % tiles_img;
+      const int oy0 = (rr / tiles_x) * DG_TY + 4 * rg;
+      const int ox0 = (rr % tiles_x) * DG_TX + 16 * mcol;
+#pragma unroll
+      for (int i = lane; i < 64 * NT; i += 32) {
+        const int px = i / NT, n = i % NT;
+        const int oy = oy0 + px / 16, ox = ox0 + px % 16;
+        const int off = NT == 2 ? swz<1>(px, px, n) : px * 16;
+        if (oy < H && ox < W)
+          reinterpret_cast<uint4*>(
+              dx + ((static_cast<size_t>(b) * H + oy) * W + ox) * Cin)[n] =
+              *reinterpret_cast<const uint4*>(e + off);
       }
+      __syncwarp();
     }
   }
+  cp_async_wait<0>();
+}
+
+// launches dgrad_kernel<NT, KG> on a persistent grid: min(tiles, the
+// blocks resident at once)
+template <int NT, int KG>
+int dgrad_launch(const void* dy, const void* w, void* dx, int B, int H,
+                 int W, int Cout, cudaStream_t s) {
+  const long long tiles = static_cast<long long>(B) *
+                          ((H + DG_TY - 1) / DG_TY) *
+                          ((W + DG_TX - 1) / DG_TX);
+  const int smem =
+      dgrad_stages(KG) * dgrad_stage_bytes(NT, KG) + 8 * DG_EPI;
+  int dev = 0, sms = 0, per_sm = 0;
+  if (tiles > 0x7fffffff ||
+      cudaFuncSetAttribute(dgrad_kernel<NT, KG>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess ||
+      cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, dgrad_kernel<NT, KG>, PT_THREADS, smem) != cudaSuccess ||
+      per_sm < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long most = static_cast<long long>(sms) * per_sm;
+  dgrad_kernel<NT, KG><<<static_cast<int>(tiles < most ? tiles : most),
+                         PT_THREADS, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(dy),
+      static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(dx),
+      B, H, W, Cout);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int bwdg_grid(int B, int H, int W, int Cin, int Cout, int* smem) {
@@ -920,17 +1122,21 @@ extern "C" int srod_pt_dy(const void* x, const void* w, const void* dp,
 }
 
 // dy (B, H, W, Cout) bf16, w (3, 3, Cin, Cout) bf16 -> dx (B, H, W, Cin)
-// bf16. Cin a multiple of 8 up to 16, Cout a multiple of 16.
+// bf16. Cin 8 or 16, Cout a multiple of 16; the three pointers 16-byte
+// aligned (cp.async and the 16-byte stores).
 extern "C" int srod_pt_dgrad(const void* dy, const void* w, void* dx, int B,
                              int H, int W, int Cin, int Cout, void* stream) {
-  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || Cin <= 0 || Cin > 16 ||
-      Cin % 8 || Cout <= 0 || Cout % DG_CO)
+  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || (Cin != 8 && Cin != 16) ||
+      Cout <= 0 || Cout % DG_KC ||
+      (reinterpret_cast<uintptr_t>(dy) | reinterpret_cast<uintptr_t>(w) |
+       reinterpret_cast<uintptr_t>(dx)) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int tiles = ((H + DG_TY - 1) / DG_TY) * ((W + DG_TX - 1) / DG_TX);
-  dgrad_kernel<<<dim3(tiles, 1, B), PT_THREADS, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(dy),
-      static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(dx),
-      H, W, Cin, Cout);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // a pixel's dy channels in 32-channel groups where Cout allows: whole
+  // 64-byte runs from device memory
+  if (Cout % (2 * DG_KC) == 0)
+    return Cin == 8 ? dgrad_launch<1, 2>(dy, w, dx, B, H, W, Cout, s)
+                    : dgrad_launch<2, 2>(dy, w, dx, B, H, W, Cout, s);
+  return Cin == 8 ? dgrad_launch<1, 1>(dy, w, dx, B, H, W, Cout, s)
+                  : dgrad_launch<2, 1>(dy, w, dx, B, H, W, Cout, s);
 }

@@ -27,7 +27,7 @@ from sr_object_detection_tpu_torch.ops import boxes as TB
 from sr_object_detection_tpu_torch.ops import conv as TC
 from sr_object_detection_tpu_torch.ops import pooling as TP
 from torch_parity import (assert_bf16_close, assert_stem_link_close,
-                          chain_case, check_chain_kernels,
+                          chain_case, check_chain_kernels, dgrad_case,
                           check_fused_stem_kernels, check_pair_gradient,
                           check_train_kernels, nms_case, phase_pair_case,
                           random_bn, stem_case, train_case)
@@ -334,6 +334,30 @@ def test_chain_kernels_match_plain(cuda, b, h, cin, cout):
     torch.cuda.synchronize()
     assert {k: TPT.launches[k] - before[k] for k in before} == {
         "fwdstats": 0, "apply": 0, "bwdg": 0, "red": 1, "dy": 1, "dgrad": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,cin,cout", [
+    (2, 33, 47, 16, 32), (3, 24, 40, 8, 128), (1, 208, 208, 16, 32),
+    (1, 1, 5, 8, 16)])
+def test_dgrad_kernel_tiles(cuda, b, h, w, cin, cout):
+    """The tensor-core dgrad at shapes that cut its 16 x 32 output tiles
+    (odd and partial, one row, Cin 8 and 16, Cout up to 128): within one
+    bf16 ulp of dgrad_plain, two launches bit-equal (one owner and one
+    summation order per output), one launch counted per call."""
+    case = dgrad_case(b + h + w, b, h, w, cin, cout, cuda)
+    before = TPT.launches["dgrad"]
+    dx = TPT.dgrad(case["d"], case["w"])
+    torch.cuda.synchronize()
+    assert TPT.launches["dgrad"] == before + 1
+    assert dx.shape == (b, h, w, cin) and dx.dtype == torch.bfloat16
+    assert_bf16_close(dx.float().cpu().numpy(),
+                      TPT.dgrad_plain(case["d"], case["w"])
+                      .float().cpu().numpy())
+    again = TPT.dgrad(case["d"], case["w"])
+    torch.cuda.synchronize()
+    assert TPT.launches["dgrad"] == before + 2
+    assert torch.equal(dx, again)
 
 
 @pytest.mark.cuda

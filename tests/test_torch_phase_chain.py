@@ -126,6 +126,22 @@ def test_red_dy_dgrad_match_jax_pallas(interpret):
     assert _rel(dx_t, dx_j) < 2e-2
 
 
+def test_dgrad_matches_jax_pallas_at_cin8(interpret):
+    """dgrad at its other width, (128, 16, 16, Cout 48 -> Cin 8), against
+    the JAX _run_dgrad in interpret mode at the same rel 2e-2 as above."""
+    b, h, cin, cout = 128, 16, 8, 48
+    rng = np.random.default_rng(8)
+    w = np.round(rng.normal(0, 0.3, (3, 3, cin, cout)) * 16) / 16
+    d = _bf16(rng.normal(0, 1, (b, h, h, cout)))
+    dg = JPT.plan_dgrad(h, h, cin, cout)
+    assert dg is not None
+    dx_j = _from_pm(JPT._run_dgrad(dg, _to_pm(jnp.asarray(d, jnp.bfloat16)),
+                                   jnp.asarray(w, jnp.float32)), h, h, cin)
+    dx_t = TPT.dgrad_plain(_t(d, torch.bfloat16),
+                           _t(w, torch.bfloat16)).float().numpy()
+    assert _rel(dx_t, dx_j) < 2e-2
+
+
 def _pair_case(h, cin, cout, seed):
     """tests/test_phase_train.py's _mkpair: (JAX spec, port spec, params,
     x at batch 128)."""

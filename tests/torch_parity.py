@@ -423,6 +423,19 @@ def chain_case(seed, batch, h, cin, cout, device):
     return t
 
 
+def dgrad_case(seed, b, h, w, cin, cout, device):
+    """Random inputs of the dgrad kernel made on ``device`` from a seed:
+    the cotangent d (b,h,w,Cout) bf16 and w_hwio (3,3,Cin,Cout) bf16 in
+    sixteenths, as :func:`chain_case` makes them, at any h and w."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    bf = torch.bfloat16
+    return {"d": torch.randn((b, h, w, cout), generator=g,
+                             device=device).to(bf),
+            "w": (torch.randn((3, 3, cin, cout), generator=g, device=device)
+                  * 0.3 * 16).round().div(16).to(bf)}
+
+
 def check_chain_kernels(PT, case):
     """red, dy (+ dw) and dgrad against their plain versions on the same
     inputs (:func:`chain_case`): red's sums at 1e-4 of their largest
