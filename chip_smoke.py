@@ -60,9 +60,11 @@ non-zero status and no result line:
      plain versions at the training pair's shape (416, B=128, 3 -> 16):
      fwdstats' Z within one bf16 ulp, its argmax equal wherever the two
      extreme taps differ by more than an ulp, its sums at 1e-4; apply
-     bit-equal; every bwdg reduction at 1e-3 of its largest magnitude;
-     then phase_train_block's gradient (on a case with no zero-variance
-     channel, the cotangent zeroed where the two tie rules route apart)
+     bit-equal; every bwdg reduction at 1e-3 of its largest magnitude
+     (bwdg on the tensor cores, bwdg_tc_kernel), two bwdg launches
+     bit-equal; then phase_train_block's gradient (on a case with no
+     zero-variance channel, the cotangent zeroed where the two tie rules
+     route apart)
      at 1e-3 of a float64 evaluation of the unfused chain's formulas,
      and its scale and bias gradients at 1e-3 of the chain's (the bf16
      chain's own weight gradient is several per cent off that
@@ -80,6 +82,7 @@ non-zero status and no result line:
      per image against the bf16 dense peak) for bf16 + phase_train,
      bf16 and float32;
  16. torch.profiler over one bf16 step with the pair and one without;
+     the step with the pair ran bwdg_tc_kernel, not bwdg_kernel;
  17. the opt-in training paths' kernels against their plain versions at
      the main path's shapes: kernel 4's modes red and dy (+ its weight
      gradient) and the dgrad kernel (an implicit GEMM on the bf16 tensor
@@ -108,12 +111,14 @@ non-zero status and no result line:
      library call, cuDNN, timed in the same run), the bf16 serving stem
      (mode fwd) at its four pair shapes;
      Trainer.step images/s of the three paths against bf16 + phase_train;
- 21. torch.profiler over one step of each of the three paths.
+ 21. torch.profiler over one step of each of the three paths; the two
+     with the pair ran bwdg_tc_kernel, not bwdg_kernel.
 
 The last lines are the card (nvidia-smi), one JSON object describing the
 12 kernels (time, plain time, bound, launches and library call of each;
 ``phase_train_dgrad`` is the tensor-core implicit GEMM in
-csrc/phase_train.cu), and ``{"ok": true, "device": {...}}``.
+csrc/phase_train.cu, ``phase_train_bwdg`` its tensor-core
+``bwdg_tc_kernel``), and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -121,6 +126,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import pathlib
+import re
 import struct
 import subprocess
 import sys
@@ -193,7 +199,8 @@ def profile(name, fn, iters, gpu, top=6):
     time per call (host clock, ending in a synchronize, profiler
     overhead included), device busy time per call (the CUDA kernels'
     self time; the port runs one stream, so kernels do not overlap),
-    the idle share, and the kernels that take the most device time."""
+    the idle share, and the kernels that take the most device time.
+    Returns the names of the CUDA kernels the profiler saw."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     fn()
@@ -212,11 +219,21 @@ def profile(name, fn, iters, gpu, top=6):
     if busy == 0:
         log(f"profile {name}: wall {wall} ms; device time not measured "
             f"(the profiler saw no kernel) [{gpu}]")
-        return
+        return []
     log(f"profile {name}: wall {wall} ms, device busy {busy} ms, idle "
         f"share {1 - busy / wall} [{gpu}]")
     for t, key in sorted(rows, reverse=True)[:top]:
         log(f"  {t} ms ({t / busy:.1%}) {key[:90]}")
+    return [key for _, key in rows]
+
+
+def assert_bwdg_tensor_core(name, kernels):
+    """A profiled step with the fused pair ran bwdg on the tensor cores:
+    bwdg_tc_kernel among its kernels, the FP32-core bwdg_kernel not."""
+    assert any("bwdg_tc_kernel" in k for k in kernels), (name, kernels)
+    assert not any(re.search(r"\bbwdg_kernel\b", k) for k in kernels), (
+        name, kernels)
+    log(f"  {name}: bwdg ran as bwdg_tc_kernel (tensor cores)")
 
 
 def bf16_err(got, ref) -> float:
@@ -811,6 +828,20 @@ def main() -> int:
     from sr_object_detection_tpu_torch.train.trainer import Trainer
     tcase = train_case(12, BATCH, NET, 3, 16, dev)
     train_errs = check_train_kernels(PT, tcase)
+    # bwdg on the tensor cores: one owner and one order per sum, so two
+    # launches on the same inputs are bit-equal
+    x0, w0 = tcase["x"], tcase["w"]
+    sh0, sc0, b0, dp0 = (tcase[k] for k in ("shift", "scales", "biases",
+                                            "dp"))
+    z0, am0, st0 = PT.fwdstats_plain(x0, w0, sh0, sc0)
+    n0 = BATCH * NET * NET
+    mean0, _, inv0 = PT._batch_stats(st0, sh0, n0)
+    tc_before = PT.bwdg_kernels["tensor_core"]
+    bw1 = PT.bwdg(x0, dp0, z0, am0, mean0, inv0, sc0, b0)
+    bw2 = PT.bwdg(x0, dp0, z0, am0, mean0, inv0, sc0, b0)
+    assert all(torch.equal(a, b) for a, b in zip(bw1, bw2))
+    assert PT.bwdg_kernels["tensor_core"] == tc_before + 2
+    del bw1, bw2
     pair_spec = TS.ConvSpec(
         index=0, h=NET, w=NET, c=3, inputs=NET * NET * 3, out_h=NET,
         out_w=NET, out_c=16, outputs=NET * NET * 16, size=3, stride=1,
@@ -820,7 +851,8 @@ def main() -> int:
                                         flat=False))
     torch.cuda.synchronize()
     log(f"phase 12 ok: training kernels == plain at {NET} B={BATCH} 3->16 "
-        f"(max |err| {train_errs}); phase_train_block gradient within "
+        f"(max |err| {train_errs}); bwdg on the tensor cores, two launches "
+        f"bit-equal; phase_train_block gradient within "
         f"{grad['fused']} of a float64 evaluation of the unfused chain's "
         f"formulas (gate 1e-3), the bf16 unfused chain's weight gradient "
         f"{grad['chain']} from it; cotangent zeroed on {grad['masked']} of "
@@ -901,12 +933,7 @@ def main() -> int:
     # --------------------------------------------------------- phase 15
     # times, in turns (plain, kernel, kernel, plain): the training kernels
     # at the pair's shape beside their bounds; Trainer.step images/s
-    x0, w0 = tcase["x"], tcase["w"]
-    sh0, sc0, b0, dp0 = (tcase[k] for k in ("shift", "scales", "biases",
-                                            "dp"))
-    z0, am0, st0 = PT.fwdstats_plain(x0, w0, sh0, sc0)
-    n0 = BATCH * NET * NET
-    mean0, _, inv0 = PT._batch_stats(st0, sh0, n0)
+    # (x0 ... inv0: phase 12's inputs)
     times["phase_train_fwdstats"] = abba(
         f"phase_train fwdstats {NET} B={BATCH} 3->16",
         lambda: PT.fwdstats(x0, w0, sh0, sc0),
@@ -968,9 +995,10 @@ def main() -> int:
             f"[{gpu}]")
 
     # --------------------------------------------------------- phase 16
-    profile(f"Trainer.step bf16 + phase_train {NET} B={BATCH}, per step",
-            lambda: trainers["bf16 + phase_train"].step(xt, tt), 2, gpu,
-            top=8)
+    name = f"Trainer.step bf16 + phase_train {NET} B={BATCH}, per step"
+    assert_bwdg_tensor_core(name, profile(
+        name, lambda: trainers["bf16 + phase_train"].step(xt, tt), 2, gpu,
+        top=8))
     profile(f"Trainer.step bf16 (no pair) {NET} B={BATCH}, per step",
             lambda: trainers["bf16"].step(xt, tt), 2, gpu, top=8)
 
@@ -1171,8 +1199,10 @@ def main() -> int:
 
     # --------------------------------------------------------- phase 21
     for name in cfgs:
-        profile(f"Trainer.step {name} {NET} B={BATCH}, per step",
-                lambda: trainers[name].step(xt, tt), 2, gpu, top=8)
+        seen = profile(f"Trainer.step {name} {NET} B={BATCH}, per step",
+                       lambda: trainers[name].step(xt, tt), 2, gpu, top=8)
+        if per_step[name].get("phase_train_bwdg"):
+            assert_bwdg_tensor_core(name, seen)
 
     replaces = {
         "nms_per_class": "sr_object_detection_tpu/kernels/nms_pallas.py:29",

@@ -49,18 +49,50 @@
 // G = sum of x_taps (x) x_taps over every full-resolution position (the
 // upper triangle; the wrapper mirrors it). The wrapper forms
 // dw = c1*A + c2*(G @ w - D (x) mean) + c3*D. Cin <= 16, Cout a multiple
-// of 16 up to 64.
-//   Bound at the pair's shape: x, dp, Z and argmax read once, about
-//   576 MB, 0.17 ms; the Gram's 2 x 22 M x 378 = 17 GFLOP would take
-//   0.25 ms on the FP32 cores, so on this design the Gram bounds it.
-//   Design: a fixed grid of persistent blocks (as many as fit on the
-//   card at once), each walking the work items (image, 8x8 pooled tile)
-//   in a fixed order; per item the block stages the 18x18xCin halo tile
-//   and the tile's dzs, x_hat and argmax in shared memory, and each
-//   thread owns fixed entries of S, A, D and G, sums them over the item
-//   in a register and adds the sum to its entry's shared-memory
-//   accumulator. Every sum has one owner and one order: deterministic.
-//   Each block writes its accumulators once; colsum reduces the blocks.
+// of 16 up to 64, in two kernels chosen by shape alone:
+//   Bound at the pair's shape (416, B=128, 3 -> 16): x, dp, Z and argmax
+//   read once, about 576 MB, 0.17 ms; the products (40 GFLOP in bf16)
+//   take 0.04 ms on the tensor cores, so the bytes bound it.
+//   * bwdg_tc_kernel<CIN, COUT> (Cin <= 3, Cout 16 or 32: the leading
+//     pair, whose input is the image, on every training path): the JAX
+//     kernel's own factoring (phase_train.py:330-379), one dot of the
+//     taps with [dz per pool variant | ones] and one Gram dot, folded
+//     into ONE bf16 GEMM per work item on the tensor cores (mma.sync
+//     m16n8k16, float32 sums). An item is (image, 8x8 pooled tile): its
+//     16x16 = 256 full-resolution positions are the GEMM's K. Per item
+//     the block stages the 18x18xCin halo (zero outside the image) and
+//     builds two bf16 tiles in shared memory:
+//       X' [256 x 32]: columns 0..9Cin-1 the position's taps in HWIO
+//         order (t*Cin + ci), column 9Cin 1 for a position inside the
+//         image, the rest 0; a position outside the image is a zero row;
+//       Dz [256 x Cout]: dzs of the position's pooled pixel where its
+//         argmax selects this position's pool variant, else 0;
+//     and every warp adds X'^T [X' | Dz] over its 32 positions (two k16
+//     steps) into acc [32 x (32 + Cout)] in its registers, across all of
+//     its block's items. Then G = acc[0:9Cin, 0:9Cin] (upper triangle),
+//     D = acc[0:9Cin, 9Cin], A = acc[0:9Cin, 32:], S[0] = acc[9Cin, 32:];
+//     the n8 tiles holding none of these (rows past 9Cin, G's lower-left
+//     16x16 block) are not computed (bwdg_tile), which keeps the kernel
+//     under 128 registers. Every value is exact in bf16, so every
+//     product is exact in float32. S[1] =
+//     sum dzs * x_hat (x_hat lives at pooled resolution) is a float32
+//     sum per staging thread and channel. Both operands run along K,
+//     the stored rows, so both fragments come from ldmatrix.trans, and
+//     the same 8x8 blocks of X' serve as A (X'^T) and as B (X'); rows
+//     are 64 (X') or 32/64 bytes (Dz) with their 16-byte units XOR-
+//     swizzled by the row, so an ldmatrix phase hits distinct banks. The
+//     next item's x, dp, Z and argmax are fetched into registers while
+//     this one is built and multiplied;
+//   * bwdg_kernel (the other shapes the wrapper takes: Cin 4-16 or Cout
+//     48/64, which no model in models/zoo.py reaches): the FP32 cores;
+//     each thread owns fixed entries of S, A, D and G, sums them over
+//     the item in a register and adds the sum to its entry's shared-
+//     memory accumulator.
+//   Both: a fixed grid of persistent blocks (as many as fit on the card
+//   at once), each walking the items in a fixed order. Every sum has one
+//   owner and one order (the tensor-core kernel adds its warps in warp
+//   order), so two launches are bit-equal. Each block writes one row of
+//   partial sums; colsum reduces the blocks.
 //
 // The opt-in two-pair chain (phase_train="chain") adds the second pair's
 // backward with an input gradient:
@@ -730,6 +762,18 @@ __device__ __forceinline__ void ldmatrix_x4(unsigned addr, unsigned (&r)[4]) {
       : "memory");
 }
 
+// four 8x8 b16 matrices, each transposed: lane l receives elements
+// (rows 2 (l % 4) and 2 (l % 4) + 1, column l / 4) of its matrices
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned addr,
+                                                  unsigned (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
 // d += a (16x16, row) * b (16x8, col): bf16 operands, float32 sums
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
                                          unsigned b0, unsigned b1) {
@@ -952,27 +996,339 @@ int dgrad_launch(const void* dy, const void* w, void* dx, int B, int H,
   return static_cast<int>(cudaGetLastError());
 }
 
+// 8 bytes global -> shared through L1; src_bytes 0 writes zeros
+__device__ __forceinline__ void cp_async8(unsigned dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// whether bwdg_tc_kernel<CIN, ...> keeps accumulator tile (mt, nt) of
+// acc [32 x (32 + COUT)], n8 tiles 0..3 the X' columns, 4.. the Dz ones:
+// only rows 0..9Cin of X'^T and columns 0..9Cin of X' are not zero, and
+// the rows 16.. x columns 0..15 block holds G's lower triangle alone (D
+// is read from column 9Cin)
+__host__ __device__ constexpr bool bwdg_tile(int cin, int mt, int nt) {
+  return 16 * mt <= 9 * cin &&
+         (nt >= 4 || (8 * nt <= 9 * cin && (mt == 0 || nt >= 2)));
+}
+
+// bwdg on the tensor cores (see the note at the top). CIN <= 3, COUT 16 or
+// 32; z, dp 16-byte and am 8-byte aligned. Partial row layout as
+// bwdg_kernel's, the Gram's lower triangle 0.
+template <int CIN, int COUT>
+__global__ void __launch_bounds__(PT_THREADS, 2)
+bwdg_tc_kernel(const __nv_bfloat16* __restrict__ x,
+               const __nv_bfloat16* __restrict__ dp,
+               const __nv_bfloat16* __restrict__ z,
+               const int8_t* __restrict__ am, const float* __restrict__ mean,
+               const float* __restrict__ inv,
+               const float* __restrict__ scales,
+               const float* __restrict__ bias, float* __restrict__ partial,
+               int B, int H, int W) {
+  constexpr int N9 = 9 * CIN;                // taps; X' column N9 is ones
+  constexpr int KD = COUT / 16;              // Dz rows: 32 KD bytes
+  constexpr int NTD = COUT / 8;              // Dz n8 tiles = channel groups
+  constexpr int NT = 4 + NTD;                // n8 tiles of [X' | Dz]
+  constexpr int NC = 32 + COUT;              // accumulator columns
+  constexpr int HALO = PT_TH * PT_TH * CIN;  // halo values
+  constexpr int HL = (HALO + PT_THREADS - 1) / PT_THREADS;
+  constexpr int PW = PT_NPIX * NTD;          // threads staging dzs
+  constexpr int XP = PT_THREADS * 64;        // X' bytes (256 rows)
+  constexpr int DZ = PT_THREADS * 32 * KD;   // Dz bytes
+  constexpr int RZ = PT_NPIX * COUT * 2;     // raw Z (and dp) bytes
+  static_assert(CIN >= 1 && N9 < 32 && (COUT == 16 || COUT == 32), "shape");
+  static_assert(4 * (32 * NC + PT_NPIX * COUT) <= XP + DZ, "epilogue");
+  __shared__ __align__(128) unsigned char sm[XP + DZ];
+  // the next item's Z, dp and argmax, each staging thread's own 8 channels
+  __shared__ __align__(16) unsigned char raw[2 * RZ + PT_NPIX * COUT];
+  __shared__ unsigned short hs[HALO];        // bf16 bits, [yy][xx][ci]
+  __shared__ float kc[4][COUT];              // mean, inv, scales, bias
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int i = tid; i < 4 * COUT; i += PT_THREADS) {
+    const int r = i / COUT, c = i % COUT;
+    kc[r][c] = (r == 0 ? mean : r == 1 ? inv : r == 2 ? scales : bias)[c];
+  }
+  const int H2 = H / 2, W2 = W / 2;
+  const int tiles_x = (W2 + PT_PT - 1) / PT_PT;
+  const int tiles = tiles_x * ((H2 + PT_PT - 1) / PT_PT);
+  const int items = tiles * B;
+  // the dzs staging thread's pooled pixel and 8-channel group
+  const int pp = tid / NTD, grp = tid % NTD;
+  const int ppy = pp / PT_PT, ppx = pp % PT_PT;
+  const bool pworker = tid < PW;
+  const int rawo = pp * COUT + 8 * grp;      // its first channel in raw
+  const unsigned short* xu = reinterpret_cast<const unsigned short*>(x);
+
+  // stage the inputs of item `it`: the halo values tid, + 256, ... into
+  // registers; the staging thread's Z, dp, argmax into raw (cp.async,
+  // zeros outside the image: dp 0 makes dzs 0 at all four positions)
+  unsigned short hv[HL];
+  auto fetch = [&](int it) {
+    const int b = it / tiles, tile = it % tiles;
+    const int ty = tile / tiles_x, tx = tile % tiles_x;
+    const int gy0 = 2 * ty * PT_PT - 1, gx0 = 2 * tx * PT_PT - 1;
+    const unsigned short* img = xu + static_cast<size_t>(b) * H * W * CIN;
+#pragma unroll
+    for (int j = 0; j < HL; ++j) {
+      const int i = tid + j * PT_THREADS;
+      const int ci = i % CIN, pos = i / CIN;
+      const int gy = gy0 + pos / PT_TH, gx = gx0 + pos % PT_TH;
+      hv[j] = (i < HALO && gy >= 0 && gy < H && gx >= 0 && gx < W)
+                  ? __ldg(img + (static_cast<size_t>(gy) * W + gx) * CIN +
+                          ci)
+                  : static_cast<unsigned short>(0);
+    }
+    if (pworker) {
+      const int oy = ty * PT_PT + ppy, ox = tx * PT_PT + ppx;
+      const bool in = oy < H2 && ox < W2;
+      const size_t o =
+          in ? ((static_cast<size_t>(b) * H2 + oy) * W2 + ox) * COUT +
+                   8 * grp
+             : 0;
+      cp_async16(smem_u32(raw + 2 * rawo), z + o, in ? 16 : 0);
+      cp_async16(smem_u32(raw + RZ + 2 * rawo), dp + o, in ? 16 : 0);
+      cp_async8(smem_u32(raw + 2 * RZ + rawo), am + o, in ? 8 : 0);
+    }
+    cp_async_commit();
+  };
+
+  // ldmatrix.trans row addresses. Warp w's k16 step ks covers positions
+  // 32 w + 16 ks .. + 15. X': lane l addresses row 32 w + 16 ks + 8 h +
+  // l % 8, unit l / 8 (xa + (16 ks + 8 h) * 64: the row's swizzle key
+  // depends on l alone), so xt[h][u] holds the 8x8 block (positions
+  // + 8 h .., X' columns 8 u ..). Dz unit pair pr: row 32 w + 16 ks +
+  // 8 ((l / 8) % 2) + l % 8, unit 2 pr + l / 16 (da[pr] + 16 ks * 32 KD):
+  // df[pr][2 (u % 2) + h] holds block (+ 8 h .., Dz columns 8 u ..) for
+  // u = 2 pr + u % 2.
+  const unsigned smb = smem_u32(sm);
+  const unsigned xa = smb + swz<2>(32 * warp + (lane & 7), lane & 7,
+                                   lane >> 3);
+  unsigned da[KD];
+#pragma unroll
+  for (int pr = 0; pr < KD; ++pr) {
+    const int r = 32 * warp + 8 * ((lane >> 3) & 1) + (lane & 7);
+    da[pr] = smb + XP + swz<KD>(r, r, 2 * pr + (lane >> 4));
+  }
+
+  float acc[2][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  float s1[8];                       // sum dzs * x_hat, the thread's channels
+#pragma unroll
+  for (int e = 0; e < 8; ++e) s1[e] = 0.f;
+
+  if (static_cast<int>(blockIdx.x) < items) fetch(blockIdx.x);
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int tile = it % tiles;
+    const int ty = tile / tiles_x, tx = tile % tiles_x;
+    cp_async_wait<0>();              // this thread's raw slots have landed
+    __syncthreads();                 // the previous item's tiles are read
+#pragma unroll
+    for (int j = 0; j < HL; ++j)
+      if (tid + j * PT_THREADS < HALO) hs[tid + j * PT_THREADS] = hv[j];
+    if (pworker) {
+      // dzs with the exact expressions of bwdg_kernel, then the four Dz
+      // rows of the pixel's 2x2 window, unit grp: dzs where the argmax
+      // selects the position, else 0
+      const uint4 zv = *reinterpret_cast<const uint4*>(raw + 2 * rawo);
+      const uint4 dv = *reinterpret_cast<const uint4*>(raw + RZ + 2 * rawo);
+      const uint2 av = *reinterpret_cast<const uint2*>(raw + 2 * RZ + rawo);
+      const unsigned zw[4] = {zv.x, zv.y, zv.z, zv.w};
+      const unsigned dw[4] = {dv.x, dv.y, dv.z, dv.w};
+      const unsigned aw[2] = {av.x, av.y};
+      unsigned dbits[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int c = 8 * grp + e;
+        const float zf = __uint_as_float((zw[e / 2] >> (16 * (e % 2))) << 16);
+        const float gct =
+            __uint_as_float((dw[e / 2] >> (16 * (e % 2))) << 16);
+        const float xhat = __fmul_rn(__fsub_rn(zf, kc[0][c]), kc[1][c]);
+        const float zb = bf16r(__fadd_rn(bf16r(__fmul_rn(xhat, kc[2][c])),
+                                         bf16r(kc[3][c])));
+        const float d =
+            zb > 0.f ? gct : bf16r(__fmul_rn(0.10009765625f, gct));
+        s1[e] = __fadd_rn(s1[e], __fmul_rn(d, xhat));
+        dbits[e] = bf16_bits(d);
+      }
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int pos = (2 * ppy + (v >> 1)) * PT_FULL + 2 * ppx + (v & 1);
+        unsigned u[4];
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const int e = 2 * h;
+          const unsigned k0 = (aw[e / 4] >> (8 * (e % 4))) & 0xff;
+          const unsigned k1 = (aw[e / 4] >> (8 * (e % 4) + 8)) & 0xff;
+          u[h] = (k0 == static_cast<unsigned>(v) ? dbits[e] : 0u) |
+                 ((k1 == static_cast<unsigned>(v) ? dbits[e + 1] : 0u)
+                  << 16);
+        }
+        *reinterpret_cast<uint4*>(sm + XP + swz<KD>(pos, pos, grp)) =
+            make_uint4(u[0], u[1], u[2], u[3]);
+      }
+    }
+    if (it + static_cast<int>(gridDim.x) < items) fetch(it + gridDim.x);
+    __syncthreads();
+    {
+      // X' row tid: position (fy, fx) of the 16x16 tile
+      const int fy = tid >> 4, fx = tid & 15;
+      const bool in = 2 * ty * PT_PT + fy < H && 2 * tx * PT_PT + fx < W;
+      const unsigned short* hp = hs + (fy * PT_TH + fx) * CIN;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        unsigned wv[4];
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          unsigned half[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = 8 * u + 2 * h + e;
+            const int t = col / CIN, ci = col % CIN;
+            half[e] = col < N9 ? hp[((t / 3) * PT_TH + t % 3) * CIN + ci]
+                      : col == N9 ? 0x3F80u        // bf16 1.0
+                                  : 0u;
+          }
+          wv[h] = in ? half[0] | (half[1] << 16) : 0u;
+        }
+        *reinterpret_cast<uint4*>(sm + swz<2>(tid, tid, u)) =
+            make_uint4(wv[0], wv[1], wv[2], wv[3]);
+      }
+    }
+    __syncthreads();
+#pragma unroll 1                     // one step's fragments live: no spills
+    for (int ks = 0; ks < 2; ++ks) {
+      unsigned xt[2][4], df[KD][4];
+      ldmatrix_x4_trans(xa + (16 * ks) * 64, xt[0]);
+      ldmatrix_x4_trans(xa + (16 * ks + 8) * 64, xt[1]);
+#pragma unroll
+      for (int pr = 0; pr < KD; ++pr)
+        ldmatrix_x4_trans(da[pr] + 16 * ks * 32 * KD, df[pr]);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        // A = X'^T rows 16 mt ..: blocks (k lo, 2 mt), (k lo, 2 mt + 1),
+        // (k hi, 2 mt), (k hi, 2 mt + 1); B = X' columns 8 nt ..: (k lo,
+        // nt), (k hi, nt)
+        const unsigned a[4] = {xt[0][2 * mt], xt[0][2 * mt + 1],
+                               xt[1][2 * mt], xt[1][2 * mt + 1]};
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          if (bwdg_tile(CIN, mt, nt))
+            mma_bf16(acc[mt][nt], a, xt[0][nt], xt[1][nt]);
+#pragma unroll
+        for (int u = 0; u < NTD; ++u)
+          if (bwdg_tile(CIN, mt, 4 + u))
+            mma_bf16(acc[mt][4 + u], a, df[u / 2][2 * (u % 2)],
+                     df[u / 2][2 * (u % 2) + 1]);
+      }
+    }
+  }
+
+  // epilogue: the warps' kept accumulator tiles added in warp order into
+  // red [32][NC], the staging threads' S[1] sums into s1b [64][COUT]
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(sm);
+  float* s1b = red + 32 * NC;
+  const int g = lane >> 2, q = lane & 3;
+  for (int w = 0; w < PT_THREADS / 32; ++w) {
+    if (warp == w) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          if (bwdg_tile(CIN, mt, nt))
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              float& r = red[(16 * mt + g + 8 * (e >> 1)) * NC + 8 * nt +
+                             2 * q + (e & 1)];
+              r = w == 0 ? acc[mt][nt][e] : r + acc[mt][nt][e];
+            }
+    }
+    __syncthreads();
+  }
+  if (pworker)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) s1b[pp * COUT + 8 * grp + e] = s1[e];
+  __syncthreads();
+  constexpr int NCOLS = 2 * COUT + N9 * COUT + N9 + N9 * N9;
+  float* row = partial + static_cast<size_t>(blockIdx.x) * NCOLS;
+  for (int i = tid; i < NCOLS; i += PT_THREADS) {
+    float v;
+    if (i < COUT) {                                   // S[0]
+      v = red[N9 * NC + 32 + i];
+    } else if (i < 2 * COUT) {                        // S[1]
+      v = 0.f;
+      for (int p = 0; p < PT_NPIX; ++p) v += s1b[p * COUT + i - COUT];
+    } else if (i < 2 * COUT + N9 * COUT) {            // A
+      const int j = i - 2 * COUT;
+      v = red[(j / COUT) * NC + 32 + j % COUT];
+    } else if (i < 2 * COUT + N9 * COUT + N9) {       // D: X'^T ones
+      v = red[(i - 2 * COUT - N9 * COUT) * NC + N9];
+    } else {                                          // G, upper triangle
+      const int j = i - 2 * COUT - N9 * COUT - N9;
+      const int r = j / N9, s = j % N9;
+      v = s >= r ? red[r * NC + s] : 0.f;
+    }
+    row[i] = v;
+  }
+}
+
+// whether bwdg runs on the tensor cores (bwdg_tc_kernel) for this shape
+bool bwdg_tensor_core(int Cin, int Cout) {
+  return Cin >= 1 && Cin <= 3 && (Cout == 16 || Cout == 32);
+}
+
+using BwdgTc = void (*)(const __nv_bfloat16*, const __nv_bfloat16*,
+                        const __nv_bfloat16*, const int8_t*, const float*,
+                        const float*, const float*, const float*, float*,
+                        int, int, int);
+
+BwdgTc bwdg_tc_instance(int Cin, int Cout) {
+  if (Cout == 16)
+    return Cin == 1 ? bwdg_tc_kernel<1, 16>
+         : Cin == 2 ? bwdg_tc_kernel<2, 16> : bwdg_tc_kernel<3, 16>;
+  return Cin == 1 ? bwdg_tc_kernel<1, 32>
+       : Cin == 2 ? bwdg_tc_kernel<2, 32> : bwdg_tc_kernel<3, 32>;
+}
+
+// the persistent grid of the shape's bwdg kernel: min(items, the blocks
+// resident at once); *smem its dynamic shared memory. -1 on failure.
 int bwdg_grid(int B, int H, int W, int Cin, int Cout, int* smem) {
-  const BwdgLayout L = bwdg_layout(Cin, Cout);
-  *smem = L.total_bytes;
-  if (cudaFuncSetAttribute(bwdg_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           L.total_bytes) != cudaSuccess)
-    return -1;
+  const void* fn;
+  if (bwdg_tensor_core(Cin, Cout)) {
+    *smem = 0;
+    fn = reinterpret_cast<const void*>(bwdg_tc_instance(Cin, Cout));
+  } else {
+    *smem = bwdg_layout(Cin, Cout).total_bytes;
+    fn = reinterpret_cast<const void*>(bwdg_kernel);
+    if (cudaFuncSetAttribute(bwdg_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             *smem) != cudaSuccess)
+      return -1;
+  }
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, bwdg_kernel, PT_THREADS, L.total_bytes) != cudaSuccess ||
+          &per_sm, fn, PT_THREADS, *smem) != cudaSuccess ||
       per_sm < 1)
     return -1;
   const int H2 = H / 2, W2 = W / 2;
-  const long items = static_cast<long>(B) * ((H2 + PT_PT - 1) / PT_PT) *
-                     ((W2 + PT_PT - 1) / PT_PT);
-  return static_cast<int>(items < static_cast<long>(sms) * per_sm
+  const long long items = static_cast<long long>(B) *
+                          ((H2 + PT_PT - 1) / PT_PT) *
+                          ((W2 + PT_PT - 1) / PT_PT);
+  if (items > 0x7fffffff) return -1;
+  return static_cast<int>(items < static_cast<long long>(sms) * per_sm
                               ? items
-                              : static_cast<long>(sms) * per_sm);
+                              : static_cast<long long>(sms) * per_sm);
 }
 
 bool shapes_ok(int B, int H, int W, int Cin, int Cout, int max_cin,
@@ -1027,6 +1383,12 @@ extern "C" int srod_pt_apply(const void* z, const void* mean, const void* inv,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Whether srod_pt_bwdg runs the tensor-core kernel (1) or the FP32-core
+// one (0) for this shape: Cin <= 3 and Cout 16 or 32 take the first.
+extern "C" int srod_pt_bwdg_tensor_core(int Cin, int Cout) {
+  return bwdg_tensor_core(Cin, Cout) ? 1 : 0;
+}
+
 // The number of blocks (rows of the partial scratch) srod_pt_bwdg uses,
 // or -1 for shapes it does not take.
 extern "C" int srod_pt_bwdg_blocks(int B, int H, int W, int Cin, int Cout) {
@@ -1037,7 +1399,8 @@ extern "C" int srod_pt_bwdg_blocks(int B, int H, int W, int Cin, int Cout) {
 
 // partial: (blocks, ncols) float32 scratch, blocks from
 // srod_pt_bwdg_blocks; out: (ncols,) float32, ncols = 2*Cout + 9*Cin*Cout +
-// 9*Cin + (9*Cin)^2 (the Gram's lower triangle is left 0).
+// 9*Cin + (9*Cin)^2 (the Gram's lower triangle is left 0). On the
+// tensor-core kernel's shapes dp and z are 16-byte and am 8-byte aligned.
 extern "C" int srod_pt_bwdg(const void* x, const void* dp, const void* z,
                             const void* am, const void* mean, const void* inv,
                             const void* scales, const void* bias,
@@ -1051,13 +1414,24 @@ extern "C" int srod_pt_bwdg(const void* x, const void* dp, const void* z,
   const int n9 = 9 * Cin;
   const int ncols = 2 * Cout + n9 * Cout + n9 + n9 * n9;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  bwdg_kernel<<<blocks, PT_THREADS, smem, s>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(dp),
-      static_cast<const __nv_bfloat16*>(z), static_cast<const int8_t*>(am),
-      static_cast<const float*>(mean), static_cast<const float*>(inv),
-      static_cast<const float*>(scales), static_cast<const float*>(bias),
-      static_cast<float*>(partial), B, H, W, Cin, Cout);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* dpb = static_cast<const __nv_bfloat16*>(dp);
+  const auto* zb = static_cast<const __nv_bfloat16*>(z);
+  const auto* amb = static_cast<const int8_t*>(am);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  if (bwdg_tensor_core(Cin, Cout)) {
+    if ((reinterpret_cast<uintptr_t>(dp) | reinterpret_cast<uintptr_t>(z)) %
+            16 ||
+        reinterpret_cast<uintptr_t>(am) % 8)
+      return static_cast<int>(cudaErrorInvalidValue);
+    bwdg_tc_instance(Cin, Cout)<<<blocks, PT_THREADS, 0, s>>>(
+        xb, dpb, zb, amb, f(mean), f(inv), f(scales), f(bias),
+        static_cast<float*>(partial), B, H, W);
+  } else {
+    bwdg_kernel<<<blocks, PT_THREADS, smem, s>>>(
+        xb, dpb, zb, amb, f(mean), f(inv), f(scales), f(bias),
+        static_cast<float*>(partial), B, H, W, Cin, Cout);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   colsum_kernel<<<ncols, PT_THREADS, 0, s>>>(

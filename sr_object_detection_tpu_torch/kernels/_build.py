@@ -64,6 +64,8 @@ SIGNATURES = {
     # z bf16, mean, inv, scales, bias (Cout,) f32, out bf16, n, Cout, stream
     "srod_pt_apply": ([_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _P],
                       _I),
+    # Cin, Cout -> 1 where bwdg runs on the tensor cores, else 0
+    "srod_pt_bwdg_tensor_core": ([_I, _I], _I),
     # B, H, W, Cin, Cout -> the partial scratch's rows, or -1
     "srod_pt_bwdg_blocks": ([_I, _I, _I, _I, _I], _I),
     # x, dp, z bf16, am int8, mean, inv, scales, bias f32, partial,

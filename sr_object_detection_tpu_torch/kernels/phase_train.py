@@ -28,7 +28,8 @@ gradient, which pair 0's bwdg takes as its pooled cotangent).
 
 Each kernel has a plain PyTorch version beside it (``*_plain``); a CPU
 tensor takes it, a CUDA tensor launches the kernel or raises.
-``launches`` counts each kernel's launches and nothing else.
+``launches`` counts each kernel's launches and nothing else;
+``bwdg_kernels`` says which of bwdg's two kernels they ran.
 
 Not ported: the TPU layout (``to_phase_np``/``from_phase_np``, the halo
 sidebands, ``Geom``/``plan_pair``'s VMEM planner, ``_pack_w`` and the
@@ -52,6 +53,9 @@ from . import _build
 
 launches = {"fwdstats": 0, "apply": 0, "bwdg": 0, "red": 0, "dy": 0,
             "dgrad": 0}
+# which of bwdg's two kernels each launch ran: bwdg_tc_kernel (the tensor
+# cores; Cin <= 3, Cout 16 or 32) or bwdg_kernel (the FP32 cores)
+bwdg_kernels = {"tensor_core": 0, "fp32_core": 0}
 
 # the kernels' shape limits (csrc/phase_train.cu)
 MAX_CIN_FWD, MAX_COUT_FWD = 64, 128
@@ -61,8 +65,9 @@ CHAIN_BLOCKS = 2048         # red/dy blocks to aim for (B x groups x chunks)
 
 
 def reset_launches():
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, bwdg_kernels):
+        for k in counts:
+            counts[k] = 0
 
 
 def supported(spec) -> bool:
@@ -216,7 +221,10 @@ def bwdg_plain(x, dp, z, am, mean, inv, scales, biases):
 
 
 def bwdg(x, dp, z, am, mean, inv, scales, biases):
-    """The bwdg kernel; arguments and results as :func:`bwdg_plain`."""
+    """The bwdg kernel; arguments and results as :func:`bwdg_plain`. The
+    library picks the kernel by shape: bwdg_tc_kernel (tensor cores) for
+    Cin <= 3 and Cout 16 or 32, bwdg_kernel (FP32 cores) for the rest;
+    ``bwdg_kernels`` counts which ran."""
     if x.device.type == "cpu":
         return bwdg_plain(x, dp, z, am, mean, inv, scales, biases)
     n, h, w, cin = x.shape
@@ -256,6 +264,8 @@ def bwdg(x, dp, z, am, mean, inv, scales, biases):
         w, cin, cout, _build.stream_ptr(x.device))
     _build.check(err, "srod_pt_bwdg")
     launches["bwdg"] += 1
+    tc = lib.srod_pt_bwdg_tensor_core(cin, cout)
+    bwdg_kernels["tensor_core" if tc else "fp32_core"] += 1
     s, a, d, g = torch.split(out, [2 * cout, n9 * cout, n9, n9 * n9])
     g = g.reshape(n9, n9).triu()                 # the upper triangle
     g = g + g.triu(1).T
@@ -612,4 +622,4 @@ __all__ = ["phase_train_block", "phase_train_dx_block", "phase_train_chain2",
            "fwdstats", "fwdstats_plain", "apply", "apply_plain", "bwdg",
            "bwdg_plain", "red", "red_plain", "dy", "dy_plain", "dgrad",
            "dgrad_plain", "bn_backward_consts", "supported",
-           "supported_chain", "launches", "reset_launches"]
+           "supported_chain", "launches", "bwdg_kernels", "reset_launches"]

@@ -250,6 +250,57 @@ def test_train_kernels_uneven_tiles(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("h", [32, 22])
+@pytest.mark.parametrize("cin,cout", [(1, 16), (3, 16), (3, 32)])
+def test_bwdg_tensor_core_matches_plain(cuda, cin, cout, h):
+    """bwdg on the tensor cores (bwdg_tc_kernel: Cin <= 3, Cout 16 or 32)
+    at B=8 against its plain version, with whole 8x8 pooled tiles (32x32)
+    and partial ones (22x22), through check_train_kernels."""
+    case = train_case(100 * cin + cout + h, 8, h, cin, cout, cuda)
+    before = dict(TPT.bwdg_kernels)
+    check_train_kernels(TPT, case)
+    torch.cuda.synchronize()
+    assert TPT.bwdg_kernels == {"tensor_core": before["tensor_core"] + 1,
+                                "fp32_core": before["fp32_core"]}
+
+
+def _bwdg_inputs(case):
+    x, w, dp = case["x"], case["w"], case["dp"]
+    z, am, st = TPT.fwdstats_plain(x, w, case["shift"], case["scales"])
+    mean, _, inv = TPT._batch_stats(st, case["shift"], x.shape[0]
+                                    * x.shape[1] * x.shape[2])
+    return x, dp, z, am, mean, inv, case["scales"], case["biases"]
+
+
+@pytest.mark.cuda
+def test_bwdg_two_launches_bit_equal(cuda):
+    """Every bwdg sum has one owner and one order: two launches of the
+    tensor-core kernel on the same inputs are bit-equal."""
+    args = _bwdg_inputs(train_case(11, 8, 32, 3, 16, cuda))
+    first, second = TPT.bwdg(*args), TPT.bwdg(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,kernel", [(3, 16, "tensor_core"),
+                                             (16, 32, "fp32_core"),
+                                             (3, 48, "fp32_core")])
+def test_bwdg_kernel_by_shape(cuda, cin, cout, kernel):
+    """The library picks bwdg's kernel by shape: the tensor cores for the
+    leading pair's Cin <= 3 and Cout 16 or 32, the FP32 cores for the
+    other shapes the wrapper takes; both hold to the plain version."""
+    args = _bwdg_inputs(train_case(cin + cout, 2, 16, cin, cout, cuda))
+    before = dict(TPT.bwdg_kernels)
+    got = TPT.bwdg(*args)
+    torch.cuda.synchronize()
+    assert TPT.bwdg_kernels[kernel] == before[kernel] + 1
+    assert sum(TPT.bwdg_kernels.values()) == sum(before.values()) + 1
+    for g, wv in zip(got, TPT.bwdg_plain(*args)):
+        assert (g - wv).abs().max().item() <= 1e-3 * wv.abs().max().item()
+
+
+@pytest.mark.cuda
 def test_phase_train_block_gradient_on_cuda(cuda):
     """The fused pair's gradient on the card against a float64
     evaluation of the unfused bf16 chain's formulas at 1e-3, the scale
