@@ -37,7 +37,9 @@ non-zero status and no result line:
   7. the batch-128 slice at full width: ThroughputEngine (bf16) with and
      without its phase stem (the training pair's fwdstats + apply
      kernels with identity BN, each link within one bf16 ulp of the plain
-     engine's layers) and QuantizedThroughputEngine (int8, u8 frames)
+     engine's layers; pairs 2-4 on the tensor-core conv tile, pair 1 on
+     the FP32-core loop, counted) and QuantizedThroughputEngine (int8,
+     u8 frames)
      with and without the phase stem; the two int8 engines' int8 trunks
      equal and their
      outputs equal (or within one bf16 step of the head's logits, should
@@ -55,7 +57,9 @@ non-zero status and no result line:
      around queued batches, one sync); the int8 LatencyEngine per frame
      and best_latency_engine's selection;
  11. torch.profiler over each engine: wall and device busy time per
-     frame or batch, the device's idle share, the top kernels;
+     frame or batch, the device's idle share, the top kernels; the bf16
+     phase stem's batch ran fwdstats_tc_kernel 3 times and the FP32-core
+     fwdstats_kernel once;
  12. the three training kernels (csrc/phase_train.cu) against their
      plain versions at the training pair's shape (416, B=128, 3 -> 16):
      fwdstats' Z within one bf16 ulp, its argmax equal wherever the two
@@ -72,7 +76,8 @@ non-zero status and no result line:
  13. the training slice at full width: Trainer on tiny-yolo-voc 416,
      batch 128, bf16 with phase_train, three steps on one batch (losses
      finite, the third below the first, each training kernel launched 3
-     times, counts reset just before and read just after), the first
+     times, on the FP32-core loop (3 -> 16), counts reset just before and
+     read just after), the first
      loss within 0.03*|loss| + 0.05 of a trainer without the pair; the
      float32 Trainer on CUDA reproduces the four train_region_* goldens;
  14. `cli detector train -bf16` on 256 synthetic PPM images: two
@@ -89,7 +94,11 @@ non-zero status and no result line:
      cores, mma.sync) at the chain's second pair (208x208,
      16 -> 32, B=128; inputs on a coarse grid where the conv's sums are
      exact, so both recompute the same conv): red's sums at 1e-4, dy
-     bit-equal, dw at 1e-3, dgrad within one bf16 ulp; F2, B1 and B2
+     bit-equal, dw at 1e-3, dgrad within one bf16 ulp; fwdstats there
+     at phase 12's tolerances; red, dy and fwdstats on the tensor-core
+     conv tile; on general inputs at that shape, fwdstats' Z and argmax
+     equal to the pooled extreme of dy's recomputed y (dy with unit
+     constants) and its first tap, bit for bit; F2, B1 and B2
      (csrc/fused_stem.cu) at the five fusable pairs' conv outputs
      (416x16 ... 26x256, B=128): F2 and B2 bit-equal, B1's sums at 1e-4;
  18. the chain's second pair's gradient (dw, dscales, dbiases, dx) at
@@ -102,23 +111,32 @@ non-zero status and no result line:
  19. Trainer bf16 at 416 B=128 with phase_train="chain", with
      phase_train=True + fused_stem=True and with fused_stem=True, three
      steps each, counts reset just before and read just after each: per
-     step fwdstats 2, apply 2, red 1, dy 1, dgrad 1, bwdg 1 / the pair's
+     step fwdstats 2 (pair 1's on the tensor-core tile), apply 2, red 1,
+     dy 1 (both on the tile), dgrad 1, bwdg 1 / the pair's
      three + F2, B1, B2 4 each / F2, B1, B2 5 each; losses finite and
      falling, the first within 0.03*|loss| + 0.05 of the step without
      kernels;
  20. times, in turns: red, dy, dgrad, F2, B1 and B2 beside their plain
      versions and bounds, F.conv_transpose2d (dgrad's function in one
-     library call, cuDNN, timed in the same run), the bf16 serving stem
-     (mode fwd) at its four pair shapes;
+     library call, cuDNN, timed in the same run), fwdstats on the
+     tensor-core tile at 16->32 @208, 32->64 @104 and 64->128 @52 beside
+     its bounds (cuDNN's bf16 F.conv2d at those shapes for reference: the
+     conv alone), the bf16 serving stem (mode fwd) at its four pair
+     shapes;
      Trainer.step images/s of the three paths against bf16 + phase_train;
  21. torch.profiler over one step of each of the three paths; the two
-     with the pair ran bwdg_tc_kernel, not bwdg_kernel.
+     with the pair ran bwdg_tc_kernel, not bwdg_kernel; the chain's step
+     ran fwdstats_tc_kernel, red_tc_kernel and dy_tc_kernel once each,
+     fwdstats_kernel once (pair 0) and no chain_bwd_kernel.
 
 The last lines are the card (nvidia-smi), one JSON object describing the
-12 kernels (time, plain time, bound, launches and library call of each;
+13 kernels (time, plain time, bound, launches and library call of each;
 ``phase_train_dgrad`` is the tensor-core implicit GEMM in
 csrc/phase_train.cu, ``phase_train_bwdg`` its tensor-core
-``bwdg_tc_kernel``), and ``{"ok": true, "device": {...}}``.
+``bwdg_tc_kernel``, ``phase_train_fwdstats`` the FP32-core loop at the
+leading pair and ``phase_train_fwdstats_tc`` the tensor-core conv tile at
+the chain's pair 1, which ``phase_train_red`` and ``phase_train_dy`` run
+too), and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -142,9 +160,9 @@ sys.path.insert(0, str(ROOT / "tests"))
 from torch_parity import (  # noqa: E402  (JAX-free helpers)
     TRAIN_GOLDENS, assert_bf16_close, assert_stem_link_close, chain_case,
     check_chain_kernels, check_fused_op, check_fused_stem_kernels,
-    check_pair_gradient, check_train_golden, check_train_kernels, random_bn,
-    phase_pair_case, stem_case, train_case, train_cfg_text,
-    write_ppm_dataset)
+    check_fwdstats, check_pair_gradient, check_train_golden,
+    check_train_kernels, check_y_consistency, random_bn, phase_pair_case,
+    stem_case, train_case, train_cfg_text, write_ppm_dataset)
 
 NET = 416          # tiny-yolo-voc's published width and height
 BATCH = 128        # the batch serving engines' batch
@@ -200,7 +218,8 @@ def profile(name, fn, iters, gpu, top=6):
     overhead included), device busy time per call (the CUDA kernels'
     self time; the port runs one stream, so kernels do not overlap),
     the idle share, and the kernels that take the most device time.
-    Returns the names of the CUDA kernels the profiler saw."""
+    Returns {name: calls over the ``iters`` calls} of the CUDA kernels
+    the profiler saw."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     fn()
@@ -212,19 +231,22 @@ def profile(name, fn, iters, gpu, top=6):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / iters * 1e3
-    rows = [(e.self_device_time_total / iters / 1e3, e.key) for e in
-            prof.key_averages() if e.device_type == DeviceType.CUDA
+    rows = [(e.self_device_time_total / iters / 1e3, e.key, e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
-    busy = sum(t for t, _ in rows)
+    busy = sum(t for t, _, _ in rows)
     if busy == 0:
         log(f"profile {name}: wall {wall} ms; device time not measured "
             f"(the profiler saw no kernel) [{gpu}]")
-        return []
+        return {}
     log(f"profile {name}: wall {wall} ms, device busy {busy} ms, idle "
         f"share {1 - busy / wall} [{gpu}]")
-    for t, key in sorted(rows, reverse=True)[:top]:
-        log(f"  {t} ms ({t / busy:.1%}) {key[:90]}")
-    return [key for _, key in rows]
+    # the top kernels, and every tensor-core kernel of the port below them
+    ranked = sorted(rows, reverse=True)
+    for i, (t, key, _) in enumerate(ranked):
+        if i < top or "_tc_kernel" in key:
+            log(f"  {t} ms ({t / busy:.1%}) {key[:90]}")
+    return {key: calls for _, key, calls in rows}
 
 
 def assert_bwdg_tensor_core(name, kernels):
@@ -234,6 +256,26 @@ def assert_bwdg_tensor_core(name, kernels):
     assert not any(re.search(r"\bbwdg_kernel\b", k) for k in kernels), (
         name, kernels)
     log(f"  {name}: bwdg ran as bwdg_tc_kernel (tensor cores)")
+
+
+def assert_conv_tensor_core(name, kernels, iters, per_call):
+    """A profiled run (``iters`` calls) ran the conv of fwdstats, red and
+    dy on the tensor-core tile for every Cin >= 16 instance. ``per_call``
+    gives the calls a call makes of fwdstats_tc_kernel, red_tc_kernel,
+    dy_tc_kernel and the FP32-core fwdstats_kernel (the leading pair's
+    3 -> 16 only); chain_bwd_kernel (the FP32-core red/dy) never ran. A
+    count is held between 1 and ``iters`` times its value (0 where it is
+    0): the profiler has been seen to miss one launch of a window (one
+    of fwdstats_kernel's two in the chain step's profile), and
+    an instance on the FP32-core loop would add ``iters`` launches of
+    fwdstats_kernel or chain_bwd_kernel."""
+    got = {k: sum(c for key, c in kernels.items()
+                  if re.search(rf"\b{k}\b", key)) for k in per_call}
+    assert all(got[k] == 0 if v == 0 else 1 <= got[k] <= iters * v
+               for k, v in per_call.items()), (name, got, iters)
+    assert not any("chain_bwd_kernel" in k for k in kernels), (name, kernels)
+    log(f"  {name}: conv kernels over {iters} calls {got}, no "
+        f"chain_bwd_kernel")
 
 
 def bf16_err(got, ref) -> float:
@@ -644,6 +686,10 @@ def main() -> int:
     launches_b128, want = counts(phase_stem_pair=4, phase_train_fwdstats=4,
                                  phase_train_apply=4)
     assert launches_b128 == want, launches_b128
+    # the stem's pairs 2-4 (Cin 16, 32, 64) on the tensor-core conv tile,
+    # pair 1 (3 -> 16) on the FP32-core loop
+    assert PT.conv_kernels["fwdstats"] == {"tensor_core": 3,
+                                           "fp32_core": 1}, PT.conv_kernels
     # the bf16 phase stem link by link against the plain engine's conv +
     # pool layers on the same input
     v = x_b128.to(torch.bfloat16)
@@ -813,6 +859,10 @@ def main() -> int:
             lambda: det.predict_batch(xin), 20, gpu)
     profile(f"ThroughputEngine bf16 B={BATCH} @{NET}, per batch",
             lambda: bf(frames_u8.float() / 255.0), 5, gpu)
+    name = f"ThroughputEngine bf16 + phase stem B={BATCH} @{NET}, per batch"
+    assert_conv_tensor_core(name, profile(
+        name, lambda: bf_stem(frames_u8.float() / 255.0), 5, gpu), 5,
+        {"fwdstats_tc_kernel": 3, "fwdstats_kernel": 1})
     profile(f"int8 engine B={BATCH} @{NET} u8, phase stem, per batch",
             lambda: q_stem(frames_u8), 5, gpu)
     profile(f"int8 engine B={BATCH} @{NET} u8, plain, per batch",
@@ -886,6 +936,8 @@ def main() -> int:
     launches_train, want = counts(phase_train_fwdstats=3,
                                   phase_train_apply=3, phase_train_bwdg=3)
     assert launches_train == want, launches_train
+    assert PT.conv_kernels["fwdstats"] == {"tensor_core": 0,
+                                           "fp32_core": 3}, PT.conv_kernels
     assert all(np.isfinite(losses)) and losses[2] < losses[0], losses
     loss_plain = float(trainers["bf16"].step(xt, tt)["loss"])
     assert abs(losses[0] - loss_plain) <= 0.03 * abs(loss_plain) + 0.05, (
@@ -1010,7 +1062,26 @@ def main() -> int:
     import torch.nn.functional as F
     h1 = NET // 2
     ccase = chain_case(17, BATCH, h1, 16, 32, dev)
+    tc_before = {m: c["tensor_core"] for m, c in PT.conv_kernels.items()}
     chain_errs = check_chain_kernels(PT, ccase)
+    # fwdstats on the tensor-core tile at the chain's pair 1, and on
+    # general inputs the forward's Z and argmax against dy's recomputed y
+    fcase = train_case(17, BATCH, h1, 16, 32, dev)
+    fwd_tc_err = check_fwdstats(PT, fcase["x"], fcase["w"], fcase["shift"],
+                                fcase["scales"])[0]
+    del fcase
+    g17 = torch.Generator(device=dev).manual_seed(17)
+    x17 = torch.randn((BATCH, h1, h1, 16), generator=g17, device=dev).to(
+        torch.bfloat16)
+    w17 = (0.3 * torch.randn((3, 3, 16, 32), generator=g17,
+                             device=dev)).to(torch.bfloat16)
+    n_windows = check_y_consistency(PT, x17, w17,
+                                    torch.linspace(-1, 1, 32, device=dev))
+    del x17, w17
+    assert {m: c["tensor_core"] - tc_before[m]
+            for m, c in PT.conv_kernels.items()} == {
+        "fwdstats": 2, "red": 1, "dy": 2}, PT.conv_kernels
+    torch.cuda.empty_cache()
     stem_shapes = [(NET >> k, 16 << k) for k in range(5)]      # (H, C)
     stem_errs = {"f2": 0.0, "b1": 0.0, "b2": 0.0}
     for k, (h, c) in enumerate(stem_shapes):
@@ -1020,7 +1091,11 @@ def main() -> int:
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
     log(f"phase 17 ok: red, dy and dgrad == plain at {NET} B={BATCH} "
-        f"{h1}x{h1} 16->32 (max |err| {chain_errs}); F2, B1, B2 == plain "
+        f"{h1}x{h1} 16->32 (max |err| {chain_errs}), fwdstats there "
+        f"(max |err| {fwd_tc_err}), the three on the tensor-core conv "
+        f"tile; fwdstats' Z and argmax equal dy's recomputed y's pooled "
+        f"extreme bit for bit on {n_windows} windows of general inputs; "
+        f"F2, B1, B2 == plain "
         f"at (H, C) {stem_shapes} (max |err| {stem_errs}) [{gpu}]")
 
     # --------------------------------------------------------- phase 18
@@ -1072,7 +1147,17 @@ def main() -> int:
             fused_stem_f2=4, fused_stem_b1=4, fused_stem_b2=4),
         "bf16 + fused_stem": dict(fused_stem_f2=5, fused_stem_b1=5,
                                   fused_stem_b2=5)}
-    launches_opt = {}
+    # the conv kernels a step runs, by their profiler names: pair 1 of the
+    # chain (16 -> 32) on the tensor-core tile, pair 0 (3 -> 16) on the
+    # FP32-core loop
+    conv_per_step = {
+        "bf16 + chain": {"fwdstats_tc_kernel": 1, "red_tc_kernel": 1,
+                         "dy_tc_kernel": 1, "fwdstats_kernel": 1},
+        "bf16 + phase_train + fused_stem": {"fwdstats_kernel": 1,
+                                            "fwdstats_tc_kernel": 0},
+        "bf16 + fused_stem": {"fwdstats_kernel": 0,
+                              "fwdstats_tc_kernel": 0}}
+    launches_opt, conv_opt = {}, {}
     for name, kw in cfgs.items():
         trainers[name] = Trainer(tspec, tparams, device=dev,
                                  compute_dtype=torch.bfloat16, **kw)
@@ -1081,6 +1166,10 @@ def main() -> int:
         torch.cuda.synchronize()
         got, want = counts(**{k: 3 * v for k, v in per_step[name].items()})
         assert got == want, (name, got)
+        tc = {m: c["tensor_core"] for m, c in PT.conv_kernels.items()}
+        assert tc == {m: 3 * conv_per_step[name].get(f"{m}_tc_kernel", 0)
+                      for m in tc}, (name, PT.conv_kernels)
+        conv_opt[name] = tc
         assert all(np.isfinite(ls)) and ls[2] < ls[0], (name, ls)
         assert abs(ls[0] - loss_plain) <= 0.03 * abs(loss_plain) + 0.05, (
             name, ls[0], loss_plain)
@@ -1155,9 +1244,44 @@ def main() -> int:
                                     "f32")
     del ccase, cargs, scase, y2, dp2, d_nchw
     torch.cuda.empty_cache()
+    # fwdstats alone on the tensor-core conv tile at its three Cin >= 16
+    # instances (the chain's pair 1, the serving stem's pairs 2-4) beside
+    # its bound; cuDNN's bf16 F.conv2d at the same shapes for reference
+    # only: it computes the conv alone, without the pool, argmax and sums
+    g20 = torch.Generator(device=dev).manual_seed(20)
+    conv_lib = {}
+    for h, cin, cout in ((h1, 16, 32), (NET // 4, 32, 64),
+                         (NET // 8, 64, 128)):
+        xs = torch.rand((BATCH, h, h, cin), generator=g20,
+                        device=dev).to(torch.bfloat16)
+        ws = (0.3 * torch.randn((3, 3, cin, cout), generator=g20,
+                                device=dev)).to(torch.bfloat16)
+        sh = 0.1 * torch.randn(cout, generator=g20, device=dev)
+        sc = torch.linspace(-1, 1, cout, device=dev)
+        tag = f"{cin}->{cout} @{h}"
+        k_ms, p_ms = abba(
+            f"phase_train fwdstats (tensor-core tile) {tag} B={BATCH}",
+            lambda: PT.fwdstats(xs, ws, sh, sc),
+            lambda: PT.fwdstats_plain(xs, ws, sh, sc), iters=20,
+            plain_iters=3)
+        xc, wc = xs.permute(0, 3, 1, 2), ws.permute(3, 2, 0, 1).contiguous()
+        conv_lib[tag] = (cuda_ms(lambda: F.conv2d(xc, wc, padding=1), 10)
+                         + cuda_ms(lambda: F.conv2d(xc, wc, padding=1),
+                                   10)) / 2
+        pooled = BATCH * (h // 2) * (h // 2) * cout
+        b_tc = bound(2 * BATCH * h * h * cin + 2 * 9 * cin * cout + 8 * cout
+                     + 3 * pooled + 8 * cout,
+                     2 * BATCH * h * h * cout * 9 * cin, "bf16")
+        log(f"bound phase_train fwdstats {tag}: {b_tc[0]} ms by {b_tc[1]}; "
+            f"reference F.conv2d bf16 (cuDNN, the conv alone) "
+            f"{conv_lib[tag]} ms [{gpu}]")
+        if cin == 16:
+            times["phase_train_fwdstats_tc"] = (k_ms, p_ms)
+            bounds["phase_train_fwdstats_tc"] = b_tc
+        del xs, xc
+    torch.cuda.empty_cache()
     # the bf16 serving stem (kernel 4's mode fwd: fwdstats + apply with
     # identity BN) at its four pair shapes, B=128
-    g20 = torch.Generator(device=dev).manual_seed(20)
     for h, cin, cout in ((NET, 3, 16), (NET // 2, 16, 32),
                          (NET // 4, 32, 64), (NET // 8, 64, 128)):
         xs = torch.rand((BATCH, h, h, cin), generator=g20,
@@ -1203,6 +1327,7 @@ def main() -> int:
                        lambda: trainers[name].step(xt, tt), 2, gpu, top=8)
         if per_step[name].get("phase_train_bwdg"):
             assert_bwdg_tensor_core(name, seen)
+        assert_conv_tensor_core(name, seen, 2, conv_per_step[name])
 
     replaces = {
         "nms_per_class": "sr_object_detection_tpu/kernels/nms_pallas.py:29",
@@ -1210,6 +1335,8 @@ def main() -> int:
         "phase_stem_pair":
             "sr_object_detection_tpu/kernels/phase_stem.py:235",
         "phase_train_fwdstats":
+            "sr_object_detection_tpu/kernels/phase_train.py:209",
+        "phase_train_fwdstats_tc":
             "sr_object_detection_tpu/kernels/phase_train.py:209",
         "phase_train_apply":
             "sr_object_detection_tpu/kernels/phase_train.py:722",
@@ -1239,11 +1366,14 @@ def main() -> int:
                       ("phase_train_red", "phase_train_dy",
                        "phase_train_dgrad")},
                    **{k: v for k, v in launches_opt["bf16 + fused_stem"]
-                      .items() if k.startswith("fused_stem")}}
+                      .items() if k.startswith("fused_stem")},
+                   "phase_train_fwdstats_tc":
+                       conv_opt["bf16 + chain"]["fwdstats"]}
     errs = {"nms_per_class": nms_err, "stem_pair": stem_err,
             "phase_stem_pair": ps_err,
             **{f"phase_train_{k}": v for k, v in train_errs.items()},
             **{f"phase_train_{k}": v for k, v in chain_errs.items()},
+            "phase_train_fwdstats_tc": fwd_tc_err,
             **{f"fused_stem_{k}": v for k, v in stem_errs.items()}}
     kernels = [
         {"name": name, "route": "cuda",

@@ -31,7 +31,50 @@
 //   in shared memory with even and odd columns apart (rows 20 floats
 //   apart), so a warp's 4x8 pooled pixels read 32 different banks; the
 //   weights of the channel group read as float4 broadcasts. The products
-//   run on the FP32 cores (wgmma tiles are later work).
+//   run on the FP32 cores. This loop serves Cin that is no multiple of
+//   16 (the leading pair's 3 -> 16); the others take the tile below.
+//
+// The tensor-core conv tile (conv_tc_body; fwdstats_tc_kernel,
+// red_tc_kernel, dy_tc_kernel), for Cin a multiple of 16 — chosen by one
+// predicate (conv_tensor_core) for fwdstats, red and dy alike, so the
+// chain's forward and backward compute one y: the same conv as one
+// implicit GEMM on mma.sync m16n8k16 (bf16 operands, float32 sums) per
+// work item (image, 8x8 pooled tile, group of NC = 32 output channels,
+// or 16 where Cout is not a multiple of 32): M = the 16x16 positions,
+// N = NC, K = 9 x Cin in k16 steps (16-channel chunk, tap), chunks
+// outer, taps inner, in every mode. Bound at the chain's pair 1 (208x208,
+// 16 -> 32, B=128) by bytes (x read, Z and argmax written, 310 MB:
+// 0.093 ms at 3.35 TB/s); its 51 GFLOP take 0.052 ms at the bf16 dense peak, where
+// the FP32 cores needed 0.76 ms at best. So the design streams x through
+// shared memory and keeps the products cheap:
+//   - persistent blocks (grid (as many as fit / groups, groups), two of
+//     256 threads an SM): a block keeps its channel group's weights in
+//     shared memory as bf16 [k16 step][16 ci][NC co] (16-byte units
+//     swizzled by ci) and walks its tiles through a ring of 4 halo
+//     chunks (18x18 pixels x 16 channels, NHWC, 32 bytes a pixel, units
+//     XOR-swizzled by the halo column), fetched by cp.async (src-size 0
+//     for the zero padding) while the tensor cores work;
+//   - A fragments by ldmatrix.x4 straight from the halo at the tap's
+//     shifted position (no im2col), B fragments by ldmatrix.x4.trans;
+//     every ldmatrix phase hits eight distinct bank groups;
+//   - an m16 tile is 2 full-resolution rows x 8 columns, so a lane's
+//     accumulators hold a vertical pair of one pool window and
+//     __shfl_xor(., 4) brings the horizontal pair; y = bf16(sum) and
+//     every epilogue expression as in fwdstats_kernel / chain_bwd_kernel;
+//   - per-channel sums in registers across the block's tiles (float64
+//     for fwdstats' statistics: the chain's BN backward is sensitive to
+//     the variance at 1e-6), the lanes and warps added in a fixed order
+//     into one partial row a block; colsum reduces the rows. No atomics:
+//     two launches are bit-equal;
+//   - dy (Cin 16): the tile's bf16 dy (the value written to device
+//     memory) goes to shared memory, out in 16-byte stores, and into the
+//     weight gradient dw += X_taps^T dy, a second GEMM on mma.sync with
+//     the 256 positions as K (M = 9 taps x 16 ci, N = NC): both operands
+//     run along K, so both come from ldmatrix.trans; every product is
+//     exact in float32; warp w owns the (tap, n8) tiles w, w + 8, ...;
+//     a tile's 16 k16 steps sum in its registers, the tiles in float32
+//     round-to-nearest in shared memory (the tensor cores' own adds
+//     truncate, a bias over thousands of steps).
 //
 // apply (kernel 5): zb = bf16(bf16((z - mean) * inv * scale) + bf16(bias)),
 // out = zb > 0 ? zb : bf16(0.10009765625 * zb) — the exact expressions of
@@ -110,8 +153,9 @@
 //     dx = dy conv w with flipped taps and swapped channels as one bf16
 //     dot_general on the MXU with float32 sums (:1292-1294); here the
 //     same product runs on the tensor cores (mma.sync), bf16 out.
-//   red and dy share fwdstats' block shape (image, 8x8 pooled tile, 16
-//   channels) and its conv loop, so y is bit-equal to the forward's; a
+//   On the FP32 cores (Cin < 16, chain_bwd_kernel): red and dy share
+//   fwdstats' block shape (image, 8x8 pooled tile, 16 channels) and its
+//   conv loop, so y is bit-equal to the forward's; a
 //   block walks a fixed set of an image's tiles (a chunk) and keeps its
 //   sums in registers, one owner per sum; colsum reduces the chunks in a
 //   fixed order. dy's weight-gradient step: thread (ci, co) sums the 9
@@ -121,8 +165,8 @@
 //   Bound on an H100 at the chain's second pair (416, B=128, 208x208,
 //   16 -> 32): red reads x (177 MB) and dp (89 MB): 0.079 ms; dy also
 //   writes dy (354 MB): 0.185 ms; the conv recompute (51 GFLOP, twice
-//   that in dy with the weight gradient) runs on the FP32 cores here, so
-//   on this design the operations bound both.
+//   that in dy with the weight gradient) takes 0.052 (0.104) ms on the
+//   bf16 tensor cores: at Cin 16 both run on the tensor-core tile above.
 //   dgrad: an implicit GEMM on the bf16 tensor cores. M = the output
 //   pixels, N = Cin (one or two n8 tiles), K = 9 taps x Cout, taken 16
 //   dy channels (one k16 step) at a time; mma.sync m16n8k16 with float32
@@ -162,6 +206,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #define PT_PT 8                         // pooled tile edge
 #define PT_NPIX (PT_PT * PT_PT)         // pooled pixels per tile
@@ -1331,6 +1377,498 @@ int bwdg_grid(int B, int H, int W, int Cin, int Cout, int* smem) {
                               : static_cast<long long>(sms) * per_sm);
 }
 
+// ------------------------------------------------------------------------
+// The tensor-core conv tile of fwdstats, red and dy (Cin a multiple of 16;
+// see the note at the top). Modes of conv_tc_body:
+enum { CT_FWDSTATS = 0, CT_RED = 1, CT_DY = 2 };
+#define CT_CH 16                         // input channels of a k16 step
+#define CT_HALO (PT_TH * PT_TH * 32)     // bytes of one staged halo chunk
+#define CT_NS 4                          // halo chunks in the ring
+
+// byte offset of 16-byte unit u of row r (U units a row), the units
+// XOR-swizzled by the low bits of `key`, so that the rows of eight
+// consecutive keys, one unit, fall in eight distinct 16-byte bank groups
+template <int U>
+__device__ __forceinline__ int swzu(int r, int key, int u) {
+  constexpr int SH = U == 2 ? 2 : 1;
+  static_assert(U == 2 || U == 4, "units a row");
+  return r * 16 * U + ((u ^ ((key >> SH) & (U - 1))) << 4);
+}
+
+// two 8x8 b16 matrices (row addresses from lanes 0..15), each transposed
+__device__ __forceinline__ void ldmatrix_x2_trans(unsigned addr, unsigned& r0,
+                                                  unsigned& r1) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r0), "=r"(r1)
+      : "r"(addr)
+      : "memory");
+}
+
+struct ConvTcLayout {                // byte offsets in shared memory
+  int w, halo, dys, kc, dws, total;
+};
+
+// the weights [k16 step (chunk, tap)][16 ci][nc co] bf16, CT_NS halo
+// chunks, dy's tile [256 positions][nc] bf16 ("dy" only), the
+// per-channel constants [7][nc] float32 and dw's running sums ("dy"
+// only: [warp][5 tiles][4][lane] float32)
+__host__ __device__ inline ConvTcLayout conv_tc_layout(int mode, int Cin,
+                                                       int nc) {
+  ConvTcLayout L;
+  L.w = 0;
+  L.halo = 9 * Cin * nc * 2;
+  L.dys = L.halo + CT_NS * CT_HALO;
+  L.kc = L.dys + (mode == CT_DY ? PT_FULL * PT_FULL * nc * 2 : 0);
+  L.dws = L.kc + 7 * nc * 4;
+  L.total = L.dws + (mode == CT_DY ? 8 * 5 * 4 * 32 * 4 : 0);
+  return L;
+}
+
+// One block: output channels co0 = blockIdx.y * NC .. + NC - 1 of the
+// pooled tiles blockIdx.x, + gridDim.x, ... (over the batch's B * tiles),
+// each in Cin / 16 halo chunks streamed through a cp.async ring. The
+// conv of a tile is a GEMM: M = its 16x16 positions, N = NC, K = 9 x Cin
+// in k16 steps (chunk, tap), chunks outer, taps in row-major order: the
+// same order in every mode, so red and dy recompute fwdstats' y bit for
+// bit. Warp w owns full-resolution rows 2w, 2w + 1 (pooled row w): two
+// m16 tiles, mt = columns 8 mt .. + 7, rows 0-7 of a tile at row 2w and
+// 8-15 at row 2w + 1. A lane's accumulators then hold a vertical pair of
+// a pool window for channels 2q, 2q + 1; __shfl_xor(., 4) brings the
+// horizontal partner, after which the even-column lane owns the window
+// of channel 2q and the odd one that of 2q + 1.
+// k0, k1: fwdstats shift and scales (Cout,); red/dy the (7, Cout) rows
+// mean, inv, scales, bias, c1, c2, c3 in k0.
+template <int MODE, int NC>
+__device__ __forceinline__ void conv_tc_body(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+    const __nv_bfloat16* __restrict__ dp, const float* __restrict__ k0,
+    const float* __restrict__ k1, __nv_bfloat16* __restrict__ z,
+    int8_t* __restrict__ am, __nv_bfloat16* __restrict__ dy,
+    float* __restrict__ partial, int B, int H, int W, int Cin, int Cout) {
+  constexpr int NT = NC / 8;         // n8 tiles; also 16-byte units a row
+  extern __shared__ __align__(128) unsigned char csm[];
+  const ConvTcLayout L = conv_tc_layout(MODE, Cin, NC);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const bool even = (g & 1) == 0;
+  const int nch = Cin / CT_CH;
+  const int co0 = blockIdx.y * NC;
+  const int H2 = H / 2, W2 = W / 2;
+  const int tiles_x = (W2 + PT_PT - 1) / PT_PT;
+  const int tiles = tiles_x * ((H2 + PT_PT - 1) / PT_PT);
+  const int ntl = (B * tiles - 1 - static_cast<int>(blockIdx.x)) /
+                      static_cast<int>(gridDim.x) + 1;
+  const int S = ntl * nch;           // (tile, chunk) stages of the block
+  const unsigned smb = smem_u32(csm);
+  float* kcs = reinterpret_cast<float*>(csm + L.kc);
+  for (int i = tid; i < 7 * NC; i += PT_THREADS) {
+    const int r = i / NC, c = co0 + i % NC;
+    if constexpr (MODE == CT_FWDSTATS)
+      kcs[i] = r == 0 ? k0[c] : r == 1 ? k1[c] : 0.f;
+    else
+      kcs[i] = k0[r * Cout + c];
+  }
+  // the weights: global row t * Cin + ci -> shared row (ci / 16 * 9 + t)
+  // * 16 + ci % 16; they land with the first halo chunk's group
+  for (int i = tid; i < 9 * Cin * NT; i += PT_THREADS) {
+    const int row = i / NT, u = i % NT;
+    const int t = row / Cin, ci = row % Cin;
+    const int srow = ((ci / CT_CH) * 9 + t) * CT_CH + ci % CT_CH;
+    cp_async16(smb + L.w + swzu<NT>(srow, srow, u),
+               w + static_cast<size_t>(row) * Cout + co0 + 8 * u, 16);
+  }
+  // stage s = (the block's tile s / nch, chunk s % nch): the 18x18 halo's
+  // 16 channels, 32 bytes a pixel, units swizzled by the halo column;
+  // src-size 0 writes the zero padding. An empty group past the last.
+  auto load = [&](int s) {
+    if (s < S) {
+      const int tile = blockIdx.x + (s / nch) * gridDim.x, ch = s % nch;
+      const int b = tile / tiles, r = tile % tiles;
+      const int gy0 = 2 * PT_PT * (r / tiles_x) - 1;
+      const int gx0 = 2 * PT_PT * (r % tiles_x) - 1;
+      const unsigned st = smb + L.halo + (s % CT_NS) * CT_HALO;
+      for (int i = tid; i < PT_TH * PT_TH * 2; i += PT_THREADS) {
+        const int p = i >> 1, u = i & 1;
+        const int hx = p % PT_TH;
+        const int gy = gy0 + p / PT_TH, gx = gx0 + hx;
+        const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+        cp_async16(st + swzu<2>(p, hx, u),
+                   in ? x + ((static_cast<size_t>(b) * H + gy) * W + gx) *
+                                Cin + ch * CT_CH + 8 * u
+                      : x,
+                   in ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // ldmatrix row addresses. Conv A (positions x 16 ci): lane l, matrix
+  // j = l / 8, row 2w + j % 2 of the tile, column 8 mt + l % 8, unit
+  // j / 2, at the tap's shift (ky rows, kx columns). Conv B (16 ci x NC
+  // co, .trans): row l % 8 + 8 ((l / 8) % 2), unit 2 pr + l / 16.
+  int a_off[2][3];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int kx = 0; kx < 3; ++kx) {
+      const int hc = 8 * mt + (lane & 7) + kx;
+      a_off[mt][kx] = swzu<2>((2 * warp + ((lane >> 3) & 1)) * PT_TH + hc,
+                              hc, lane >> 4);
+    }
+  int b_off[NT / 2];
+  const int krow = (lane & 7) + 8 * ((lane >> 3) & 1);
+#pragma unroll
+  for (int pr = 0; pr < NT / 2; ++pr)
+    b_off[pr] = L.w + swzu<NT>(krow, krow, 2 * pr + (lane >> 4));
+  // dy's weight gradient: dw[(t, ci)][co] += sum over the tile's
+  // positions p of x(p + tap t, ci) * dy(p, co), M = (t, ci), N = NC,
+  // K = positions, a k16 step per full-resolution row. Warp w owns the
+  // (tap, n8 tile) accumulator tiles w, w + 8, ... < 9 NT: its n8 tile
+  // ntw = w % NT and the taps (w + 8 j) / NT. A (.trans from the halo):
+  // lane l, column (l % 8) + 8 (l / 16), unit (l / 8) % 2; B (.trans from
+  // dy's tile): lanes 0-15, position l % 16, unit ntw.
+  const int ntw = warp % NT;
+  const int dwa_fx = (lane & 7) + 8 * (lane >> 4), dwa_u = (lane >> 3) & 1;
+  const int dyb_off = L.dys + swzu<NT>(lane & 15, lane & 15, ntw);
+
+  float acc[2][NT][4];
+  // fwdstats, red: the sums of the thread's channels over its windows.
+  // fwdstats sums in float64: the chain's BN backward (c1..c3) turns a
+  // 1e-6 error of the variance into per cent of the weight gradient
+  // (its dy is a sum with heavy cancellation, and a per-channel offset
+  // of c1 moves the bf16 rounding of dy one way), so the statistics are
+  // kept exact to float32's last bits
+  using Acc = typename std::conditional<MODE == CT_FWDSTATS, double,
+                                        float>::type;
+  Acc run0[NT], run1[NT];
+  float dwacc[5][4];                 // dy: the warp's dw tiles, one tile
+  // dy: dw's running sums over the block's tiles, one slot a thread and
+  // entry. The tensor cores add into their accumulators with truncation
+  // (not round-to-nearest), a bias that a sum over thousands of steps
+  // with heavy cancellation would grow; a tile's 16 steps stay in
+  // registers and the tiles are added with float32 round-to-nearest.
+  float* dws = reinterpret_cast<float*>(csm + L.dws) + warp * 5 * 4 * 32 +
+               lane;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) run0[nt] = run1[nt] = 0.f;
+  if constexpr (MODE == CT_DY)
+#pragma unroll
+    for (int j = 0; j < 5; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dws[(j * 4 + e) * 32] = 0.f;
+
+  for (int s = 0; s < CT_NS - 1; ++s) load(s);
+  for (int s = 0; s < S; ++s) {
+    cp_async_wait<CT_NS - 2>();      // stage s has landed ...
+    __syncthreads();                 // ... for all, and s - 1 is done
+    load(s + CT_NS - 1);
+    const int ch = s % nch;
+    if (ch == 0) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+    }
+    const unsigned st = smb + L.halo + (s % CT_NS) * CT_HALO;
+#pragma unroll
+    for (int t = 0; t < 9; ++t) {
+      unsigned bfr[NT / 2][4];
+#pragma unroll
+      for (int pr = 0; pr < NT / 2; ++pr)
+        ldmatrix_x4_trans(smb + b_off[pr] + (ch * 9 + t) * CT_CH * NT * 16,
+                          bfr[pr]);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        unsigned a[4];
+        ldmatrix_x4(st + a_off[mt][t % 3] + (t / 3) * PT_TH * 32, a);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          mma_bf16(acc[mt][nt], a, bfr[nt / 2][2 * (nt % 2)],
+                   bfr[nt / 2][2 * (nt % 2) + 1]);
+      }
+    }
+    if (ch != nch - 1) continue;
+
+    // ---- the tile's epilogue
+    const int tile = blockIdx.x + (s / nch) * gridDim.x;
+    const int b = tile / tiles, r = tile % tiles;
+    const int ty = r / tiles_x, tx = r % tiles_x;
+    const int oy = ty * PT_PT + warp;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int ox = tx * PT_PT + 4 * mt + (g >> 1);
+      const bool valid = oy < H2 && ox < W2;
+      const size_t o = ((static_cast<size_t>(b) * H2 + oy) * W2 + ox) * Cout;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int c = 8 * nt + 2 * q + (g & 1);    // the window's channel
+        float y[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) y[e] = bf16r(acc[mt][nt][e]);
+        const float ra = __shfl_xor_sync(0xffffffffu, even ? y[1] : y[0], 4);
+        const float rb = __shfl_xor_sync(0xffffffffu, even ? y[3] : y[2], 4);
+        // the window in row-major order: (0,0) (0,1) (1,0) (1,1)
+        const float v[4] = {even ? y[0] : ra, even ? ra : y[1],
+                            even ? y[2] : rb, even ? rb : y[3]};
+        if constexpr (MODE == CT_FWDSTATS) {
+          const double sh = kcs[c];
+          double s0 = 0.0, s1 = 0.0;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const double d = static_cast<double>(v[k]) - sh;
+            s0 += d;
+            s1 += d * d;
+          }
+          if (valid) {
+            run0[nt] += s0;
+            run1[nt] += s1;
+          }
+          const bool up = kcs[NC + c] > 0.f;
+          float zs = v[0];
+#pragma unroll
+          for (int k = 1; k < 4; ++k)
+            zs = up ? fmaxf(zs, v[k]) : fminf(zs, v[k]);
+          unsigned kf = 3;
+#pragma unroll
+          for (int k = 3; k >= 0; --k)
+            if (v[k] == zs) kf = k;    // the first tap attaining it
+          const unsigned mine = bf16_bits(zs) | (kf << 16);
+          const unsigned other = __shfl_xor_sync(0xffffffffu, mine, 4);
+          if (even && valid) {         // channels c, c + 1 of the pixel
+            *reinterpret_cast<unsigned*>(z + o + co0 + c) =
+                (mine & 0xffffu) | (other << 16);
+            *reinterpret_cast<unsigned short*>(am + o + co0 + c) =
+                static_cast<unsigned short>((mine >> 16) |
+                                            ((other >> 16) << 8));
+          }
+        } else {
+          // the exact expressions of chain_bwd_kernel
+          const float mean = kcs[c], inv = kcs[NC + c];
+          const float sc = kcs[2 * NC + c], bias = bf16r(kcs[3 * NC + c]);
+          float xm[4], xh[4], a[4];
+          bool pos[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            xm[k] = __fsub_rn(v[k], mean);
+            xh[k] = __fmul_rn(xm[k], inv);
+            const float zz =
+                bf16r(__fadd_rn(bf16r(__fmul_rn(xh[k], sc)), bias));
+            pos[k] = zz > 0.f;
+            a[k] = pos[k] ? zz : bf16r(__fmul_rn(0.10009765625f, zz));
+          }
+          const float m = fmaxf(fmaxf(a[0], a[1]), fmaxf(a[2], a[3]));
+          int first = 3;
+#pragma unroll
+          for (int k = 3; k >= 0; --k)
+            if (a[k] == m) first = k;  // the first tap attaining the max
+          const float gct =
+              valid ? __bfloat162float(dp[o + co0 + c]) : 0.f;
+          const float neg = bf16r(__fmul_rn(0.10009765625f, gct));
+          float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float dz = k == first ? (pos[k] ? gct : neg) : 0.f;
+            if constexpr (MODE == CT_DY) {
+              const float d = bf16r(__fadd_rn(
+                  __fadd_rn(__fmul_rn(dz, kcs[4 * NC + c]),
+                            __fmul_rn(xm[k], kcs[5 * NC + c])),
+                  kcs[6 * NC + c]));
+              const int p = (2 * warp + (k >> 1)) * PT_FULL + 8 * mt +
+                            2 * (g >> 1) + (k & 1);
+              *reinterpret_cast<unsigned short*>(
+                  csm + L.dys + swzu<NT>(p, p, nt) + 2 * (c % 8)) =
+                  valid ? bf16_bits(d) : static_cast<unsigned short>(0);
+            } else {
+              s0 += dz;
+              s1 += dz * xh[k];
+            }
+          }
+          if constexpr (MODE == CT_RED) {
+            if (valid) {
+              run0[nt] += s0;
+              run1[nt] += s1;
+            }
+          }
+        }
+      }
+    }
+    if constexpr (MODE == CT_DY) {
+      __syncthreads();               // the tile's dy is in shared memory
+      // dy to device memory, 16 bytes a store, a pixel's NC channels
+      // contiguous
+      for (int i = tid; i < PT_FULL * PT_FULL * NT; i += PT_THREADS) {
+        const int p = i / NT, u = i % NT;
+        const int gy = 2 * PT_PT * ty + (p >> 4);
+        const int gx = 2 * PT_PT * tx + (p & 15);
+        if (gy < H && gx < W)
+          *reinterpret_cast<uint4*>(
+              dy + ((static_cast<size_t>(b) * H + gy) * W + gx) * Cout +
+              co0 + 8 * u) =
+              *reinterpret_cast<const uint4*>(csm + L.dys + swzu<NT>(p, p, u));
+      }
+      // the weight gradient on the tensor cores: both operands run along
+      // K (the positions), so both come from ldmatrix.trans
+#pragma unroll
+      for (int j = 0; j < 5; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dwacc[j][e] = 0.f;
+#pragma unroll 1
+      for (int ks = 0; ks < PT_FULL; ++ks) {
+        unsigned b0, b1;
+        ldmatrix_x2_trans(smb + dyb_off + ks * PT_FULL * NT * 16, b0, b1);
+#pragma unroll
+        for (int j = 0; j < 5; ++j) {
+          const int i = warp + 8 * j;
+          if (i < 9 * NT) {
+            const int t = i / NT, hc = dwa_fx + t % 3;
+            unsigned a[4];
+            ldmatrix_x4_trans(
+                st + swzu<2>((ks + t / 3) * PT_TH + hc, hc, dwa_u), a);
+            mma_bf16(dwacc[j], a, b0, b1);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 5; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dws[(j * 4 + e) * 32] += dwacc[j][e];
+    }
+  }
+
+  cp_async_wait<0>();
+  __syncthreads();                   // the ring is free
+  if constexpr (MODE == CT_DY) {
+    // partial row blockIdx.x: dw in HWIO order (Cin 16: row t * 16 + ci)
+    float* row = partial + static_cast<size_t>(blockIdx.x) * 9 * Cin * Cout;
+#pragma unroll
+    for (int j = 0; j < 5; ++j) {
+      const int i = warp + 8 * j;
+      if (i < 9 * NT) {
+        const int t = i / NT;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          row[(t * CT_CH + g + 8 * (e >> 1)) * Cout + co0 + 8 * ntw + 2 * q +
+              (e & 1)] = dws[(j * 4 + e) * 32];
+      }
+    }
+  } else {
+    // the lanes of a channel (lane bits 3, 4), then the warps in order
+    Acc* red = reinterpret_cast<Acc*>(csm + L.halo);   // [8][2][NC]
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        Acc v = k ? run1[nt] : run0[nt];
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (lane < 8) red[(warp * 2 + k) * NC + 8 * nt + 2 * q + g] = v;
+      }
+    __syncthreads();
+    if (tid < 2 * NC) {
+      const int k = tid / NC, c = tid % NC;
+      Acc v = 0;
+      for (int wi = 0; wi < PT_THREADS / 32; ++wi)
+        v += red[(wi * 2 + k) * NC + c];
+      partial[static_cast<size_t>(blockIdx.x) * 2 * Cout + k * Cout + co0 +
+              c] = static_cast<float>(v);
+    }
+  }
+}
+
+// The three modes as kernels of their own (names the profiler shows)
+#define CONV_TC_PARAMS                                                      \
+  const __nv_bfloat16 *__restrict__ x, const __nv_bfloat16 *__restrict__ w, \
+      const __nv_bfloat16 *__restrict__ dp, const float *__restrict__ k0,   \
+      const float *__restrict__ k1, __nv_bfloat16 *__restrict__ z,          \
+      int8_t *__restrict__ am, __nv_bfloat16 *__restrict__ dy,              \
+      float *__restrict__ partial, int B, int H, int W, int Cin, int Cout
+#define CONV_TC_ARGS x, w, dp, k0, k1, z, am, dy, partial, B, H, W, Cin, Cout
+
+template <int NC>
+__global__ void __launch_bounds__(PT_THREADS, 2)
+fwdstats_tc_kernel(CONV_TC_PARAMS) {
+  conv_tc_body<CT_FWDSTATS, NC>(CONV_TC_ARGS);
+}
+
+template <int NC>
+__global__ void __launch_bounds__(PT_THREADS, 2)
+red_tc_kernel(CONV_TC_PARAMS) {
+  conv_tc_body<CT_RED, NC>(CONV_TC_ARGS);
+}
+
+template <int NC>
+__global__ void __launch_bounds__(PT_THREADS, 2)
+dy_tc_kernel(CONV_TC_PARAMS) {
+  conv_tc_body<CT_DY, NC>(CONV_TC_ARGS);
+}
+
+using ConvTc = void (*)(const __nv_bfloat16*, const __nv_bfloat16*,
+                        const __nv_bfloat16*, const float*, const float*,
+                        __nv_bfloat16*, int8_t*, __nv_bfloat16*, float*, int,
+                        int, int, int, int);
+
+// whether fwdstats, red and dy run on the tensor-core tile for this shape
+// (one predicate for the three, so the chain's forward and backward
+// compute one y)
+bool conv_tensor_core(int Cin, int Cout) {
+  return Cin > 0 && Cin % CT_CH == 0 && Cout > 0 && Cout % 16 == 0;
+}
+
+// launches mode `mode` of the tile: grid (n, Cout / NC), n = min(the
+// tiles, rows_cap, the blocks resident at once / groups); *nblk = n, the
+// partial rows written. NC = 32 where Cout allows, else 16.
+int conv_tc_launch(int mode, const void* x, const void* w, const void* dp,
+                   const void* k0, const void* k1, void* z, void* am,
+                   void* dy, void* partial, int B, int H, int W, int Cin,
+                   int Cout, long long rows_cap, int* nblk, cudaStream_t s) {
+  const int nc = Cout % 32 == 0 ? 32 : 16;
+  const ConvTc fn =
+      nc == 32 ? (mode == CT_FWDSTATS ? fwdstats_tc_kernel<32>
+                  : mode == CT_RED    ? red_tc_kernel<32>
+                                      : dy_tc_kernel<32>)
+               : (mode == CT_FWDSTATS ? fwdstats_tc_kernel<16>
+                  : mode == CT_RED    ? red_tc_kernel<16>
+                                      : dy_tc_kernel<16>);
+  const int smem = conv_tc_layout(mode, Cin, nc).total;
+  const int H2 = H / 2, W2 = W / 2;
+  const long long tiles = static_cast<long long>(B) *
+                          ((H2 + PT_PT - 1) / PT_PT) *
+                          ((W2 + PT_PT - 1) / PT_PT);
+  const int groups = Cout / nc;
+  int dev = 0, sms = 0, per_sm = 0;
+  if (!conv_tensor_core(Cin, Cout) || (mode == CT_DY && Cin != CT_CH) ||
+      tiles < 1 || tiles > 0x7fffffff || rows_cap < 1 ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+       reinterpret_cast<uintptr_t>(dy)) % 16 ||
+      reinterpret_cast<uintptr_t>(z) % 4 ||
+      reinterpret_cast<uintptr_t>(am) % 2 ||
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess ||
+      cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, PT_THREADS,
+                                                    smem) != cudaSuccess ||
+      per_sm < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  long long n = static_cast<long long>(sms) * per_sm / groups;
+  n = n < 1 ? 1 : n;
+  n = n < tiles ? n : tiles;
+  n = n < rows_cap ? n : rows_cap;
+  *nblk = static_cast<int>(n);
+  fn<<<dim3(*nblk, groups), PT_THREADS, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(w),
+      static_cast<const __nv_bfloat16*>(dp), static_cast<const float*>(k0),
+      static_cast<const float*>(k1), static_cast<__nv_bfloat16*>(z),
+      static_cast<int8_t*>(am), static_cast<__nv_bfloat16*>(dy),
+      static_cast<float*>(partial), B, H, W, Cin, Cout);
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool shapes_ok(int B, int H, int W, int Cin, int Cout, int max_cin,
                int max_cout) {
   return B > 0 && B <= 65535 && H > 0 && W > 0 && H % 2 == 0 && W % 2 == 0 &&
@@ -1340,8 +1878,10 @@ bool shapes_ok(int B, int H, int W, int Cin, int Cout, int max_cin,
 
 }  // namespace
 
-// partial: (B * tiles, 2 * Cout) float32 scratch; stats: (2 * Cout,)
-// float32 out, [sum(y - shift) | sum((y - shift)^2)].
+// partial: (B * tiles, 2 * Cout) float32 scratch (the tensor-core tile
+// uses its first rows, one a block); stats: (2 * Cout,) float32 out,
+// [sum(y - shift) | sum((y - shift)^2)]. Cin a multiple of 16 runs the
+// tensor-core tile (fwdstats_tc_kernel), the rest the FP32-core loop.
 extern "C" int srod_pt_fwdstats(const void* x, const void* w,
                                 const void* shift, const void* scales,
                                 void* z, void* am, void* partial, void* stats,
@@ -1352,18 +1892,32 @@ extern "C" int srod_pt_fwdstats(const void* x, const void* w,
   const int H2 = H / 2, W2 = W / 2;
   const int tiles = ((H2 + PT_PT - 1) / PT_PT) * ((W2 + PT_PT - 1) / PT_PT);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  fwdstats_kernel<<<dim3(tiles, Cout / PT_CO, B), PT_THREADS, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(shift),
-      static_cast<const float*>(scales), static_cast<__nv_bfloat16*>(z),
-      static_cast<int8_t*>(am), static_cast<float*>(partial), H, W, Cin,
-      Cout);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  int rows = B * tiles;
+  if (conv_tensor_core(Cin, Cout)) {
+    const int err = conv_tc_launch(CT_FWDSTATS, x, w, nullptr, shift, scales,
+                                   z, am, nullptr, partial, B, H, W, Cin,
+                                   Cout, rows, &rows, s);
+    if (err != cudaSuccess) return err;
+  } else {
+    fwdstats_kernel<<<dim3(tiles, Cout / PT_CO, B), PT_THREADS, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x),
+        static_cast<const __nv_bfloat16*>(w),
+        static_cast<const float*>(shift), static_cast<const float*>(scales),
+        static_cast<__nv_bfloat16*>(z), static_cast<int8_t*>(am),
+        static_cast<float*>(partial), H, W, Cin, Cout);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   colsum_kernel<<<2 * Cout, PT_THREADS, 0, s>>>(
-      static_cast<const float*>(partial), B * tiles, 2 * Cout,
+      static_cast<const float*>(partial), rows, 2 * Cout,
       static_cast<float*>(stats));
   return static_cast<int>(cudaGetLastError());
+}
+
+// Whether srod_pt_fwdstats, srod_pt_red and srod_pt_dy run the tensor-core
+// conv tile (1: Cin a multiple of 16) or the FP32-core loop (0).
+extern "C" int srod_pt_conv_tensor_core(int Cin, int Cout) {
+  return conv_tensor_core(Cin, Cout) ? 1 : 0;
 }
 
 // z, out: n bf16 values (n % 8 == 0), NHWC with Cout channels.
@@ -1442,7 +1996,8 @@ extern "C" int srod_pt_bwdg(const void* x, const void* dp, const void* z,
 
 // Modes "red" and "dy" of the chain's second pair. kc: (7 * Cout,) float32
 // [mean | inv | scales | bias | c1 | c2 | c3]; partial: (B * nchunk, cols)
-// float32 scratch, 1 <= nchunk <= the image's 8x8 pooled tiles; out:
+// float32 scratch, 1 <= nchunk <= the image's 8x8 pooled tiles (the
+// tensor-core tile, Cin 16, uses its first rows, one a block); out:
 // (cols,) float32, cols = 2 * Cout ("red": [sum dz | sum dz * x_hat]) or
 // 9 * Cin * Cout ("dy": dw in HWIO order); dy ("dy" only): (B, H, W,
 // Cout) bf16.
@@ -1457,24 +2012,32 @@ static int chain_bwd(bool with_dy, const void* x, const void* w,
   if (nchunk < 1 || nchunk > tiles)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(nchunk, Cout / PT_CO, B);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* wb = static_cast<const __nv_bfloat16*>(w);
-  const auto* dpb = static_cast<const __nv_bfloat16*>(dp);
-  const auto* kcf = static_cast<const float*>(kc);
-  if (with_dy)
-    chain_bwd_kernel<true><<<grid, PT_THREADS, 0, s>>>(
-        xb, wb, dpb, kcf, static_cast<__nv_bfloat16*>(dy),
-        static_cast<float*>(partial), H, W, Cin, Cout);
-  else
-    chain_bwd_kernel<false><<<grid, PT_THREADS, 0, s>>>(
-        xb, wb, dpb, kcf, nullptr, static_cast<float*>(partial), H, W, Cin,
-        Cout);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  int rows = B * nchunk;
+  if (conv_tensor_core(Cin, Cout)) {
+    const int err = conv_tc_launch(with_dy ? CT_DY : CT_RED, x, w, dp, kc,
+                                   nullptr, nullptr, nullptr, dy, partial, B,
+                                   H, W, Cin, Cout, rows, &rows, s);
+    if (err != cudaSuccess) return err;
+  } else {
+    const dim3 grid(nchunk, Cout / PT_CO, B);
+    const auto* xb = static_cast<const __nv_bfloat16*>(x);
+    const auto* wb = static_cast<const __nv_bfloat16*>(w);
+    const auto* dpb = static_cast<const __nv_bfloat16*>(dp);
+    const auto* kcf = static_cast<const float*>(kc);
+    if (with_dy)
+      chain_bwd_kernel<true><<<grid, PT_THREADS, 0, s>>>(
+          xb, wb, dpb, kcf, static_cast<__nv_bfloat16*>(dy),
+          static_cast<float*>(partial), H, W, Cin, Cout);
+    else
+      chain_bwd_kernel<false><<<grid, PT_THREADS, 0, s>>>(
+          xb, wb, dpb, kcf, nullptr, static_cast<float*>(partial), H, W,
+          Cin, Cout);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const int cols = with_dy ? 9 * Cin * Cout : 2 * Cout;
   colsum_kernel<<<cols, PT_THREADS, 0, s>>>(
-      static_cast<const float*>(partial), B * nchunk, cols,
+      static_cast<const float*>(partial), rows, cols,
       static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

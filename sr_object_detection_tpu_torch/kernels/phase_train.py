@@ -29,7 +29,11 @@ gradient, which pair 0's bwdg takes as its pooled cotangent).
 Each kernel has a plain PyTorch version beside it (``*_plain``); a CPU
 tensor takes it, a CUDA tensor launches the kernel or raises.
 ``launches`` counts each kernel's launches and nothing else;
-``bwdg_kernels`` says which of bwdg's two kernels they ran.
+``bwdg_kernels`` says which of bwdg's two kernels they ran, and
+``conv_kernels`` which conv path fwdstats, red and dy ran: the
+tensor-core tile for Cin a multiple of 16, the FP32-core loop for the
+rest (one predicate for the three, so the chain's pair 1 recomputes its
+forward's y bit for bit).
 
 Not ported: the TPU layout (``to_phase_np``/``from_phase_np``, the halo
 sidebands, ``Geom``/``plan_pair``'s VMEM planner, ``_pack_w`` and the
@@ -56,6 +60,11 @@ launches = {"fwdstats": 0, "apply": 0, "bwdg": 0, "red": 0, "dy": 0,
 # which of bwdg's two kernels each launch ran: bwdg_tc_kernel (the tensor
 # cores; Cin <= 3, Cout 16 or 32) or bwdg_kernel (the FP32 cores)
 bwdg_kernels = {"tensor_core": 0, "fp32_core": 0}
+# which conv path each launch of fwdstats, red and dy ran: the tensor-core
+# tile (fwdstats_tc_kernel, red_tc_kernel, dy_tc_kernel; Cin a multiple of
+# 16) or the FP32-core loop (fwdstats_kernel, chain_bwd_kernel)
+conv_kernels = {mode: {"tensor_core": 0, "fp32_core": 0}
+                for mode in ("fwdstats", "red", "dy")}
 
 # the kernels' shape limits (csrc/phase_train.cu)
 MAX_CIN_FWD, MAX_COUT_FWD = 64, 128
@@ -65,9 +74,16 @@ CHAIN_BLOCKS = 2048         # red/dy blocks to aim for (B x groups x chunks)
 
 
 def reset_launches():
-    for counts in (launches, bwdg_kernels):
+    for counts in (launches, bwdg_kernels, *conv_kernels.values()):
         for k in counts:
             counts[k] = 0
+
+
+def _count_conv(lib, mode, cin, cout):
+    """One launch of fwdstats, red or dy, and the conv path it ran."""
+    launches[mode] += 1
+    tc = lib.srod_pt_conv_tensor_core(cin, cout)
+    conv_kernels[mode]["tensor_core" if tc else "fp32_core"] += 1
 
 
 def supported(spec) -> bool:
@@ -140,12 +156,13 @@ def fwdstats(x, w_hwio, shift, scales):
     partial = torch.empty((n * tiles, 2 * cout), dtype=torch.float32,
                           device=x.device)
     stats = torch.empty((2, cout), dtype=torch.float32, device=x.device)
-    err = _build.load().srod_pt_fwdstats(
+    lib = _build.load()
+    err = lib.srod_pt_fwdstats(
         x.data_ptr(), w_hwio.data_ptr(), shift.data_ptr(), scales.data_ptr(),
         z.data_ptr(), am.data_ptr(), partial.data_ptr(), stats.data_ptr(),
         n, h, w, cin, cout, _build.stream_ptr(x.device))
     _build.check(err, "srod_pt_fwdstats")
-    launches["fwdstats"] += 1
+    _count_conv(lib, "fwdstats", cin, cout)
     return z, am, stats
 
 
@@ -348,6 +365,7 @@ def _chain_launch(entry, x, w_hwio, dp, kc, cols, dy=None):
                               out.data_ptr(), n, h, w, cin, cout,
                               _build.stream_ptr(x.device))
     _build.check(err, entry)
+    _count_conv(lib, entry[len("srod_pt_"):], cin, cout)
     return out
 
 
@@ -370,7 +388,6 @@ def red(x, w_hwio, dp, mean, inv, scales, biases):
     cout = w_hwio.shape[3]
     s = _chain_launch("srod_pt_red", x, w_hwio, dp,
                       kernel_consts(cout, x.device, *consts), 2 * cout)
-    launches["red"] += 1
     return s.reshape(2, cout)
 
 
@@ -401,7 +418,6 @@ def dy(x, w_hwio, dp, mean, inv, scales, biases, c1, c2, c3):
     dw = _chain_launch("srod_pt_dy", x, w_hwio, dp,
                        kernel_consts(cout, x.device, *consts),
                        9 * cin * cout, dy=out)
-    launches["dy"] += 1
     return out, dw.reshape(3, 3, cin, cout)
 
 
@@ -622,4 +638,5 @@ __all__ = ["phase_train_block", "phase_train_dx_block", "phase_train_chain2",
            "fwdstats", "fwdstats_plain", "apply", "apply_plain", "bwdg",
            "bwdg_plain", "red", "red_plain", "dy", "dy_plain", "dgrad",
            "dgrad_plain", "bn_backward_consts", "supported",
-           "supported_chain", "launches", "bwdg_kernels", "reset_launches"]
+           "supported_chain", "launches", "bwdg_kernels", "conv_kernels",
+           "reset_launches"]

@@ -27,7 +27,8 @@ from sr_object_detection_tpu_torch.ops import boxes as TB
 from sr_object_detection_tpu_torch.ops import conv as TC
 from sr_object_detection_tpu_torch.ops import pooling as TP
 from torch_parity import (assert_bf16_close, assert_stem_link_close,
-                          chain_case, check_chain_kernels, dgrad_case,
+                          chain_case, check_chain_kernels, check_fwdstats,
+                          check_y_consistency, dgrad_case,
                           check_fused_stem_kernels, check_pair_gradient,
                           check_train_kernels, nms_case, phase_pair_case,
                           random_bn, stem_case, train_case)
@@ -250,6 +251,87 @@ def test_train_kernels_uneven_tiles(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,h,cin,cout", [
+    (2, 22, 32, 64), (2, 40, 64, 128), (3, 26, 64, 48), (2, 18, 32, 16)])
+def test_fwdstats_tensor_core_wide(cuda, b, h, cin, cout):
+    """fwdstats on the tensor-core tile at Cin 32 and 64 (two and four
+    16-channel chunks a tile), Cout up to 128 in groups of 32 or 16, with
+    partial 8x8 pooled tiles, against its plain version (chip_smoke's
+    phase-12 tolerances); the tile ran, not the FP32-core loop."""
+    case = train_case(b * h + cin + cout, b, h, cin, cout, cuda)
+    before = dict(TPT.conv_kernels["fwdstats"])
+    check_fwdstats(TPT, case["x"], case["w"], case["shift"], case["scales"])
+    torch.cuda.synchronize()
+    assert TPT.conv_kernels["fwdstats"] == {
+        "tensor_core": before["tensor_core"] + 1,
+        "fp32_core": before["fp32_core"]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,path", [
+    (16, 32, "tensor_core"), (32, 16, "tensor_core"), (64, 128, "tensor_core"),
+    (3, 16, "fp32_core"), (8, 32, "fp32_core"), (40, 48, "fp32_core")])
+def test_conv_path_by_shape(cuda, cin, cout, path):
+    """One predicate picks the conv path of fwdstats, red and dy by shape:
+    the tensor-core tile for Cin a multiple of 16, the FP32-core loop for
+    the rest; conv_kernels counts which ran."""
+    case = train_case(cin + cout, 2, 16, cin, cout, cuda)
+    before = {m: dict(c) for m, c in TPT.conv_kernels.items()}
+    TPT.fwdstats(case["x"], case["w"], case["shift"], case["scales"])
+    want = {m: dict(c) for m, c in before.items()}
+    want["fwdstats"][path] += 1
+    if cin <= TPT.MAX_CIN_CHAIN:
+        ch = chain_case(cin, 2, 16, cin, cout, cuda)
+        args = [ch[k] for k in ("x", "w", "dp", "mean", "inv", "scales",
+                                "biases")]
+        TPT.red(*args)
+        TPT.dy(*args, ch["c1"], ch["c2"], ch["c3"])
+        want["red"][path] += 1
+        want["dy"][path] += 1
+    torch.cuda.synchronize()
+    assert TPT.conv_kernels == want
+    from sr_object_detection_tpu_torch.kernels import _build
+    assert bool(_build.load().srod_pt_conv_tensor_core(cin, cout)) == (
+        path == "tensor_core")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(16, 32), (16, 48), (8, 32)])
+def test_conv_modes_two_launches_bit_equal(cuda, cin, cout):
+    """fwdstats, red and dy (+ dw) have one owner and one summation order
+    per output on either path: two launches on the same inputs are
+    bit-equal."""
+    case = chain_case(3 * cin + cout, 4, 40, cin, cout, cuda)
+    args = [case[k] for k in ("x", "w", "dp", "mean", "inv", "scales",
+                              "biases")]
+    c123 = [case[k] for k in ("c1", "c2", "c3")]
+    for fn in (lambda: TPT.fwdstats(case["x"], case["w"], case["mean"],
+                                    case["scales"]),
+               lambda: (TPT.red(*args),),
+               lambda: TPT.dy(*args, *c123)):
+        first, second = fn(), fn()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,cin,cout", [(4, 40, 16, 32), (3, 22, 16, 48),
+                                          (4, 40, 8, 32)])
+def test_forward_and_dy_hold_one_y(cuda, b, h, cin, cout):
+    """On general (not grid) inputs, fwdstats' Z and argmax equal the
+    pooled extreme of dy's recomputed y and the first tap attaining it,
+    bit for bit (torch_parity.check_y_consistency), on the tensor-core
+    tile (Cin 16) and on the FP32-core loop (Cin 8)."""
+    g = torch.Generator(device=cuda).manual_seed(b * h + cin)
+    x = torch.randn((b, h, h, cin), generator=g, device=cuda).to(
+        torch.bfloat16)
+    w = (0.3 * torch.randn((3, 3, cin, cout), generator=g, device=cuda)).to(
+        torch.bfloat16)
+    scales = torch.linspace(-1, 1, cout, device=cuda)
+    assert check_y_consistency(TPT, x, w, scales) == b * (h // 2) ** 2 * cout
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("h", [32, 22])
 @pytest.mark.parametrize("cin,cout", [(1, 16), (3, 16), (3, 32)])
 def test_bwdg_tensor_core_matches_plain(cuda, cin, cout, h):
@@ -379,12 +461,16 @@ def test_throughput_engine_phase_stem_on_cuda(cuda):
 def test_chain_kernels_match_plain(cuda, b, h, cin, cout):
     """red, dy (+ dw) and dgrad at small shapes against their plain
     versions (torch_parity.check_chain_kernels); 40 x 40 and 24 x 24
-    leave partial 8 x 8 pooled tiles, Cin = 8 half of dgrad's widest."""
+    leave partial 8 x 8 pooled tiles, Cin = 8 half of dgrad's widest;
+    red and dy run the tensor-core tile at Cin 16, the FP32-core loop at
+    Cin 8."""
     before = dict(TPT.launches)
+    tc = TPT.conv_kernels["dy"]["tensor_core"]
     check_chain_kernels(TPT, chain_case(h + cin, b, h, cin, cout, cuda))
     torch.cuda.synchronize()
     assert {k: TPT.launches[k] - before[k] for k in before} == {
         "fwdstats": 0, "apply": 0, "bwdg": 0, "red": 1, "dy": 1, "dgrad": 1}
+    assert TPT.conv_kernels["dy"]["tensor_core"] == tc + (cin == 16)
 
 
 @pytest.mark.cuda

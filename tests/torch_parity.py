@@ -180,18 +180,13 @@ def train_case(seed, batch, h, cin, cout, device, *, flat=True):
     return t
 
 
-def check_train_kernels(PT, case):
-    """The three training kernels against their plain versions on the
-    same inputs: fwdstats' Z within one bf16 ulp, its argmax equal
-    wherever the two extreme taps are more than an ulp apart, its sums at
-    1e-4 of their largest magnitude; apply equal bit for bit; every bwdg
-    reduction at 1e-3 of its largest magnitude. Returns the max absolute
-    error of each kernel."""
+def check_fwdstats(PT, x, w, shift, scales):
+    """fwdstats against its plain version on the same inputs: Z within one
+    bf16 ulp, the argmax equal wherever the two extreme taps are more than
+    an ulp apart, the sums at 1e-4 of their largest magnitude. Returns
+    (max |Z error|, the plain version's Z, argmax and sums)."""
     import torch
     import torch.nn.functional as F
-    x, w, dp = case["x"], case["w"], case["dp"]
-    shift, scales, biases = case["shift"], case["scales"], case["biases"]
-    errs = {}
     z, am, st = PT.fwdstats(x, w, shift, scales)
     zp, amp, stp = PT.fwdstats_plain(x, w, shift, scales)
     zf, zpf = z.float().cpu().numpy(), zp.float().cpu().numpy()
@@ -210,7 +205,19 @@ def check_train_kernels(PT, case):
     rel = ((st - stp).abs().max(dim=1).values
            / stp.abs().max(dim=1).values.clamp_min(1e-30)).max().item()
     assert rel <= 1e-4, rel
-    errs["fwdstats"] = float(np.abs(zf - zpf).max())
+    return float(np.abs(zf - zpf).max()), zp, amp, stp
+
+
+def check_train_kernels(PT, case):
+    """The three training kernels against their plain versions on the
+    same inputs: fwdstats as :func:`check_fwdstats`; apply equal bit for
+    bit; every bwdg reduction at 1e-3 of its largest magnitude. Returns
+    the max absolute error of each kernel."""
+    import torch
+    x, w, dp = case["x"], case["w"], case["dp"]
+    shift, scales, biases = case["shift"], case["scales"], case["biases"]
+    errs = {}
+    errs["fwdstats"], zp, amp, stp = check_fwdstats(PT, x, w, shift, scales)
     n = x.shape[0] * x.shape[1] * x.shape[2]
     mean, _, inv = PT._batch_stats(stp, shift, n)
     a = PT.apply(zp, mean, inv, scales, biases)
@@ -464,6 +471,34 @@ def check_chain_kernels(PT, case):
     assert_bf16_close(dx.float().cpu().numpy(), dxp.float().cpu().numpy())
     errs["dgrad"] = (dx.float() - dxp.float()).abs().max().item()
     return errs
+
+
+def check_y_consistency(PT, x, w, scales):
+    """fwdstats' forward and dy's recompute hold one y, bit for bit, on any
+    inputs: dy with mean 0, inv 1, c1 0, c2 1 and c3 0 writes dy =
+    bf16(dz * 0 + (y - 0) * 1 + 0) = y, the bf16 conv output at full
+    resolution; fwdstats' Z and argmax must then equal the pooled extreme
+    of that y in the direction of the channel's scale and the first tap
+    attaining it. x (B,H,W,Cin<=16), w (3,3,Cin,Cout) bf16, scales
+    (Cout,). Returns the number of windows compared."""
+    import torch
+    cout = w.shape[3]
+    b, h, wd, _ = x.shape
+    zero = torch.zeros(cout, device=x.device)
+    one = torch.ones(cout, device=x.device)
+    z, am, _ = PT.fwdstats(x, w, zero, scales)
+    dp = torch.zeros((b, h // 2, wd // 2, cout), dtype=torch.bfloat16,
+                     device=x.device)
+    y, _ = PT.dy(x, w, dp, zero, one, scales, zero, zero, one, zero)
+    taps = y.reshape(b, h // 2, 2, wd // 2, 2, cout).permute(
+        0, 1, 3, 5, 2, 4).reshape(b, h // 2, wd // 2, cout, 4)
+    del y
+    want = torch.where(scales > 0, taps.amax(-1), taps.amin(-1))
+    first = (taps == want[..., None]).to(torch.uint8).argmax(-1)
+    assert torch.equal(z, want), (z != want).sum().item()
+    assert torch.equal(am, first.to(torch.int8)), (
+        (am != first.to(torch.int8)).sum().item())
+    return z.numel()
 
 
 def stem_case(seed, batch, h, c, device, channels_last=True):
