@@ -29,18 +29,21 @@ non-zero status and no result line:
      version and LatencyEngine per frame fused beside plain, each pair
      timed in turns (plain, kernel, kernel, plain); Detector.predict_batch
      and detect;
-  6. the int8 stem kernel (csrc/phase_stem.cu) against its plain version
-     at the four tiny-yolo-416 pair shapes at batch 128 with random int8
-     data (pair 1 also from u8 frames), then link by link along the
-     engine's own chain from u8 frames, and the whole chain: every one
-     torch.equal (the chain is exact);
+  6. the int8 stem kernel (csrc/phase_stem.cu, phase_pair_tc_kernel on
+     the int8 tensor cores) against its plain version at the four
+     tiny-yolo-416 pair shapes at batch 128 with random int8 data (pair 1
+     also from u8 and float32 frames), each launch counted under its K
+     fold (taps, tap pairs, chunks, chunks), then link by link along the
+     engine's own chain from u8 frames, the whole chain, and two launches
+     on one input: every one torch.equal (the chain is exact);
   7. the batch-128 slice at full width: ThroughputEngine (bf16) with and
      without its phase stem (the training pair's fwdstats + apply
      kernels with identity BN, each link within one bf16 ulp of the plain
      engine's layers; pairs 2-4 on the tensor-core conv tile, pair 1 on
      the FP32-core loop, counted) and QuantizedThroughputEngine (int8,
      u8 frames)
-     with and without the phase stem; the two int8 engines' int8 trunks
+     with and without the phase stem (its four pairs counted under their
+     K folds); the two int8 engines' int8 trunks
      equal and their
      outputs equal (or within one bf16 step of the head's logits, should
      cuDNN pick another algorithm). Launch counts are reset just before
@@ -51,7 +54,8 @@ non-zero status and no result line:
   9. the pipe server with --int8 answers 3 requests, equal to the
      in-process int8 Detector calibrated on the same first frame;
  10. times from CUDA events, in turns: the int8 stem chain against its
-     plain chain; images/s of ThroughputEngine bf16 without and with its
+     plain chain, and each pair on the chain's inputs beside its bound;
+     images/s of ThroughputEngine bf16 without and with its
      phase stem and of the int8 engine on u8 frames without and with the
      phase stem (host clock
      around queued batches, one sync); the int8 LatencyEngine per frame
@@ -59,7 +63,8 @@ non-zero status and no result line:
  11. torch.profiler over each engine: wall and device busy time per
      frame or batch, the device's idle share, the top kernels; the bf16
      phase stem's batch ran fwdstats_tc_kernel 3 times and the FP32-core
-     fwdstats_kernel once;
+     fwdstats_kernel once, the int8 phase stem's batch
+     phase_pair_tc_kernel and no dp4a phase_pair_kernel;
  12. the three training kernels (csrc/phase_train.cu) against their
      plain versions at the training pair's shape (416, B=128, 3 -> 16):
      fwdstats' Z within one bf16 ulp, its argmax equal wherever the two
@@ -364,7 +369,8 @@ def main() -> int:
 
     def reset_counts():
         """Every kernel's launch count to 0."""
-        NMS.launches = BS.launches = PS.launches = 0
+        NMS.launches = BS.launches = 0
+        PS.reset_launches()
         PT.reset_launches()
         FS.reset_launches()
 
@@ -597,9 +603,14 @@ def main() -> int:
     n_bytes = n_ops = 0
     for (w, b), (ci, _) in zip(packed, pairs):
         l = fspec.layers[ci]
-        n_bytes += (2 * (l.h * l.w * l.c + l.out_h // 2 * l.out_w // 2
-                         * l.filters) + 2 * w.numel() + 4 * b.numel())
-        n_ops += 2 * l.h * l.w * l.filters * 9 * l.c
+        p_bytes = (2 * (l.h * l.w * l.c + l.out_h // 2 * l.out_w // 2
+                        * l.filters) + 2 * w.numel() + 4 * b.numel())
+        p_ops = 2 * l.h * l.w * l.filters * 9 * l.c
+        b_ms, b_by = bound(p_bytes, p_ops, "bf16")
+        log(f"bound stem pair {l.c}->{l.filters} @{l.h}: {b_ms} ms by "
+            f"{b_by} [{gpu}]")
+        n_bytes += p_bytes
+        n_ops += p_ops
     bounds["stem_pair"] = bound(n_bytes, n_ops, "bf16")
 
     # ---------------------------------------------------------- phase 6
@@ -619,25 +630,29 @@ def main() -> int:
     qpairs = PS.plan_pairs(qn.spec)
     assert qpairs == [(0, 1), (2, 3), (4, 5), (6, 7)], qpairs
     ps_err = 0
-    ps_inputs = []
+    # the K fold of each pair's tensor-core GEMM (kernels/phase_stem.py)
+    pair_folds = ("taps", "tap_pairs", "chunks", "chunks")
     for k, (ci, _) in enumerate(qpairs):
         l = qn.spec.layers[ci]
-        for x_dtype in ([np.uint8, np.int8] if k == 0 else [np.int8]):
+        for x_dtype in ([np.uint8, np.float32, np.int8] if k == 0
+                        else [np.int8]):
+            PS.reset_launches()
             case = phase_pair_case(100 + k, BATCH, l.h, l.c, l.filters,
                                    x_dtype)
             args = (*(torch.from_numpy(a).to(dev) for a in case[:4]),
                     float(case[4]),
                     None if case[5] is None else float(case[5]))
             got = PS.stem_pair_i8(*args)
+            assert PS.folds[pair_folds[k]] == PS.launches == 1, PS.folds
             ref = PS.stem_pair_i8_plain(*args)
             torch.cuda.synchronize()
             err = (got.int() - ref.int()).abs().max().item()
             assert torch.equal(got, ref), (l.c, l.filters, x_dtype, err)
             ps_err = max(ps_err, err)
-            if x_dtype == np.int8:
-                ps_inputs.append((l, args))
+            del args, got, ref
+        torch.cuda.empty_cache()
         log(f"  int8 stem pair {l.c}->{l.filters} @{l.h} B={BATCH}: "
-            f"kernel == plain")
+            f"kernel == plain (tensor cores, {pair_folds[k]} fold)")
     # the engine's own chain from u8 frames, link by link (same input to
     # kernel and plain), then whole
     frames_u8 = torch.from_numpy(rng.integers(
@@ -654,19 +669,25 @@ def main() -> int:
                         inv_u8 if v.dtype == torch.uint8 else None)
         return v
     v = frames_u8
-    for w, dq, b, inv_out in links:
+    ps_inputs = []       # each pair's input on the engine's chain
+    for (w, dq, b, inv_out), (ci, _) in zip(links, qpairs):
         ii = inv_u8 if v.dtype == torch.uint8 else None
+        ps_inputs.append((qn.spec.layers[ci], (v, w, dq, b, inv_out, ii)))
         out = PS.stem_pair_i8(v, w, dq, b, inv_out, ii)
         assert torch.equal(out, PS.stem_pair_i8_plain(v, w, dq, b, inv_out,
                                                       ii))
         v = out
+    # two launches on the same input: bit-equal
+    assert torch.equal(PS.stem_pair_i8(*ps_inputs[0][1]),
+                       PS.stem_pair_i8(*ps_inputs[0][1]))
     n_stem = qpairs[-1][1] + 1
     assert torch.equal(qn.forward(frames_u8, stop=n_stem), v)
     assert torch.equal(int8_chain(frames_u8, PS.stem_pair_i8_plain), v)
     assert v.abs().max().item() > 60
-    log(f"phase 6 ok: int8 stem kernel == plain at the 4 pair shapes at "
-        f"B={BATCH} (pair 1 also from u8 frames), link by link along the "
-        f"engine's chain and whole [{gpu}]")
+    log(f"phase 6 ok: int8 stem kernel (phase_pair_tc_kernel, int8 tensor "
+        f"cores) == plain at the 4 pair shapes at B={BATCH} (pair 1 from "
+        f"u8 and float32 frames and from int8), link by link along the "
+        f"engine's chain and whole, two launches bit-equal [{gpu}]")
 
     # ---------------------------------------------------------- phase 7
     bf = ThroughputEngine(qspec, qparams_np, batch=BATCH, device=dev)
@@ -686,6 +707,8 @@ def main() -> int:
     launches_b128, want = counts(phase_stem_pair=4, phase_train_fwdstats=4,
                                  phase_train_apply=4)
     assert launches_b128 == want, launches_b128
+    # the int8 batch's four pairs on the tensor-core kernel, by K fold
+    assert PS.folds == {"taps": 1, "tap_pairs": 1, "chunks": 2}, PS.folds
     # the stem's pairs 2-4 (Cin 16, 32, 64) on the tensor-core conv tile,
     # pair 1 (3 -> 16) on the FP32-core loop
     assert PT.conv_kernels["fwdstats"] == {"tensor_core": 3,
@@ -808,18 +831,27 @@ def main() -> int:
         lambda: int8_chain(frames_u8, PS.stem_pair_i8),
         lambda: int8_chain(frames_u8, PS.stem_pair_i8_plain), iters=20,
         plain_iters=5)
+    # each pair on its input along the engine's chain (pair 1 from u8
+    # frames) beside its bound: its input read once, weights, dq and bias
+    # read once, its output written once
+    n_bytes = n_ops = 0
     for l, args in ps_inputs:
-        abba(f"int8 stem pair {l.c}->{l.filters} @{l.h} B={BATCH}",
-             lambda: PS.stem_pair_i8(*args),
-             lambda: PS.stem_pair_i8_plain(*args), iters=20, plain_iters=5)
-    n_bytes = BATCH * NET * NET * 3
-    n_ops = 0
-    for k, (ci, _) in enumerate(qpairs):
-        l = qn.spec.layers[ci]
-        out_b = BATCH * (l.h // 2) * (l.w // 2) * l.filters
-        n_bytes += (9 * l.c * l.filters + 8 * l.filters
-                    + out_b * (1 if k == len(qpairs) - 1 else 2))
-        n_ops += 2 * BATCH * l.h * l.w * l.filters * 9 * l.c
+        p_ms, _ = abba(f"int8 stem pair {l.c}->{l.filters} @{l.h} "
+                       f"B={BATCH}", lambda: PS.stem_pair_i8(*args),
+                       lambda: PS.stem_pair_i8_plain(*args), iters=20,
+                       plain_iters=5)
+        p_bytes = (args[0].numel() * args[0].element_size()
+                   + 9 * l.c * l.filters + 8 * l.filters
+                   + BATCH * (l.h // 2) * (l.w // 2) * l.filters)
+        p_ops = 2 * BATCH * l.h * l.w * l.filters * 9 * l.c
+        b_ms, b_by = bound(p_bytes, p_ops, "int8")
+        log(f"bound int8 stem pair {l.c}->{l.filters} @{l.h}: {b_ms} ms by "
+            f"{b_by} ({p_bytes} bytes, {p_ops} int8 ops); kernel "
+            f"{p_ms / b_ms:.2f}x its bound [{gpu}]")
+        n_bytes += p_bytes
+        n_ops += p_ops
+    # the chain moves each intermediate twice (written, then read), as the
+    # pairs' sum counts it
     bounds["phase_stem_pair"] = bound(n_bytes, n_ops, "int8")
     log(f"bound int8 stem chain: {bounds['phase_stem_pair'][0]} ms by "
         f"{bounds['phase_stem_pair'][1]} ({n_bytes} bytes, {n_ops} int8 "
@@ -863,8 +895,13 @@ def main() -> int:
     assert_conv_tensor_core(name, profile(
         name, lambda: bf_stem(frames_u8.float() / 255.0), 5, gpu), 5,
         {"fwdstats_tc_kernel": 3, "fwdstats_kernel": 1})
-    profile(f"int8 engine B={BATCH} @{NET} u8, phase stem, per batch",
-            lambda: q_stem(frames_u8), 5, gpu)
+    name = f"int8 engine B={BATCH} @{NET} u8, phase stem, per batch"
+    seen = profile(name, lambda: q_stem(frames_u8), 5, gpu)
+    assert any("phase_pair_tc_kernel" in k for k in seen), (name, seen)
+    assert not any(re.search(r"\bphase_pair_kernel\b", k) for k in seen), (
+        name, seen)
+    log(f"  {name}: the stem ran as phase_pair_tc_kernel (int8 tensor "
+        f"cores), no phase_pair_kernel")
     profile(f"int8 engine B={BATCH} @{NET} u8, plain, per batch",
             lambda: q_plain(frames_u8), 3, gpu)
 

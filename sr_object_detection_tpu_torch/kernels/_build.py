@@ -56,6 +56,9 @@ SIGNATURES = {
     # inv_out, out (B,H/2,W/2,Cout) int8, B, H, W, Cin, Cout, stream
     "srod_phase_pair": ([_P, _I, _P, _P, _P, _F, _F, _P, _I, _I, _I, _I,
                          _I, _P], _I),
+    # Cin -> the K fold of the pair's tensor-core GEMM: 0 taps, 1 tap
+    # pairs, 2 chunks
+    "srod_phase_pair_fold": ([_I], _I),
     # x (B,H,W,Cin) bf16, w (3,3,Cin,Cout) bf16, shift, scales (Cout,) f32,
     # z (B,H/2,W/2,Cout) bf16, am int8, partial scratch, stats (2*Cout,)
     # f32, B, H, W, Cin, Cout, stream

@@ -7,8 +7,12 @@ serving engine (``infer/quant.py``); tiny-yolo-voc-416 has four of them
 (3->16 @416, 16->32 @208, 32->64 @104, 64->128 @52). The kernel maxes the
 four raw int32 conv accumulators under each pooled pixel and runs the
 dequant + bias + leaky + requant epilogue once, which is bit-exact to
-the int8 chain because that epilogue is monotone (dq > 0). Its design
-and bound are described in the source.
+the int8 chain because that epilogue is monotone (dq > 0). The kernel
+is an implicit GEMM on the int8 tensor cores (``mma.sync`` m16n8k32,
+s8 x s8 -> s32) whose K = taps x Cin is folded into k32 steps by Cin:
+``"taps"`` (Cin <= 3: 9 taps x Cin codes in one step), ``"tap_pairs"``
+(Cin <= 16: two taps a step) and ``"chunks"`` (Cin > 16: a tap x 32
+channels a step). Its design and bound are described in the source.
 
 The TPU kernel's phase-split layout helpers (``to_phase``,
 ``from_phase``, ``pre_overlap``, ``halo_rows``, ``halo_pad``), the pool
@@ -20,7 +24,9 @@ unchanged.
 
 Dispatch is by device only: a CPU tensor takes
 :func:`stem_pair_i8_plain`, a CUDA tensor launches the kernel or raises.
-``launches`` counts kernel launches and nothing else.
+``launches`` counts kernel launches and nothing else; ``folds`` counts
+them by the K fold the kernel picked for the shape (every fold runs on
+the tensor cores).
 """
 
 from __future__ import annotations
@@ -34,6 +40,10 @@ from ..ops import pooling as P
 from . import _build
 
 launches = 0        # kernel launches since the last reset
+# FOLDS[srod_phase_pair_fold(Cin)]: the K fold of a launch
+FOLDS = ("taps", "tap_pairs", "chunks")
+folds = dict.fromkeys(FOLDS, 0)     # launches by K fold since the reset
+MAX_CIN = 512       # the kernel stages a pair's weights whole
 
 # input dtypes the kernel takes, as its x_dtype code
 _X_DTYPES = {torch.int8: 0, torch.uint8: 1, torch.float32: 2}
@@ -62,14 +72,15 @@ def stem_pair_i8_plain(x, w_q, dq, bias, inv_out, inv_in=None):
 
 
 def stem_pair_i8(x, w_q, dq, bias, inv_out, inv_in=None):
-    """One fused pair; arguments as :func:`stem_pair_i8_plain`."""
+    """One fused pair; arguments as :func:`stem_pair_i8_plain` (on CUDA,
+    Cin at most ``MAX_CIN``)."""
     global launches
     if x.device.type == "cpu":
         return stem_pair_i8_plain(x, w_q, dq, bias, inv_out, inv_in)
     n, h, w, cin = x.shape
     cout = w_q.shape[3]
     raw = x.dtype != torch.int8
-    if (x.dtype not in _X_DTYPES or h % 2 or w % 2
+    if (x.dtype not in _X_DTYPES or h % 2 or w % 2 or cin > MAX_CIN
             or raw != (inv_in is not None)
             or w_q.shape != (3, 3, cin, cout) or w_q.dtype != torch.int8
             or dq.shape != (cout,) or dq.dtype != torch.float32
@@ -77,7 +88,8 @@ def stem_pair_i8(x, w_q, dq, bias, inv_out, inv_in=None):
             or not (x.device == w_q.device == dq.device == bias.device)):
         raise ValueError(
             "stem_pair_i8: want x (B,H,W,Cin) int8 (or uint8/float32 "
-            "frames with inv_in) with H, W even, w (3,3,Cin,Cout) int8, "
+            f"frames with inv_in) with H, W even and Cin <= {MAX_CIN}, "
+            "w (3,3,Cin,Cout) int8, "
             "dq and bias (Cout,) float32 on one device; got "
             f"{tuple(x.shape)} {x.dtype} inv_in={inv_in}, "
             f"{tuple(w_q.shape)} {w_q.dtype}, {tuple(dq.shape)} "
@@ -86,14 +98,24 @@ def stem_pair_i8(x, w_q, dq, bias, inv_out, inv_in=None):
     w_q = w_q.contiguous()
     out = torch.empty((n, h // 2, w // 2, cout), dtype=torch.int8,
                       device=x.device)
-    err = _build.load().srod_phase_pair(
+    lib = _build.load()
+    err = lib.srod_phase_pair(
         x.data_ptr(), _X_DTYPES[x.dtype], w_q.data_ptr(),
         dq.contiguous().data_ptr(), bias.contiguous().data_ptr(),
         float(inv_in) if raw else 0.0, float(inv_out), out.data_ptr(),
         n, h, w, cin, cout, _build.stream_ptr(x.device))
     _build.check(err, "srod_phase_pair")
     launches += 1
+    folds[FOLDS[lib.srod_phase_pair_fold(cin)]] += 1
     return out
+
+
+def reset_launches():
+    """``launches`` and ``folds`` to 0."""
+    global launches
+    launches = 0
+    for k in folds:
+        folds[k] = 0
 
 
 def plan_pairs(spec: S.NetworkSpec, max_pairs: int = 4):
@@ -172,4 +194,4 @@ def build_phase_stem(spec: S.NetworkSpec, qparams, s_out, in_scale):
 
 
 __all__ = ["stem_pair_i8", "stem_pair_i8_plain", "build_phase_stem",
-           "plan_pairs", "requant", "launches"]
+           "plan_pairs", "requant", "launches", "folds", "reset_launches"]

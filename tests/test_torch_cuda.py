@@ -167,6 +167,67 @@ def test_phase_stem_kernel_uneven_shapes(cuda, h, cin, cout):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("h,cin,cout", STEM_PAIRS)
+def test_phase_stem_tensor_core_b128(cuda, h, cin, cout):
+    """The tensor-core kernel at tiny-yolo-416's pair shapes at the
+    serving batch (128): bit-equal to the plain int8 chain, pair 1 from
+    int8 codes and from uint8 and float32 frames."""
+    dtypes = [np.int8] + ([np.uint8, np.float32] if cin == 3 else [])
+    for x_dtype in dtypes:
+        x, w, dq, b, inv_out, inv_in = _phase_case(cuda, 5 * h, 128, h, cin,
+                                                   cout, x_dtype)
+        got = TPS.stem_pair_i8(x, w, dq, b, inv_out, inv_in)
+        ref = TPS.stem_pair_i8_plain(x, w, dq, b, inv_out, inv_in)
+        torch.cuda.synchronize()
+        assert ref.abs().max().item() > 60
+        assert torch.equal(got, ref), x_dtype
+        del x, got, ref
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,cin,x_dtype", [
+    (20, 3, np.uint8), (22, 3, np.uint8), (36, 3, np.float32),
+    (20, 3, np.int8), (10, 1, np.uint8), (14, 2, np.int8)])
+def test_phase_stem_taps_fold_edges(cuda, h, cin, x_dtype):
+    """The taps fold (Cin <= 3) with partial pooled tiles: u8 frames by
+    aligned words (W a multiple of 4) and element by element (W 22),
+    float32 frames, int8 codes, Cin 1 and 2; Cout 24 masks a group."""
+    args = _phase_case(cuda, h + cin, 3, h, cin, 24, x_dtype)
+    got = TPS.stem_pair_i8(*args)
+    assert torch.equal(got, TPS.stem_pair_i8_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,cin,cout", [(416, 3, 16), (52, 64, 128),
+                                        (18, 40, 9)])
+def test_phase_stem_two_launches_bit_equal(cuda, h, cin, cout):
+    """Every output has one owner and one summation order: two launches on
+    the same inputs are bit-equal."""
+    args = _phase_case(cuda, h + 1, 8, h, cin, cout,
+                       np.uint8 if cin == 3 else np.int8)
+    first = TPS.stem_pair_i8(*args)
+    assert torch.equal(first, TPS.stem_pair_i8(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,cin,cout,fold", [
+    (416, 3, 16, "taps"), (208, 16, 32, "tap_pairs"), (104, 32, 64, "chunks"),
+    (52, 64, 128, "chunks"), (24, 5, 7, "tap_pairs"), (18, 40, 9, "chunks")])
+def test_phase_stem_fold_by_shape(cuda, h, cin, cout, fold):
+    """``folds`` counts each launch under the K fold the kernel picked:
+    the four main-path pairs run the tensor-core kernel's taps, tap-pair
+    and chunk folds."""
+    args = _phase_case(cuda, h, 2, h, cin, cout, np.int8)
+    before = dict(TPS.folds)
+    TPS.stem_pair_i8(*args)
+    torch.cuda.synchronize()
+    want = dict(before)
+    want[fold] += 1
+    assert TPS.folds == want
+
+
+@pytest.mark.cuda
 def test_phase_stem_wrapper_rejects_bad_inputs(cuda):
     x, w, dq, b, inv_out, _ = _phase_case(cuda, 0, 1, 8, 3, 16, np.uint8)
     with pytest.raises(ValueError):
@@ -210,10 +271,14 @@ def test_quantized_engine_phase_stem_on_cuda(cuda):
     x = torch.from_numpy(np.random.default_rng(1).integers(
         0, 256, (128, 64, 64, 3), dtype=np.uint8)).to(cuda)
     before = TPS.launches
+    folds = dict(TPS.folds)
     trunk = fused.qnet.forward(x, stop=13)
     out = fused(x)
     torch.cuda.synchronize()
     assert TPS.launches == before + 8
+    # each batch's four pairs on the tensor cores: taps, tap pairs, chunks
+    assert {k: TPS.folds[k] - folds[k] for k in folds} == {
+        "taps": 2, "tap_pairs": 2, "chunks": 4}
     assert torch.equal(trunk, plain.qnet.forward(x, stop=13))
     assert torch.equal(out, plain(x))
 

@@ -7,9 +7,9 @@ Compiles each source under sr_object_detection_tpu_torch/csrc (all of
 them without arguments) with the flags of kernels/_build.py plus
 ``-Xptxas -v``, prints what ptxas reports for each kernel, then
 disassembles the object with ``cuobjdump -sass`` and prints, per kernel,
-the count of HMMA instructions (mma.sync / wgmma on the tensor cores)
-and of SASS instructions in all. Needs the CUDA toolkit (nvcc and
-cuobjdump); runs no kernel and needs no card.
+the count of tensor-core instructions (HMMA: bf16 / fp16 mma.sync and
+wgmma; IMMA: int8 mma.sync) and of SASS instructions in all. Needs the
+CUDA toolkit (nvcc and cuobjdump); runs no kernel and needs no card.
 """
 
 from __future__ import annotations
@@ -26,8 +26,9 @@ sys.path.insert(0, str(ROOT))
 from sr_object_detection_tpu_torch.kernels import _build  # noqa: E402
 
 
-def sass_counts(obj: str, cuobjdump: str) -> dict[str, tuple[int, int]]:
-    """kernel (mangled) -> (HMMA instructions, all instructions)."""
+def sass_counts(obj: str,
+                cuobjdump: str) -> dict[str, tuple[int, int, int]]:
+    """kernel (mangled) -> (HMMA, IMMA, all instructions)."""
     text = subprocess.run([cuobjdump, "-sass", obj], capture_output=True,
                           text=True, check=True).stdout
     out, fn = {}, None
@@ -35,10 +36,11 @@ def sass_counts(obj: str, cuobjdump: str) -> dict[str, tuple[int, int]]:
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            out[fn] = (0, 0)
+            out[fn] = (0, 0, 0)
         elif fn and re.search(r"/\*[0-9a-f]{4,}\*/", line):
-            hmma, total = out[fn]
-            out[fn] = (hmma + (" HMMA" in line), total + 1)
+            hmma, imma, total = out[fn]
+            out[fn] = (hmma + (" HMMA" in line), imma + (" IMMA" in line),
+                       total + 1)
     return out
 
 
@@ -57,9 +59,11 @@ def main(argv: list[str]) -> int:
             print((res.stdout + res.stderr).strip())
             if res.returncode != 0:
                 return res.returncode
-            print(f"== {src.name}: SASS (kernel: HMMA / instructions)")
-            for fn, (hmma, total) in sass_counts(obj, cuobjdump).items():
-                print(f"{fn}: HMMA {hmma} / {total}")
+            print(f"== {src.name}: SASS (kernel: HMMA, IMMA / "
+                  f"instructions)")
+            for fn, (hmma, imma, total) in sass_counts(
+                    obj, cuobjdump).items():
+                print(f"{fn}: HMMA {hmma}, IMMA {imma} / {total}")
     return 0
 
 
