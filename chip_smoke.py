@@ -92,7 +92,13 @@ non-zero status and no result line:
      per image against the bf16 dense peak) for bf16 + phase_train,
      bf16 and float32;
  16. torch.profiler over one bf16 step with the pair and one without;
-     the step with the pair ran bwdg_tc_kernel, not bwdg_kernel;
+     the step with the pair ran bwdg_tc_kernel, not bwdg_kernel; over
+     three steps of the pair path in one profiler window, fwdstats'
+     launches by the counter and by CUDA events around each launch equal
+     three (the profiler's count under three settings is printed and
+     held between 1 and 3), and the same steps through fwdstats_plain
+     from the same state give the same losses and layer 0's BN
+     statistics (settle_fwdstats_count);
  17. the opt-in training paths' kernels against their plain versions at
      the main path's shapes: kernel 4's modes red and dy (+ its weight
      gradient) and the dgrad kernel (an implicit GEMM on the bf16 tensor
@@ -105,7 +111,9 @@ non-zero status and no result line:
      equal to the pooled extreme of dy's recomputed y (dy with unit
      constants) and its first tap, bit for bit; F2, B1 and B2
      (csrc/fused_stem.cu) at the five fusable pairs' conv outputs
-     (416x16 ... 26x256, B=128): F2 and B2 bit-equal, B1's sums at 1e-4;
+     (416x16 ... 26x256, B=128, channels-last): F2 and B2 bit-equal, B1's
+     sums at 1e-4 and bit-equal across two launches, B1 and B2 on the row
+     kernels (b1_row_kernel, b2_row_kernel) by fused_stem.paths;
  18. the chain's second pair's gradient (dw, dscales, dbiases, dx) at
      416 B=128 against a float64 evaluation of the unfused chain's
      formulas (dy rounded to bf16 where the pair rounds it): 3e-3 (the
@@ -118,10 +126,11 @@ non-zero status and no result line:
      steps each, counts reset just before and read just after each: per
      step fwdstats 2 (pair 1's on the tensor-core tile), apply 2, red 1,
      dy 1 (both on the tile), dgrad 1, bwdg 1 / the pair's
-     three + F2, B1, B2 4 each / F2, B1, B2 5 each; losses finite and
-     falling, the first within 0.03*|loss| + 0.05 of the step without
-     kernels;
- 20. times, in turns: red, dy, dgrad, F2, B1 and B2 beside their plain
+     three + F2, B1, B2 4 each / F2, B1, B2 5 each, B1 and B2 on the row
+     kernels; losses finite and falling, the first within 0.03*|loss| +
+     0.05 of the step without kernels;
+ 20. times, in turns: red, dy, dgrad, F2 (pair 2), B1 and B2 (the five
+     fusable pairs, also replayed from a CUDA graph) beside their plain
      versions and bounds, F.conv_transpose2d (dgrad's function in one
      library call, cuDNN, timed in the same run), fwdstats on the
      tensor-core tile at 16->32 @208, 32->64 @104 and 64->128 @52 beside
@@ -130,7 +139,9 @@ non-zero status and no result line:
      shapes;
      Trainer.step images/s of the three paths against bf16 + phase_train;
  21. torch.profiler over one step of each of the three paths; the two
-     with the pair ran bwdg_tc_kernel, not bwdg_kernel; the chain's step
+     with the pair ran bwdg_tc_kernel, not bwdg_kernel; the two with the
+     fused stem ran b1_row_kernel and b2_row_kernel, not b1_kernel or
+     b2_kernel; the chain's step
      ran fwdstats_tc_kernel, red_tc_kernel and dy_tc_kernel once each,
      fwdstats_kernel once (pair 0) and no chain_bwd_kernel.
 
@@ -217,6 +228,30 @@ def cuda_ms(fn, iters=50, warmup=5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters=20) -> float:
+    """Device time of fn() a call: ``iters`` calls captured in one CUDA
+    graph and replayed, so no host launch cost sits between them."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def profile(name, fn, iters, gpu, top=6):
     """torch.profiler over ``iters`` calls of fn after one warm-up: wall
     time per call (host clock, ending in a synchronize, profiler
@@ -254,13 +289,31 @@ def profile(name, fn, iters, gpu, top=6):
     return {key: calls for _, key, calls in rows}
 
 
+def named(kernel, key) -> bool:
+    """Whether a profiler key names ``kernel``: demangled ("...::kernel("
+    or "kernel<") or mangled ("...13kernelE..." / "kernelI"), and not a
+    longer name ending in it (bwdg_kernel is not bwdg_tc_kernel)."""
+    return re.search(rf"(?<![A-Za-z_]){kernel}(?![a-z_])", key) is not None
+
+
 def assert_bwdg_tensor_core(name, kernels):
     """A profiled step with the fused pair ran bwdg on the tensor cores:
     bwdg_tc_kernel among its kernels, the FP32-core bwdg_kernel not."""
     assert any("bwdg_tc_kernel" in k for k in kernels), (name, kernels)
-    assert not any(re.search(r"\bbwdg_kernel\b", k) for k in kernels), (
+    assert not any(named("bwdg_kernel", k) for k in kernels), (
         name, kernels)
     log(f"  {name}: bwdg ran as bwdg_tc_kernel (tensor cores)")
+
+
+def assert_fused_stem_rows(name, kernels):
+    """A profiled step with the fused stem ran its backward on the row
+    kernels: b1_row_kernel and b2_row_kernel among its kernels, the
+    strided b1_kernel and b2_kernel not."""
+    for k in ("b1_row_kernel", "b2_row_kernel"):
+        assert any(k in key for key in kernels), (name, k, kernels)
+    assert not any(named("b1_kernel", k) or named("b2_kernel", k)
+                   for k in kernels), (name, kernels)
+    log(f"  {name}: B1 and B2 ran as b1_row_kernel and b2_row_kernel")
 
 
 def assert_conv_tensor_core(name, kernels, iters, per_call):
@@ -275,12 +328,86 @@ def assert_conv_tensor_core(name, kernels, iters, per_call):
     an instance on the FP32-core loop would add ``iters`` launches of
     fwdstats_kernel or chain_bwd_kernel."""
     got = {k: sum(c for key, c in kernels.items()
-                  if re.search(rf"\b{k}\b", key)) for k in per_call}
+                  if named(k, key)) for k in per_call}
     assert all(got[k] == 0 if v == 0 else 1 <= got[k] <= iters * v
                for k, v in per_call.items()), (name, got, iters)
     assert not any("chain_bwd_kernel" in k for k in kernels), (name, kernels)
     log(f"  {name}: conv kernels over {iters} calls {got}, no "
         f"chain_bwd_kernel")
+
+
+def settle_fwdstats_count(PT, make_trainer, x, t, steps, gpu):
+    """The pair path's fwdstats launches over ``steps`` training steps
+    from one state in one profiler window: the launch counter and a pair
+    of CUDA events around each launch (each timing a positive span) equal
+    ``steps``; the same steps with fwdstats' plain version from the same
+    state give each step's loss within 1e-2 of its magnitude and layer
+    0's rolling BN statistics (which the batch statistics from fwdstats
+    move) within 1e-3 of their largest magnitude: a launch that did not
+    run would leave Z and the statistics unwritten. The profiler's count
+    of fwdstats_kernel, under three settings (CPU and CUDA activities,
+    CUDA only, and a schedule with one warm-up step before the ``steps``
+    it records), is printed and held between 1 and ``steps``, as
+    assert_conv_tensor_core holds it: in this script it has read one
+    launch fewer than ran."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    kernel_fn, marks = PT.fwdstats, []
+    both = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    def evented(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = kernel_fn(*args)
+        end.record()
+        marks.append((start, end))
+        return out
+
+    def run(fn, activities, warmup):
+        """(losses, layer 0's rolling statistics, counter, profiler count)
+        over ``steps`` recorded steps of a new trainer."""
+        trainer = make_trainer()
+        before = PT.launches["fwdstats"]
+        losses, stats = [], []
+        sched = (torch.profiler.schedule(wait=0, warmup=1, active=steps,
+                                         repeat=1) if warmup else None)
+        PT.fwdstats = fn
+        try:
+            with torch.profiler.profile(activities=activities,
+                                        schedule=sched) as prof:
+                for _ in range(steps + warmup):
+                    losses.append(float(trainer.step(x, t)["loss"]))
+                    p0 = trainer.state.params[0]
+                    stats.append(torch.stack([p0["rolling_mean"],
+                                              p0["rolling_variance"]]))
+                    if warmup:
+                        prof.step()
+                torch.cuda.synchronize()
+        finally:
+            PT.fwdstats = kernel_fn
+        seen = sum(e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and named("fwdstats_kernel", e.key))
+        return losses, stats, PT.launches["fwdstats"] - before - warmup, seen
+    lk, sk, ck, pk = run(evented, both, 0)
+    spans = [a.elapsed_time(b) for a, b in marks]
+    lp, sp, cp, pp = run(PT.fwdstats_plain, both, 0)
+    assert ck == len(spans) == steps and min(spans) > 0, (ck, spans)
+    assert cp == pp == 0, (cp, pp)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    stat_rel = max(((a - b).abs().max() / b.abs().max()).item()
+                   for a, b in zip(sk, sp))
+    assert loss_rel <= 1e-2 and stat_rel <= 1e-3, (lk, lp, stat_rel)
+    counts = {"CPU + CUDA": pk,
+              "CUDA only": run(kernel_fn, [ProfilerActivity.CUDA], 0)[3],
+              "a warm-up step": run(kernel_fn, both, 1)[3]}
+    assert all(1 <= n <= steps for n in counts.values()), counts
+    log(f"  fwdstats over {steps} steps of the pair path: counter {ck}, "
+        f"CUDA-event spans {spans} ms; losses {lk} against "
+        f"fwdstats_plain's {lp} (max rel {loss_rel}), layer 0 rolling BN "
+        f"statistics max rel {stat_rel}; the profiler's fwdstats_kernel "
+        f"count by setting {counts} [{gpu}]")
 
 
 def bf16_err(got, ref) -> float:
@@ -898,7 +1025,7 @@ def main() -> int:
     name = f"int8 engine B={BATCH} @{NET} u8, phase stem, per batch"
     seen = profile(name, lambda: q_stem(frames_u8), 5, gpu)
     assert any("phase_pair_tc_kernel" in k for k in seen), (name, seen)
-    assert not any(re.search(r"\bphase_pair_kernel\b", k) for k in seen), (
+    assert not any(named("phase_pair_kernel", k) for k in seen), (
         name, seen)
     log(f"  {name}: the stem ran as phase_pair_tc_kernel (int8 tensor "
         f"cores), no phase_pair_kernel")
@@ -1090,6 +1217,9 @@ def main() -> int:
         top=8))
     profile(f"Trainer.step bf16 (no pair) {NET} B={BATCH}, per step",
             lambda: trainers["bf16"].step(xt, tt), 2, gpu, top=8)
+    settle_fwdstats_count(PT, lambda: Trainer(
+        tspec, tparams, device=dev, compute_dtype=torch.bfloat16,
+        phase_train=True), xt, tt, 3, gpu)
 
     # --------------------------------------------------------- phase 17
     # the opt-in training paths' kernels against their plain versions at
@@ -1121,19 +1251,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     stem_shapes = [(NET >> k, 16 << k) for k in range(5)]      # (H, C)
     stem_errs = {"f2": 0.0, "b1": 0.0, "b2": 0.0}
+    paths_before = dict(FS.paths)
     for k, (h, c) in enumerate(stem_shapes):
         e = check_fused_stem_kernels(FS, stem_case(170 + k, BATCH, h, c,
                                                    dev))
         stem_errs = {n: max(stem_errs[n], e[n]) for n in e}
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
+    # channels-last pairs: B1 (twice a shape) and B2 on the row kernels
+    assert {k: FS.paths[k] - paths_before[k] for k in FS.paths} == {
+        "b1_row": 10, "b2_row": 5, "b1": 0, "b2": 0}, FS.paths
     log(f"phase 17 ok: red, dy and dgrad == plain at {NET} B={BATCH} "
         f"{h1}x{h1} 16->32 (max |err| {chain_errs}), fwdstats there "
         f"(max |err| {fwd_tc_err}), the three on the tensor-core conv "
         f"tile; fwdstats' Z and argmax equal dy's recomputed y's pooled "
         f"extreme bit for bit on {n_windows} windows of general inputs; "
         f"F2, B1, B2 == plain "
-        f"at (H, C) {stem_shapes} (max |err| {stem_errs}) [{gpu}]")
+        f"at (H, C) {stem_shapes} (max |err| {stem_errs}; B1 and B2 on "
+        f"the row kernels, B1 bit-equal across two launches) [{gpu}]")
 
     # --------------------------------------------------------- phase 18
     # the chain's second pair's gradient (dw, dscales, dbiases, dx) against
@@ -1206,6 +1341,10 @@ def main() -> int:
         tc = {m: c["tensor_core"] for m, c in PT.conv_kernels.items()}
         assert tc == {m: 3 * conv_per_step[name].get(f"{m}_tc_kernel", 0)
                       for m in tc}, (name, PT.conv_kernels)
+        # the fused stem's backward on the row kernels (channels-last y)
+        assert FS.paths == {"b1_row": got["fused_stem_b1"],
+                            "b2_row": got["fused_stem_b2"], "b1": 0,
+                            "b2": 0}, (name, FS.paths)
         conv_opt[name] = tc
         assert all(np.isfinite(ls)) and ls[2] < ls[0], (name, ls)
         assert abs(ls[0] - loss_plain) <= 0.03 * abs(loss_plain) + 0.05, (
@@ -1256,31 +1395,53 @@ def main() -> int:
         + 4 * 9 * 16 * 32, 2 * conv1, "bf16")
     bounds["phase_train_dgrad"] = bound(2 * n1 * 32 + 2 * 9 * 16 * 32
                                         + 2 * n1 * 16, conv1, "bf16")
-    # F2, B1, B2 at pair 2 (208x208, 32 channels); per window about 36,
-    # 52 and 64 float32 operations
-    scase = stem_case(20, BATCH, h1, 32, dev, channels_last=y_cl)
-    y2, dp2 = scase["y"], scase["dp"]
-    k4 = [scase[k] for k in ("mean", "inv", "scales", "biases")]
-    s123 = [scase[k] for k in ("c1", "c2", "c3")]
-    times["fused_stem_f2"] = abba(
-        f"fused_stem F2 {h1}x{h1}x32 B={BATCH}", lambda: FS.f2(y2, *k4),
-        lambda: FS.f2_plain(y2, *k4), iters=20, plain_iters=5)
-    times["fused_stem_b1"] = abba(
-        f"fused_stem B1 {h1}x{h1}x32 B={BATCH}",
-        lambda: FS.b1(y2, dp2, *k4), lambda: FS.b1_plain(y2, dp2, *k4),
-        iters=20, plain_iters=5)
-    times["fused_stem_b2"] = abba(
-        f"fused_stem B2 {h1}x{h1}x32 B={BATCH}",
-        lambda: FS.b2(y2, dp2, *k4, *s123),
-        lambda: FS.b2_plain(y2, dp2, *k4, *s123), iters=20, plain_iters=5)
-    yb, win = y2.numel() * 2, y2.numel() // 4
-    bounds["fused_stem_f2"] = bound(yb + yb // 4 + 16 * 32, 36 * win, "f32")
-    bounds["fused_stem_b1"] = bound(yb + yb // 4 + 16 * 32 + 8 * 32,
-                                    52 * win, "f32")
-    bounds["fused_stem_b2"] = bound(2 * yb + yb // 4 + 28 * 32, 64 * win,
-                                    "f32")
-    del ccase, cargs, scase, y2, dp2, d_nchw
+    del ccase, cargs, d_nchw
     torch.cuda.empty_cache()
+    # B1 and B2 at the five fusable pairs' conv outputs (in the layout the
+    # conv writes) and F2 at pair 2 (208x208, 32 channels), beside their
+    # bounds; per window about 52, 64 and 36 float32 operations. The
+    # kernels line carries pair 2's times.
+    for k, (h, c) in enumerate(stem_shapes):
+        scase = stem_case(20 + k, BATCH, h, c, dev, channels_last=y_cl)
+        y2, dp2 = scase["y"], scase["dp"]
+        k4 = [scase[n] for n in ("mean", "inv", "scales", "biases")]
+        s123 = [scase[n] for n in ("c1", "c2", "c3")]
+        tag = f"{h}x{h}x{c} B={BATCH}"
+        before = dict(FS.paths)
+        tb = {"fused_stem_b1": abba(
+            f"fused_stem B1 {tag}", lambda: FS.b1(y2, dp2, *k4),
+            lambda: FS.b1_plain(y2, dp2, *k4), iters=20, plain_iters=3),
+            "fused_stem_b2": abba(
+            f"fused_stem B2 {tag}", lambda: FS.b2(y2, dp2, *k4, *s123),
+            lambda: FS.b2_plain(y2, dp2, *k4, *s123), iters=20,
+            plain_iters=3)}
+        # the same calls replayed from a CUDA graph: device time without
+        # the host's launch cost, which bounds the figures above at the
+        # small pairs
+        tg = {"fused_stem_b1": graph_ms(lambda: FS.b1(y2, dp2, *k4)),
+              "fused_stem_b2": graph_ms(lambda: FS.b2(y2, dp2, *k4,
+                                                      *s123))}
+        yb, win = y2.numel() * 2, y2.numel() // 4
+        bb = {"fused_stem_b1": bound(yb + yb // 4 + 16 * c + 8 * c,
+                                     52 * win, "f32"),
+              "fused_stem_b2": bound(2 * yb + yb // 4 + 28 * c, 64 * win,
+                                     "f32")}
+        for n in tb:
+            log(f"bound {n} {tag}: {bb[n][0]} ms by {bb[n][1]}; kernel "
+                f"{tb[n][0]} ms ({tb[n][0] / bb[n][0]} x), from a CUDA "
+                f"graph {tg[n]} ms ({tg[n] / bb[n][0]} x); launches by "
+                f"kernel { {m: FS.paths[m] - before[m] for m in FS.paths} }"
+                f" [{gpu}]")
+        if h == h1:
+            times.update(tb)
+            bounds.update(bb)
+            times["fused_stem_f2"] = abba(
+                f"fused_stem F2 {tag}", lambda: FS.f2(y2, *k4),
+                lambda: FS.f2_plain(y2, *k4), iters=20, plain_iters=5)
+            bounds["fused_stem_f2"] = bound(yb + yb // 4 + 16 * c,
+                                            36 * win, "f32")
+        del scase, y2, dp2
+        torch.cuda.empty_cache()
     # fwdstats alone on the tensor-core conv tile at its three Cin >= 16
     # instances (the chain's pair 1, the serving stem's pairs 2-4) beside
     # its bound; cuDNN's bf16 F.conv2d at the same shapes for reference
@@ -1360,10 +1521,16 @@ def main() -> int:
 
     # --------------------------------------------------------- phase 21
     for name in cfgs:
+        before = PT.launches["fwdstats"]
         seen = profile(f"Trainer.step {name} {NET} B={BATCH}, per step",
                        lambda: trainers[name].step(xt, tt), 2, gpu, top=8)
+        log(f"  {name}: fwdstats launches by the counter over the warm-up "
+            f"step and the 2 profiled steps: "
+            f"{PT.launches['fwdstats'] - before}")
         if per_step[name].get("phase_train_bwdg"):
             assert_bwdg_tensor_core(name, seen)
+        if per_step[name].get("fused_stem_b1"):
+            assert_fused_stem_rows(name, seen)
         assert_conv_tensor_core(name, seen, 2, conv_per_step[name])
 
     replaces = {

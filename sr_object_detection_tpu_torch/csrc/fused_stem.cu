@@ -19,27 +19,55 @@
 //
 // Layout: the TPU kernels ran on HWCN with the batch in the 128 lanes.
 // These read the layout the port's conv writes (NCHW logically, NHWC or
-// NCHW in memory): every tensor comes with its four element strides, and
-// the elementwise passes walk the pooled elements channel-fastest when y
-// is channels-last, width-fastest otherwise, so neighbouring threads read
-// neighbouring addresses. No transpose copy around the kernels.
+// NCHW in memory). No transpose copy around the kernels.
 //
 // Bound on an H100, each pass touching each byte once (pair 2 at 416,
 // B=128, 208x208x32): F2 reads y (354 MB) and writes the pooled output
 // (89 MB), 0.132 ms; B1 reads y and dp (443 MB), 0.132 ms; B2 also writes
 // dy (797 MB), 0.238 ms. Elementwise work per byte is small: the bytes
-// bound all three. Design: one pooled window a thread (grid-stride loop)
-// for F2 and B2. B1 sums per channel without atomics: a block takes a
-// fixed range of pooled pixels, thread t a fixed channel (t mod C, C
-// dividing 256 or a multiple of it) and a pixel lane, the block adds its
-// lanes in a fixed order into one partial row, and colsum adds the rows
-// in a fixed order: the same sums on every run.
+// bound all three.
+//
+// Two designs:
+//   * b1_row_kernel / b2_row_kernel, for y, dp and dy dense channels-last,
+//     C % 8 == 0 and 16-byte aligned (the port's conv output on the card,
+//     so the training step's path). A task is one pooled row (b, ph): y
+//     rows 2ph and 2ph+1 and dp row ph, contiguous runs. A thread holds
+//     one pooled column pw and one group of 8 channels for its whole life
+//     (block = kper columns x C/8 groups, thread t: group t % (C/8)), so
+//     its per-channel constants are loaded once into registers, every tap
+//     is one 16-byte load and one 16-byte store, and the task index is
+//     split into (row, column tile) once per row in 32-bit arithmetic: no
+//     per-element division. A thread issues a task's five loads (80
+//     bytes) before any arithmetic; at 13 warps a block (416 threads at
+//     every fusable pair) and one block an SM that is about 33 KB in
+//     flight an SM. Two or four rows a thread spilled B2's registers at
+//     the 128 a thread that 13 warps allow, and ran slower. The bf16
+//     rounding steps' instructions, not the bytes, held the first version
+//     (float math a channel at a time); the activation,
+//     the leaky, the window's maximum, the routing masks and the leaky
+//     backward now run on two channels at once as bf16x2 (add.rn, mul.rn,
+//     max, set), the same values as the float expressions (see hadd2).
+//     B1 sums per thread in a fixed order, the block adds its threads of
+//     one channel group in a fixed order in shared memory into one
+//     partial row, and colsum adds the rows in a fixed order: no atomics,
+//     the same bits on every run.
+//   * f2_kernel / b1_kernel / b2_kernel, for every other layout: every
+//     tensor comes with its four element strides, one pooled window of
+//     one channel a thread (grid-stride loop), walked channel-fastest when
+//     y is channels-last, width-fastest otherwise. Their limits, which the
+//     row kernels remove: 2-byte loads and stores, seven constant loads a
+//     window, about 10 bytes in flight a thread, four or five 32-bit
+//     divisions a window (and B1's 64-bit ones). B1 gives a block a fixed
+//     range of pooled pixels, thread t a fixed channel (t mod C, C
+//     dividing 256 or a multiple of it) and a pixel lane, and reduces as
+//     above.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #define FS_THREADS 256
 #define FS_MAX_BLOCKS (132 * 16)
+#define ROW_THREADS 448     // a row kernel's block at most (14 warps)
 
 namespace {
 
@@ -48,7 +76,8 @@ struct FsArgs {
   const __nv_bfloat16* dp;
   __nv_bfloat16* out;
   float* partial;
-  const float* kc;           // (7, C): mean, inv, scales, bias, c1, c2, c3
+  const float* kc;           // (rows, C): mean, inv, scales, bias, c1, c2,
+                             // c3 (F2 and B1 read the first four)
   long long ys[4], ds[4], os[4];   // element strides (b, c, h, w)
   int B, C, H, W;
   int cfast;                 // walk the pooled elements channel-fastest
@@ -82,8 +111,36 @@ __device__ __forceinline__ void decompose(unsigned e, const FsArgs& A,
   }
 }
 
-// BN + bias + leaky on the window's four taps (row-major): y - mean,
-// x_hat, the activation a and the pre-activation's sign.
+// BN + bias + leaky on one tap's y (bias already rounded to bf16): y -
+// mean, x_hat, the activation a and the pre-activation's sign.
+__device__ __forceinline__ void bn_leaky_tap(float yv, float mean,
+                                             float inv, float sc,
+                                             float bias, float& xm,
+                                             float& xh, float& a,
+                                             bool& pos) {
+  xm = __fsub_rn(yv, mean);
+  xh = __fmul_rn(xm, inv);
+  const float z = bf16r(__fadd_rn(bf16r(__fmul_rn(xh, sc)), bias));
+  pos = z > 0.f;
+  a = pos ? z : bf16r(__fmul_rn(0.10009765625f, z));
+}
+
+// The first tap (row-major) attaining the window's maximum.
+__device__ __forceinline__ int first_max(const float a[4]) {
+  const float m = fmaxf(fmaxf(a[0], a[1]), fmaxf(a[2], a[3]));
+  int first = 3;
+#pragma unroll
+  for (int k = 3; k >= 0; --k)
+    if (a[k] == m) first = k;
+  return first;
+}
+
+// The leaky backward of the pooled cotangent g with the bf16 slope.
+__device__ __forceinline__ float leaky_grad(bool pos, float g) {
+  return pos ? g : bf16r(__fmul_rn(0.10009765625f, g));
+}
+
+// BN + bias + leaky on the window's four taps (row-major).
 __device__ __forceinline__ void bn_leaky(const FsArgs& A, int b, int c,
                                          int ph, int pw, float xm[4],
                                          float xh[4], float a[4],
@@ -94,28 +151,19 @@ __device__ __forceinline__ void bn_leaky(const FsArgs& A, int b, int c,
   const __nv_bfloat16* base = A.y + b * A.ys[0] + c * A.ys[1] +
                               2LL * ph * A.ys[2] + 2LL * pw * A.ys[3];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float yv = ld(base + (k >> 1) * A.ys[2] + (k & 1) * A.ys[3]);
-    xm[k] = __fsub_rn(yv, mean);
-    xh[k] = __fmul_rn(xm[k], inv);
-    const float z = bf16r(__fadd_rn(bf16r(__fmul_rn(xh[k], sc)), bias));
-    pos[k] = z > 0.f;
-    a[k] = pos[k] ? z : bf16r(__fmul_rn(0.10009765625f, z));
-  }
+  for (int k = 0; k < 4; ++k)
+    bn_leaky_tap(ld(base + (k >> 1) * A.ys[2] + (k & 1) * A.ys[3]), mean,
+                 inv, sc, bias, xm[k], xh[k], a[k], pos[k]);
 }
 
 // The pooled cotangent g to the first tap attaining the window's maximum,
-// through the leaky backward with the bf16 slope.
+// through the leaky backward.
 __device__ __forceinline__ void route(const float a[4], const bool pos[4],
                                       float g, float dz[4]) {
-  const float m = fmaxf(fmaxf(a[0], a[1]), fmaxf(a[2], a[3]));
-  int first = 3;
+  const int first = first_max(a);
 #pragma unroll
-  for (int k = 3; k >= 0; --k)
-    if (a[k] == m) first = k;
-  const float neg = bf16r(__fmul_rn(0.10009765625f, g));
-#pragma unroll
-  for (int k = 0; k < 4; ++k) dz[k] = k == first ? (pos[k] ? g : neg) : 0.f;
+  for (int k = 0; k < 4; ++k)
+    dz[k] = k == first ? leaky_grad(pos[k], g) : 0.f;
 }
 
 __global__ void __launch_bounds__(FS_THREADS) f2_kernel(FsArgs A) {
@@ -232,6 +280,266 @@ colsum_kernel(const float* __restrict__ partial, int rows, int cols,
   if (threadIdx.x == 0) out[c] = red[0];
 }
 
+// ------------------------------------------------------ the row kernels
+
+struct RowArgs {
+  const uint4* y;     // (B, H, W, C) bf16 as 16-byte vectors of 8 channels
+  const uint4* dp;    // (B, H/2, W/2, C)
+  uint4* out;         // dy (B, H, W, C) (B2)
+  float* partial;     // (gridDim.x, 2 * C) (B1)
+  const float* kc;    // as in FsArgs
+  int G;              // C / 8 channel groups
+  int W2;             // pooled columns
+  int kper;           // pooled columns a block covers in one tile
+  int ntile;          // column tiles a row: kper * ntile >= W2
+  int tasks;          // B * H/2 * ntile
+};
+
+// A row kernel holds two channels (2m, 2m+1) in one 32-bit word of bf16x2,
+// low half first (little-endian): lo() and hi() widen them to float.
+__device__ __forceinline__ float lo(unsigned w) {
+  return __uint_as_float(w << 16);
+}
+
+__device__ __forceinline__ float hi(unsigned w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// float pair -> bf16x2, each rounded to nearest even (F2FP)
+__device__ __forceinline__ unsigned pack2(float l, float h) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(l, h);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// bf16x2 arithmetic, each lane rounded once to nearest even. For bf16
+// operands these equal the strided kernels' float expressions: a product
+// of two bf16 values is exact in float32, so bf16r(x * y) has one
+// rounding; and bf16r(x + y) rounds a float32 sum that is exact unless
+// the exponents differ by more than 16, where the smaller operand is far
+// below half a bf16 ulp of the larger and both round to the larger.
+__device__ __forceinline__ unsigned hadd2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ unsigned hmul2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ unsigned hmax2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("max.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// 0xffff in each lane where a == b (+0 == -0), else 0
+__device__ __forceinline__ unsigned heq2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("set.eq.u32.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// 0xffff in each lane where a > 0, else 0
+__device__ __forceinline__ unsigned hpos2(unsigned a) {
+  unsigned d;
+  asm("set.gt.u32.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(0u));
+  return d;
+}
+
+#define SLOPE2 0x3dcd3dcdu   // bf16x2 (0.10009765625, 0.10009765625)
+
+// One row kernel thread's per-channel constants for its 8 channels
+struct RowConsts {
+  float mean[8], inv[8], sc[8];
+  unsigned bias2[4];        // bf16(bias), channel pairs
+};
+
+__device__ __forceinline__ void load8(const float* p, float v[8]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ void load_consts(const float* kc, int C, int cg,
+                                            RowConsts& K) {
+  float bias[8];
+  load8(kc + 8 * cg, K.mean);
+  load8(kc + C + 8 * cg, K.inv);
+  load8(kc + 2 * C + 8 * cg, K.sc);
+  load8(kc + 3 * C + 8 * cg, bias);
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+    K.bias2[m] = pack2(bias[2 * m], bias[2 * m + 1]);
+}
+
+// Channels 2m, 2m+1 of one window, from the four taps' words w (row-major)
+// and the pooled cotangent's word g: every tap's y - mean (xm), the masks
+// f[k] (0xffff in a lane whose first tap attaining the maximum of the
+// activation is k) and the routed cotangent dz (bf16x2, through the leaky
+// backward of that tap's sign). The same values as bn_leaky + route.
+__device__ __forceinline__ void row_pair(const unsigned w[4], unsigned g,
+                                         const RowConsts& K, int m,
+                                         float xm[4][2], unsigned f[4],
+                                         unsigned& dz) {
+  unsigned z[4], a[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    xm[k][0] = __fsub_rn(lo(w[k]), K.mean[2 * m]);
+    xm[k][1] = __fsub_rn(hi(w[k]), K.mean[2 * m + 1]);
+    const float x0 = __fmul_rn(xm[k][0], K.inv[2 * m]);
+    const float x1 = __fmul_rn(xm[k][1], K.inv[2 * m + 1]);
+    z[k] = hadd2(pack2(__fmul_rn(x0, K.sc[2 * m]),
+                       __fmul_rn(x1, K.sc[2 * m + 1])), K.bias2[m]);
+    // leaky: z > 0 ? z : bf16(slope * z) is max(z, bf16(slope * z))
+    a[k] = hmax2(z[k], hmul2(SLOPE2, z[k]));
+  }
+  const unsigned mx = hmax2(hmax2(a[0], a[1]), hmax2(a[2], a[3]));
+  unsigned seen = heq2(a[0], mx);
+  f[0] = seen;
+#pragma unroll
+  for (int k = 1; k < 3; ++k) {
+    const unsigned e = heq2(a[k], mx);
+    f[k] = e & ~seen;
+    seen |= e;
+  }
+  f[3] = ~seen;
+  const unsigned zf = (z[0] & f[0]) | (z[1] & f[1]) | (z[2] & f[2]) |
+                      (z[3] & f[3]);
+  const unsigned pos = hpos2(zf);
+  dz = (g & pos) | (hmul2(SLOPE2, g) & ~pos);
+}
+
+// The loads of one task (a pooled row r, column tile `tile`) for the
+// thread's column q and channel group cg, all issued before any
+// arithmetic: the four taps' vectors v and the pooled cotangent's vector
+// g. Returns false past the row's last column; yo = the vector offset of
+// the window's first tap.
+__device__ __forceinline__ bool row_loads(const RowArgs& A, int task, int q,
+                                          int cg, uint4 v[4], uint4& g,
+                                          long long& yo) {
+  const long long yrow = 2LL * A.W2 * A.G;     // a y row, in vectors
+  int r = task, tile = 0;
+  if (A.ntile > 1) {
+    r = task / A.ntile;
+    tile = task - r * A.ntile;
+  }
+  const int pw = tile * A.kper + q;
+  if (pw >= A.W2) return false;
+  yo = 2LL * r * yrow + 2 * pw * A.G + cg;
+  v[0] = __ldg(A.y + yo);
+  v[1] = __ldg(A.y + yo + A.G);
+  v[2] = __ldg(A.y + yo + yrow);
+  v[3] = __ldg(A.y + yo + yrow + A.G);
+  g = __ldg(A.dp + static_cast<long long>(r) * A.W2 * A.G + pw * A.G + cg);
+  return true;
+}
+
+// word m of a vector
+__device__ __forceinline__ unsigned word(const uint4& v, int m) {
+  return m == 0 ? v.x : m == 1 ? v.y : m == 2 ? v.z : v.w;
+}
+
+// Block b takes tasks b, b + gridDim.x, ... Partial row b = [sum dz | sum
+// dz * x_hat] over them, (2 * C) floats; dynamic shared memory 16 *
+// blockDim.x floats.
+__global__ void __launch_bounds__(ROW_THREADS, 1) b1_row_kernel(RowArgs A) {
+  extern __shared__ float red[];
+  const int t = threadIdx.x, bd = blockDim.x;
+  const int cg = t % A.G, q = t / A.G;
+  const int C = 8 * A.G;
+  RowConsts K;
+  load_consts(A.kc, C, cg, K);
+  float s0[8], s1[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s0[j] = s1[j] = 0.f;
+  for (int task = blockIdx.x; task < A.tasks; task += gridDim.x) {
+    uint4 v[4], g;
+    long long yo;
+    if (!row_loads(A, task, q, cg, v, g, yo)) continue;
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const unsigned w[4] = {word(v[0], m), word(v[1], m), word(v[2], m),
+                             word(v[3], m)};
+      float xm[4][2];
+      unsigned f[4], dz;
+      row_pair(w, word(g, m), K, m, xm, f, dz);
+      // x_hat of the routed tap; the other three taps' dz are 0
+      const unsigned yf = (w[0] & f[0]) | (w[1] & f[1]) | (w[2] & f[2]) |
+                          (w[3] & f[3]);
+      const float d0 = lo(dz), d1 = hi(dz);
+      s0[2 * m] += d0;
+      s0[2 * m + 1] += d1;
+      s1[2 * m] += d0 * __fmul_rn(__fsub_rn(lo(yf), K.mean[2 * m]),
+                                  K.inv[2 * m]);
+      s1[2 * m + 1] += d1 * __fmul_rn(__fsub_rn(hi(yf), K.mean[2 * m + 1]),
+                                      K.inv[2 * m + 1]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    red[j * bd + t] = s0[j];
+    red[(8 + j) * bd + t] = s1[j];
+  }
+  __syncthreads();
+  const int kper = bd / A.G;
+  float* row = A.partial + static_cast<size_t>(blockIdx.x) * 2 * C;
+  for (int o = t; o < 2 * C; o += bd) {
+    const int which = o >= C, c = o - which * C;
+    const float* src = red + (8 * which + (c & 7)) * bd + (c >> 3);
+    float s = 0.f;
+    for (int k = 0; k < kper; ++k) s += src[k * A.G];
+    row[o] = s;
+  }
+}
+
+// The tasks as b1_row_kernel's; dy = bf16(dz*c1 + (y - mean)*c2 + c3) at
+// every tap, as 16-byte stores.
+__global__ void __launch_bounds__(ROW_THREADS, 1) b2_row_kernel(RowArgs A) {
+  const int t = threadIdx.x;
+  const int cg = t % A.G, q = t / A.G;
+  const int C = 8 * A.G;
+  const long long yrow = 2LL * A.W2 * A.G;
+  RowConsts K;
+  load_consts(A.kc, C, cg, K);
+  float c1[8], c2[8], c3[8];
+  load8(A.kc + 4 * C + 8 * cg, c1);
+  load8(A.kc + 5 * C + 8 * cg, c2);
+  load8(A.kc + 6 * C + 8 * cg, c3);
+  for (int task = blockIdx.x; task < A.tasks; task += gridDim.x) {
+    uint4 v[4], g;
+    long long yo;
+    if (!row_loads(A, task, q, cg, v, g, yo)) continue;
+    unsigned o[4][4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const unsigned w[4] = {word(v[0], m), word(v[1], m), word(v[2], m),
+                             word(v[3], m)};
+      float xm[4][2];
+      unsigned f[4], dz;
+      row_pair(w, word(g, m), K, m, xm, f, dz);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const unsigned dk = dz & f[k];         // +0 off the routed tap
+        o[k][m] = pack2(
+            __fadd_rn(__fadd_rn(__fmul_rn(lo(dk), c1[2 * m]),
+                                __fmul_rn(xm[k][0], c2[2 * m])),
+                      c3[2 * m]),
+            __fadd_rn(__fadd_rn(__fmul_rn(hi(dk), c1[2 * m + 1]),
+                                __fmul_rn(xm[k][1], c2[2 * m + 1])),
+                      c3[2 * m + 1]));
+      }
+    }
+    const long long off[4] = {yo, yo + A.G, yo + yrow, yo + yrow + A.G};
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      A.out[off[k]] = make_uint4(o[k][0], o[k][1], o[k][2], o[k][3]);
+  }
+}
+
 bool shapes_ok(int B, int C, int H, int W) {
   return B > 0 && C > 0 && H > 1 && W > 1 && H % 2 == 0 && W % 2 == 0 &&
          static_cast<long long>(B) * C * (H / 2) * (W / 2) < (1LL << 31);
@@ -263,6 +571,37 @@ int blocks_for(const FsArgs& A) {
                       (A.W / 2);
   const long long want = (n + FS_THREADS - 1) / FS_THREADS;
   return static_cast<int>(want < FS_MAX_BLOCKS ? want : FS_MAX_BLOCKS);
+}
+
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<unsigned long long>(p) % 16 == 0;
+}
+
+// The row kernels' geometry as the wrapper chose it (kernels/fused_stem.py
+// row_geometry): a block of kper * C/8 threads, ntile column tiles a row.
+bool row_ok(int B, int C, int H, int W, int kper, int ntile) {
+  return shapes_ok(B, C, H, W) && C % 8 == 0 && kper >= 1 && ntile >= 1 &&
+         static_cast<long long>(kper) * (C / 8) <= ROW_THREADS &&
+         static_cast<long long>(kper) * ntile >= W / 2 &&
+         static_cast<long long>(B) * (H / 2) * ntile < (1LL << 31);
+}
+
+RowArgs row_args(const void* y, const void* dp, const void* kc, void* out,
+                 void* partial, int B, int C, int H, int W, int kper,
+                 int ntile) {
+  RowArgs A;
+  A.y = static_cast<const uint4*>(y);
+  A.dp = static_cast<const uint4*>(dp);
+  A.out = static_cast<uint4*>(out);
+  A.partial = static_cast<float*>(partial);
+  A.kc = static_cast<const float*>(kc);
+  A.G = C / 8;
+  A.W2 = W / 2;
+  A.kper = kper;
+  A.ntile = ntile;
+  A.tasks = B * (H / 2) * ntile;
+  return A;
 }
 
 }  // namespace
@@ -317,5 +656,65 @@ extern "C" int srod_fs_b2(const void* y, const void* dp, const void* kc,
                              cfast);
   b2_kernel<<<blocks_for(A), FS_THREADS, 0,
               static_cast<cudaStream_t>(stream)>>>(A);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The row kernels (b1_row_kernel, b2_row_kernel): y, dp and dy dense
+// channels-last (B, H, W, C) bf16, C % 8 == 0, every pointer 16-byte
+// aligned; kper and ntile as kernels/fused_stem.py's row_geometry.
+
+// The blocks to launch (b1: B1, else B2) for `threads` a block: the
+// blocks resident on the device at once, at most one a task; -1 on a
+// bad argument.
+extern "C" int srod_fs_row_grid(int b1, int threads, int tasks) {
+  int dev, sms, per_sm = 0;
+  if (threads < 1 || threads > ROW_THREADS || tasks < 1 ||
+      cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return -1;
+  const cudaError_t err =
+      b1 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &per_sm, b1_row_kernel, threads, 16 * sizeof(float) * threads)
+         : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &per_sm, b2_row_kernel, threads, 0);
+  if (err != cudaSuccess || per_sm < 1) return -1;
+  const long long most = static_cast<long long>(sms) * per_sm;
+  return static_cast<int>(tasks < most ? tasks : most);
+}
+
+// partial (nblk, 2 * C) float32 scratch; out (2 * C,) float32 [sum dz |
+// sum dz * x_hat].
+extern "C" int srod_fs_b1_row(const void* y, const void* dp, const void* kc,
+                              void* partial, int nblk, void* out, int B,
+                              int C, int H, int W, int kper, int ntile,
+                              void* stream) {
+  if (!row_ok(B, C, H, W, kper, ntile) || nblk < 1 || !aligned16(y) ||
+      !aligned16(dp) || !aligned16(kc))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const RowArgs A = row_args(y, dp, kc, nullptr, partial, B, C, H, W, kper,
+                             ntile);
+  const int threads = kper * A.G;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  b1_row_kernel<<<nblk, threads, 16 * sizeof(float) * threads, s>>>(A);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  colsum_kernel<<<2 * C, FS_THREADS, 0, s>>>(
+      static_cast<const float*>(partial), nblk, 2 * C,
+      static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out (B, H, W, C) channels-last bf16: dy.
+extern "C" int srod_fs_b2_row(const void* y, const void* dp, const void* kc,
+                              void* out, int nblk, int B, int C, int H,
+                              int W, int kper, int ntile, void* stream) {
+  if (!row_ok(B, C, H, W, kper, ntile) || nblk < 1 || !aligned16(y) ||
+      !aligned16(dp) || !aligned16(kc) || !aligned16(out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const RowArgs A = row_args(y, dp, kc, out, nullptr, B, C, H, W, kper,
+                             ntile);
+  b2_row_kernel<<<nblk, kper * A.G, 0, static_cast<cudaStream_t>(stream)>>>(
+      A);
   return static_cast<int>(cudaGetLastError());
 }

@@ -97,6 +97,16 @@ SIGNATURES = {
                    _I),
     # y, dp bf16, kc, out bf16, strides, B, C, H, W, cfast, stream
     "srod_fs_b2": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    # b1 (1: B1, 0: B2), threads, tasks -> the row kernel's blocks, or -1
+    "srod_fs_row_grid": ([_I, _I, _I], _I),
+    # y, dp bf16 (channels-last), kc, partial, nblk, out f32, B, C, H, W,
+    # kper, ntile, stream
+    "srod_fs_b1_row": ([_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                        _P], _I),
+    # y, dp bf16, kc, out bf16 (channels-last), nblk, B, C, H, W, kper,
+    # ntile, stream
+    "srod_fs_b2_row": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+                       _I),
     "srod_error_string": ([_I], ctypes.c_char_p),
 }
 

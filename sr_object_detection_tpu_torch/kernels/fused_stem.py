@@ -15,12 +15,18 @@ XLA) followed by :func:`fused_bn_leaky_pool` on its bf16 output y:
   cotangent of y in one pass).
 
 The kernels read the layout the port's conv writes: y is logically NCHW,
-NCHW or channels-last in memory, and every tensor goes to the kernel with
-its strides, so nothing is copied around them.
+NCHW or channels-last in memory, and nothing is copied around them. B1
+and B2 have two kernels each: the row kernels (``b1_row_kernel``,
+``b2_row_kernel``: one pooled row a task, 16-byte vectors of 8 channels)
+where :func:`_row_path` holds (y, dp and dy dense channels-last, C a
+multiple of 8, 16-byte aligned: the training step's case on the card),
+and the strided kernels (``b1_kernel``, ``b2_kernel``) for every other
+layout. F2 has the strided kernel only.
 
 Each kernel has a plain PyTorch version beside it (``*_plain``); a CPU
 tensor takes it, a CUDA tensor launches the kernel or raises.
-``launches`` counts each kernel's launches and nothing else.
+``launches`` counts each op's launches and nothing else; ``paths`` says
+which kernel took each B1 and B2 launch.
 
 Not ported: ``_pick_tiles``, ``_grids``, ``_kcols`` and the lane-splatted
 ``_consts`` (the TPU's (8, 128) tiling with the batch in the lanes), and
@@ -30,6 +36,7 @@ with them the batch-128 gate of ``_supported``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -37,17 +44,21 @@ import torch.nn.functional as F
 from ..ops.activations import LEAKY_BF16
 from ..ops.conv import BN_EPS, _sqrt_rn, shifted_moments
 from . import _build
-from .phase_train import _bn_roll, bn_backward_consts, kernel_consts
+from .phase_train import _bn_roll, bn_backward_consts
 
 launches = {"f2": 0, "b1": 0, "b2": 0}
+# which kernel took each B1 / B2 launch: the row kernels or the strided ones
+paths = {"b1_row": 0, "b2_row": 0, "b1": 0, "b2": 0}
 
 THREADS = 256               # csrc/fused_stem.cu's block (B1's lanes)
 B1_BLOCKS = 4096            # B1's partial rows at most
+ROW_THREADS = 448           # a row kernel's block at most (csrc ROW_THREADS)
 
 
 def reset_launches():
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, paths):
+        for k in counts:
+            counts[k] = 0
 
 
 def _b1_takes(c) -> bool:
@@ -141,11 +152,60 @@ def _check(name, y, dp, consts):
             f"{[tuple(k.shape) for k in consts]}")
 
 
+def _consts(consts):
+    """The kernels' constant rows (csrc kc): mean, inv, scales, bias and,
+    for B2, c1, c2, c3, as one float32 (rows, C) tensor; F2 and B1 read
+    the first four rows only."""
+    return torch.stack([k.float() for k in consts])
+
+
 def _strides(y, dp, out):
     vals = []
     for t in (y, dp, out):
         vals += list(t.stride()) if t is not None else [0] * 4
     return (ctypes.c_longlong * 12)(*vals)
+
+
+def _row_path(y, dp, out=None) -> bool:
+    """Whether the row kernels take B1 / B2 on these tensors: y, dp and
+    out (when given) dense channels-last, C a multiple of 8 (a 16-byte
+    vector of channels) and each data pointer 16-byte aligned."""
+    c = y.shape[1]
+    return (c % 8 == 0 and c // 8 <= ROW_THREADS
+            and all(t.is_contiguous(memory_format=torch.channels_last)
+                    and t.data_ptr() % 16 == 0
+                    for t in (y, dp, out) if t is not None))
+
+
+def row_geometry(c, w):
+    """The row kernels' block for C channels and width W: (G, kper,
+    ntile, threads). Thread t holds channel group t % G (G = C/8) and
+    pooled column tile * kper + t // G; a row's W/2 columns are split
+    into ntile tiles of kper, as evenly as ROW_THREADS threads allow."""
+    g, w2 = c // 8, w // 2
+    ntile = -(-w2 // (ROW_THREADS // g))
+    kper = -(-w2 // ntile)
+    return g, kper, ntile, kper * g
+
+
+@functools.lru_cache(maxsize=None)
+def _row_grid(device_index, b1_, threads, tasks):
+    """Blocks of a row kernel: as many as the device holds at once, at
+    most one a task (csrc: srod_fs_row_grid)."""
+    with torch.cuda.device(device_index):
+        nblk = _build.load().srod_fs_row_grid(int(b1_), threads, tasks)
+    if nblk < 1:
+        raise RuntimeError(f"srod_fs_row_grid: {nblk} for {threads} "
+                           f"threads, {tasks} tasks")
+    return nblk
+
+
+def _row_launch(b1_, y):
+    """(kper, ntile, nblk) of a row-kernel launch on y."""
+    b, c, h, w = y.shape
+    _, kper, ntile, threads = row_geometry(c, w)
+    return kper, ntile, _row_grid(y.device.index, b1_, threads,
+                                  b * (h // 2) * ntile)
 
 
 def _channels_last(y):
@@ -168,7 +228,7 @@ def f2(y, mean, inv, scales, biases):
                                      else torch.contiguous_format))
     strides = _strides(y, None, out)
     err = _build.load().srod_fs_f2(
-        y.data_ptr(), kernel_consts(c, y.device, *consts).data_ptr(),
+        y.data_ptr(), _consts(consts).data_ptr(),
         out.data_ptr(), ctypes.addressof(strides), b, c, h, w, cl,
         _build.stream_ptr(y.device))
     _build.check(err, "srod_fs_f2")
@@ -183,6 +243,20 @@ def b1(y, dp, mean, inv, scales, biases):
     consts = (mean, inv, scales, biases)
     _check("b1", y, dp, consts)
     b, c, h, w = y.shape
+    kc = _consts(consts)
+    out = torch.empty(2 * c, dtype=torch.float32, device=y.device)
+    if _row_path(y, dp):
+        kper, ntile, nblk = _row_launch(True, y)
+        partial = torch.empty((nblk, 2 * c), dtype=torch.float32,
+                              device=y.device)
+        err = _build.load().srod_fs_b1_row(
+            y.data_ptr(), dp.data_ptr(), kc.data_ptr(), partial.data_ptr(),
+            nblk, out.data_ptr(), b, c, h, w, kper, ntile,
+            _build.stream_ptr(y.device))
+        _build.check(err, "srod_fs_b1_row")
+        launches["b1"] += 1
+        paths["b1_row"] += 1
+        return out.reshape(2, c).T
     if not _b1_takes(c):
         raise ValueError(f"fused_stem.b1: {c} channels neither divide "
                          f"{THREADS} nor are a multiple of it")
@@ -192,15 +266,14 @@ def b1(y, dp, mean, inv, scales, biases):
     per_block = -(-positions // nblk)
     partial = torch.empty((nblk, 2 * c), dtype=torch.float32,
                           device=y.device)
-    out = torch.empty(2 * c, dtype=torch.float32, device=y.device)
     strides = _strides(y, dp, None)
     err = _build.load().srod_fs_b1(
-        y.data_ptr(), dp.data_ptr(),
-        kernel_consts(c, y.device, *consts).data_ptr(), partial.data_ptr(),
+        y.data_ptr(), dp.data_ptr(), kc.data_ptr(), partial.data_ptr(),
         nblk, per_block, out.data_ptr(),
         ctypes.addressof(strides), b, c, h, w, _build.stream_ptr(y.device))
     _build.check(err, "srod_fs_b1")
     launches["b1"] += 1
+    paths["b1"] += 1
     return out.reshape(2, c).T
 
 
@@ -212,14 +285,23 @@ def b2(y, dp, mean, inv, scales, biases, c1, c2, c3):
     consts = (mean, inv, scales, biases, c1, c2, c3)
     _check("b2", y, dp, consts)
     b, c, h, w = y.shape
+    kc = _consts(consts)
     out = torch.empty_like(y)
-    strides = _strides(y, dp, out)
-    err = _build.load().srod_fs_b2(
-        y.data_ptr(), dp.data_ptr(),
-        kernel_consts(c, y.device, *consts).data_ptr(), out.data_ptr(),
-        ctypes.addressof(strides), b, c, h, w,
-        _channels_last(y), _build.stream_ptr(y.device))
-    _build.check(err, "srod_fs_b2")
+    if _row_path(y, dp, out):
+        kper, ntile, nblk = _row_launch(False, y)
+        err = _build.load().srod_fs_b2_row(
+            y.data_ptr(), dp.data_ptr(), kc.data_ptr(), out.data_ptr(), nblk,
+            b, c, h, w, kper, ntile, _build.stream_ptr(y.device))
+        _build.check(err, "srod_fs_b2_row")
+        paths["b2_row"] += 1
+    else:
+        strides = _strides(y, dp, out)
+        err = _build.load().srod_fs_b2(
+            y.data_ptr(), dp.data_ptr(), kc.data_ptr(), out.data_ptr(),
+            ctypes.addressof(strides), b, c, h, w,
+            _channels_last(y), _build.stream_ptr(y.device))
+        _build.check(err, "srod_fs_b2")
+        paths["b2"] += 1
     launches["b2"] += 1
     return out
 
@@ -276,5 +358,5 @@ def fused_stem_block(x, params, spec):
 
 
 __all__ = ["fused_bn_leaky_pool", "fused_stem_block", "f2", "f2_plain",
-           "b1", "b1_plain", "b2", "b2_plain", "supported", "launches",
-           "reset_launches"]
+           "b1", "b1_plain", "b2", "b2_plain", "supported", "row_geometry",
+           "launches", "paths", "reset_launches"]

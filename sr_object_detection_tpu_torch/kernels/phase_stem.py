@@ -168,9 +168,10 @@ def build_phase_stem(spec: S.NetworkSpec, qparams, s_out, in_scale):
     s_out[n_consumed-1]), one kernel launch per pair: pair 1 requantizes
     the frame as it loads it."""
     pairs = plan_pairs(spec)
-    # a head conv (float weights, no dequant) ends the fused prefix
+    # a head conv (float weights, no dequant) ends the fused prefix, and so
+    # does a conv wider than the kernel stages (Cin > MAX_CIN)
     for k, (ci, _) in enumerate(pairs):
-        if "dequant" not in qparams[ci]:
+        if "dequant" not in qparams[ci] or spec.layers[ci].c > MAX_CIN:
             pairs = pairs[:k]
             break
     if not pairs:

@@ -30,8 +30,8 @@ from torch_parity import (assert_bf16_close, assert_stem_link_close,
                           chain_case, check_chain_kernels, check_fwdstats,
                           check_y_consistency, dgrad_case,
                           check_fused_stem_kernels, check_pair_gradient,
-                          check_train_kernels, nms_case, phase_pair_case,
-                          random_bn, stem_case, train_case)
+                          check_train_kernels, misaligned, nms_case,
+                          phase_pair_case, random_bn, stem_case, train_case)
 
 # tiny-yolo-voc-416's four stem pairs: (H, Cin, Cout)
 STEM_PAIRS = [(416, 3, 16), (208, 16, 32), (104, 32, 64), (52, 64, 128)]
@@ -581,17 +581,39 @@ def test_dx_pair_gradient_on_cuda(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("c,h,channels_last", [
     (16, 32, True), (32, 16, True), (256, 6, True), (512, 4, True),
-    (16, 12, False), (64, 8, False)])
+    (24, 16, True), (4, 16, True), (16, 12, False), (64, 8, False)])
 def test_fused_stem_kernels_match_plain(cuda, c, h, channels_last):
     """F2, B1 and B2 against their plain versions, y channels-last (the
     port's conv output on the card) or NCHW in memory
-    (torch_parity.check_fused_stem_kernels)."""
-    before = dict(TFS.launches)
+    (torch_parity.check_fused_stem_kernels). B1 and B2 take the row
+    kernels where y and dp are channels-last and C a multiple of 8 (C 24
+    too, which the strided B1 refuses), the strided kernels otherwise (C
+    4, NCHW)."""
+    before, paths = dict(TFS.launches), dict(TFS.paths)
     check_fused_stem_kernels(TFS, stem_case(c + h, 4, h, c, cuda,
                                             channels_last))
     torch.cuda.synchronize()
     assert {k: TFS.launches[k] - before[k] for k in before} == {
-        "f2": 1, "b1": 1, "b2": 1}
+        "f2": 1, "b1": 2, "b2": 1}
+    row = channels_last and c % 8 == 0
+    assert {k: TFS.paths[k] - paths[k] for k in paths} == {
+        "b1_row": 2 * row, "b2_row": row, "b1": 2 * (not row),
+        "b2": not row}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["y", "dp"])
+def test_fused_stem_misaligned_view_takes_strided_kernels(cuda, which):
+    """A channels-last view 2 bytes past a 16-byte boundary (y or dp)
+    goes to the strided B1 and B2, which match their plain versions."""
+    case = stem_case(7, 4, 16, 32, cuda)
+    case[which] = misaligned(case[which])
+    assert case[which].data_ptr() % 16 == 2
+    paths = dict(TFS.paths)
+    check_fused_stem_kernels(TFS, case)
+    torch.cuda.synchronize()
+    assert {k: TFS.paths[k] - paths[k] for k in paths} == {
+        "b1_row": 0, "b2_row": 0, "b1": 2, "b2": 1}
 
 
 @pytest.mark.cuda
@@ -602,7 +624,8 @@ def test_chain_and_fused_stem_wrappers_reject_bad_inputs(cuda):
         TPT.red(case["x"].float(), case["w"], case["dp"], *consts)
     with pytest.raises(ValueError):
         TPT.dgrad(case["d"], case["w"][:, :, :12])     # Cin not 8 or 16
-    stem = stem_case(0, 2, 8, 48, cuda)                # 48 does not divide 256
+    # NCHW (the strided B1) with 48 channels, which do not divide 256
+    stem = stem_case(0, 2, 8, 48, cuda, channels_last=False)
     k4 = [stem[k] for k in ("mean", "inv", "scales", "biases")]
     with pytest.raises(ValueError):
         TFS.b1(stem["y"], stem["dp"], *k4)

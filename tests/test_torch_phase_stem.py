@@ -20,9 +20,12 @@ import torch
 import sr_object_detection_tpu.kernels.phase_stem as JPS
 from sr_object_detection_tpu.graph import spec as JS
 from sr_object_detection_tpu.models import zoo as JZ
+import sr_object_detection_tpu_torch.infer.quant as TQ
 import sr_object_detection_tpu_torch.kernels.phase_stem as TPS
 from sr_object_detection_tpu_torch.graph import spec as TS
+from sr_object_detection_tpu_torch.io.weights import init_params
 from sr_object_detection_tpu_torch.models import zoo as TZ
+from torch_parity import random_bn
 
 
 @pytest.fixture
@@ -105,6 +108,39 @@ def test_plan_pairs_matches_jax():
     assert n == 2
     del qp[0]["dequant"]
     assert TPS.build_phase_stem(spec, qp, s_out, 1 / 127) == (None, 0)
+
+
+def test_build_phase_stem_cuts_at_max_cin():
+    """A stem pair whose conv reads more than MAX_CIN channels (the CUDA
+    kernel stages a pair's weights whole) ends the fused prefix, as a
+    head conv does; the engine's output does not change."""
+    spec, qp, s_out = _synthetic_stem(TS, 16, [3, 16, TPS.MAX_CIN + 1, 8],
+                                      seed=1)
+    qp = [{k: torch.from_numpy(v) for k, v in p.items()} for p in qp]
+    assert len(TPS.plan_pairs(spec)) == 3
+    stem, n = TPS.build_phase_stem(spec, qp, s_out, 1 / 127)
+    assert n == 4
+    b = TZ.CfgBuilder()
+    b.net(batch=128, subdivisions=1, width=16, height=16, channels=3)
+    for filters in (16, TPS.MAX_CIN + 1, 16):
+        b.conv(filters)
+        b.maxpool()
+    b.conv(5 * 6, size=1, bn=False, act="linear")
+    b.section("region", anchors=TZ.VOC_ANCHORS, bias_match=1, classes=1,
+              coords=4, num=5, softmax=1, absolute=1, thresh=.6)
+    spec = b.build()
+    params = random_bn(init_params(spec, seed=0), 1, head_gain=4.0)
+    rng = np.random.RandomState(2)
+    calib = rng.uniform(0, 1, (2, 16, 16, 3)).astype(np.float32)
+    x = torch.from_numpy(rng.randint(0, 256, (128, 16, 16, 3)).astype(
+        np.uint8))
+    eng, plain = (TQ.QuantizedThroughputEngine(
+        spec, params, batch=128, calib_x=calib, device="cpu",
+        phase_stem=ps) for ps in (True, False))
+    eng.qnet.forward(x[:2], stop=4)        # the stem ends at layer 4
+    with pytest.raises(ValueError, match="inside the fused stem"):
+        eng.qnet.forward(x[:2], stop=3)
+    assert torch.equal(eng(x), plain(x))
 
 
 def test_stem_pair_i8_takes_frames_and_codes():

@@ -533,11 +533,27 @@ def stem_case(seed, batch, h, c, device, channels_last=True):
     return t
 
 
+def misaligned(t):
+    """A dense channels-last copy of the 4-D tensor t whose data pointer
+    lies one element past a 16-byte boundary (2 bytes for bf16): a view
+    with a storage offset, as a caller's slice of a larger buffer."""
+    import torch
+    b, c, h, w = t.shape
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    size = t.element_size()
+    k = next(k for k in range(16)
+             if (buf.data_ptr() + k * size) % 16 == size)
+    v = buf[k:k + t.numel()].view(b, h, w, c).permute(0, 3, 1, 2)
+    v.copy_(t)
+    return v
+
+
 def check_fused_stem_kernels(FS, case):
     """F2, B1 and B2 against their plain versions on the same inputs
     (:func:`stem_case`): F2 and B2 (at fixed constants) bit-equal, B1's
     sums at 1e-4 of their largest magnitude (float32 sums in other
-    orders). Returns the max absolute error of each kernel."""
+    orders) and bit-equal across two launches (fixed-order sums). Returns
+    the max absolute error of each kernel."""
     import torch
     y, dp = case["y"], case["dp"]
     k4 = [case[k] for k in ("mean", "inv", "scales", "biases")]
@@ -548,6 +564,7 @@ def check_fused_stem_kernels(FS, case):
     rel = ((s - sp).abs().max(dim=0).values
            / sp.abs().max(dim=0).values.clamp_min(1e-30)).max().item()
     assert rel <= 1e-4, ("b1", rel)
+    assert torch.equal(s, FS.b1(y, dp, *k4)), "b1 differs across launches"
     d, dpl = FS.b2(y, dp, *k4, *c123), FS.b2_plain(y, dp, *k4, *c123)
     assert torch.equal(d, dpl), ("b2", (d != dpl).sum().item())
     return {"f2": 0.0, "b1": (s - sp).abs().max().item(), "b2": 0.0}
