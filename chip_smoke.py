@@ -40,7 +40,8 @@ non-zero status and no result line:
      without its phase stem (the training pair's fwdstats + apply
      kernels with identity BN, each link within one bf16 ulp of the plain
      engine's layers; pairs 2-4 on the tensor-core conv tile, pair 1 on
-     the FP32-core loop, counted) and QuantizedThroughputEngine (int8,
+     the tile's taps fold, none on the FP32-core loop, counted) and
+     QuantizedThroughputEngine (int8,
      u8 frames)
      with and without the phase stem (its four pairs counted under their
      K folds); the two int8 engines' int8 trunks
@@ -62,13 +63,18 @@ non-zero status and no result line:
      and best_latency_engine's selection;
  11. torch.profiler over each engine: wall and device busy time per
      frame or batch, the device's idle share, the top kernels; the bf16
-     phase stem's batch ran fwdstats_tc_kernel 3 times and the FP32-core
-     fwdstats_kernel once, the int8 phase stem's batch
+     phase stem's batch ran fwdstats_tc_kernel 3 times,
+     fwdstats_fold_kernel once and no fwdstats_kernel, the int8 phase
+     stem's batch
      phase_pair_tc_kernel and no dp4a phase_pair_kernel;
  12. the three training kernels (csrc/phase_train.cu) against their
      plain versions at the training pair's shape (416, B=128, 3 -> 16):
-     fwdstats' Z within one bf16 ulp, its argmax equal wherever the two
-     extreme taps differ by more than an ulp, its sums at 1e-4; apply
+     fwdstats (on the tensor-core tile's taps fold, fwdstats_fold_kernel,
+     by conv_kernels) Z within one bf16 ulp, its argmax equal wherever the
+     two extreme taps differ by more than an ulp, its sums at 1e-4, two
+     launches bit-equal, its time in turns with fwdstats_plain beside its
+     bound and cuDNN's bf16 F.conv2d alone (the conv without the pool,
+     argmax and sums: context, not the same function); apply
      bit-equal; every bwdg reduction at 1e-3 of its largest magnitude
      (bwdg on the tensor cores, bwdg_tc_kernel), two bwdg launches
      bit-equal; then phase_train_block's gradient (on a case with no
@@ -81,22 +87,23 @@ non-zero status and no result line:
  13. the training slice at full width: Trainer on tiny-yolo-voc 416,
      batch 128, bf16 with phase_train, three steps on one batch (losses
      finite, the third below the first, each training kernel launched 3
-     times, on the FP32-core loop (3 -> 16), counts reset just before and
-     read just after), the first
+     times, fwdstats (3 -> 16) on the taps fold, counts reset just before
+     and read just after), the first
      loss within 0.03*|loss| + 0.05 of a trainer without the pair; the
      float32 Trainer on CUDA reproduces the four train_region_* goldens;
  14. `cli detector train -bf16` on 256 synthetic PPM images: two
      iterations, a _final.weights that loads and moved;
- 15. times, in turns: each training kernel beside its plain version and
-     bound; Trainer.step images/s, TFLOP/s and MFU (3 x analytic_flops
+ 15. times, in turns: apply and bwdg beside their plain versions and
+     bounds; Trainer.step images/s, TFLOP/s and MFU (3 x analytic_flops
      per image against the bf16 dense peak) for bf16 + phase_train,
      bf16 and float32;
  16. torch.profiler over one bf16 step with the pair and one without;
      the step with the pair ran bwdg_tc_kernel, not bwdg_kernel; over
      three steps of the pair path in one profiler window, fwdstats'
      launches by the counter and by CUDA events around each launch equal
-     three (the profiler's count under three settings is printed and
-     held between 1 and 3), and the same steps through fwdstats_plain
+     three (the profiler's count of fwdstats_fold_kernel under three
+     settings is printed and held between 1 and 3), and the same steps
+     through fwdstats_plain
      from the same state give the same losses and layer 0's BN
      statistics (settle_fwdstats_count);
  17. the opt-in training paths' kernels against their plain versions at
@@ -124,7 +131,8 @@ non-zero status and no result line:
  19. Trainer bf16 at 416 B=128 with phase_train="chain", with
      phase_train=True + fused_stem=True and with fused_stem=True, three
      steps each, counts reset just before and read just after each: per
-     step fwdstats 2 (pair 1's on the tensor-core tile), apply 2, red 1,
+     step fwdstats 2 (pair 1's on the tensor-core tile, pair 0's on its
+     taps fold), apply 2, red 1,
      dy 1 (both on the tile), dgrad 1, bwdg 1 / the pair's
      three + F2, B1, B2 4 each / F2, B1, B2 5 each, B1 and B2 on the row
      kernels; losses finite and falling, the first within 0.03*|loss| +
@@ -143,14 +151,16 @@ non-zero status and no result line:
      fused stem ran b1_row_kernel and b2_row_kernel, not b1_kernel or
      b2_kernel; the chain's step
      ran fwdstats_tc_kernel, red_tc_kernel and dy_tc_kernel once each,
-     fwdstats_kernel once (pair 0) and no chain_bwd_kernel.
+     fwdstats_fold_kernel once (pair 0), no fwdstats_kernel and no
+     chain_bwd_kernel; the pair + fused stem step fwdstats_fold_kernel.
 
 The last lines are the card (nvidia-smi), one JSON object describing the
 13 kernels (time, plain time, bound, launches and library call of each;
 ``phase_train_dgrad`` is the tensor-core implicit GEMM in
 csrc/phase_train.cu, ``phase_train_bwdg`` its tensor-core
-``bwdg_tc_kernel``, ``phase_train_fwdstats`` the FP32-core loop at the
-leading pair and ``phase_train_fwdstats_tc`` the tensor-core conv tile at
+``bwdg_tc_kernel``, ``phase_train_fwdstats`` the tensor-core tile's taps
+fold (``fwdstats_fold_kernel``) at the leading pair and
+``phase_train_fwdstats_tc`` the tensor-core conv tile at
 the chain's pair 1, which ``phase_train_red`` and ``phase_train_dy`` run
 too), and ``{"ok": true, "device": {...}}``.
 """
@@ -318,15 +328,17 @@ def assert_fused_stem_rows(name, kernels):
 
 def assert_conv_tensor_core(name, kernels, iters, per_call):
     """A profiled run (``iters`` calls) ran the conv of fwdstats, red and
-    dy on the tensor-core tile for every Cin >= 16 instance. ``per_call``
-    gives the calls a call makes of fwdstats_tc_kernel, red_tc_kernel,
-    dy_tc_kernel and the FP32-core fwdstats_kernel (the leading pair's
-    3 -> 16 only); chain_bwd_kernel (the FP32-core red/dy) never ran. A
-    count is held between 1 and ``iters`` times its value (0 where it is
-    0): the profiler has been seen to miss one launch of a window (one
-    of fwdstats_kernel's two in the chain step's profile), and
-    an instance on the FP32-core loop would add ``iters`` launches of
-    fwdstats_kernel or chain_bwd_kernel."""
+    dy on the tensor cores: the tile for every Cin >= 16 instance, the
+    tile's taps fold for the leading pair's 3 -> 16. ``per_call`` gives
+    the calls a call makes of fwdstats_tc_kernel, red_tc_kernel,
+    dy_tc_kernel, fwdstats_fold_kernel and the FP32-core fwdstats_kernel
+    (0 on every path); chain_bwd_kernel (the FP32-core red/dy) never ran.
+    A count is held between 1 and ``iters`` times its value (0 where it
+    is 0): the profiler has been seen to miss one launch of a window
+    (fwdstats_kernel's in PRs 9-11, and fwdstats_fold_kernel's in a
+    two-step window of tools/fwdstats_fold_ab.py), and an instance on
+    the FP32-core loop would add ``iters`` launches of fwdstats_kernel or
+    chain_bwd_kernel."""
     got = {k: sum(c for key, c in kernels.items()
                   if named(k, key)) for k in per_call}
     assert all(got[k] == 0 if v == 0 else 1 <= got[k] <= iters * v
@@ -345,7 +357,8 @@ def settle_fwdstats_count(PT, make_trainer, x, t, steps, gpu):
     0's rolling BN statistics (which the batch statistics from fwdstats
     move) within 1e-3 of their largest magnitude: a launch that did not
     run would leave Z and the statistics unwritten. The profiler's count
-    of fwdstats_kernel, under three settings (CPU and CUDA activities,
+    of fwdstats_fold_kernel, under three settings (CPU and CUDA
+    activities,
     CUDA only, and a schedule with one warm-up step before the ``steps``
     it records), is printed and held between 1 and ``steps``, as
     assert_conv_tensor_core holds it: in this script it has read one
@@ -388,7 +401,7 @@ def settle_fwdstats_count(PT, make_trainer, x, t, steps, gpu):
             PT.fwdstats = kernel_fn
         seen = sum(e.count for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
-                   and named("fwdstats_kernel", e.key))
+                   and named("fwdstats_fold_kernel", e.key))
         return losses, stats, PT.launches["fwdstats"] - before - warmup, seen
     lk, sk, ck, pk = run(evented, both, 0)
     spans = [a.elapsed_time(b) for a, b in marks]
@@ -406,7 +419,8 @@ def settle_fwdstats_count(PT, make_trainer, x, t, steps, gpu):
     log(f"  fwdstats over {steps} steps of the pair path: counter {ck}, "
         f"CUDA-event spans {spans} ms; losses {lk} against "
         f"fwdstats_plain's {lp} (max rel {loss_rel}), layer 0 rolling BN "
-        f"statistics max rel {stat_rel}; the profiler's fwdstats_kernel "
+        f"statistics max rel {stat_rel}; the profiler's "
+        f"fwdstats_fold_kernel "
         f"count by setting {counts} [{gpu}]")
 
 
@@ -837,9 +851,10 @@ def main() -> int:
     # the int8 batch's four pairs on the tensor-core kernel, by K fold
     assert PS.folds == {"taps": 1, "tap_pairs": 1, "chunks": 2}, PS.folds
     # the stem's pairs 2-4 (Cin 16, 32, 64) on the tensor-core conv tile,
-    # pair 1 (3 -> 16) on the FP32-core loop
-    assert PT.conv_kernels["fwdstats"] == {"tensor_core": 3,
-                                           "fp32_core": 1}, PT.conv_kernels
+    # pair 1 (3 -> 16) on the tile's taps fold, none on the FP32-core loop
+    assert PT.conv_kernels["fwdstats"] == {
+        "tensor_core": 3, "tensor_core_fold": 1,
+        "fp32_core": 0}, PT.conv_kernels
     # the bf16 phase stem link by link against the plain engine's conv +
     # pool layers on the same input
     v = x_b128.to(torch.bfloat16)
@@ -1021,7 +1036,8 @@ def main() -> int:
     name = f"ThroughputEngine bf16 + phase stem B={BATCH} @{NET}, per batch"
     assert_conv_tensor_core(name, profile(
         name, lambda: bf_stem(frames_u8.float() / 255.0), 5, gpu), 5,
-        {"fwdstats_tc_kernel": 3, "fwdstats_kernel": 1})
+        {"fwdstats_tc_kernel": 3, "fwdstats_fold_kernel": 1,
+         "fwdstats_kernel": 0})
     name = f"int8 engine B={BATCH} @{NET} u8, phase stem, per batch"
     seen = profile(name, lambda: q_stem(frames_u8), 5, gpu)
     assert any("phase_pair_tc_kernel" in k for k in seen), (name, seen)
@@ -1040,13 +1056,48 @@ def main() -> int:
     from sr_object_detection_tpu_torch.ops import conv as C
     from sr_object_detection_tpu_torch.ops import pooling as P
     from sr_object_detection_tpu_torch.train.trainer import Trainer
+    import torch.nn.functional as F
     tcase = train_case(12, BATCH, NET, 3, 16, dev)
+    fold_before = dict(PT.conv_kernels["fwdstats"])
     train_errs = check_train_kernels(PT, tcase)
-    # bwdg on the tensor cores: one owner and one order per sum, so two
-    # launches on the same inputs are bit-equal
     x0, w0 = tcase["x"], tcase["w"]
     sh0, sc0, b0, dp0 = (tcase[k] for k in ("shift", "scales", "biases",
                                             "dp"))
+    # fwdstats on the tile's taps fold (fwdstats_fold_kernel): one owner
+    # and one order per sum, so two launches are bit-equal
+    f1, f2 = (PT.fwdstats(x0, w0, sh0, sc0) for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(f1, f2))
+    del f1, f2
+    assert PT.conv_kernels["fwdstats"] == {
+        **fold_before, "tensor_core_fold":
+            fold_before["tensor_core_fold"] + 3}, PT.conv_kernels
+    # its time in turns with its plain version beside its bound: x read,
+    # Z and the argmax written (the weights and constants are a few KB);
+    # cuDNN's bf16 F.conv2d at the same shape for context only: it
+    # computes the conv alone, without the pool, argmax and sums
+    times["phase_train_fwdstats"] = abba(
+        f"phase_train fwdstats (taps fold) {NET} B={BATCH} 3->16",
+        lambda: PT.fwdstats(x0, w0, sh0, sc0),
+        lambda: PT.fwdstats_plain(x0, w0, sh0, sc0), iters=20,
+        plain_iters=5)
+    h2 = NET // 2
+    pooled_n = BATCH * h2 * h2 * 16
+    x_bytes = 2 * BATCH * NET * NET * 3
+    conv_ops = 2 * BATCH * NET * NET * 16 * 27
+    bounds["phase_train_fwdstats"] = bound(
+        x_bytes + 2 * 27 * 16 + 8 * 16 + 3 * pooled_n + 8 * 16, conv_ops,
+        "bf16")
+    xc0, wc0 = x0.permute(0, 3, 1, 2), w0.permute(3, 2, 0, 1).contiguous()
+    conv0_ms = (cuda_ms(lambda: F.conv2d(xc0, wc0, padding=1), 10)
+                + cuda_ms(lambda: F.conv2d(xc0, wc0, padding=1), 10)) / 2
+    b_ms, b_by = bounds["phase_train_fwdstats"]
+    log(f"bound phase_train fwdstats 3->16 @{NET}: {b_ms} ms by {b_by}; "
+        f"kernel {times['phase_train_fwdstats'][0] / b_ms}x its bound; "
+        f"reference F.conv2d bf16 (cuDNN, the conv alone) {conv0_ms} ms "
+        f"[{gpu}]")
+    del xc0
+    # bwdg on the tensor cores: one owner and one order per sum, so two
+    # launches on the same inputs are bit-equal
     z0, am0, st0 = PT.fwdstats_plain(x0, w0, sh0, sc0)
     n0 = BATCH * NET * NET
     mean0, _, inv0 = PT._batch_stats(st0, sh0, n0)
@@ -1065,8 +1116,9 @@ def main() -> int:
                                         flat=False))
     torch.cuda.synchronize()
     log(f"phase 12 ok: training kernels == plain at {NET} B={BATCH} 3->16 "
-        f"(max |err| {train_errs}); bwdg on the tensor cores, two launches "
-        f"bit-equal; phase_train_block gradient within "
+        f"(max |err| {train_errs}); fwdstats on the taps fold and bwdg on "
+        f"the tensor cores, two launches of each bit-equal; "
+        f"phase_train_block gradient within "
         f"{grad['fused']} of a float64 evaluation of the unfused chain's "
         f"formulas (gate 1e-3), the bf16 unfused chain's weight gradient "
         f"{grad['chain']} from it; cotangent zeroed on {grad['masked']} of "
@@ -1100,8 +1152,9 @@ def main() -> int:
     launches_train, want = counts(phase_train_fwdstats=3,
                                   phase_train_apply=3, phase_train_bwdg=3)
     assert launches_train == want, launches_train
-    assert PT.conv_kernels["fwdstats"] == {"tensor_core": 0,
-                                           "fp32_core": 3}, PT.conv_kernels
+    assert PT.conv_kernels["fwdstats"] == {
+        "tensor_core": 0, "tensor_core_fold": 3,
+        "fp32_core": 0}, PT.conv_kernels
     assert all(np.isfinite(losses)) and losses[2] < losses[0], losses
     loss_plain = float(trainers["bf16"].step(xt, tt)["loss"])
     assert abs(losses[0] - loss_plain) <= 0.03 * abs(loss_plain) + 0.05, (
@@ -1147,14 +1200,9 @@ def main() -> int:
         f"{final.name} loads, seen {seen_w}, weights moved [{gpu}]")
 
     # --------------------------------------------------------- phase 15
-    # times, in turns (plain, kernel, kernel, plain): the training kernels
-    # at the pair's shape beside their bounds; Trainer.step images/s
-    # (x0 ... inv0: phase 12's inputs)
-    times["phase_train_fwdstats"] = abba(
-        f"phase_train fwdstats {NET} B={BATCH} 3->16",
-        lambda: PT.fwdstats(x0, w0, sh0, sc0),
-        lambda: PT.fwdstats_plain(x0, w0, sh0, sc0), iters=20,
-        plain_iters=5)
+    # times, in turns (plain, kernel, kernel, plain): apply and bwdg at
+    # the pair's shape beside their bounds (fwdstats: phase 12);
+    # Trainer.step images/s (x0 ... inv0: phase 12's inputs)
     times["phase_train_apply"] = abba(
         f"phase_train apply {NET} B={BATCH} 16 ch",
         lambda: PT.apply(z0, mean0, inv0, sc0, b0),
@@ -1165,21 +1213,13 @@ def main() -> int:
         lambda: PT.bwdg(x0, dp0, z0, am0, mean0, inv0, sc0, b0),
         lambda: PT.bwdg_plain(x0, dp0, z0, am0, mean0, inv0, sc0, b0),
         iters=10, plain_iters=3)
-    h2 = NET // 2
-    pooled_n = BATCH * h2 * h2 * 16
-    x_bytes = 2 * BATCH * NET * NET * 3
-    conv_ops = 2 * BATCH * NET * NET * 16 * 27
-    bounds["phase_train_fwdstats"] = bound(
-        x_bytes + 2 * 27 * 16 + 8 * 16 + 3 * pooled_n + 8 * 16, conv_ops,
-        "bf16")
     bounds["phase_train_apply"] = bound(4 * pooled_n + 16 * 16,
                                         6 * pooled_n, "bf16")
     bounds["phase_train_bwdg"] = bound(
         x_bytes + 5 * pooled_n + 16 * 16
         + 4 * (2 * 16 + 27 * 16 + 27 + 27 * 27),
         2 * BATCH * NET * NET * 27 * 27 + 2 * pooled_n * 27, "bf16")
-    for name in ("phase_train_fwdstats", "phase_train_apply",
-                 "phase_train_bwdg"):
+    for name in ("phase_train_apply", "phase_train_bwdg"):
         log(f"bound {name}: {bounds[name][0]} ms by {bounds[name][1]} "
             f"[{gpu}]")
     del z0, am0
@@ -1226,7 +1266,6 @@ def main() -> int:
     # the main path's shapes: red, dy (+ dw) and dgrad at the chain's
     # second pair (416 -> 208x208, 16 -> 32, B=128), F2/B1/B2 at the five
     # fusable pairs' conv outputs (channels-last, as the conv writes them)
-    import torch.nn.functional as F
     h1 = NET // 2
     ccase = chain_case(17, BATCH, h1, 16, 32, dev)
     tc_before = {m: c["tensor_core"] for m, c in PT.conv_kernels.items()}
@@ -1320,15 +1359,18 @@ def main() -> int:
         "bf16 + fused_stem": dict(fused_stem_f2=5, fused_stem_b1=5,
                                   fused_stem_b2=5)}
     # the conv kernels a step runs, by their profiler names: pair 1 of the
-    # chain (16 -> 32) on the tensor-core tile, pair 0 (3 -> 16) on the
-    # FP32-core loop
+    # chain (16 -> 32) on the tensor-core tile, pair 0 (3 -> 16) on its
+    # taps fold, none on the FP32-core loop
     conv_per_step = {
         "bf16 + chain": {"fwdstats_tc_kernel": 1, "red_tc_kernel": 1,
-                         "dy_tc_kernel": 1, "fwdstats_kernel": 1},
-        "bf16 + phase_train + fused_stem": {"fwdstats_kernel": 1,
-                                            "fwdstats_tc_kernel": 0},
-        "bf16 + fused_stem": {"fwdstats_kernel": 0,
-                              "fwdstats_tc_kernel": 0}}
+                         "dy_tc_kernel": 1, "fwdstats_fold_kernel": 1,
+                         "fwdstats_kernel": 0},
+        "bf16 + phase_train + fused_stem": {"fwdstats_fold_kernel": 1,
+                                            "fwdstats_tc_kernel": 0,
+                                            "fwdstats_kernel": 0},
+        "bf16 + fused_stem": {"fwdstats_fold_kernel": 0,
+                              "fwdstats_tc_kernel": 0,
+                              "fwdstats_kernel": 0}}
     launches_opt, conv_opt = {}, {}
     for name, kw in cfgs.items():
         trainers[name] = Trainer(tspec, tparams, device=dev,
@@ -1341,6 +1383,10 @@ def main() -> int:
         tc = {m: c["tensor_core"] for m, c in PT.conv_kernels.items()}
         assert tc == {m: 3 * conv_per_step[name].get(f"{m}_tc_kernel", 0)
                       for m in tc}, (name, PT.conv_kernels)
+        assert PT.conv_kernels["fwdstats"]["tensor_core_fold"] == 3 * (
+            conv_per_step[name]["fwdstats_fold_kernel"]), PT.conv_kernels
+        assert not any(c["fp32_core"] for c in PT.conv_kernels.values()), (
+            name, PT.conv_kernels)
         # the fused stem's backward on the row kernels (channels-last y)
         assert FS.paths == {"b1_row": got["fused_stem_b1"],
                             "b2_row": got["fused_stem_b2"], "b1": 0,

@@ -22,22 +22,57 @@
 // channel, which a second pass (colsum) reduces in a fixed order: no
 // float atomics, the same sums on every run. Cin <= 64 (staged 16 at a
 // time), Cout a multiple of 16 up to 128.
-//   Bound on an H100 at the training pair's shape (B=128, 416x416, 3 ->
-//   16): x 133 MB read, Z 177 MB and argmax 89 MB written, about 0.12 ms
-//   at 3.35 TB/s; its 19 GFLOP are small beside that, so the bytes bound
-//   it. Design: one block per (image, 8x8 pooled tile, 16 channels), 256
-//   threads, each thread one pooled pixel x 4 channels with the four
-//   pool variants' accumulators in registers; the 18x18 input halo tile
-//   in shared memory with even and odd columns apart (rows 20 floats
-//   apart), so a warp's 4x8 pooled pixels read 32 different banks; the
-//   weights of the channel group read as float4 broadcasts. The products
-//   run on the FP32 cores. This loop serves Cin that is no multiple of
-//   16 (the leading pair's 3 -> 16); the others take the tile below.
+//   Three paths, chosen by one mode-aware predicate (conv_path):
+//   * Cin a multiple of 16: the tensor-core tile below
+//     (fwdstats_tc_kernel), in every mode;
+//   * Cin <= 3 (the leading pair, whose input is the image; fwdstats
+//     only): the same tile with the taps fold (fwdstats_fold_kernel),
+//     below;
+//   * the rest (Cin 4-15, Cin > 16 no multiple of 16; no model in
+//     models/zoo.py reaches them): fwdstats_kernel, one block per (image,
+//     8x8 pooled tile, 16 channels), 256 threads, each thread one pooled
+//     pixel x 4 channels with the four pool variants' accumulators in
+//     registers; the 18x18 input halo tile in shared memory with even
+//     and odd columns apart (rows 20 floats apart), so a warp's 4x8
+//     pooled pixels read 32 different banks; the weights of the channel
+//     group read as float4 broadcasts; the products on the FP32 cores.
+//   The taps fold. Bound on an H100 at the training pair's shape (B=128,
+//   416x416, 3 -> 16): x 133 MB read, Z 177 MB and argmax 89 MB written,
+//   0.119 ms at 3.35 TB/s; its 19 GFLOP (K = 27) take 0.023 ms at the bf16
+//   dense peak (K padded to 32), and at least 0.29 ms at the FP32 cores'
+//   67 TFLOP/s, which held fwdstats_kernel there (with per-value halo
+//   loads, runtime divisions and a serial reduction in each of its
+//   86,528 short-lived blocks: 1.232 ms). The fold puts K = 9 Cin (tap,
+//   ci) pairs into two k16 steps of the tile's GEMM: per tile the block
+//   builds X' [256 positions x 32] bf16 in shared memory, column
+//   t * Cin + ci the tap's value, columns 9 Cin..31 zero, rows 64 bytes
+//   with their 16-byte units XOR-swizzled by the row; A fragments by
+//   ldmatrix.x4 from X' in the tile's m16 order, B from the weights as
+//   [32 rows t * Cin + ci (zero past 9 Cin)][NC], loaded once a block;
+//   2 k16 steps x 2 m16 x NC/8 n8 mma.sync a warp and tile. The rest is
+//   the tile's: persistent blocks, the epilogue, the float64 statistics,
+//   one partial row a block, colsum. At Cin 3 a pixel is 6 bytes and a
+//   halo row (18 pixels) starts at no 16-byte boundary: the ring holds,
+//   per halo row, the aligned 16-byte units that cover it (cp.async,
+//   zero-filled before x, past its end and for rows outside the image) at
+//   a byte offset known from the row's address; X' reads each tap row's
+//   3 Cin contiguous values as 4-byte words, funnel-shifted where the
+//   offset is 2 mod 4, and masks the columns outside the image. The
+//   block builds tile s + 1's X' (the other of two buffers) after tile
+//   s's products: one barrier a tile; a block steps through its tiles
+//   with adds (TileWalk), no per-element or per-tile division. (A
+//   loader of the halo's values into registers by __ldg, a tile ahead,
+//   measured slower on an H100 SXM at 700 W: 0.648 against 0.550 ms at
+//   3 -> 16 @416, B=128.)
+//   y = bf16(float32 sum) as before: every product of
+//   two bf16 values is exact in float32, and the sums have one owner and
+//   one order, so two launches are bit-equal.
 //
 // The tensor-core conv tile (conv_tc_body; fwdstats_tc_kernel,
 // red_tc_kernel, dy_tc_kernel), for Cin a multiple of 16 — chosen by one
-// predicate (conv_tensor_core) for fwdstats, red and dy alike, so the
-// chain's forward and backward compute one y: the same conv as one
+// predicate (conv_path) for fwdstats, red and dy alike, so the chain's
+// forward and backward compute one y (red and dy take Cin 8 or 16; the
+// fold serves fwdstats alone): the same conv as one
 // implicit GEMM on mma.sync m16n8k16 (bf16 operands, float32 sums) per
 // work item (image, 8x8 pooled tile, group of NC = 32 output channels,
 // or 16 where Cout is not a multiple of 32): M = the 16x16 positions,
@@ -153,15 +188,15 @@
 //     dx = dy conv w with flipped taps and swapped channels as one bf16
 //     dot_general on the MXU with float32 sums (:1292-1294); here the
 //     same product runs on the tensor cores (mma.sync), bf16 out.
-//   On the FP32 cores (Cin < 16, chain_bwd_kernel): red and dy share
+//   On the FP32 cores (Cin 8, chain_bwd_kernel): red and dy share
 //   fwdstats' block shape (image, 8x8 pooled tile, 16 channels) and its
 //   conv loop, so y is bit-equal to the forward's; a
 //   block walks a fixed set of an image's tiles (a chunk) and keeps its
 //   sums in registers, one owner per sum; colsum reduces the chunks in a
 //   fixed order. dy's weight-gradient step: thread (ci, co) sums the 9
 //   taps over the tile's 16x16 positions from the staged halo and dy,
-//   a sliding 3x3 window in registers. Cin <= 16, Cout a multiple of 16
-//   up to 128.
+//   a sliding 3x3 window in registers. Cin 8 or 16 (the chain's pair 1,
+//   and dgrad's widths), Cout a multiple of 16 up to 128.
 //   Bound on an H100 at the chain's second pair (416, B=128, 208x208,
 //   16 -> 32): red reads x (177 MB) and dp (89 MB): 0.079 ms; dy also
 //   writes dy (354 MB): 0.185 ms; the conv recompute (51 GFLOP, twice
@@ -1042,6 +1077,20 @@ int dgrad_launch(const void* dy, const void* w, void* dx, int B, int H,
   return static_cast<int>(cudaGetLastError());
 }
 
+// bf16x2 (two values, low half first): the larger of each lane; 0xffff
+// in each lane where a == b (+0 == -0), else 0
+__device__ __forceinline__ unsigned hmax2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("max.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ unsigned heq2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("set.eq.u32.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
 // 8 bytes global -> shared through L1; src_bytes 0 writes zeros
 __device__ __forceinline__ void cp_async8(unsigned dst, const void* src,
                                           int src_bytes) {
@@ -1381,9 +1430,21 @@ int bwdg_grid(int B, int H, int W, int Cin, int Cout, int* smem) {
 // The tensor-core conv tile of fwdstats, red and dy (Cin a multiple of 16;
 // see the note at the top). Modes of conv_tc_body:
 enum { CT_FWDSTATS = 0, CT_RED = 1, CT_DY = 2 };
+// the conv path of a launch (conv_path): the FP32-core loop, the tile,
+// the tile with the taps fold (fwdstats at Cin <= 3)
+enum { CP_FP32 = 0, CP_TILE = 1, CP_FOLD = 2 };
 #define CT_CH 16                         // input channels of a k16 step
 #define CT_HALO (PT_TH * PT_TH * 32)     // bytes of one staged halo chunk
 #define CT_NS 4                          // halo chunks in the ring
+#define FD_ROW 128                       // fold: bytes of a staged halo row
+#define FD_SLOT (PT_TH * FD_ROW)         // fold: bytes of a ring slot
+#define FD_XP (PT_FULL * PT_FULL * 64)   // fold: X' [256 positions x 32]
+// A measurement switch of tools/fwdstats_fold_ab.py --variants, 0 in the
+// library: the fold without its epilogue (1), without building X' (2),
+// with the statistics summed in float32 (3)
+#ifndef PT_FOLD_PROBE
+#define PT_FOLD_PROBE 0
+#endif
 
 // byte offset of 16-byte unit u of row r (U units a row), the units
 // XOR-swizzled by the low bits of `key`, so that the rows of eight
@@ -1406,23 +1467,122 @@ __device__ __forceinline__ void ldmatrix_x2_trans(unsigned addr, unsigned& r0,
 }
 
 struct ConvTcLayout {                // byte offsets in shared memory
-  int w, halo, dys, kc, dws, total;
+  int w, halo, xp, dys, kc, dws, total;
 };
 
-// the weights [k16 step (chunk, tap)][16 ci][nc co] bf16, CT_NS halo
-// chunks, dy's tile [256 positions][nc] bf16 ("dy" only), the
-// per-channel constants [7][nc] float32 and dw's running sums ("dy"
-// only: [warp][5 tiles][4][lane] float32)
+// the weights [k16 step (chunk, tap)][16 ci][nc co] bf16 (the fold: [32
+// rows t * Cin + ci, zero past 9 Cin][nc co]), CT_NS halo chunks (the
+// fold: ring slots of 18 rows x FD_ROW bytes) and the fold's two X', dy's
+// tile [256 positions][nc] bf16 ("dy" only), the per-channel constants
+// [7][nc] float32 and dw's running sums ("dy" only: [warp][5 tiles][4]
+// [lane] float32)
 __host__ __device__ inline ConvTcLayout conv_tc_layout(int mode, int Cin,
-                                                       int nc) {
+                                                       int nc, bool fold) {
   ConvTcLayout L;
   L.w = 0;
-  L.halo = 9 * Cin * nc * 2;
-  L.dys = L.halo + CT_NS * CT_HALO;
+  L.halo = (fold ? 32 : 9 * Cin) * nc * 2;
+  L.xp = L.halo + CT_NS * (fold ? FD_SLOT : CT_HALO);
+  L.dys = L.xp + (fold ? 2 * FD_XP : 0);
   L.kc = L.dys + (mode == CT_DY ? PT_FULL * PT_FULL * nc * 2 : 0);
   L.dws = L.kc + 7 * nc * 4;
   L.total = L.dws + (mode == CT_DY ? 8 * 5 * 4 * 32 * 4 : 0);
   return L;
+}
+
+// The tiles blockIdx.x, + gridDim.x, ... of a persistent block, as
+// (image b, pooled tile row ty, column tx): next() steps to the following
+// one with adds and compares, not the divisions a tile index needs
+struct TileWalk {
+  int b, ty, tx;
+  int sb, sty, stx, tiles_x, tiles_y;
+  __device__ TileWalk(int tx_n, int ty_n) : tiles_x(tx_n), tiles_y(ty_n) {
+    const int tiles = tx_n * ty_n, step = gridDim.x % tiles;
+    b = blockIdx.x / tiles;
+    ty = blockIdx.x % tiles / tx_n;
+    tx = blockIdx.x % tiles % tx_n;
+    sb = gridDim.x / tiles;
+    sty = step / tx_n;
+    stx = step % tx_n;
+  }
+  __device__ void next() {
+    tx += stx;
+    const bool cx = tx >= tiles_x;
+    tx -= cx ? tiles_x : 0;
+    ty += sty + cx;
+    const bool cy = ty >= tiles_y;
+    ty -= cy ? tiles_y : 0;
+    b += sb + cy;
+  }
+};
+
+// The taps fold's X' row p = tid (position fy = p / 16, fx = p % 16 of
+// the tile): column t * Cin + ci holds x at (gy0 + fy + t / 3, gx0 + fx +
+// t % 3, ci), 0 outside the image and in columns 9 Cin..31; 16-byte
+// units XOR-swizzled by the row (swzu<4>), so that an ldmatrix phase
+// (eight consecutive positions, one unit) hits eight bank groups. For
+// one tap row ky the 3 Cin values (taps 3 ky .. 3 ky + 2, every ci) are
+// contiguous in the staged halo row fy + ky, from byte o + 2 Cin fx (o:
+// the row's offset in its span): read as 4-byte words and funnel-shifted
+// by 2 bytes where that byte is not a multiple of 4. No division.
+template <int FOLD>
+__device__ __forceinline__ void fold_xprime(const unsigned char* slot,
+                                            unsigned char* xp, int tid,
+                                            int b, int gy0, int gx0, int H,
+                                            int W) {
+  constexpr int N = 3 * FOLD;               // values of a tap row
+  constexpr int NV = (N + 1) / 2;           // their words once aligned
+  const int fy = tid >> 4, fx = tid & 15;
+  // word k of a tap row holds values 2k, 2k + 1 (tap kx = value / Cin):
+  // keep a value where column gx0 + fx + kx lies in the image
+  unsigned mk[NV];
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    const auto in = [&](int j) {
+      return j < N && static_cast<unsigned>(gx0 + fx + j / FOLD) <
+                          static_cast<unsigned>(W);
+    };
+    mk[k] = (in(2 * k) ? 0xffffu : 0u) | (in(2 * k + 1) ? 0xffff0000u : 0u);
+  }
+  unsigned v[3][NV];
+#pragma unroll
+  for (int ky = 0; ky < 3; ++ky) {
+    const int hr = fy + ky;
+    // byte of pixel gx0 of x's row gy0 + hr, mod 16 (unsigned wrap keeps
+    // the residue for gx0 = -1)
+    const unsigned o = (2u * FOLD *
+                        (static_cast<unsigned>(b * H + gy0 + hr) *
+                             static_cast<unsigned>(W) +
+                         static_cast<unsigned>(gx0))) &
+                       15u;
+    const unsigned off = hr * FD_ROW + o + 2 * FOLD * fx;
+    const unsigned* wp =
+        reinterpret_cast<const unsigned*>(slot + (off & ~3u));
+    unsigned wd[NV + 1];
+#pragma unroll
+    for (int k = 0; k <= NV; ++k) wd[k] = wp[k];
+#pragma unroll
+    for (int k = 0; k < NV; ++k)
+      v[ky][k] = __funnelshift_r(wd[k], wd[k + 1], 8 * (off & 2u)) & mk[k];
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    unsigned wv[4];
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      unsigned half[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * u + 2 * h + e;    // X' column t * Cin + ci
+        const int ky = c / N, j = c % N;    // tap row, value in it
+        half[e] = c < 3 * N
+                      ? (v[ky < 3 ? ky : 0][j / 2] >> (16 * (j & 1))) & 0xffffu
+                      : 0u;
+      }
+      wv[h] = half[0] | (half[1] << 16);
+    }
+    *reinterpret_cast<uint4*>(xp + swzu<4>(tid, tid, u)) =
+        make_uint4(wv[0], wv[1], wv[2], wv[3]);
+  }
 }
 
 // One block: output channels co0 = blockIdx.y * NC .. + NC - 1 of the
@@ -1439,7 +1599,12 @@ __host__ __device__ inline ConvTcLayout conv_tc_layout(int mode, int Cin,
 // of channel 2q and the odd one that of 2q + 1.
 // k0, k1: fwdstats shift and scales (Cout,); red/dy the (7, Cout) rows
 // mean, inv, scales, bias, c1, c2, c3 in k0.
-template <int MODE, int NC>
+// FOLD (fwdstats only): 0, or Cin (1..3) for the taps fold: K = the 9 Cin
+// (tap, ci) pairs in column t * Cin + ci of X' [256 positions x 32]
+// (zero past 9 Cin), two k16 steps; the tile's A operand is then X',
+// built a tile ahead in shared memory from the staged halo, and
+// everything else is the same code.
+template <int MODE, int NC, int FOLD = 0>
 __device__ __forceinline__ void conv_tc_body(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
     const __nv_bfloat16* __restrict__ dp, const float* __restrict__ k0,
@@ -1447,12 +1612,15 @@ __device__ __forceinline__ void conv_tc_body(
     int8_t* __restrict__ am, __nv_bfloat16* __restrict__ dy,
     float* __restrict__ partial, int B, int H, int W, int Cin, int Cout) {
   constexpr int NT = NC / 8;         // n8 tiles; also 16-byte units a row
+  constexpr bool FD = FOLD > 0;
+  static_assert(FOLD >= 0 && FOLD <= 3 && (!FD || MODE == CT_FWDSTATS),
+                "the taps fold serves fwdstats at Cin <= 3");
   extern __shared__ __align__(128) unsigned char csm[];
-  const ConvTcLayout L = conv_tc_layout(MODE, Cin, NC);
+  const ConvTcLayout L = conv_tc_layout(MODE, Cin, NC, FD);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, q = lane & 3;
   const bool even = (g & 1) == 0;
-  const int nch = Cin / CT_CH;
+  const int nch = FD ? 1 : Cin / CT_CH;
   const int co0 = blockIdx.y * NC;
   const int H2 = H / 2, W2 = W / 2;
   const int tiles_x = (W2 + PT_PT - 1) / PT_PT;
@@ -1461,60 +1629,107 @@ __device__ __forceinline__ void conv_tc_body(
                       static_cast<int>(gridDim.x) + 1;
   const int S = ntl * nch;           // (tile, chunk) stages of the block
   const unsigned smb = smem_u32(csm);
+  // the group's constants [7][NC]: red and dy the rows of k0; fwdstats
+  // the shift as float64 (rows 2-3) and the sign mask that turns the
+  // channel's extreme into a maximum (row 4: 0 where scales > 0, else the
+  // bf16x2 sign bits), so no tile converts them
   float* kcs = reinterpret_cast<float*>(csm + L.kc);
-  for (int i = tid; i < 7 * NC; i += PT_THREADS) {
-    const int r = i / NC, c = co0 + i % NC;
-    if constexpr (MODE == CT_FWDSTATS)
-      kcs[i] = r == 0 ? k0[c] : r == 1 ? k1[c] : 0.f;
-    else
-      kcs[i] = k0[r * Cout + c];
+  for (int i = tid; i < (MODE == CT_FWDSTATS ? NC : 7 * NC);
+       i += PT_THREADS) {
+    const int c = co0 + i % NC;
+    if constexpr (MODE == CT_FWDSTATS) {
+      reinterpret_cast<double*>(kcs + 2 * NC)[i] = k0[c];
+      reinterpret_cast<unsigned*>(kcs)[4 * NC + i] =
+          k1[c] > 0.f ? 0u : 0x80008000u;
+    } else {
+      kcs[i] = k0[(i / NC) * Cout + c];
+    }
   }
   // the weights: global row t * Cin + ci -> shared row (ci / 16 * 9 + t)
-  // * 16 + ci % 16; they land with the first halo chunk's group
-  for (int i = tid; i < 9 * Cin * NT; i += PT_THREADS) {
+  // * 16 + ci % 16 (the fold: the same row, rows 9 Cin..31 zero); they
+  // land with the first halo chunk's group
+  for (int i = tid; i < (FD ? 32 : 9 * Cin) * NT; i += PT_THREADS) {
     const int row = i / NT, u = i % NT;
     const int t = row / Cin, ci = row % Cin;
-    const int srow = ((ci / CT_CH) * 9 + t) * CT_CH + ci % CT_CH;
+    const int srow =
+        FD ? row : ((ci / CT_CH) * 9 + t) * CT_CH + ci % CT_CH;
+    const bool in = !FD || row < 9 * Cin;
     cp_async16(smb + L.w + swzu<NT>(srow, srow, u),
-               w + static_cast<size_t>(row) * Cout + co0 + 8 * u, 16);
+               in ? w + static_cast<size_t>(row) * Cout + co0 + 8 * u : w,
+               in ? 16 : 0);
   }
+  // the tiles of the ring's loads, of the fold's X' builds and of the
+  // epilogue, each stepped once a tile
+  const int tiles_y = tiles / tiles_x;
+  TileWalk lw(tiles_x, tiles_y), bw(tiles_x, tiles_y), cw(tiles_x, tiles_y);
   // stage s = (the block's tile s / nch, chunk s % nch): the 18x18 halo's
   // 16 channels, 32 bytes a pixel, units swizzled by the halo column;
-  // src-size 0 writes the zero padding. An empty group past the last.
+  // src-size 0 writes the zero padding. The fold: halo row hr, pixels
+  // gx0 .. gx0 + 17 at byte a = 2 Cin ((b H + gy) W + gx0) of x, lies in
+  // the 16-byte units from a & ~15 on, at byte a & 15 of slot row hr
+  // (FD_ROW bytes); units before x, past its end or of a row outside the
+  // image are zero-filled, and the pixels outside the image that a span
+  // holds are masked where X' is built. An empty group past the last
+  // stage.
   auto load = [&](int s) {
     if (s < S) {
-      const int tile = blockIdx.x + (s / nch) * gridDim.x, ch = s % nch;
-      const int b = tile / tiles, r = tile % tiles;
-      const int gy0 = 2 * PT_PT * (r / tiles_x) - 1;
-      const int gx0 = 2 * PT_PT * (r % tiles_x) - 1;
-      const unsigned st = smb + L.halo + (s % CT_NS) * CT_HALO;
-      for (int i = tid; i < PT_TH * PT_TH * 2; i += PT_THREADS) {
-        const int p = i >> 1, u = i & 1;
-        const int hx = p % PT_TH;
-        const int gy = gy0 + p / PT_TH, gx = gx0 + hx;
-        const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
-        cp_async16(st + swzu<2>(p, hx, u),
-                   in ? x + ((static_cast<size_t>(b) * H + gy) * W + gx) *
-                                Cin + ch * CT_CH + 8 * u
-                      : x,
-                   in ? 16 : 0);
+      const int b = lw.b;
+      const int gy0 = 2 * PT_PT * lw.ty - 1, gx0 = 2 * PT_PT * lw.tx - 1;
+      if constexpr (FD) {
+        constexpr int NU = (36 * FOLD + 29) / 16;  // units covering a row
+        const unsigned st = smb + L.halo + (s % CT_NS) * FD_SLOT;
+        const long long total = 2LL * FOLD * B * H * W;
+        if (tid < PT_TH * NU) {
+          const int hr = tid / NU, u = tid % NU;
+          const int gy = gy0 + hr;
+          const long long a =
+              2LL * FOLD * ((static_cast<long long>(b) * H + gy) * W + gx0);
+          const long long rel = (a & ~15LL) + 16 * u;
+          const int n = gy < 0 || gy >= H || rel < 0 || rel >= total ? 0
+                        : total - rel < 16 ? static_cast<int>(total - rel)
+                                           : 16;
+          cp_async16(st + hr * FD_ROW + 16 * u,
+                     n ? reinterpret_cast<const unsigned char*>(x) + rel
+                       : reinterpret_cast<const unsigned char*>(x),
+                     n);
+        }
+      } else {
+        const int ch = s % nch;
+        const unsigned st = smb + L.halo + (s % CT_NS) * CT_HALO;
+        for (int i = tid; i < PT_TH * PT_TH * 2; i += PT_THREADS) {
+          const int p = i >> 1, u = i & 1;
+          const int hx = p % PT_TH;
+          const int gy = gy0 + p / PT_TH, gx = gx0 + hx;
+          const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+          cp_async16(st + swzu<2>(p, hx, u),
+                     in ? x + ((static_cast<size_t>(b) * H + gy) * W + gx) *
+                                  Cin + ch * CT_CH + 8 * u
+                        : x,
+                     in ? 16 : 0);
+        }
       }
+      if (s % nch == nch - 1) lw.next();
     }
     cp_async_commit();
   };
 
   // ldmatrix row addresses. Conv A (positions x 16 ci): lane l, matrix
   // j = l / 8, row 2w + j % 2 of the tile, column 8 mt + l % 8, unit
-  // j / 2, at the tap's shift (ky rows, kx columns). Conv B (16 ci x NC
-  // co, .trans): row l % 8 + 8 ((l / 8) % 2), unit 2 pr + l / 16.
+  // j / 2, at the tap's shift (ky rows, kx columns); the fold: X' row p =
+  // that position (fy * 16 + fx), unit 2 ks + j / 2 (a_off[mt][ks], from
+  // the start of shared memory). Conv B (16 ci x NC co, .trans): row
+  // l % 8 + 8 ((l / 8) % 2), unit 2 pr + l / 16.
   int a_off[2][3];
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
     for (int kx = 0; kx < 3; ++kx) {
       const int hc = 8 * mt + (lane & 7) + kx;
-      a_off[mt][kx] = swzu<2>((2 * warp + ((lane >> 3) & 1)) * PT_TH + hc,
-                              hc, lane >> 4);
+      const int p = (2 * warp + ((lane >> 3) & 1)) * PT_FULL + hc - kx;
+      a_off[mt][kx] =
+          FD ? L.xp + swzu<4>(p, p, (2 * kx + (lane >> 4)) & 3)
+             : swzu<2>((2 * warp + ((lane >> 3) & 1)) * PT_TH + hc, hc,
+                       lane >> 4);
     }
   int b_off[NT / 2];
   const int krow = (lane & 7) + 8 * ((lane >> 3) & 1);
@@ -1533,14 +1748,16 @@ __device__ __forceinline__ void conv_tc_body(
   const int dyb_off = L.dys + swzu<NT>(lane & 15, lane & 15, ntw);
 
   float acc[2][NT][4];
+  float sink = 0.f;                  // PT_FOLD_PROBE 1: keeps the products
   // fwdstats, red: the sums of the thread's channels over its windows.
   // fwdstats sums in float64: the chain's BN backward (c1..c3) turns a
   // 1e-6 error of the variance into per cent of the weight gradient
   // (its dy is a sum with heavy cancellation, and a per-channel offset
   // of c1 moves the bf16 rounding of dy one way), so the statistics are
   // kept exact to float32's last bits
-  using Acc = typename std::conditional<MODE == CT_FWDSTATS, double,
-                                        float>::type;
+  using Acc = typename std::conditional<
+      MODE == CT_FWDSTATS && !(FD && PT_FOLD_PROBE == 3), double,
+      float>::type;
   Acc run0[NT], run1[NT];
   float dwacc[5][4];                 // dy: the warp's dw tiles, one tile
   // dy: dw's running sums over the block's tiles, one slot a thread and
@@ -1559,9 +1776,28 @@ __device__ __forceinline__ void conv_tc_body(
       for (int e = 0; e < 4; ++e) dws[(j * 4 + e) * 32] = 0.f;
 
   for (int s = 0; s < CT_NS - 1; ++s) load(s);
+  // the fold builds tile s's X' into buffer s % 2 while tile s - 1's
+  // products and epilogue run: one barrier a tile
+  auto build = [&](int s) {
+    if constexpr (FD && PT_FOLD_PROBE != 2)
+      fold_xprime<FOLD>(csm + L.halo + s % CT_NS * FD_SLOT,
+                        csm + L.xp + (s & 1) * FD_XP, tid, bw.b,
+                        2 * PT_PT * bw.ty - 1, 2 * PT_PT * bw.tx - 1, H, W);
+    bw.next();
+  };
+  if constexpr (FD) {
+    cp_async_wait<CT_NS - 2>();      // tile 0's halo and the weights
+    __syncthreads();
+    if (S > 0) build(0);
+  }
   for (int s = 0; s < S; ++s) {
-    cp_async_wait<CT_NS - 2>();      // stage s has landed ...
-    __syncthreads();                 // ... for all, and s - 1 is done
+    // stage s (the fold: tile s + 1's halo; tile s's X') has landed for
+    // all, and s - 1 is done
+    if constexpr (FD)
+      cp_async_wait<CT_NS - 3>();
+    else
+      cp_async_wait<CT_NS - 2>();
+    __syncthreads();
     load(s + CT_NS - 1);
     const int ch = s % nch;
     if (ch == 0) {
@@ -1573,30 +1809,60 @@ __device__ __forceinline__ void conv_tc_body(
           for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
     }
     const unsigned st = smb + L.halo + (s % CT_NS) * CT_HALO;
+    if constexpr (FD) {
 #pragma unroll
-    for (int t = 0; t < 9; ++t) {
-      unsigned bfr[NT / 2][4];
+      for (int ks = 0; ks < 2; ++ks) {
+        unsigned bfr[NT / 2][4];
 #pragma unroll
-      for (int pr = 0; pr < NT / 2; ++pr)
-        ldmatrix_x4_trans(smb + b_off[pr] + (ch * 9 + t) * CT_CH * NT * 16,
-                          bfr[pr]);
+        for (int pr = 0; pr < NT / 2; ++pr)
+          ldmatrix_x4_trans(smb + b_off[pr] + ks * CT_CH * NT * 16, bfr[pr]);
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        unsigned a[4];
-        ldmatrix_x4(st + a_off[mt][t % 3] + (t / 3) * PT_TH * 32, a);
+        for (int mt = 0; mt < 2; ++mt) {
+          unsigned a[4];
+          ldmatrix_x4(smb + a_off[mt][ks] + (s & 1) * FD_XP, a);
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-          mma_bf16(acc[mt][nt], a, bfr[nt / 2][2 * (nt % 2)],
-                   bfr[nt / 2][2 * (nt % 2) + 1]);
+          for (int nt = 0; nt < NT; ++nt)
+            mma_bf16(acc[mt][nt], a, bfr[nt / 2][2 * (nt % 2)],
+                     bfr[nt / 2][2 * (nt % 2) + 1]);
+        }
+      }
+      if (s + 1 < S) build(s + 1);
+    } else {
+#pragma unroll
+      for (int t = 0; t < 9; ++t) {
+        unsigned bfr[NT / 2][4];
+#pragma unroll
+        for (int pr = 0; pr < NT / 2; ++pr)
+          ldmatrix_x4_trans(smb + b_off[pr] + (ch * 9 + t) * CT_CH * NT * 16,
+                            bfr[pr]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          unsigned a[4];
+          ldmatrix_x4(st + a_off[mt][t % 3] + (t / 3) * PT_TH * 32, a);
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            mma_bf16(acc[mt][nt], a, bfr[nt / 2][2 * (nt % 2)],
+                     bfr[nt / 2][2 * (nt % 2) + 1]);
+        }
       }
     }
     if (ch != nch - 1) continue;
+    if constexpr (FD && PT_FOLD_PROBE == 1) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sink += acc[mt][nt][e];
+      cw.next();
+      continue;
+    }
 
     // ---- the tile's epilogue
-    const int tile = blockIdx.x + (s / nch) * gridDim.x;
-    const int b = tile / tiles, r = tile % tiles;
-    const int ty = r / tiles_x, tx = r % tiles_x;
+    const int b = cw.b, ty = cw.ty, tx = cw.tx;
+    cw.next();
     const int oy = ty * PT_PT + warp;
+    unsigned wlo[NT][2];               // fwdstats: mt 0's windows
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt) {
       const int ox = tx * PT_PT + 4 * mt + (g >> 1);
@@ -1614,11 +1880,12 @@ __device__ __forceinline__ void conv_tc_body(
         const float v[4] = {even ? y[0] : ra, even ? ra : y[1],
                             even ? y[2] : rb, even ? rb : y[3]};
         if constexpr (MODE == CT_FWDSTATS) {
-          const double sh = kcs[c];
-          double s0 = 0.0, s1 = 0.0;
+          const Acc sh = static_cast<Acc>(
+              reinterpret_cast<const double*>(kcs + 2 * NC)[c]);
+          Acc s0 = 0, s1 = 0;
 #pragma unroll
           for (int k = 0; k < 4; ++k) {
-            const double d = static_cast<double>(v[k]) - sh;
+            const Acc d = static_cast<Acc>(v[k]) - sh;
             s0 += d;
             s1 += d * d;
           }
@@ -1626,23 +1893,49 @@ __device__ __forceinline__ void conv_tc_body(
             run0[nt] += s0;
             run1[nt] += s1;
           }
-          const bool up = kcs[NC + c] > 0.f;
-          float zs = v[0];
+          if (mt == 0) {
+            // mt 0's window, bf16 bits two a word, until mt 1's joins it
+            wlo[nt][0] = __byte_perm(__float_as_uint(v[0]),
+                                     __float_as_uint(v[1]), 0x7632);
+            wlo[nt][1] = __byte_perm(__float_as_uint(v[2]),
+                                     __float_as_uint(v[3]), 0x7632);
+            continue;
+          }
+          // Both windows of the channel at once as bf16x2 (low half mt 0,
+          // high half mt 1): the extreme in the direction of the
+          // channel's BN slope (the monotone BN + bias + leaky map then
+          // commutes with the pool; the minimum as the maximum of the
+          // negated values) and the first tap attaining it
+          const unsigned flip =
+              reinterpret_cast<const unsigned*>(kcs)[4 * NC + c];
+          unsigned wk[4];
 #pragma unroll
-          for (int k = 1; k < 4; ++k)
-            zs = up ? fmaxf(zs, v[k]) : fminf(zs, v[k]);
-          unsigned kf = 3;
+          for (int k = 0; k < 4; ++k)
+            wk[k] = __byte_perm(wlo[nt][k / 2], __float_as_uint(v[k]),
+                                k % 2 ? 0x7632 : 0x7610) ^ flip;
+          const unsigned m = hmax2(hmax2(wk[0], wk[1]), hmax2(wk[2], wk[3]));
+          unsigned kf = 0x00030003u;
 #pragma unroll
-          for (int k = 3; k >= 0; --k)
-            if (v[k] == zs) kf = k;    // the first tap attaining it
-          const unsigned mine = bf16_bits(zs) | (kf << 16);
-          const unsigned other = __shfl_xor_sync(0xffffffffu, mine, 4);
-          if (even && valid) {         // channels c, c + 1 of the pixel
-            *reinterpret_cast<unsigned*>(z + o + co0 + c) =
-                (mine & 0xffffu) | (other << 16);
-            *reinterpret_cast<unsigned short*>(am + o + co0 + c) =
-                static_cast<unsigned short>((mine >> 16) |
-                                            ((other >> 16) << 8));
+          for (int k = 2; k >= 0; --k) {
+            const unsigned e = heq2(wk[k], m);
+            kf = (kf & ~e) | (0x00010001u * k & e);
+          }
+          const unsigned zz = m ^ flip;
+          const unsigned zo = __shfl_xor_sync(0xffffffffu, zz, 4);
+          const unsigned ko = __shfl_xor_sync(0xffffffffu, kf, 4);
+          // channels 8 nt + 2 q, + 1 of a pixel: the even lane stores mt
+          // 0's, the odd one mt 1's
+          const int sx = tx * PT_PT + 4 * (g & 1) + (g >> 1);
+          if (oy < H2 && sx < W2) {
+            const size_t os = ((static_cast<size_t>(b) * H2 + oy) * W2 + sx) *
+                                  Cout + co0 + 8 * nt + 2 * q;
+            *reinterpret_cast<unsigned*>(z + os) =
+                even ? __byte_perm(zz, zo, 0x5410)
+                     : __byte_perm(zo, zz, 0x7632);
+            *reinterpret_cast<unsigned short*>(am + os) =
+                static_cast<unsigned short>(
+                    even ? (kf & 0xffu) | ((ko & 0xffu) << 8)
+                         : ((ko >> 16) & 0xffu) | ((kf >> 8) & 0xff00u));
           }
         } else {
           // the exact expressions of chain_bwd_kernel
@@ -1740,6 +2033,8 @@ __device__ __forceinline__ void conv_tc_body(
 
   cp_async_wait<0>();
   __syncthreads();                   // the ring is free
+  if constexpr (FD && PT_FOLD_PROBE == 1)
+    if (sink == 1.5f) partial[blockIdx.x] = sink;
   if constexpr (MODE == CT_DY) {
     // partial row blockIdx.x: dw in HWIO order (Cin 16: row t * 16 + ci)
     float* row = partial + static_cast<size_t>(blockIdx.x) * 9 * Cin * Cout;
@@ -1805,41 +2100,64 @@ dy_tc_kernel(CONV_TC_PARAMS) {
   conv_tc_body<CT_DY, NC>(CONV_TC_ARGS);
 }
 
+// fwdstats at Cin = CIN <= 3: the tile with the taps fold; three blocks
+// an SM at NC 16 (about 44 KB of shared memory each; NC 32 spills at the
+// 80 registers that allows, so it takes two)
+template <int CIN, int NC>
+__global__ void __launch_bounds__(PT_THREADS, NC == 16 ? 3 : 2)
+fwdstats_fold_kernel(CONV_TC_PARAMS) {
+  conv_tc_body<CT_FWDSTATS, NC, CIN>(CONV_TC_ARGS);
+}
+
 using ConvTc = void (*)(const __nv_bfloat16*, const __nv_bfloat16*,
                         const __nv_bfloat16*, const float*, const float*,
                         __nv_bfloat16*, int8_t*, __nv_bfloat16*, float*, int,
                         int, int, int, int);
 
-// whether fwdstats, red and dy run on the tensor-core tile for this shape
-// (one predicate for the three, so the chain's forward and backward
-// compute one y)
-bool conv_tensor_core(int Cin, int Cout) {
-  return Cin > 0 && Cin % CT_CH == 0 && Cout > 0 && Cout % 16 == 0;
+// the conv path of fwdstats, red and dy for a shape: the tensor-core tile
+// for Cin a multiple of 16 in every mode (so the chain's forward and
+// backward compute one y), the tile with the taps fold for fwdstats at
+// Cin <= 3 (red and dy take Cin a multiple of 8), else the FP32-core loop
+int conv_path(int mode, int Cin, int Cout) {
+  if (Cin <= 0 || Cout <= 0 || Cout % 16) return CP_FP32;
+  if (Cin % CT_CH == 0) return CP_TILE;
+  return mode == CT_FWDSTATS && Cin <= 3 ? CP_FOLD : CP_FP32;
 }
 
-// launches mode `mode` of the tile: grid (n, Cout / NC), n = min(the
-// tiles, rows_cap, the blocks resident at once / groups); *nblk = n, the
-// partial rows written. NC = 32 where Cout allows, else 16.
+template <int NC>
+ConvTc fold_instance(int Cin) {
+  return Cin == 1   ? fwdstats_fold_kernel<1, NC>
+         : Cin == 2 ? fwdstats_fold_kernel<2, NC>
+                    : fwdstats_fold_kernel<3, NC>;
+}
+
+// launches mode `mode` of the tile (the fold where conv_path says so):
+// grid (n, Cout / NC), n = min(the tiles, rows_cap, the blocks resident
+// at once / groups); *nblk = n, the partial rows written. NC = 32 where
+// Cout allows, else 16.
 int conv_tc_launch(int mode, const void* x, const void* w, const void* dp,
                    const void* k0, const void* k1, void* z, void* am,
                    void* dy, void* partial, int B, int H, int W, int Cin,
                    int Cout, long long rows_cap, int* nblk, cudaStream_t s) {
   const int nc = Cout % 32 == 0 ? 32 : 16;
+  const int path = conv_path(mode, Cin, Cout);
+  const bool fold = path == CP_FOLD;
   const ConvTc fn =
-      nc == 32 ? (mode == CT_FWDSTATS ? fwdstats_tc_kernel<32>
-                  : mode == CT_RED    ? red_tc_kernel<32>
-                                      : dy_tc_kernel<32>)
-               : (mode == CT_FWDSTATS ? fwdstats_tc_kernel<16>
-                  : mode == CT_RED    ? red_tc_kernel<16>
-                                      : dy_tc_kernel<16>);
-  const int smem = conv_tc_layout(mode, Cin, nc).total;
+      fold       ? (nc == 32 ? fold_instance<32>(Cin) : fold_instance<16>(Cin))
+      : nc == 32 ? (mode == CT_FWDSTATS ? fwdstats_tc_kernel<32>
+                    : mode == CT_RED    ? red_tc_kernel<32>
+                                        : dy_tc_kernel<32>)
+                 : (mode == CT_FWDSTATS ? fwdstats_tc_kernel<16>
+                    : mode == CT_RED    ? red_tc_kernel<16>
+                                        : dy_tc_kernel<16>);
+  const int smem = conv_tc_layout(mode, Cin, nc, fold).total;
   const int H2 = H / 2, W2 = W / 2;
   const long long tiles = static_cast<long long>(B) *
                           ((H2 + PT_PT - 1) / PT_PT) *
                           ((W2 + PT_PT - 1) / PT_PT);
   const int groups = Cout / nc;
   int dev = 0, sms = 0, per_sm = 0;
-  if (!conv_tensor_core(Cin, Cout) || (mode == CT_DY && Cin != CT_CH) ||
+  if (path == CP_FP32 || (mode == CT_DY && Cin != CT_CH) ||
       tiles < 1 || tiles > 0x7fffffff || rows_cap < 1 ||
       (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
        reinterpret_cast<uintptr_t>(dy)) % 16 ||
@@ -1881,7 +2199,9 @@ bool shapes_ok(int B, int H, int W, int Cin, int Cout, int max_cin,
 // partial: (B * tiles, 2 * Cout) float32 scratch (the tensor-core tile
 // uses its first rows, one a block); stats: (2 * Cout,) float32 out,
 // [sum(y - shift) | sum((y - shift)^2)]. Cin a multiple of 16 runs the
-// tensor-core tile (fwdstats_tc_kernel), the rest the FP32-core loop.
+// tensor-core tile (fwdstats_tc_kernel), Cin <= 3 the tile with the taps
+// fold (fwdstats_fold_kernel), the rest the FP32-core loop (conv_path).
+// x and w 16-byte aligned on the tile's paths.
 extern "C" int srod_pt_fwdstats(const void* x, const void* w,
                                 const void* shift, const void* scales,
                                 void* z, void* am, void* partial, void* stats,
@@ -1893,7 +2213,7 @@ extern "C" int srod_pt_fwdstats(const void* x, const void* w,
   const int tiles = ((H2 + PT_PT - 1) / PT_PT) * ((W2 + PT_PT - 1) / PT_PT);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rows = B * tiles;
-  if (conv_tensor_core(Cin, Cout)) {
+  if (conv_path(CT_FWDSTATS, Cin, Cout) != CP_FP32) {
     const int err = conv_tc_launch(CT_FWDSTATS, x, w, nullptr, shift, scales,
                                    z, am, nullptr, partial, B, H, W, Cin,
                                    Cout, rows, &rows, s);
@@ -1914,10 +2234,11 @@ extern "C" int srod_pt_fwdstats(const void* x, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Whether srod_pt_fwdstats, srod_pt_red and srod_pt_dy run the tensor-core
-// conv tile (1: Cin a multiple of 16) or the FP32-core loop (0).
-extern "C" int srod_pt_conv_tensor_core(int Cin, int Cout) {
-  return conv_tensor_core(Cin, Cout) ? 1 : 0;
+// The conv path srod_pt_fwdstats (mode 0), srod_pt_red (1) and srod_pt_dy
+// (2) run for a shape: 1 the tensor-core tile (Cin a multiple of 16), 2
+// the tile with the taps fold (fwdstats at Cin <= 3), 0 the FP32-core loop.
+extern "C" int srod_pt_conv_tensor_core(int mode, int Cin, int Cout) {
+  return conv_path(mode, Cin, Cout);
 }
 
 // z, out: n bf16 values (n % 8 == 0), NHWC with Cout channels.
@@ -1994,18 +2315,19 @@ extern "C" int srod_pt_bwdg(const void* x, const void* dp, const void* z,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Modes "red" and "dy" of the chain's second pair. kc: (7 * Cout,) float32
-// [mean | inv | scales | bias | c1 | c2 | c3]; partial: (B * nchunk, cols)
-// float32 scratch, 1 <= nchunk <= the image's 8x8 pooled tiles (the
-// tensor-core tile, Cin 16, uses its first rows, one a block); out:
-// (cols,) float32, cols = 2 * Cout ("red": [sum dz | sum dz * x_hat]) or
-// 9 * Cin * Cout ("dy": dw in HWIO order); dy ("dy" only): (B, H, W,
-// Cout) bf16.
+// Modes "red" and "dy" of the chain's second pair, Cin 8 or 16. kc:
+// (7 * Cout,) float32 [mean | inv | scales | bias | c1 | c2 | c3];
+// partial: (B * nchunk, cols) float32 scratch, 1 <= nchunk <= the
+// image's 8x8 pooled tiles (the tensor-core tile, Cin 16, uses its first
+// rows, one a block); out: (cols,) float32, cols = 2 * Cout ("red":
+// [sum dz | sum dz * x_hat]) or 9 * Cin * Cout ("dy": dw in HWIO order);
+// dy ("dy" only): (B, H, W, Cout) bf16.
 static int chain_bwd(bool with_dy, const void* x, const void* w,
                      const void* dp, const void* kc, void* dy, void* partial,
                      int nchunk, void* out, int B, int H, int W, int Cin,
                      int Cout, void* stream) {
-  if (!shapes_ok(B, H, W, Cin, Cout, PT_MAX_CIN_CHAIN, PT_MAX_CO_FWD))
+  if (!shapes_ok(B, H, W, Cin, Cout, PT_MAX_CIN_CHAIN, PT_MAX_CO_FWD) ||
+      Cin % 8)
     return static_cast<int>(cudaErrorInvalidValue);
   const int H2 = H / 2, W2 = W / 2;
   const int tiles = ((H2 + PT_PT - 1) / PT_PT) * ((W2 + PT_PT - 1) / PT_PT);
@@ -2013,7 +2335,7 @@ static int chain_bwd(bool with_dy, const void* x, const void* w,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rows = B * nchunk;
-  if (conv_tensor_core(Cin, Cout)) {
+  if (conv_path(with_dy ? CT_DY : CT_RED, Cin, Cout) == CP_TILE) {
     const int err = conv_tc_launch(with_dy ? CT_DY : CT_RED, x, w, dp, kc,
                                    nullptr, nullptr, nullptr, dy, partial, B,
                                    H, W, Cin, Cout, rows, &rows, s);

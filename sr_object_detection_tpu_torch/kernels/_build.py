@@ -67,8 +67,9 @@ SIGNATURES = {
     # z bf16, mean, inv, scales, bias (Cout,) f32, out bf16, n, Cout, stream
     "srod_pt_apply": ([_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _P],
                       _I),
-    # Cin, Cout -> 1 where fwdstats, red and dy run the tensor-core tile
-    "srod_pt_conv_tensor_core": ([_I, _I], _I),
+    # mode (0 fwdstats, 1 red, 2 dy), Cin, Cout -> the conv path: 0 the
+    # FP32-core loop, 1 the tensor-core tile, 2 the tile with the taps fold
+    "srod_pt_conv_tensor_core": ([_I, _I, _I], _I),
     # Cin, Cout -> 1 where bwdg runs on the tensor cores, else 0
     "srod_pt_bwdg_tensor_core": ([_I, _I], _I),
     # B, H, W, Cin, Cout -> the partial scratch's rows, or -1

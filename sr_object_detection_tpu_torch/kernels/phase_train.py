@@ -30,10 +30,11 @@ Each kernel has a plain PyTorch version beside it (``*_plain``); a CPU
 tensor takes it, a CUDA tensor launches the kernel or raises.
 ``launches`` counts each kernel's launches and nothing else;
 ``bwdg_kernels`` says which of bwdg's two kernels they ran, and
-``conv_kernels`` which conv path fwdstats, red and dy ran: the
-tensor-core tile for Cin a multiple of 16, the FP32-core loop for the
-rest (one predicate for the three, so the chain's pair 1 recomputes its
-forward's y bit for bit).
+``conv_kernels`` which conv path fwdstats, red and dy ran
+(:func:`conv_path`): the tensor-core tile for Cin a multiple of 16 in
+every mode (so the chain's pair 1 recomputes its forward's y bit for
+bit), the tile with the taps fold for fwdstats at Cin <= 3 (the leading
+pair's 3 -> 16), the FP32-core loop for the rest.
 
 Not ported: the TPU layout (``to_phase_np``/``from_phase_np``, the halo
 sidebands, ``Geom``/``plan_pair``'s VMEM planner, ``_pack_w`` and the
@@ -60,16 +61,19 @@ launches = {"fwdstats": 0, "apply": 0, "bwdg": 0, "red": 0, "dy": 0,
 # which of bwdg's two kernels each launch ran: bwdg_tc_kernel (the tensor
 # cores; Cin <= 3, Cout 16 or 32) or bwdg_kernel (the FP32 cores)
 bwdg_kernels = {"tensor_core": 0, "fp32_core": 0}
-# which conv path each launch of fwdstats, red and dy ran: the tensor-core
-# tile (fwdstats_tc_kernel, red_tc_kernel, dy_tc_kernel; Cin a multiple of
-# 16) or the FP32-core loop (fwdstats_kernel, chain_bwd_kernel)
-conv_kernels = {mode: {"tensor_core": 0, "fp32_core": 0}
-                for mode in ("fwdstats", "red", "dy")}
+# which conv path each launch of fwdstats, red and dy ran (conv_path): the
+# tensor-core tile (fwdstats_tc_kernel, red_tc_kernel, dy_tc_kernel; Cin a
+# multiple of 16), the tile with the taps fold (fwdstats_fold_kernel;
+# fwdstats at Cin <= 3) or the FP32-core loop (fwdstats_kernel,
+# chain_bwd_kernel)
+CONV_MODES = ("fwdstats", "red", "dy")
+CONV_PATHS = ("fp32_core", "tensor_core", "tensor_core_fold")
+conv_kernels = {mode: dict.fromkeys(CONV_PATHS, 0) for mode in CONV_MODES}
 
 # the kernels' shape limits (csrc/phase_train.cu)
 MAX_CIN_FWD, MAX_COUT_FWD = 64, 128
 MAX_CIN_BWD, MAX_COUT_BWD = 16, 64
-MAX_CIN_CHAIN = 16          # red, dy and dgrad (dgrad: a multiple of 8)
+MAX_CIN_CHAIN = 16          # red, dy and dgrad: Cin 8 or 16
 CHAIN_BLOCKS = 2048         # red/dy blocks to aim for (B x groups x chunks)
 
 
@@ -79,11 +83,24 @@ def reset_launches():
             counts[k] = 0
 
 
+def conv_path(mode, cin, cout):
+    """The conv path a launch of fwdstats, red or dy (``mode``) runs for a
+    shape, as the library picks it (``srod_pt_conv_tensor_core``): the
+    tensor-core tile for Cin a multiple of 16, the tile with the taps fold
+    for fwdstats at Cin <= 3, else the FP32-core loop."""
+    if cin <= 0 or cout <= 0 or cout % 16:
+        return "fp32_core"
+    if cin % 16 == 0:
+        return "tensor_core"
+    return ("tensor_core_fold" if mode == "fwdstats" and cin <= 3
+            else "fp32_core")
+
+
 def _count_conv(lib, mode, cin, cout):
     """One launch of fwdstats, red or dy, and the conv path it ran."""
     launches[mode] += 1
-    tc = lib.srod_pt_conv_tensor_core(cin, cout)
-    conv_kernels[mode]["tensor_core" if tc else "fp32_core"] += 1
+    path = lib.srod_pt_conv_tensor_core(CONV_MODES.index(mode), cin, cout)
+    conv_kernels[mode][CONV_PATHS[path]] += 1
 
 
 def supported(spec) -> bool:
@@ -130,7 +147,9 @@ def fwdstats_plain(x, w_hwio, shift, scales):
 
 
 def fwdstats(x, w_hwio, shift, scales):
-    """The fwdstats kernel; arguments and results as :func:`fwdstats_plain`."""
+    """The fwdstats kernel; arguments and results as :func:`fwdstats_plain`.
+    The library picks its conv path by shape (:func:`conv_path`);
+    ``conv_kernels["fwdstats"]`` counts which ran."""
     if x.device.type == "cpu":
         return fwdstats_plain(x, w_hwio, shift, scales)
     n, h, w, cin = x.shape
@@ -148,6 +167,8 @@ def fwdstats(x, w_hwio, shift, scales):
             f"{tuple(x.shape)} {x.dtype}, {tuple(w_hwio.shape)} "
             f"{w_hwio.dtype}, {tuple(shift.shape)}, {tuple(scales.shape)}")
     x, w_hwio = x.contiguous(), w_hwio.contiguous()
+    if x.data_ptr() % 16:            # the tile's paths copy 16-byte units
+        x = x.clone()
     shift, scales = _f32(shift, scales)
     h2, w2 = h // 2, w // 2
     tiles = -(-h2 // 8) * -(-w2 // 8)
@@ -334,16 +355,17 @@ def _chain_check(name, x, w_hwio, dp, consts):
             or dp.dtype != torch.bfloat16
             or w_hwio.shape != (3, 3, cin, cout)
             or tuple(dp.shape) != (n, h // 2, w // 2, cout) or h % 2
-            or w % 2 or cin > MAX_CIN_CHAIN or cout % 16
+            or w % 2 or cin > MAX_CIN_CHAIN or cin % 8 or cout % 16
             or cout > MAX_COUT_FWD
             or any(c.shape != (cout,) for c in consts)
             or any(t.device != x.device for t in (w_hwio, dp, *consts))):
         raise ValueError(
-            f"phase_train.{name}: want x (B,H,W,Cin<=16) bf16 with H, W "
-            "even, w (3,3,Cin,Cout) bf16 with Cout a multiple of 16 up to "
-            "128, dp (B,H/2,W/2,Cout) bf16 and (Cout,) constants on one "
-            f"device; got {tuple(x.shape)} {x.dtype}, {tuple(w_hwio.shape)} "
-            f"{w_hwio.dtype}, {tuple(dp.shape)} {dp.dtype}, "
+            f"phase_train.{name}: want x (B,H,W,Cin) bf16 with Cin 8 or 16 "
+            "and H, W even, w (3,3,Cin,Cout) bf16 with Cout a multiple of "
+            "16 up to 128, dp (B,H/2,W/2,Cout) bf16 and (Cout,) constants on "
+            f"one device; got {tuple(x.shape)} {x.dtype}, "
+            f"{tuple(w_hwio.shape)} {w_hwio.dtype}, {tuple(dp.shape)} "
+            f"{dp.dtype}, "
             f"{[tuple(c.shape) for c in consts]}")
 
 
@@ -572,7 +594,7 @@ class _DxPair(torch.autograd.Function):
 def phase_train_dx_block(x_nhwc, params, spec):
     """:func:`phase_train_block` with the input's gradient (the chain's
     second pair): backward through red, dy and dgrad. x_nhwc: (B, H, W, C)
-    with C <= 16 and H, W even. Returns (pooled NHWC bf16, bn_updates)."""
+    with C 8 or 16 and H, W even. Returns (pooled NHWC bf16, bn_updates)."""
     pooled, mean, var = _DxPair.apply(
         x_nhwc.to(torch.bfloat16).contiguous(), params["weights"],
         params["scales"], params["biases"], params["rolling_mean"].detach())
@@ -639,4 +661,4 @@ __all__ = ["phase_train_block", "phase_train_dx_block", "phase_train_chain2",
            "bwdg_plain", "red", "red_plain", "dy", "dy_plain", "dgrad",
            "dgrad_plain", "bn_backward_consts", "supported",
            "supported_chain", "launches", "bwdg_kernels", "conv_kernels",
-           "reset_launches"]
+           "conv_path", "reset_launches"]

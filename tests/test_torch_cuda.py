@@ -328,18 +328,90 @@ def test_fwdstats_tensor_core_wide(cuda, b, h, cin, cout):
     check_fwdstats(TPT, case["x"], case["w"], case["shift"], case["scales"])
     torch.cuda.synchronize()
     assert TPT.conv_kernels["fwdstats"] == {
-        "tensor_core": before["tensor_core"] + 1,
-        "fp32_core": before["fp32_core"]}
+        **before, "tensor_core": before["tensor_core"] + 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [22, 36])
+@pytest.mark.parametrize("cin,cout", [(3, 16), (3, 32), (1, 16), (2, 48),
+                                      (3, 128)])
+def test_fwdstats_fold_matches_plain(cuda, cin, cout, h):
+    """fwdstats at Cin <= 3 on the tensor-core tile with the taps fold
+    (fwdstats_fold_kernel) at B=3 against its plain version (chip_smoke's
+    phase-12 tolerances: Z within one bf16 ulp, the argmax equal where the
+    extreme taps are more than an ulp apart, the sums at 1e-4), with
+    partial 8x8 pooled tiles (22x22: 11x11 pooled; 36x36: 18x18), Cout
+    in groups of 32 or 16; the fold ran, by conv_kernels."""
+    case = train_case(10 * h + 3 * cin + cout, 3, h, cin, cout, cuda)
+    before = dict(TPT.conv_kernels["fwdstats"])
+    check_fwdstats(TPT, case["x"], case["w"], case["shift"], case["scales"])
+    torch.cuda.synchronize()
+    assert TPT.conv_kernels["fwdstats"] == {
+        **before, "tensor_core_fold": before["tensor_core_fold"] + 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(3, 16), (3, 32), (1, 16), (2, 48),
+                                      (3, 128)])
+def test_fwdstats_fold_full_width(cuda, cin, cout):
+    """The fold at the leading pair's 416x416 (26x26 whole pooled tiles)
+    at B=2, against its plain version, and two launches bit-equal: every
+    sum has one owner and one order."""
+    case = train_case(416 + cin + cout, 2, 416, cin, cout, cuda)
+    args = (case["x"], case["w"], case["shift"], case["scales"])
+    before = dict(TPT.conv_kernels["fwdstats"])
+    check_fwdstats(TPT, *args)
+    first, second = TPT.fwdstats(*args), TPT.fwdstats(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert TPT.conv_kernels["fwdstats"] == {
+        **before, "tensor_core_fold": before["tensor_core_fold"] + 3}
+
+
+@pytest.mark.cuda
+def test_fwdstats_fold_misaligned_input(cuda):
+    """x whose data pointer lies 2 bytes off a 16-byte boundary (a slice
+    of a larger buffer), with H != W (22 x 18): the wrapper copies it to
+    an aligned buffer for the fold's 16-byte loads, and the fold holds to
+    the plain version."""
+    case = train_case(21, 2, 22, 3, 16, cuda)
+    x = misaligned(case["x"][:, :, :18].permute(0, 3, 1, 2)).permute(
+        0, 2, 3, 1)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    before = dict(TPT.conv_kernels["fwdstats"])
+    check_fwdstats(TPT, x, case["w"], case["shift"], case["scales"])
+    torch.cuda.synchronize()
+    assert TPT.conv_kernels["fwdstats"] == {
+        **before, "tensor_core_fold": before["tensor_core_fold"] + 1}
+
+
+@pytest.mark.cuda
+def test_conv_path_mirror_matches_library(cuda):
+    """kernels/phase_train.conv_path, the Python mirror of the library's
+    mode-aware predicate, names the path srod_pt_conv_tensor_core picks
+    for every mode and shape here."""
+    from sr_object_detection_tpu_torch.kernels import _build
+    lib = _build.load()
+    for m, mode in enumerate(TPT.CONV_MODES):
+        for cin in (1, 2, 3, 4, 8, 15, 16, 24, 32, 40, 48, 64):
+            for cout in (8, 16, 32, 48, 128):
+                got = TPT.CONV_PATHS[lib.srod_pt_conv_tensor_core(m, cin,
+                                                                  cout)]
+                assert got == TPT.conv_path(mode, cin, cout), (mode, cin,
+                                                               cout)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cin,cout,path", [
     (16, 32, "tensor_core"), (32, 16, "tensor_core"), (64, 128, "tensor_core"),
-    (3, 16, "fp32_core"), (8, 32, "fp32_core"), (40, 48, "fp32_core")])
+    (3, 16, "tensor_core_fold"), (8, 32, "fp32_core"), (40, 48, "fp32_core")])
 def test_conv_path_by_shape(cuda, cin, cout, path):
-    """One predicate picks the conv path of fwdstats, red and dy by shape:
-    the tensor-core tile for Cin a multiple of 16, the FP32-core loop for
-    the rest; conv_kernels counts which ran."""
+    """The mode-aware predicate picks the conv path of fwdstats, red and
+    dy by shape: the tensor-core tile for Cin a multiple of 16 in every
+    mode, the taps fold for fwdstats at Cin <= 3, the FP32-core loop for
+    the rest; red and dy take Cin 8 or 16 and refuse Cin 3 (ValueError);
+    conv_kernels counts which ran."""
     case = train_case(cin + cout, 2, 16, cin, cout, cuda)
     before = {m: dict(c) for m, c in TPT.conv_kernels.items()}
     TPT.fwdstats(case["x"], case["w"], case["shift"], case["scales"])
@@ -349,15 +421,21 @@ def test_conv_path_by_shape(cuda, cin, cout, path):
         ch = chain_case(cin, 2, 16, cin, cout, cuda)
         args = [ch[k] for k in ("x", "w", "dp", "mean", "inv", "scales",
                                 "biases")]
-        TPT.red(*args)
-        TPT.dy(*args, ch["c1"], ch["c2"], ch["c3"])
-        want["red"][path] += 1
-        want["dy"][path] += 1
+        if cin % 8:
+            with pytest.raises(ValueError):
+                TPT.red(*args)
+            with pytest.raises(ValueError):
+                TPT.dy(*args, ch["c1"], ch["c2"], ch["c3"])
+        else:
+            TPT.red(*args)
+            TPT.dy(*args, ch["c1"], ch["c2"], ch["c3"])
+            want["red"][path] += 1
+            want["dy"][path] += 1
     torch.cuda.synchronize()
     assert TPT.conv_kernels == want
     from sr_object_detection_tpu_torch.kernels import _build
-    assert bool(_build.load().srod_pt_conv_tensor_core(cin, cout)) == (
-        path == "tensor_core")
+    lib = _build.load()
+    assert TPT.CONV_PATHS[lib.srod_pt_conv_tensor_core(0, cin, cout)] == path
 
 
 @pytest.mark.cuda
