@@ -13,7 +13,9 @@ non-zero status and no result line:
   0. device: a CUDA device, its name and power limit, the kernel build;
   1. the NMS kernel against its plain version (C=20, k=128 and k=845,
      random boxes plus ties): same suppression pattern, values to 1e-6;
-  2. the batch-1 stem kernel against its plain version at the four
+  2. the batch-1 stem kernel (the tensor-core conv tile's stem mode of
+     csrc/phase_train.cu, its taps fold at pair 1; by b1_stem.paths, no
+     pair on stem_pair_kernel) against its plain version at the four
      tiny-yolo-416 pair shapes with random biases, then link by link
      along the chained stem: every element within one bf16 ulp (see
      bf16_err);
@@ -27,8 +29,9 @@ non-zero status and no result line:
      to the in-process Detector;
   5. times from CUDA events: each batch-1 kernel beside its plain
      version and LatencyEngine per frame fused beside plain, each pair
-     timed in turns (plain, kernel, kernel, plain); Detector.predict_batch
-     and detect;
+     timed in turns (plain, kernel, kernel, plain), the stem chain and
+     each of its pairs also replayed from a CUDA graph (device time
+     without the host's launch cost); Detector.predict_batch and detect;
   6. the int8 stem kernel (csrc/phase_stem.cu, phase_pair_tc_kernel on
      the int8 tensor cores) against its plain version at the four
      tiny-yolo-416 pair shapes at batch 128 with random int8 data (pair 1
@@ -119,8 +122,9 @@ non-zero status and no result line:
      constants) and its first tap, bit for bit; F2, B1 and B2
      (csrc/fused_stem.cu) at the five fusable pairs' conv outputs
      (416x16 ... 26x256, B=128, channels-last): F2 and B2 bit-equal, B1's
-     sums at 1e-4 and bit-equal across two launches, B1 and B2 on the row
-     kernels (b1_row_kernel, b2_row_kernel) by fused_stem.paths;
+     sums at 1e-4 and bit-equal across two launches, F2, B1 and B2 on the
+     row kernels (f2_row_kernel, b1_row_kernel, b2_row_kernel) by
+     fused_stem.paths;
  18. the chain's second pair's gradient (dw, dscales, dbiases, dx) at
      416 B=128 against a float64 evaluation of the unfused chain's
      formulas (dy rounded to bf16 where the pair rounds it): 3e-3 (the
@@ -134,11 +138,12 @@ non-zero status and no result line:
      step fwdstats 2 (pair 1's on the tensor-core tile, pair 0's on its
      taps fold), apply 2, red 1,
      dy 1 (both on the tile), dgrad 1, bwdg 1 / the pair's
-     three + F2, B1, B2 4 each / F2, B1, B2 5 each, B1 and B2 on the row
-     kernels; losses finite and falling, the first within 0.03*|loss| +
-     0.05 of the step without kernels;
- 20. times, in turns: red, dy, dgrad, F2 (pair 2), B1 and B2 (the five
-     fusable pairs, also replayed from a CUDA graph) beside their plain
+     three + F2, B1, B2 4 each / F2, B1, B2 5 each, F2, B1 and B2 on the
+     row kernels; losses finite and falling, the first within
+     0.03*|loss| + 0.05 of the step without kernels;
+ 20. times, in turns: red, dy, dgrad, F2, B1 and B2 (F2 in turns at
+     pair 2; the three at the five fusable pairs replayed from a CUDA
+     graph, B1 and B2 also in turns) beside their plain
      versions and bounds, F.conv_transpose2d (dgrad's function in one
      library call, cuDNN, timed in the same run), fwdstats on the
      tensor-core tile at 16->32 @208, 32->64 @104 and 64->128 @52 beside
@@ -148,14 +153,19 @@ non-zero status and no result line:
      Trainer.step images/s of the three paths against bf16 + phase_train;
  21. torch.profiler over one step of each of the three paths; the two
      with the pair ran bwdg_tc_kernel, not bwdg_kernel; the two with the
-     fused stem ran b1_row_kernel and b2_row_kernel, not b1_kernel or
-     b2_kernel; the chain's step
+     fused stem ran f2_row_kernel, b1_row_kernel and b2_row_kernel, not
+     f2_kernel, b1_kernel or b2_kernel; the chain's step
      ran fwdstats_tc_kernel, red_tc_kernel and dy_tc_kernel once each,
      fwdstats_fold_kernel once (pair 0), no fwdstats_kernel and no
      chain_bwd_kernel; the pair + fused stem step fwdstats_fold_kernel.
 
 The last lines are the card (nvidia-smi), one JSON object describing the
 13 kernels (time, plain time, bound, launches and library call of each;
+``stem_pair`` is the batch-1 stem on the tensor-core conv tile of
+csrc/phase_train.cu (``stem_fold_kernel`` at pair 1, ``stem_tc_kernel``
+at pairs 2-4; ``stem_pair_kernel`` in csrc/b1_stem.cu takes the other
+shapes), its time the four-pair chain's from a CUDA graph replay,
+``fused_stem_f2`` the row kernel ``f2_row_kernel``,
 ``phase_train_dgrad`` is the tensor-core implicit GEMM in
 csrc/phase_train.cu, ``phase_train_bwdg`` its tensor-core
 ``bwdg_tc_kernel``, ``phase_train_fwdstats`` the tensor-core tile's taps
@@ -316,14 +326,16 @@ def assert_bwdg_tensor_core(name, kernels):
 
 
 def assert_fused_stem_rows(name, kernels):
-    """A profiled step with the fused stem ran its backward on the row
-    kernels: b1_row_kernel and b2_row_kernel among its kernels, the
-    strided b1_kernel and b2_kernel not."""
-    for k in ("b1_row_kernel", "b2_row_kernel"):
+    """A profiled step with the fused stem ran it on the row kernels:
+    f2_row_kernel, b1_row_kernel and b2_row_kernel among its kernels, the
+    strided f2_kernel, b1_kernel and b2_kernel not."""
+    for k in ("f2_row_kernel", "b1_row_kernel", "b2_row_kernel"):
         assert any(k in key for key in kernels), (name, k, kernels)
-    assert not any(named("b1_kernel", k) or named("b2_kernel", k)
-                   for k in kernels), (name, kernels)
-    log(f"  {name}: B1 and B2 ran as b1_row_kernel and b2_row_kernel")
+    assert not any(named(s, k) for s in ("f2_kernel", "b1_kernel",
+                                         "b2_kernel") for k in kernels), (
+        name, kernels)
+    log(f"  {name}: F2, B1 and B2 ran as f2_row_kernel, b1_row_kernel and "
+        f"b2_row_kernel")
 
 
 def assert_conv_tensor_core(name, kernels, iters, per_call):
@@ -510,7 +522,8 @@ def main() -> int:
 
     def reset_counts():
         """Every kernel's launch count to 0."""
-        NMS.launches = BS.launches = 0
+        NMS.launches = 0
+        BS.reset_launches()
         PS.reset_launches()
         PT.reset_launches()
         FS.reset_launches()
@@ -567,6 +580,9 @@ def main() -> int:
     pair_inputs = []
     x = torch.from_numpy(rng.uniform(0, 1, (1, 416, 416, 3)).astype(
         np.float32)).to(dev, torch.bfloat16)
+    # pair 1 (Cin 3) on the tile's taps fold, pairs 2-4 on the tile
+    stem_paths = {"tensor_core": 3, "tensor_core_fold": 1, "fp32_core": 0}
+    BS.reset_launches()
     for ci, _ in pairs:
         l = fspec.layers[ci]
         w = torch.from_numpy(rng.normal(0, 0.3, (3, 3, l.c, l.filters))
@@ -578,7 +594,9 @@ def main() -> int:
         pair_inputs.append((xi, w, b))
         e = bf16_err(BS.stem_pair(xi, w, b), BS.stem_pair_plain(xi, w, b))
         stem_err = max(stem_err, e)
-        log(f"  stem pair {l.c}->{l.filters} @{l.h}: max |err| {e}")
+        log(f"  stem pair {l.c}->{l.filters} @{l.h}: max |err| {e} "
+            f"({PT.conv_path('stem', l.c, l.filters)})")
+    assert BS.paths == stem_paths, BS.paths
     stem_fn, n_stem = BS.build_stem(fspec, folded)
     assert n_stem == 8
     packed = [(folded[ci]["weights"].permute(2, 3, 1, 0).to(torch.bfloat16)
@@ -600,7 +618,10 @@ def main() -> int:
         v = out
     assert torch.equal(stem_fn(x), v)
     chain_diff = (stem_fn(x).float() - plain_stem(x).float()).abs().max()
-    log(f"phase 2 ok: stem kernel == plain at the 4 pair shapes and along "
+    torch.cuda.synchronize()
+    assert BS.paths == {k: 4 * n for k, n in stem_paths.items()}, BS.paths
+    log(f"phase 2 ok: stem kernel (tensor-core conv tile, launches by path "
+        f"{BS.paths}) == plain at the 4 pair shapes and along "
         f"the chain (max |err| {stem_err}); whole chain against the plain "
         f"chain: max |diff| {chain_diff.item()} [{gpu}]")
 
@@ -662,8 +683,9 @@ def main() -> int:
     log(f"phase 3 ok: {n_dets} detections matched on CUDA and CPU; golden "
         f"gates met on CUDA (max |prob err| {golden_err}); {n_cands} "
         f"candidates matched between the fused and plain engines; "
-        f"launches {launches} [{gpu}]")
+        f"launches {launches}, the stem's by path {BS.paths} [{gpu}]")
     assert launches == want, launches
+    assert BS.paths == {k: 3 * n for k, n in stem_paths.items()}, BS.paths
 
     # ---------------------------------------------------------- phase 4
     req = b"".join(struct.pack("<3if", f.shape[1], f.shape[0], f.shape[2],
@@ -719,11 +741,22 @@ def main() -> int:
         "stem_pair": abba("stem, 4 chained pairs @416",
                           lambda: stem_fn(x), lambda: plain_stem(x)),
     }
+    # the chain and each pair replayed from a CUDA graph: the device time
+    # without the host's launch cost, which sets the kernel's figures
+    # above (the plain chain's are device time); the kernels line carries
+    # the chain's graph time
+    stem_graph = {"chain": graph_ms(lambda: stem_fn(x))}
+    times["stem_pair"] = (stem_graph["chain"], times["stem_pair"][1])
+    log(f"time stem, 4 chained pairs @416 from a CUDA graph: "
+        f"{stem_graph['chain']} ms [{gpu}]")
     for (xi, w, b), (ci, _) in zip(pair_inputs, pairs):
         l = fspec.layers[ci]
         abba(f"stem pair {l.c}->{l.filters} @{l.h}",
              lambda: BS.stem_pair(xi, w, b),
              lambda: BS.stem_pair_plain(xi, w, b))
+        stem_graph[ci] = graph_ms(lambda: BS.stem_pair(xi, w, b))
+        log(f"time stem pair {l.c}->{l.filters} @{l.h} from a CUDA graph: "
+            f"{stem_graph[ci]} ms [{gpu}]")
     abba("LatencyEngine 416 bf16 per u8 frame (kernel = fused stem)",
          lambda: fused(u8[0]), lambda: plain(u8[0]))
     xin = torch.from_numpy(det.preprocess(frames[0])[None]).to(dev)
@@ -1297,17 +1330,18 @@ def main() -> int:
         stem_errs = {n: max(stem_errs[n], e[n]) for n in e}
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    # channels-last pairs: B1 (twice a shape) and B2 on the row kernels
+    # channels-last pairs: F2, B1 (twice a shape) and B2 on the row kernels
     assert {k: FS.paths[k] - paths_before[k] for k in FS.paths} == {
-        "b1_row": 10, "b2_row": 5, "b1": 0, "b2": 0}, FS.paths
+        "f2_row": 5, "b1_row": 10, "b2_row": 5, "f2": 0, "b1": 0,
+        "b2": 0}, FS.paths
     log(f"phase 17 ok: red, dy and dgrad == plain at {NET} B={BATCH} "
         f"{h1}x{h1} 16->32 (max |err| {chain_errs}), fwdstats there "
         f"(max |err| {fwd_tc_err}), the three on the tensor-core conv "
         f"tile; fwdstats' Z and argmax equal dy's recomputed y's pooled "
         f"extreme bit for bit on {n_windows} windows of general inputs; "
         f"F2, B1, B2 == plain "
-        f"at (H, C) {stem_shapes} (max |err| {stem_errs}; B1 and B2 on "
-        f"the row kernels, B1 bit-equal across two launches) [{gpu}]")
+        f"at (H, C) {stem_shapes} (max |err| {stem_errs}; F2, B1 and B2 "
+        f"on the row kernels, B1 bit-equal across two launches) [{gpu}]")
 
     # --------------------------------------------------------- phase 18
     # the chain's second pair's gradient (dw, dscales, dbiases, dx) against
@@ -1387,10 +1421,11 @@ def main() -> int:
             conv_per_step[name]["fwdstats_fold_kernel"]), PT.conv_kernels
         assert not any(c["fp32_core"] for c in PT.conv_kernels.values()), (
             name, PT.conv_kernels)
-        # the fused stem's backward on the row kernels (channels-last y)
-        assert FS.paths == {"b1_row": got["fused_stem_b1"],
-                            "b2_row": got["fused_stem_b2"], "b1": 0,
-                            "b2": 0}, (name, FS.paths)
+        # the fused stem on the row kernels (channels-last y)
+        assert FS.paths == {"f2_row": got["fused_stem_f2"],
+                            "b1_row": got["fused_stem_b1"],
+                            "b2_row": got["fused_stem_b2"], "f2": 0,
+                            "b1": 0, "b2": 0}, (name, FS.paths)
         conv_opt[name] = tc
         assert all(np.isfinite(ls)) and ls[2] < ls[0], (name, ls)
         assert abs(ls[0] - loss_plain) <= 0.03 * abs(loss_plain) + 0.05, (
@@ -1443,10 +1478,11 @@ def main() -> int:
                                         + 2 * n1 * 16, conv1, "bf16")
     del ccase, cargs, d_nchw
     torch.cuda.empty_cache()
-    # B1 and B2 at the five fusable pairs' conv outputs (in the layout the
-    # conv writes) and F2 at pair 2 (208x208, 32 channels), beside their
-    # bounds; per window about 52, 64 and 36 float32 operations. The
-    # kernels line carries pair 2's times.
+    # F2, B1 and B2 at the five fusable pairs' conv outputs (in the layout
+    # the conv writes) from a CUDA graph, B1 and B2 also in turns, F2 in
+    # turns at pair 2 (208x208, 32 channels), beside their bounds; per
+    # window about 52, 64 and 36 float32 operations. The kernels line
+    # carries pair 2's times.
     for k, (h, c) in enumerate(stem_shapes):
         scase = stem_case(20 + k, BATCH, h, c, dev, channels_last=y_cl)
         y2, dp2 = scase["y"], scase["dp"]
@@ -1464,28 +1500,32 @@ def main() -> int:
         # the same calls replayed from a CUDA graph: device time without
         # the host's launch cost, which bounds the figures above at the
         # small pairs
-        tg = {"fused_stem_b1": graph_ms(lambda: FS.b1(y2, dp2, *k4)),
+        if h == h1:
+            tb["fused_stem_f2"] = abba(
+                f"fused_stem F2 {tag}", lambda: FS.f2(y2, *k4),
+                lambda: FS.f2_plain(y2, *k4), iters=20, plain_iters=5)
+        tg = {"fused_stem_f2": graph_ms(lambda: FS.f2(y2, *k4)),
+              "fused_stem_b1": graph_ms(lambda: FS.b1(y2, dp2, *k4)),
               "fused_stem_b2": graph_ms(lambda: FS.b2(y2, dp2, *k4,
                                                       *s123))}
         yb, win = y2.numel() * 2, y2.numel() // 4
-        bb = {"fused_stem_b1": bound(yb + yb // 4 + 16 * c + 8 * c,
+        bb = {"fused_stem_f2": bound(yb + yb // 4 + 16 * c, 36 * win,
+                                     "f32"),
+              "fused_stem_b1": bound(yb + yb // 4 + 16 * c + 8 * c,
                                      52 * win, "f32"),
               "fused_stem_b2": bound(2 * yb + yb // 4 + 28 * c, 64 * win,
                                      "f32")}
-        for n in tb:
-            log(f"bound {n} {tag}: {bb[n][0]} ms by {bb[n][1]}; kernel "
-                f"{tb[n][0]} ms ({tb[n][0] / bb[n][0]} x), from a CUDA "
-                f"graph {tg[n]} ms ({tg[n] / bb[n][0]} x); launches by "
-                f"kernel { {m: FS.paths[m] - before[m] for m in FS.paths} }"
-                f" [{gpu}]")
+        for n in tg:
+            turns = (f"kernel {tb[n][0]} ms ({tb[n][0] / bb[n][0]} x), "
+                     if n in tb else "")
+            log(f"bound {n} {tag}: {bb[n][0]} ms by {bb[n][1]}; {turns}"
+                f"from a CUDA graph {tg[n]} ms ({tg[n] / bb[n][0]} x); "
+                f"launches by kernel "
+                f"{ {m: FS.paths[m] - before[m] for m in FS.paths} } "
+                f"[{gpu}]")
         if h == h1:
             times.update(tb)
             bounds.update(bb)
-            times["fused_stem_f2"] = abba(
-                f"fused_stem F2 {tag}", lambda: FS.f2(y2, *k4),
-                lambda: FS.f2_plain(y2, *k4), iters=20, plain_iters=5)
-            bounds["fused_stem_f2"] = bound(yb + yb // 4 + 16 * c,
-                                            36 * win, "f32")
         del scase, y2, dp2
         torch.cuda.empty_cache()
     # fwdstats alone on the tensor-core conv tile at its three Cin >= 16
@@ -1603,7 +1643,7 @@ def main() -> int:
         "fused_stem_b2": "sr_object_detection_tpu/kernels/fused_stem.py:187"}
     sources = {name: "phase_train.cu" for name in replaces
                if name.startswith("phase_train")}
-    sources.update(nms_per_class="nms.cu", stem_pair="b1_stem.cu",
+    sources.update(nms_per_class="nms.cu", stem_pair="phase_train.cu",
                    phase_stem_pair="phase_stem.cu", fused_stem_f2=
                    "fused_stem.cu", fused_stem_b1="fused_stem.cu",
                    fused_stem_b2="fused_stem.cu")

@@ -15,13 +15,15 @@
 // What bounds it on an H100 at batch 1: the four tiny-yolo-416 pairs are
 // about 1.35 GFLOP (150, 399, 399 and 399 MFLOP) over a few MB of bf16
 // activations, too small to fill the card through one kernel launch per
-// pair unless every SM gets blocks. This first version keeps the design
-// simple and correct: a block owns a PT x PT tile of pooled pixels and CT
-// output channels (one thread per (pooled pixel, channel), four conv
-// outputs accumulated per thread), stages the input halo and the weights
-// for CI input channels at a time in shared memory as f32, and runs the
-// products on the FP32 cores. Tensor cores (wgmma implicit GEMM) are
-// later work.
+// pair unless every SM gets blocks. This kernel keeps the design simple:
+// a block owns a PT x PT tile of pooled pixels and CT output channels
+// (one thread per (pooled pixel, channel), four conv outputs accumulated
+// per thread), stages the input halo and the weights for CI input
+// channels at a time in shared memory as f32, and runs the products on
+// the FP32 cores. It is the general path: the shapes the tensor-core conv
+// tile takes (Cout a multiple of 16, Cin <= 3 or a multiple of 16 up to
+// 128; tiny-yolo-voc's four pairs) run its stem mode instead
+// (srod_pt_stem_pair, csrc/phase_train.cu).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

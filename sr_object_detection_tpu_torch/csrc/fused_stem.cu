@@ -28,7 +28,8 @@
 // bound all three.
 //
 // Two designs:
-//   * b1_row_kernel / b2_row_kernel, for y, dp and dy dense channels-last,
+//   * f2_row_kernel / b1_row_kernel / b2_row_kernel, for y, dp, dy and
+//     F2's output dense channels-last,
 //     C % 8 == 0 and 16-byte aligned (the port's conv output on the card,
 //     so the training step's path). A task is one pooled row (b, ph): y
 //     rows 2ph and 2ph+1 and dp row ph, contiguous runs. A thread holds
@@ -47,6 +48,12 @@
 //     the leaky, the window's maximum, the routing masks and the leaky
 //     backward now run on two channels at once as bf16x2 (add.rn, mul.rn,
 //     max, set), the same values as the float expressions (see hadd2).
+//     F2's row pass is B1's forward half: the four taps' loads, the
+//     bf16x2 activation and the window's maximum, then one 16-byte store
+//     of the window's 8 pooled channels; no cross-thread sum, so no
+//     shared memory and no barrier. It needs fewer registers than B1, so
+//     more blocks share an SM (F2_MIN_BLOCKS, chosen on the card by
+//     tools/fused_stem_ab.py --variants).
 //     B1 sums per thread in a fixed order, the block adds its threads of
 //     one channel group in a fixed order in shared memory into one
 //     partial row, and colsum adds the rows in a fixed order: no atomics,
@@ -68,6 +75,9 @@
 #define FS_THREADS 256
 #define FS_MAX_BLOCKS (132 * 16)
 #define ROW_THREADS 448     // a row kernel's block at most (14 warps)
+#ifndef F2_MIN_BLOCKS
+#define F2_MIN_BLOCKS 2     // f2_row_kernel's blocks an SM, at least
+#endif
 
 namespace {
 
@@ -285,7 +295,8 @@ colsum_kernel(const float* __restrict__ partial, int rows, int cols,
 struct RowArgs {
   const uint4* y;     // (B, H, W, C) bf16 as 16-byte vectors of 8 channels
   const uint4* dp;    // (B, H/2, W/2, C)
-  uint4* out;         // dy (B, H, W, C) (B2)
+  uint4* out;         // dy (B, H, W, C) (B2), pooled (B, H/2, W/2, C)
+                      // (F2)
   float* partial;     // (gridDim.x, 2 * C) (B1)
   const float* kc;    // as in FsArgs
   int G;              // C / 8 channel groups
@@ -376,16 +387,13 @@ __device__ __forceinline__ void load_consts(const float* kc, int C, int cg,
     K.bias2[m] = pack2(bias[2 * m], bias[2 * m + 1]);
 }
 
-// Channels 2m, 2m+1 of one window, from the four taps' words w (row-major)
-// and the pooled cotangent's word g: every tap's y - mean (xm), the masks
-// f[k] (0xffff in a lane whose first tap attaining the maximum of the
-// activation is k) and the routed cotangent dz (bf16x2, through the leaky
-// backward of that tap's sign). The same values as bn_leaky + route.
-__device__ __forceinline__ void row_pair(const unsigned w[4], unsigned g,
-                                         const RowConsts& K, int m,
-                                         float xm[4][2], unsigned f[4],
-                                         unsigned& dz) {
-  unsigned z[4], a[4];
+// Channels 2m, 2m+1 of one window's four taps, from their words w
+// (row-major): every tap's y - mean (xm), pre-activation z and activation
+// a (bf16x2). The same values as bn_leaky.
+__device__ __forceinline__ void row_act(const unsigned w[4],
+                                        const RowConsts& K, int m,
+                                        float xm[4][2], unsigned z[4],
+                                        unsigned a[4]) {
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     xm[k][0] = __fsub_rn(lo(w[k]), K.mean[2 * m]);
@@ -397,7 +405,24 @@ __device__ __forceinline__ void row_pair(const unsigned w[4], unsigned g,
     // leaky: z > 0 ? z : bf16(slope * z) is max(z, bf16(slope * z))
     a[k] = hmax2(z[k], hmul2(SLOPE2, z[k]));
   }
-  const unsigned mx = hmax2(hmax2(a[0], a[1]), hmax2(a[2], a[3]));
+}
+
+__device__ __forceinline__ unsigned max4(const unsigned a[4]) {
+  return hmax2(hmax2(a[0], a[1]), hmax2(a[2], a[3]));
+}
+
+// Channels 2m, 2m+1 of one window, from the four taps' words w (row-major)
+// and the pooled cotangent's word g: every tap's y - mean (xm), the masks
+// f[k] (0xffff in a lane whose first tap attaining the maximum of the
+// activation is k) and the routed cotangent dz (bf16x2, through the leaky
+// backward of that tap's sign). The same values as bn_leaky + route.
+__device__ __forceinline__ void row_pair(const unsigned w[4], unsigned g,
+                                         const RowConsts& K, int m,
+                                         float xm[4][2], unsigned f[4],
+                                         unsigned& dz) {
+  unsigned z[4], a[4];
+  row_act(w, K, m, xm, z, a);
+  const unsigned mx = max4(a);
   unsigned seen = heq2(a[0], mx);
   f[0] = seen;
 #pragma unroll
@@ -414,13 +439,13 @@ __device__ __forceinline__ void row_pair(const unsigned w[4], unsigned g,
 }
 
 // The loads of one task (a pooled row r, column tile `tile`) for the
-// thread's column q and channel group cg, all issued before any
-// arithmetic: the four taps' vectors v and the pooled cotangent's vector
-// g. Returns false past the row's last column; yo = the vector offset of
-// the window's first tap.
+// thread's column q and channel group cg, issued before any arithmetic:
+// the four taps' vectors v. Returns false past the row's last column; yo
+// = the vector offset of the window's first tap, po = that of the pooled
+// pixel (dp's, F2's output).
 __device__ __forceinline__ bool row_loads(const RowArgs& A, int task, int q,
-                                          int cg, uint4 v[4], uint4& g,
-                                          long long& yo) {
+                                          int cg, uint4 v[4], long long& yo,
+                                          long long& po) {
   const long long yrow = 2LL * A.W2 * A.G;     // a y row, in vectors
   int r = task, tile = 0;
   if (A.ntile > 1) {
@@ -430,17 +455,43 @@ __device__ __forceinline__ bool row_loads(const RowArgs& A, int task, int q,
   const int pw = tile * A.kper + q;
   if (pw >= A.W2) return false;
   yo = 2LL * r * yrow + 2 * pw * A.G + cg;
+  po = static_cast<long long>(r) * A.W2 * A.G + pw * A.G + cg;
   v[0] = __ldg(A.y + yo);
   v[1] = __ldg(A.y + yo + A.G);
   v[2] = __ldg(A.y + yo + yrow);
   v[3] = __ldg(A.y + yo + yrow + A.G);
-  g = __ldg(A.dp + static_cast<long long>(r) * A.W2 * A.G + pw * A.G + cg);
   return true;
 }
 
 // word m of a vector
 __device__ __forceinline__ unsigned word(const uint4& v, int m) {
   return m == 0 ? v.x : m == 1 ? v.y : m == 2 ? v.z : v.w;
+}
+
+// Block b takes tasks b, b + gridDim.x, ...; the window's pooled
+// activation for the thread's 8 channels, one 16-byte store.
+__global__ void __launch_bounds__(ROW_THREADS, F2_MIN_BLOCKS)
+f2_row_kernel(RowArgs A) {
+  const int t = threadIdx.x;
+  const int cg = t % A.G, q = t / A.G;
+  RowConsts K;
+  load_consts(A.kc, 8 * A.G, cg, K);
+  for (int task = blockIdx.x; task < A.tasks; task += gridDim.x) {
+    uint4 v[4];
+    long long yo, po;
+    if (!row_loads(A, task, q, cg, v, yo, po)) continue;
+    unsigned o[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const unsigned w[4] = {word(v[0], m), word(v[1], m), word(v[2], m),
+                             word(v[3], m)};
+      float xm[4][2];
+      unsigned z[4], a[4];
+      row_act(w, K, m, xm, z, a);
+      o[m] = max4(a);
+    }
+    A.out[po] = make_uint4(o[0], o[1], o[2], o[3]);
+  }
 }
 
 // Block b takes tasks b, b + gridDim.x, ... Partial row b = [sum dz | sum
@@ -457,9 +508,10 @@ __global__ void __launch_bounds__(ROW_THREADS, 1) b1_row_kernel(RowArgs A) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) s0[j] = s1[j] = 0.f;
   for (int task = blockIdx.x; task < A.tasks; task += gridDim.x) {
-    uint4 v[4], g;
-    long long yo;
-    if (!row_loads(A, task, q, cg, v, g, yo)) continue;
+    uint4 v[4];
+    long long yo, po;
+    if (!row_loads(A, task, q, cg, v, yo, po)) continue;
+    const uint4 g = __ldg(A.dp + po);
 #pragma unroll
     for (int m = 0; m < 4; ++m) {
       const unsigned w[4] = {word(v[0], m), word(v[1], m), word(v[2], m),
@@ -510,9 +562,10 @@ __global__ void __launch_bounds__(ROW_THREADS, 1) b2_row_kernel(RowArgs A) {
   load8(A.kc + 5 * C + 8 * cg, c2);
   load8(A.kc + 6 * C + 8 * cg, c3);
   for (int task = blockIdx.x; task < A.tasks; task += gridDim.x) {
-    uint4 v[4], g;
-    long long yo;
-    if (!row_loads(A, task, q, cg, v, g, yo)) continue;
+    uint4 v[4];
+    long long yo, po;
+    if (!row_loads(A, task, q, cg, v, yo, po)) continue;
+    const uint4 g = __ldg(A.dp + po);
     unsigned o[4][4];
 #pragma unroll
     for (int m = 0; m < 4; ++m) {
@@ -659,28 +712,47 @@ extern "C" int srod_fs_b2(const void* y, const void* dp, const void* kc,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The row kernels (b1_row_kernel, b2_row_kernel): y, dp and dy dense
-// channels-last (B, H, W, C) bf16, C % 8 == 0, every pointer 16-byte
-// aligned; kper and ntile as kernels/fused_stem.py's row_geometry.
+// The row kernels (f2_row_kernel, b1_row_kernel, b2_row_kernel): y, dp,
+// dy and F2's output dense channels-last (B, H, W, C) bf16, C % 8 == 0,
+// every pointer 16-byte aligned; kper and ntile as kernels/fused_stem.py's
+// row_geometry.
 
-// The blocks to launch (b1: B1, else B2) for `threads` a block: the
-// blocks resident on the device at once, at most one a task; -1 on a
+// The blocks to launch (kind 0: B2, 1: B1, 2: F2) for `threads` a block:
+// the blocks resident on the device at once, at most one a task; -1 on a
 // bad argument.
-extern "C" int srod_fs_row_grid(int b1, int threads, int tasks) {
+extern "C" int srod_fs_row_grid(int kind, int threads, int tasks) {
   int dev, sms, per_sm = 0;
-  if (threads < 1 || threads > ROW_THREADS || tasks < 1 ||
-      cudaGetDevice(&dev) != cudaSuccess ||
+  if (threads < 1 || threads > ROW_THREADS || tasks < 1 || kind < 0 ||
+      kind > 2 || cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess)
     return -1;
   const cudaError_t err =
-      b1 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-               &per_sm, b1_row_kernel, threads, 16 * sizeof(float) * threads)
-         : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-               &per_sm, b2_row_kernel, threads, 0);
+      kind == 1 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      &per_sm, b1_row_kernel, threads,
+                      16 * sizeof(float) * threads)
+      : kind == 2
+          ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm, f2_row_kernel, threads, 0)
+          : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm, b2_row_kernel, threads, 0);
   if (err != cudaSuccess || per_sm < 1) return -1;
   const long long most = static_cast<long long>(sms) * per_sm;
   return static_cast<int>(tasks < most ? tasks : most);
+}
+
+// out (B, H/2, W/2, C) channels-last bf16: the pooled activation.
+extern "C" int srod_fs_f2_row(const void* y, const void* kc, void* out,
+                              int nblk, int B, int C, int H, int W, int kper,
+                              int ntile, void* stream) {
+  if (!row_ok(B, C, H, W, kper, ntile) || nblk < 1 || !aligned16(y) ||
+      !aligned16(kc) || !aligned16(out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const RowArgs A = row_args(y, nullptr, kc, out, nullptr, B, C, H, W, kper,
+                             ntile);
+  f2_row_kernel<<<nblk, kper * A.G, 0, static_cast<cudaStream_t>(stream)>>>(
+      A);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // partial (nblk, 2 * C) float32 scratch; out (2 * C,) float32 [sum dz |

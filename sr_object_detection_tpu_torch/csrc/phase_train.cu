@@ -111,6 +111,22 @@
 //     round-to-nearest in shared memory (the tensor cores' own adds
 //     truncate, a bias over thousands of steps).
 //
+// The batch-1 serving stem (kernel 2 of the TPU package, b1_stem.py:82,
+// _pair_kernel; srod_pt_stem_pair): out = bf16(max over 2x2 of
+// leaky_0.1(conv3x3(x, w) + b)) at batch 1, BN folded, on the same tile in
+// mode CT_STEM (stem_tc_kernel<NC>; stem_fold_kernel<CIN, NC>, the taps
+// fold, at Cin <= 3), for Cout a multiple of 16 and Cin <= 3 or a
+// multiple of 16 up to 128 (the rest: stem_pair_kernel, csrc/b1_stem.cu,
+// FP32 cores). Its epilogue takes the maximum of the window's four
+// float32 sums, adds the float32 bias and applies the leaky once, and
+// rounds once: the per-tap order's value, since fl(m + b) and the leaky
+// are nondecreasing in m (up to the sign of a zero); no statistics, no
+// argmax, no partial rows. At batch 1 neither bytes (6.3 MB over the four
+// tiny-yolo-416 pairs, 1.9 us) nor products (1.35 GFLOP, 1.4 us) bound
+// it: pairs 3-4 have 49 and 16 8x8 pooled tiles, so one tile's K loop,
+// the block's prologue (the group's weights, the ring's first halos) and
+// the launch set its time.
+//
 // apply (kernel 5): zb = bf16(bf16((z - mean) * inv * scale) + bf16(bias)),
 // out = zb > 0 ? zb : bf16(0.10009765625 * zb) — the exact expressions of
 // _apply_kernel (phase_train.py:739-742), with __fmul_rn/__fsub_rn/
@@ -1428,11 +1444,18 @@ int bwdg_grid(int B, int H, int W, int Cin, int Cout, int* smem) {
 
 // ------------------------------------------------------------------------
 // The tensor-core conv tile of fwdstats, red and dy (Cin a multiple of 16;
-// see the note at the top). Modes of conv_tc_body:
-enum { CT_FWDSTATS = 0, CT_RED = 1, CT_DY = 2 };
+// see the note at the top) and of the batch-1 stem (CT_STEM, below).
+// Modes of conv_tc_body:
+enum { CT_FWDSTATS = 0, CT_RED = 1, CT_DY = 2, CT_STEM = 3 };
 // the conv path of a launch (conv_path): the FP32-core loop, the tile,
-// the tile with the taps fold (fwdstats at Cin <= 3)
+// the tile with the taps fold (fwdstats and the stem at Cin <= 3)
 enum { CP_FP32 = 0, CP_TILE = 1, CP_FOLD = 2 };
+#define PT_MAX_CIN_STEM 128              // plan_pairs' widest pair output
+// The stem's channel group at Cout a multiple of 32 (else 16); a
+// measurement switch of tools/b1_stem_ab.py --variants
+#ifndef PT_STEM_NC
+#define PT_STEM_NC 32
+#endif
 #define CT_CH 16                         // input channels of a k16 step
 #define CT_HALO (PT_TH * PT_TH * 32)     // bytes of one staged halo chunk
 #define CT_NS 4                          // halo chunks in the ring
@@ -1599,11 +1622,15 @@ __device__ __forceinline__ void fold_xprime(const unsigned char* slot,
 // of channel 2q and the odd one that of 2q + 1.
 // k0, k1: fwdstats shift and scales (Cout,); red/dy the (7, Cout) rows
 // mean, inv, scales, bias, c1, c2, c3 in k0.
-// FOLD (fwdstats only): 0, or Cin (1..3) for the taps fold: K = the 9 Cin
-// (tap, ci) pairs in column t * Cin + ci of X' [256 positions x 32]
-// (zero past 9 Cin), two k16 steps; the tile's A operand is then X',
+// FOLD (fwdstats and the stem): 0, or Cin (1..3) for the taps fold: K =
+// the 9 Cin (tap, ci) pairs in column t * Cin + ci of X' [256 positions x
+// 32] (zero past 9 Cin), two k16 steps; the tile's A operand is then X',
 // built a tile ahead in shared memory from the staged halo, and
 // everything else is the same code.
+// CT_STEM (the batch-1 serving stem, kernel 2): k0 the bias (Cout,)
+// float32, z the output (B, H/2, W/2, Cout) bf16 = bf16(leaky_0.1(max of
+// the window's four float32 sums + bias)); no statistics, no argmax, no
+// partial rows.
 template <int MODE, int NC, int FOLD = 0>
 __device__ __forceinline__ void conv_tc_body(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
@@ -1613,8 +1640,9 @@ __device__ __forceinline__ void conv_tc_body(
     float* __restrict__ partial, int B, int H, int W, int Cin, int Cout) {
   constexpr int NT = NC / 8;         // n8 tiles; also 16-byte units a row
   constexpr bool FD = FOLD > 0;
-  static_assert(FOLD >= 0 && FOLD <= 3 && (!FD || MODE == CT_FWDSTATS),
-                "the taps fold serves fwdstats at Cin <= 3");
+  static_assert(FOLD >= 0 && FOLD <= 3 &&
+                    (!FD || MODE == CT_FWDSTATS || MODE == CT_STEM),
+                "the taps fold serves fwdstats and the stem at Cin <= 3");
   extern __shared__ __align__(128) unsigned char csm[];
   const ConvTcLayout L = conv_tc_layout(MODE, Cin, NC, FD);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -1629,12 +1657,12 @@ __device__ __forceinline__ void conv_tc_body(
                       static_cast<int>(gridDim.x) + 1;
   const int S = ntl * nch;           // (tile, chunk) stages of the block
   const unsigned smb = smem_u32(csm);
-  // the group's constants [7][NC]: red and dy the rows of k0; fwdstats
-  // the shift as float64 (rows 2-3) and the sign mask that turns the
-  // channel's extreme into a maximum (row 4: 0 where scales > 0, else the
-  // bf16x2 sign bits), so no tile converts them
+  // the group's constants [7][NC]: red and dy the rows of k0, the stem
+  // its first (the bias); fwdstats the shift as float64 (rows 2-3) and the
+  // sign mask that turns the channel's extreme into a maximum (row 4: 0
+  // where scales > 0, else the bf16x2 sign bits), so no tile converts them
   float* kcs = reinterpret_cast<float*>(csm + L.kc);
-  for (int i = tid; i < (MODE == CT_FWDSTATS ? NC : 7 * NC);
+  for (int i = tid; i < (MODE == CT_RED || MODE == CT_DY ? 7 * NC : NC);
        i += PT_THREADS) {
     const int c = co0 + i % NC;
     if constexpr (MODE == CT_FWDSTATS) {
@@ -1847,7 +1875,7 @@ __device__ __forceinline__ void conv_tc_body(
       }
     }
     if (ch != nch - 1) continue;
-    if constexpr (FD && PT_FOLD_PROBE == 1) {
+    if constexpr (FD && MODE == CT_FWDSTATS && PT_FOLD_PROBE == 1) {
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -1862,6 +1890,38 @@ __device__ __forceinline__ void conv_tc_body(
     const int b = cw.b, ty = cw.ty, tx = cw.tx;
     cw.next();
     const int oy = ty * PT_PT + warp;
+    if constexpr (MODE == CT_STEM) {
+      // The window's maximum of the raw float32 sums, then bias and leaky
+      // once: fl(m + b) and the leaky are nondecreasing in m, so this is
+      // the value of stem_pair_kernel's per-tap order (up to the sign of
+      // a zero), with one rounding to bf16.
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int c = 8 * nt + 2 * q + (g & 1);    // the window's channel
+        unsigned short o[2];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          // the vertical pair's maximum of channels 2q and 2q + 1; the
+          // horizontal partner's from lane ^ 4
+          const float m0 = fmaxf(acc[mt][nt][0], acc[mt][nt][2]);
+          const float m1 = fmaxf(acc[mt][nt][1], acc[mt][nt][3]);
+          const float r = __shfl_xor_sync(0xffffffffu, even ? m1 : m0, 4);
+          const float v = __fadd_rn(fmaxf(even ? m0 : m1, r), kcs[c]);
+          o[mt] = bf16_bits(v > 0.f ? v : __fmul_rn(0.1f, v));
+        }
+        // channels 8 nt + 2 q, + 1 of a pixel: the even lane stores mt 0's,
+        // the odd one mt 1's
+        const unsigned zz = o[0] | (static_cast<unsigned>(o[1]) << 16);
+        const unsigned zo = __shfl_xor_sync(0xffffffffu, zz, 4);
+        const int sx = tx * PT_PT + 4 * (g & 1) + (g >> 1);
+        if (oy < H2 && sx < W2)
+          *reinterpret_cast<unsigned*>(
+              z + ((static_cast<size_t>(b) * H2 + oy) * W2 + sx) * Cout +
+              co0 + 8 * nt + 2 * q) = even ? __byte_perm(zz, zo, 0x5410)
+                                           : __byte_perm(zo, zz, 0x7632);
+      }
+      continue;
+    }
     unsigned wlo[NT][2];               // fwdstats: mt 0's windows
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt) {
@@ -2033,7 +2093,7 @@ __device__ __forceinline__ void conv_tc_body(
 
   cp_async_wait<0>();
   __syncthreads();                   // the ring is free
-  if constexpr (FD && PT_FOLD_PROBE == 1)
+  if constexpr (FD && MODE == CT_FWDSTATS && PT_FOLD_PROBE == 1)
     if (sink == 1.5f) partial[blockIdx.x] = sink;
   if constexpr (MODE == CT_DY) {
     // partial row blockIdx.x: dw in HWIO order (Cin 16: row t * 16 + ci)
@@ -2049,7 +2109,7 @@ __device__ __forceinline__ void conv_tc_body(
               (e & 1)] = dws[(j * 4 + e) * 32];
       }
     }
-  } else {
+  } else if constexpr (MODE != CT_STEM) {
     // the lanes of a channel (lane bits 3, 4), then the warps in order
     Acc* red = reinterpret_cast<Acc*>(csm + L.halo);   // [8][2][NC]
 #pragma unroll
@@ -2109,47 +2169,71 @@ fwdstats_fold_kernel(CONV_TC_PARAMS) {
   conv_tc_body<CT_FWDSTATS, NC, CIN>(CONV_TC_ARGS);
 }
 
+// The batch-1 stem (kernel 2) on the tile, and at Cin <= 3 on its taps
+// fold
+template <int NC>
+__global__ void __launch_bounds__(PT_THREADS, 2)
+stem_tc_kernel(CONV_TC_PARAMS) {
+  conv_tc_body<CT_STEM, NC>(CONV_TC_ARGS);
+}
+
+template <int CIN, int NC>
+__global__ void __launch_bounds__(PT_THREADS, NC == 16 ? 3 : 2)
+stem_fold_kernel(CONV_TC_PARAMS) {
+  conv_tc_body<CT_STEM, NC, CIN>(CONV_TC_ARGS);
+}
+
 using ConvTc = void (*)(const __nv_bfloat16*, const __nv_bfloat16*,
                         const __nv_bfloat16*, const float*, const float*,
                         __nv_bfloat16*, int8_t*, __nv_bfloat16*, float*, int,
                         int, int, int, int);
 
-// the conv path of fwdstats, red and dy for a shape: the tensor-core tile
-// for Cin a multiple of 16 in every mode (so the chain's forward and
-// backward compute one y), the tile with the taps fold for fwdstats at
-// Cin <= 3 (red and dy take Cin a multiple of 8), else the FP32-core loop
+// the conv path of fwdstats, red, dy and the stem for a shape: the
+// tensor-core tile for Cin a multiple of 16 in every mode (so the chain's
+// forward and backward compute one y; the stem up to PT_MAX_CIN_STEM), the
+// tile with the taps fold for fwdstats and the stem at Cin <= 3 (red and
+// dy take Cin a multiple of 8), else the FP32-core loop (the stem's:
+// stem_pair_kernel, csrc/b1_stem.cu)
 int conv_path(int mode, int Cin, int Cout) {
-  if (Cin <= 0 || Cout <= 0 || Cout % 16) return CP_FP32;
+  if (Cin <= 0 || Cout <= 0 || Cout % 16 ||
+      (mode == CT_STEM && Cin > PT_MAX_CIN_STEM))
+    return CP_FP32;
   if (Cin % CT_CH == 0) return CP_TILE;
-  return mode == CT_FWDSTATS && Cin <= 3 ? CP_FOLD : CP_FP32;
+  return (mode == CT_FWDSTATS || mode == CT_STEM) && Cin <= 3 ? CP_FOLD
+                                                               : CP_FP32;
 }
 
+// the kernel of a mode at NC, on the taps fold or not
 template <int NC>
-ConvTc fold_instance(int Cin) {
-  return Cin == 1   ? fwdstats_fold_kernel<1, NC>
-         : Cin == 2 ? fwdstats_fold_kernel<2, NC>
-                    : fwdstats_fold_kernel<3, NC>;
+ConvTc conv_tc_kernel(int mode, int Cin, bool fold) {
+  if (fold && mode == CT_STEM)
+    return Cin == 1   ? stem_fold_kernel<1, NC>
+           : Cin == 2 ? stem_fold_kernel<2, NC>
+                      : stem_fold_kernel<3, NC>;
+  if (fold)
+    return Cin == 1   ? fwdstats_fold_kernel<1, NC>
+           : Cin == 2 ? fwdstats_fold_kernel<2, NC>
+                      : fwdstats_fold_kernel<3, NC>;
+  return mode == CT_FWDSTATS ? fwdstats_tc_kernel<NC>
+         : mode == CT_RED    ? red_tc_kernel<NC>
+         : mode == CT_DY     ? dy_tc_kernel<NC>
+                             : stem_tc_kernel<NC>;
 }
 
 // launches mode `mode` of the tile (the fold where conv_path says so):
 // grid (n, Cout / NC), n = min(the tiles, rows_cap, the blocks resident
 // at once / groups); *nblk = n, the partial rows written. NC = 32 where
-// Cout allows, else 16.
+// Cout allows (the stem: PT_STEM_NC), else 16.
 int conv_tc_launch(int mode, const void* x, const void* w, const void* dp,
                    const void* k0, const void* k1, void* z, void* am,
                    void* dy, void* partial, int B, int H, int W, int Cin,
                    int Cout, long long rows_cap, int* nblk, cudaStream_t s) {
-  const int nc = Cout % 32 == 0 ? 32 : 16;
+  const int nc =
+      Cout % 32 == 0 && (mode != CT_STEM || PT_STEM_NC == 32) ? 32 : 16;
   const int path = conv_path(mode, Cin, Cout);
   const bool fold = path == CP_FOLD;
-  const ConvTc fn =
-      fold       ? (nc == 32 ? fold_instance<32>(Cin) : fold_instance<16>(Cin))
-      : nc == 32 ? (mode == CT_FWDSTATS ? fwdstats_tc_kernel<32>
-                    : mode == CT_RED    ? red_tc_kernel<32>
-                                        : dy_tc_kernel<32>)
-                 : (mode == CT_FWDSTATS ? fwdstats_tc_kernel<16>
-                    : mode == CT_RED    ? red_tc_kernel<16>
-                                        : dy_tc_kernel<16>);
+  const ConvTc fn = nc == 32 ? conv_tc_kernel<32>(mode, Cin, fold)
+                             : conv_tc_kernel<16>(mode, Cin, fold);
   const int smem = conv_tc_layout(mode, Cin, nc, fold).total;
   const int H2 = H / 2, W2 = W / 2;
   const long long tiles = static_cast<long long>(B) *
@@ -2234,11 +2318,34 @@ extern "C" int srod_pt_fwdstats(const void* x, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The conv path srod_pt_fwdstats (mode 0), srod_pt_red (1) and srod_pt_dy
-// (2) run for a shape: 1 the tensor-core tile (Cin a multiple of 16), 2
-// the tile with the taps fold (fwdstats at Cin <= 3), 0 the FP32-core loop.
+// The conv path srod_pt_fwdstats (mode 0), srod_pt_red (1), srod_pt_dy
+// (2) and the batch-1 stem (3) run for a shape: 1 the tensor-core tile
+// (Cin a multiple of 16), 2 the tile with the taps fold (fwdstats and the
+// stem at Cin <= 3), 0 the FP32-core loop (the stem: srod_stem_pair).
 extern "C" int srod_pt_conv_tensor_core(int mode, int Cin, int Cout) {
   return conv_path(mode, Cin, Cout);
+}
+
+// The batch-1 stem pair on the tensor-core tile (kernel 2 of the TPU
+// package, b1_stem.py:82): x (1, H, W, Cin) bf16 NHWC, w (3, 3, Cin, Cout)
+// bf16 HWIO, bias (Cout,) float32 -> out (1, H/2, W/2, Cout) bf16 =
+// bf16(max over 2x2 of leaky_0.1(conv3x3(x, w) + bias)), float32 sums,
+// bias and leaky, one rounding. The shapes srod_pt_conv_tensor_core(3,
+// Cin, Cout) puts on the tile; x and w 16-byte aligned. Bound at batch 1
+// by neither bytes nor products (see the note at the top) but by the
+// launch and one tile's prologue and K loop a block.
+extern "C" int srod_pt_stem_pair(const void* x, const void* w,
+                                 const void* bias, void* out, int H, int W,
+                                 int Cin, int Cout, void* stream) {
+  if (H <= 0 || W <= 0 || H % 2 || W % 2 ||
+      conv_path(CT_STEM, Cin, Cout) == CP_FP32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = static_cast<long long>((H / 2 + PT_PT - 1) / PT_PT) *
+                          ((W / 2 + PT_PT - 1) / PT_PT);
+  int nblk = 0;
+  return conv_tc_launch(CT_STEM, x, w, nullptr, bias, nullptr, out, nullptr,
+                        nullptr, nullptr, 1, H, W, Cin, Cout, tiles, &nblk,
+                        static_cast<cudaStream_t>(stream));
 }
 
 // z, out: n bf16 values (n % 8 == 0), NHWC with Cout channels.

@@ -67,9 +67,12 @@ SIGNATURES = {
     # z bf16, mean, inv, scales, bias (Cout,) f32, out bf16, n, Cout, stream
     "srod_pt_apply": ([_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _P],
                       _I),
-    # mode (0 fwdstats, 1 red, 2 dy), Cin, Cout -> the conv path: 0 the
-    # FP32-core loop, 1 the tensor-core tile, 2 the tile with the taps fold
+    # mode (0 fwdstats, 1 red, 2 dy, 3 the batch-1 stem), Cin, Cout -> the
+    # conv path: 0 the FP32-core loop (the stem: srod_stem_pair), 1 the
+    # tensor-core tile, 2 the tile with the taps fold
     "srod_pt_conv_tensor_core": ([_I, _I, _I], _I),
+    # the batch-1 stem on the tile: as srod_stem_pair
+    "srod_pt_stem_pair": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     # Cin, Cout -> 1 where bwdg runs on the tensor cores, else 0
     "srod_pt_bwdg_tensor_core": ([_I, _I], _I),
     # B, H, W, Cin, Cout -> the partial scratch's rows, or -1
@@ -98,8 +101,12 @@ SIGNATURES = {
                    _I),
     # y, dp bf16, kc, out bf16, strides, B, C, H, W, cfast, stream
     "srod_fs_b2": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
-    # b1 (1: B1, 0: B2), threads, tasks -> the row kernel's blocks, or -1
+    # kind (0: B2, 1: B1, 2: F2), threads, tasks -> the row kernel's
+    # blocks, or -1
     "srod_fs_row_grid": ([_I, _I, _I], _I),
+    # y bf16, kc, out bf16 (channels-last), nblk, B, C, H, W, kper, ntile,
+    # stream
+    "srod_fs_f2_row": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     # y, dp bf16 (channels-last), kc, partial, nblk, out f32, B, C, H, W,
     # kper, ntile, stream
     "srod_fs_b1_row": ([_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,

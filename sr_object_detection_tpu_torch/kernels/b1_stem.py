@@ -1,19 +1,31 @@
-"""Batch-1 stem pairs: the CUDA kernel ``csrc/b1_stem.cu`` and its wrapper.
+"""Batch-1 stem pairs: the CUDA kernels and their wrapper.
 
 Counterpart of ``sr_object_detection_tpu/kernels/b1_stem.py``. A pair is
 [conv3x3 s1 p1 + bias + leaky 0.1 -> maxpool 2x2/2] with BN already
 folded; tiny-yolo-voc-416 has four of them (3->16 @416, 16->32 @208,
-32->64 @104, 64->128 @52). The kernel computes
-``bf16(max over 2x2 of leaky(conv3x3(x, w) + b))`` with float32 products,
-sums and bias and ONE rounding, the TPU kernel's order; its design and
-bound are described in the source. The TPU kernel's flat channels-first
-layout helpers (``to_flat``, ``from_flat``, ``pack_weights``,
-``_sel_matrix``, ``_cpad16``) were TPU layout answers and are not ported.
+32->64 @104, 64->128 @52). The kernels compute
+``bf16(max over 2x2 of leaky(conv3x3(x, w) + b))`` with float32 sums and
+bias and ONE rounding, the TPU kernel's order. Two kernels, chosen by
+shape (the library's ``conv_path`` in mode "stem", mirrored by
+``phase_train.conv_path("stem", cin, cout)``):
+
+* the tensor-core conv tile of ``csrc/phase_train.cu`` in its stem mode
+  (``stem_tc_kernel``; ``stem_fold_kernel``, the tile's taps fold, at
+  Cin <= 3) where Cout is a multiple of 16 and Cin is at most 3 or a
+  multiple of 16 up to 128: tiny-yolo-voc's four pairs;
+* ``stem_pair_kernel`` (``csrc/b1_stem.cu``, the FP32 cores) for every
+  other shape.
+
+The TPU kernel's flat channels-first layout helpers (``to_flat``,
+``from_flat``, ``pack_weights``, ``_sel_matrix``, ``_cpad16``) were TPU
+layout answers and are not ported.
 
 ``plan_pairs`` and ``truncate_spec`` are the JAX module's pure spec
-logic, unchanged. Dispatch is by device only: a CPU tensor takes
-:func:`stem_pair_plain`, a CUDA tensor launches the kernel or raises.
-``launches`` counts kernel launches and nothing else.
+logic, unchanged. Dispatch is by device first: a CPU tensor takes
+:func:`stem_pair_plain`, a CUDA tensor launches the kernel for its shape
+or raises. ``launches`` counts kernel launches and nothing else;
+``paths`` says which kernel each launch ran (the names of
+``phase_train.CONV_PATHS``).
 """
 
 from __future__ import annotations
@@ -25,8 +37,19 @@ import torch.nn.functional as F
 
 from ..graph import spec as S
 from . import _build
+from . import phase_train as PT
 
 launches = 0        # kernel launches since the last reset
+# which kernel each launch ran: the tile, its taps fold, or stem_pair_kernel
+paths = dict.fromkeys(PT.CONV_PATHS, 0)
+
+
+def reset_launches():
+    global launches
+    launches = 0
+    for k in paths:
+        paths[k] = 0
+
 
 
 def stem_pair_plain(x, w_hwio, bias):
@@ -64,11 +87,22 @@ def stem_pair(x, w_hwio, bias):
     bias = bias.contiguous()
     out = torch.empty((1, h // 2, w // 2, cout), dtype=torch.bfloat16,
                       device=x.device)
-    err = _build.load().srod_stem_pair(
+    lib = _build.load()
+    path = PT.library_conv_path(lib, "stem", cin, cout)
+    if path == "fp32_core":
+        entry = "srod_stem_pair"
+    else:
+        entry = "srod_pt_stem_pair"
+        if x.data_ptr() % 16:        # the tile copies 16-byte units
+            x = x.clone()
+        if w_hwio.data_ptr() % 16:
+            w_hwio = w_hwio.clone()
+    err = getattr(lib, entry)(
         x.data_ptr(), w_hwio.data_ptr(), bias.data_ptr(), out.data_ptr(),
         h, w, cin, cout, _build.stream_ptr(x.device))
-    _build.check(err, "srod_stem_pair")
+    _build.check(err, entry)
     launches += 1
+    paths[path] += 1
     return out
 
 
@@ -145,4 +179,4 @@ def build_stem(spec: S.NetworkSpec, params):
 
 
 __all__ = ["stem_pair", "stem_pair_plain", "build_stem", "plan_pairs",
-           "truncate_spec", "launches"]
+           "truncate_spec", "launches", "paths", "reset_launches"]

@@ -15,18 +15,18 @@ XLA) followed by :func:`fused_bn_leaky_pool` on its bf16 output y:
   cotangent of y in one pass).
 
 The kernels read the layout the port's conv writes: y is logically NCHW,
-NCHW or channels-last in memory, and nothing is copied around them. B1
-and B2 have two kernels each: the row kernels (``b1_row_kernel``,
-``b2_row_kernel``: one pooled row a task, 16-byte vectors of 8 channels)
-where :func:`_row_path` holds (y, dp and dy dense channels-last, C a
-multiple of 8, 16-byte aligned: the training step's case on the card),
-and the strided kernels (``b1_kernel``, ``b2_kernel``) for every other
-layout. F2 has the strided kernel only.
+NCHW or channels-last in memory, and nothing is copied around them. F2,
+B1 and B2 have two kernels each: the row kernels (``f2_row_kernel``,
+``b1_row_kernel``, ``b2_row_kernel``: one pooled row a task, 16-byte
+vectors of 8 channels) where :func:`_row_path` holds (y, dp, dy and F2's
+output dense channels-last, C a multiple of 8, 16-byte aligned: the
+training step's case on the card), and the strided kernels
+(``f2_kernel``, ``b1_kernel``, ``b2_kernel``) for every other layout.
 
 Each kernel has a plain PyTorch version beside it (``*_plain``); a CPU
 tensor takes it, a CUDA tensor launches the kernel or raises.
 ``launches`` counts each op's launches and nothing else; ``paths`` says
-which kernel took each B1 and B2 launch.
+which kernel took each launch.
 
 Not ported: ``_pick_tiles``, ``_grids``, ``_kcols`` and the lane-splatted
 ``_consts`` (the TPU's (8, 128) tiling with the batch in the lanes), and
@@ -47,8 +47,8 @@ from . import _build
 from .phase_train import _bn_roll, bn_backward_consts
 
 launches = {"f2": 0, "b1": 0, "b2": 0}
-# which kernel took each B1 / B2 launch: the row kernels or the strided ones
-paths = {"b1_row": 0, "b2_row": 0, "b1": 0, "b2": 0}
+# which kernel took each launch: the row kernels or the strided ones
+paths = {"f2_row": 0, "b1_row": 0, "b2_row": 0, "f2": 0, "b1": 0, "b2": 0}
 
 THREADS = 256               # csrc/fused_stem.cu's block (B1's lanes)
 B1_BLOCKS = 4096            # B1's partial rows at most
@@ -167,9 +167,9 @@ def _strides(y, dp, out):
 
 
 def _row_path(y, dp, out=None) -> bool:
-    """Whether the row kernels take B1 / B2 on these tensors: y, dp and
-    out (when given) dense channels-last, C a multiple of 8 (a 16-byte
-    vector of channels) and each data pointer 16-byte aligned."""
+    """Whether the row kernels take F2 / B1 / B2 on these tensors: y, dp
+    and out (each when given) dense channels-last, C a multiple of 8 (a
+    16-byte vector of channels) and each data pointer 16-byte aligned."""
     c = y.shape[1]
     return (c % 8 == 0 and c // 8 <= ROW_THREADS
             and all(t.is_contiguous(memory_format=torch.channels_last)
@@ -188,23 +188,28 @@ def row_geometry(c, w):
     return g, kper, ntile, kper * g
 
 
+ROW_KINDS = ("b2", "b1", "f2")      # csrc srod_fs_row_grid's kind
+
+
 @functools.lru_cache(maxsize=None)
-def _row_grid(device_index, b1_, threads, tasks):
+def _row_grid(device_index, kind, threads, tasks):
     """Blocks of a row kernel: as many as the device holds at once, at
     most one a task (csrc: srod_fs_row_grid)."""
     with torch.cuda.device(device_index):
-        nblk = _build.load().srod_fs_row_grid(int(b1_), threads, tasks)
+        nblk = _build.load().srod_fs_row_grid(ROW_KINDS.index(kind),
+                                              threads, tasks)
     if nblk < 1:
-        raise RuntimeError(f"srod_fs_row_grid: {nblk} for {threads} "
-                           f"threads, {tasks} tasks")
+        raise RuntimeError(f"srod_fs_row_grid: {nblk} for {kind}, "
+                           f"{threads} threads, {tasks} tasks")
     return nblk
 
 
-def _row_launch(b1_, y):
-    """(kper, ntile, nblk) of a row-kernel launch on y."""
+def _row_launch(kind, y):
+    """(kper, ntile, nblk) of a row-kernel launch (``kind`` "f2", "b1"
+    or "b2") on y."""
     b, c, h, w = y.shape
     _, kper, ntile, threads = row_geometry(c, w)
-    return kper, ntile, _row_grid(y.device.index, b1_, threads,
+    return kper, ntile, _row_grid(y.device.index, kind, threads,
                                   b * (h // 2) * ntile)
 
 
@@ -226,12 +231,22 @@ def f2(y, mean, inv, scales, biases):
                       device=y.device,
                       memory_format=(torch.channels_last if cl
                                      else torch.contiguous_format))
-    strides = _strides(y, None, out)
-    err = _build.load().srod_fs_f2(
-        y.data_ptr(), _consts(consts).data_ptr(),
-        out.data_ptr(), ctypes.addressof(strides), b, c, h, w, cl,
-        _build.stream_ptr(y.device))
-    _build.check(err, "srod_fs_f2")
+    kc = _consts(consts)
+    if _row_path(y, None, out):
+        kper, ntile, nblk = _row_launch("f2", y)
+        err = _build.load().srod_fs_f2_row(
+            y.data_ptr(), kc.data_ptr(), out.data_ptr(), nblk, b, c, h, w,
+            kper, ntile, _build.stream_ptr(y.device))
+        _build.check(err, "srod_fs_f2_row")
+        paths["f2_row"] += 1
+    else:
+        strides = _strides(y, None, out)
+        err = _build.load().srod_fs_f2(
+            y.data_ptr(), kc.data_ptr(), out.data_ptr(),
+            ctypes.addressof(strides), b, c, h, w, cl,
+            _build.stream_ptr(y.device))
+        _build.check(err, "srod_fs_f2")
+        paths["f2"] += 1
     launches["f2"] += 1
     return out
 
@@ -246,7 +261,7 @@ def b1(y, dp, mean, inv, scales, biases):
     kc = _consts(consts)
     out = torch.empty(2 * c, dtype=torch.float32, device=y.device)
     if _row_path(y, dp):
-        kper, ntile, nblk = _row_launch(True, y)
+        kper, ntile, nblk = _row_launch("b1", y)
         partial = torch.empty((nblk, 2 * c), dtype=torch.float32,
                               device=y.device)
         err = _build.load().srod_fs_b1_row(
@@ -288,7 +303,7 @@ def b2(y, dp, mean, inv, scales, biases, c1, c2, c3):
     kc = _consts(consts)
     out = torch.empty_like(y)
     if _row_path(y, dp, out):
-        kper, ntile, nblk = _row_launch(False, y)
+        kper, ntile, nblk = _row_launch("b2", y)
         err = _build.load().srod_fs_b2_row(
             y.data_ptr(), dp.data_ptr(), kc.data_ptr(), out.data_ptr(), nblk,
             b, c, h, w, kper, ntile, _build.stream_ptr(y.device))

@@ -69,9 +69,13 @@ bwdg_kernels = {"tensor_core": 0, "fp32_core": 0}
 CONV_MODES = ("fwdstats", "red", "dy")
 CONV_PATHS = ("fp32_core", "tensor_core", "tensor_core_fold")
 conv_kernels = {mode: dict.fromkeys(CONV_PATHS, 0) for mode in CONV_MODES}
+# the library's mode numbers (csrc CT_*): the three above and the batch-1
+# stem's (kernels/b1_stem.py), which runs on the same tile
+MODE_INDEX = {**{m: i for i, m in enumerate(CONV_MODES)}, "stem": 3}
 
 # the kernels' shape limits (csrc/phase_train.cu)
 MAX_CIN_FWD, MAX_COUT_FWD = 64, 128
+MAX_CIN_STEM = 128          # the stem's tile (csrc PT_MAX_CIN_STEM)
 MAX_CIN_BWD, MAX_COUT_BWD = 16, 64
 MAX_CIN_CHAIN = 16          # red, dy and dgrad: Cin 8 or 16
 CHAIN_BLOCKS = 2048         # red/dy blocks to aim for (B x groups x chunks)
@@ -84,23 +88,31 @@ def reset_launches():
 
 
 def conv_path(mode, cin, cout):
-    """The conv path a launch of fwdstats, red or dy (``mode``) runs for a
-    shape, as the library picks it (``srod_pt_conv_tensor_core``): the
-    tensor-core tile for Cin a multiple of 16, the tile with the taps fold
-    for fwdstats at Cin <= 3, else the FP32-core loop."""
-    if cin <= 0 or cout <= 0 or cout % 16:
+    """The conv path a launch of fwdstats, red, dy or the batch-1 stem
+    (``mode`` "stem") runs for a shape, as the library picks it
+    (``srod_pt_conv_tensor_core``): the tensor-core tile for Cin a
+    multiple of 16 (the stem's up to ``MAX_CIN_STEM``), the tile with the
+    taps fold for fwdstats and the stem at Cin <= 3, else the FP32-core
+    loop (the stem's: ``stem_pair_kernel``)."""
+    if (cin <= 0 or cout <= 0 or cout % 16
+            or (mode == "stem" and cin > MAX_CIN_STEM)):
         return "fp32_core"
     if cin % 16 == 0:
         return "tensor_core"
-    return ("tensor_core_fold" if mode == "fwdstats" and cin <= 3
+    return ("tensor_core_fold" if mode in ("fwdstats", "stem") and cin <= 3
             else "fp32_core")
+
+
+def library_conv_path(lib, mode, cin, cout):
+    """The library's own answer to :func:`conv_path`."""
+    return CONV_PATHS[lib.srod_pt_conv_tensor_core(MODE_INDEX[mode], cin,
+                                                   cout)]
 
 
 def _count_conv(lib, mode, cin, cout):
     """One launch of fwdstats, red or dy, and the conv path it ran."""
     launches[mode] += 1
-    path = lib.srod_pt_conv_tensor_core(CONV_MODES.index(mode), cin, cout)
-    conv_kernels[mode][CONV_PATHS[path]] += 1
+    conv_kernels[mode][library_conv_path(lib, mode, cin, cout)] += 1
 
 
 def supported(spec) -> bool:
@@ -661,4 +673,4 @@ __all__ = ["phase_train_block", "phase_train_dx_block", "phase_train_chain2",
            "bwdg_plain", "red", "red_plain", "dy", "dy_plain", "dgrad",
            "dgrad_plain", "bn_backward_consts", "supported",
            "supported_chain", "launches", "bwdg_kernels", "conv_kernels",
-           "conv_path", "reset_launches"]
+           "conv_path", "library_conv_path", "reset_launches"]

@@ -109,6 +109,74 @@ def test_kernel_wrappers_reject_bad_inputs(cuda):
                                      dtype=torch.float64), 0.4)
 
 
+def _stem_inputs(cuda, seed, h, w, cin, cout):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.uniform(0, 1, (1, h, w, cin)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    wt = torch.from_numpy(rng.normal(0, 0.3, (3, 3, cin, cout)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    b = torch.from_numpy(rng.normal(0, 0.3, cout).astype(np.float32)).to(
+        cuda)
+    return x, wt, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,cin,cout", [
+    (416, 416, 3, 16), (208, 208, 32, 32), (416, 416, 1, 16),
+    (208, 208, 2, 32), (104, 104, 3, 64),
+    (52, 52, 16, 128), (104, 104, 64, 16), (26, 26, 32, 48),
+    (52, 52, 128, 32), (22, 38, 3, 16), (22, 38, 16, 32), (26, 26, 2, 128)])
+def test_stem_tile_matches_plain(cuda, h, w, cin, cout):
+    """The batch-1 stem on the tensor-core tile (its taps fold at Cin <=
+    3) within one bf16 ulp of stem_pair_plain, partial 8x8 pooled tiles
+    included (13, 11 x 19 pooled pixels), counted under its path; two
+    launches bit-equal (test_stem_kernel_matches_plain covers
+    tiny-yolo-voc's four pairs themselves)."""
+    x, wt, b = _stem_inputs(cuda, h + w + cin + cout, h, w, cin, cout)
+    path = "tensor_core_fold" if cin <= 3 else "tensor_core"
+    assert TPT.conv_path("stem", cin, cout) == path
+    before, paths = TBS.launches, dict(TBS.paths)
+    got = TBS.stem_pair(x, wt, b)
+    again = TBS.stem_pair(x, wt, b)
+    torch.cuda.synchronize()
+    assert TBS.launches == before + 2
+    assert {k: TBS.paths[k] - paths[k] for k in paths} == {
+        **dict.fromkeys(paths, 0), path: 2}
+    assert torch.equal(got, again)
+    ref = TBS.stem_pair_plain(x, wt, b)
+    assert_bf16_close(got.float().cpu().numpy(), ref.float().cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(8, 16), (3, 8), (24, 32), (144, 16)])
+def test_stem_other_shapes_take_fp32_kernel(cuda, cin, cout):
+    """Shapes off the tile (Cin 4-15, Cin no multiple of 16, Cin past 128,
+    Cout no multiple of 16) run stem_pair_kernel, within one bf16 ulp of
+    the plain version."""
+    x, wt, b = _stem_inputs(cuda, cin + cout, 30, 22, cin, cout)
+    assert TPT.conv_path("stem", cin, cout) == "fp32_core"
+    paths = dict(TBS.paths)
+    got = TBS.stem_pair(x, wt, b)
+    torch.cuda.synchronize()
+    assert {k: TBS.paths[k] - paths[k] for k in paths} == {
+        **dict.fromkeys(paths, 0), "fp32_core": 1}
+    assert_bf16_close(got.float().cpu().numpy(),
+                      TBS.stem_pair_plain(x, wt, b).float().cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_stem_tile_misaligned_input(cuda):
+    """An input view 2 bytes past a 16-byte boundary: the wrapper copies
+    it for the tile's 16-byte loads."""
+    x, wt, b = _stem_inputs(cuda, 5, 52, 52, 16, 32)
+    buf = torch.empty(x.numel() + 8, dtype=x.dtype, device=cuda)
+    k = next(k for k in range(8) if (buf.data_ptr() + 2 * k) % 16 == 2)
+    xm = buf[k:k + x.numel()].view(x.shape)
+    xm.copy_(x)
+    assert xm.data_ptr() % 16 == 2
+    assert torch.equal(TBS.stem_pair(xm, wt, b), TBS.stem_pair(x, wt, b))
+
+
 @pytest.mark.cuda
 def test_latency_engine_fused_on_cuda(cuda):
     spec = tiny_yolo_voc(width=128, height=128)
@@ -390,16 +458,18 @@ def test_fwdstats_fold_misaligned_input(cuda):
 def test_conv_path_mirror_matches_library(cuda):
     """kernels/phase_train.conv_path, the Python mirror of the library's
     mode-aware predicate, names the path srod_pt_conv_tensor_core picks
-    for every mode and shape here."""
+    for every mode (the batch-1 stem's too) and shape here."""
     from sr_object_detection_tpu_torch.kernels import _build
     lib = _build.load()
-    for m, mode in enumerate(TPT.CONV_MODES):
-        for cin in (1, 2, 3, 4, 8, 15, 16, 24, 32, 40, 48, 64):
+    for mode, m in TPT.MODE_INDEX.items():
+        for cin in (1, 2, 3, 4, 8, 15, 16, 24, 32, 40, 48, 64, 128, 144,
+                    256):
             for cout in (8, 16, 32, 48, 128):
                 got = TPT.CONV_PATHS[lib.srod_pt_conv_tensor_core(m, cin,
                                                                   cout)]
                 assert got == TPT.conv_path(mode, cin, cout), (mode, cin,
                                                                cout)
+                assert got == TPT.library_conv_path(lib, mode, cin, cout)
 
 
 @pytest.mark.cuda
@@ -663,7 +733,7 @@ def test_dx_pair_gradient_on_cuda(cuda):
 def test_fused_stem_kernels_match_plain(cuda, c, h, channels_last):
     """F2, B1 and B2 against their plain versions, y channels-last (the
     port's conv output on the card) or NCHW in memory
-    (torch_parity.check_fused_stem_kernels). B1 and B2 take the row
+    (torch_parity.check_fused_stem_kernels). F2, B1 and B2 take the row
     kernels where y and dp are channels-last and C a multiple of 8 (C 24
     too, which the strided B1 refuses), the strided kernels otherwise (C
     4, NCHW)."""
@@ -675,23 +745,46 @@ def test_fused_stem_kernels_match_plain(cuda, c, h, channels_last):
         "f2": 1, "b1": 2, "b2": 1}
     row = channels_last and c % 8 == 0
     assert {k: TFS.paths[k] - paths[k] for k in paths} == {
-        "b1_row": 2 * row, "b2_row": row, "b1": 2 * (not row),
-        "b2": not row}
+        "f2_row": row, "b1_row": 2 * row, "b2_row": row, "f2": not row,
+        "b1": 2 * (not row), "b2": not row}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,c", [(416 >> k, 16 << k) for k in range(5)])
+def test_f2_row_at_the_fusable_pairs(cuda, h, c):
+    """F2 at the five fusable pairs' conv outputs (B=8, channels-last as
+    the conv writes them) on the row kernel, bit-equal to f2_plain; the
+    same y in NCHW memory still takes f2_kernel, with the same values."""
+    case = stem_case(h + c, 8, h, c, cuda)
+    k4 = [case[k] for k in ("mean", "inv", "scales", "biases")]
+    paths = dict(TFS.paths)
+    got = TFS.f2(case["y"], *k4)
+    nchw = TFS.f2(case["y"].contiguous(), *k4)
+    torch.cuda.synchronize()
+    assert {k: TFS.paths[k] - paths[k] for k in paths} == {
+        **dict.fromkeys(paths, 0), "f2_row": 1, "f2": 1}
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    ref = TFS.f2_plain(case["y"], *k4)
+    assert torch.equal(got, ref), (got != ref).sum().item()
+    assert torch.equal(nchw, ref)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", ["y", "dp"])
 def test_fused_stem_misaligned_view_takes_strided_kernels(cuda, which):
     """A channels-last view 2 bytes past a 16-byte boundary (y or dp)
-    goes to the strided B1 and B2, which match their plain versions."""
+    goes to the strided B1 and B2 (and for y, F2), which match their
+    plain versions."""
     case = stem_case(7, 4, 16, 32, cuda)
     case[which] = misaligned(case[which])
     assert case[which].data_ptr() % 16 == 2
     paths = dict(TFS.paths)
     check_fused_stem_kernels(TFS, case)
     torch.cuda.synchronize()
+    f2_row = which == "dp"             # F2 reads y alone
     assert {k: TFS.paths[k] - paths[k] for k in paths} == {
-        "b1_row": 0, "b2_row": 0, "b1": 2, "b2": 1}
+        "f2_row": f2_row, "b1_row": 0, "b2_row": 0, "f2": not f2_row,
+        "b1": 2, "b2": 1}
 
 
 @pytest.mark.cuda

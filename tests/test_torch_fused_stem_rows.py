@@ -1,5 +1,6 @@
-"""The row kernels of the fused stem's backward (csrc/fused_stem.cu
-``b1_row_kernel``, ``b2_row_kernel``), emulated in numpy on the CPU.
+"""The row kernels of the fused stem (csrc/fused_stem.cu
+``f2_row_kernel``, ``b1_row_kernel``, ``b2_row_kernel``), emulated in
+numpy on the CPU.
 
 The kernels run only on the card (tests/test_torch_cuda.py holds them to
 their plain versions there); here their index maps and their order of
@@ -14,11 +15,15 @@ the plain versions of kernels/fused_stem.py:
 * the 16-byte vectors' lanes are channels 8g .. 8g+7, low half first,
   and a B2 row pass gathered, computed and scattered through those maps
   equals ``b2_plain`` bit for bit;
+* an F2 row pass (the bf16x2 activation and the window's maximum, one
+  vector stored at the pooled pixel's offset) writes every pooled vector
+  once and equals ``f2_plain`` bit for bit, at the five fusable pairs'
+  shapes and at rows split into partial column tiles;
 * B1's fixed-order sums (per thread, per block in shared memory, then
   colsum) in float32 are within 1e-4 of ``b1_plain``'s largest
   magnitude;
 * ``_row_path`` picks the row kernels for dense channels-last, C a
-  multiple of 8 and 16-byte aligned tensors only.
+  multiple of 8 and 16-byte aligned tensors only (F2's output too).
 """
 
 import numpy as np
@@ -156,15 +161,22 @@ def consts(case):
                                       "c1", "c2", "c3")]
 
 
-def window(v, k4, grp):
-    """Per tap (4, n, 8 lanes): y - mean, x_hat, the first maximal tap and
-    its sign, for channel group ``grp`` (n,), with the bf16x2 operations
-    of csrc row_pair."""
+def activation(v, k4, grp):
+    """Per tap (4, n, 8 lanes): y - mean, x_hat, the pre-activation z and
+    the activation a, for channel group ``grp`` (n,), with the bf16x2
+    operations of csrc row_act."""
     mean, inv, sc, bias = (k.reshape(-1, 8)[grp] for k in k4[:4])
     xm = v - mean
     xh = xm * inv
     z = bf16_rn(bf16r(xh * sc).astype(np.float64) + bf16r(bias))
-    a = np.maximum(z, bf16_rn(SLOPE * z))
+    return xm, xh, z, np.maximum(z, bf16_rn(SLOPE * z))
+
+
+def window(v, k4, grp):
+    """Per tap (4, n, 8 lanes): y - mean, x_hat, the first maximal tap and
+    its sign, for channel group ``grp`` (n,), with the bf16x2 operations
+    of csrc row_pair."""
+    xm, xh, z, a = activation(v, k4, grp)
     first = np.argmax(a == a.max(axis=0), axis=0)
     return xm, xh, first, np.take_along_axis(z, first[None], 0)[0] > 0
 
@@ -228,7 +240,53 @@ def emulate(case, nblk=None, b2=True):
     return torch.from_numpy(red[0].reshape(2, c).T.copy())
 
 
+def emulate_f2(case, nblk=None):
+    """F2's row kernel on the CPU: every block's tasks in order, every
+    thread's four taps gathered by vector_offsets, the activation and the
+    window's maximum as the kernel computes them, one vector stored at
+    the pooled pixel's offset (dp's). Every pooled vector is written
+    once."""
+    y = case["y"]
+    b, c, h, w = y.shape
+    g, kper, ntile, threads, tasks, nblk = grid(b, c, h, w, nblk)
+    yw = words(y)
+    k4 = consts(case)[:4]
+    out = np.zeros((b * (h // 2) * (w // 2) * g, 4), np.uint32)
+    stores = np.zeros(len(out), np.int64)
+    t = np.arange(threads)
+    cg, q = t % g, t // g
+    for mine in task_map(tasks, nblk):
+        for task in mine:
+            r, tile = divmod(int(task), ntile)
+            pw = tile * kper + q
+            ok = pw < w // 2
+            taps, po = vector_offsets(r, pw[ok], cg[ok], g, w // 2)
+            a = activation(lanes(yw[taps]), k4, cg[ok])[3]
+            out[po] = pack(a.max(axis=0))
+            stores[po] += 1
+    assert (stores == 1).all()
+    u16 = out.view(np.uint16).reshape(b, h // 2, w // 2, c)
+    return torch.from_numpy(u16.view(np.int16).copy()).view(
+        torch.bfloat16).permute(0, 3, 1, 2)
+
+
 ODD = [(3, 26, 8), (3, 26, 24), (2, 26, 512), (2, 52, 128)]     # B, H, C
+
+
+@pytest.mark.parametrize("b,h,c", [(1, h, c) for h, c in PAIRS]
+                         + [(2, 26, 512), (1, 34, 384), (3, 26, 24)])
+def test_f2_row_emulation_equals_plain(b, h, c):
+    """At the five pairs' (H, C) (batch 1) and at rows split into column
+    tiles, the last one partial (C 512 at 26: 2 tiles of 7 columns for
+    13; C 384 at 34: 2 tiles of 9 for 17)."""
+    case = stem_case(b + h + c, b, h, c, "cpu")
+    _, kper, ntile, _ = FS.row_geometry(c, h)
+    assert (ntile > 1 and kper * ntile > h // 2) == (c >= 384)
+    k4 = [case[n] for n in ("mean", "inv", "scales", "biases")]
+    ref = FS.f2_plain(case["y"], *k4)
+    for nblk in (None, 5):
+        got = emulate_f2(case, nblk)
+        assert torch.equal(got, ref), (got != ref).sum().item()
 
 
 @pytest.mark.parametrize("b,h,c", ODD)
@@ -284,3 +342,14 @@ def test_row_path_by_layout():
     assert not FS._row_path(y, dp, misaligned(y))
     assert FS._row_path(y[1:], dp[1:])                # aligned view
     assert not FS._row_path(y[:, :8], dp[:, :8])      # channel slice
+    # F2: y and its pooled output, no dp
+    pooled = torch.empty(dp.shape, dtype=dp.dtype).contiguous(
+        memory_format=torch.channels_last)
+    assert FS._row_path(y, None, pooled)
+    assert not FS._row_path(nchw["y"], None, pooled)
+    assert not FS._row_path(y, None, torch.empty(dp.shape, dtype=dp.dtype))
+    assert not FS._row_path(y, None, misaligned(pooled))
+    assert not FS._row_path(misaligned(y), None, pooled)
+    assert not FS._row_path(c12["y"], None, torch.empty(
+        c12["dp"].shape, dtype=dp.dtype).contiguous(
+            memory_format=torch.channels_last))

@@ -1,18 +1,18 @@
-"""Times the fused stem's backward kernels (B1, B2) and the training steps
+"""Times the fused stem's kernels (F2, B1, B2) and the training steps
 that run them, in the checkout this file lies in, for comparing two
 checkouts on one card.
 
-    python3 tools/fused_stem_ab.py LABEL
+    python3 tools/fused_stem_ab.py LABEL [--variants]
 
 Prints, with the card's name and power limit:
-  * ``B1``, ``B2``: kernels/fused_stem.b1 and .b2 (B1 with its colsum) at
-    the conv outputs of the five fusable pairs of tiny-yolo-voc-416 at
-    B=128 (416x416x16 ... 26x26x256), channels-last as the port's conv
-    writes them on the card, on inputs as tests/torch_parity.stem_case
-    makes them (seed 170 + pair); CUDA events over 20 back-to-back calls,
-    best of two, and over a replay of 20 calls captured in one CUDA graph
-    (device time without the host's launch cost, which bounds the
-    back-to-back figure at the small pairs);
+  * ``F2``, ``B1``, ``B2``: kernels/fused_stem.f2, .b1 and .b2 (B1 with
+    its colsum) at the conv outputs of the five fusable pairs of
+    tiny-yolo-voc-416 at B=128 (416x416x16 ... 26x26x256), channels-last
+    as the port's conv writes them on the card, on inputs as
+    tests/torch_parity.stem_case makes them (seed 170 + pair); CUDA events
+    over 20 back-to-back calls, best of two, and over a replay of 20 calls
+    captured in one CUDA graph (device time without the host's launch
+    cost, which bounds the back-to-back figure at the small pairs);
   * for the bf16 steps with the fused stem at 416, B=128 (random weights
     from seed 0, input as chip_smoke.py phase 13), ``fused_stem=True``
     and ``phase_train=True, fused_stem=True``: images/s from the host
@@ -22,6 +22,13 @@ Prints, with the card's name and power limit:
     fused_stem.cu's colsum from phase_train.cu's; the latter's are a few
     microseconds a step).
 
+With ``--variants`` (a checkout whose csrc/fused_stem.cu has
+``f2_row_kernel``) it also builds the kernel library again under build/
+with each other count of F2's row kernel's blocks an SM
+(``-DF2_MIN_BLOCKS=1`` and ``3``; the library's own is 2) and times F2
+at the five pairs through each, from a CUDA graph, checking its output
+equal to the library's.
+
 The file uses nothing else of tools/ or tests/, so a copy of it placed in
 another checkout's tools/ times that checkout: run parent, change,
 change, parent one after another on one card.
@@ -29,6 +36,7 @@ change, parent one after another on one card.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import pathlib
 import re
@@ -43,6 +51,9 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 NET, BATCH = 416, 128
+# the library rebuilt with other launch bounds of f2_row_kernel
+VARIANTS = {"F2 one block an SM": ["-DF2_MIN_BLOCKS=1"],
+            "F2 three blocks an SM": ["-DF2_MIN_BLOCKS=3"]}
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -108,7 +119,33 @@ def stem_args(seed, h, c, dev):
     return y, dp, [mean, inv, scales, biases], [c1, c2, c3]
 
 
-def main(label: str) -> int:
+def build_variant(name, flags):
+    """The kernel library compiled with extra nvcc ``flags``, loaded with
+    the signatures of kernels/_build.py."""
+    from sr_object_detection_tpu_torch.kernels import _build
+    out = ROOT / "build" / "fused_stem_ab" / name.replace(" ", "_")
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = _build._nvcc()
+    procs = [(src, subprocess.Popen(
+        [nvcc, *_build.NVCC_FLAGS, *flags, "-c", str(src), "-o",
+         str(out / (src.stem + ".o"))], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)) for src in _build._sources()]
+    for src, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc {src.name} {flags}: {err}")
+    lib_path = out / _build.LIB_NAME
+    subprocess.run([nvcc, "-shared", "-o", str(lib_path),
+                    *(str(out / (s.stem + ".o")) for s in _build._sources())],
+                   check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    for fn, (argtypes, restype) in _build.SIGNATURES.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib
+
+
+def main(label: str, variants: bool) -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
@@ -117,6 +154,7 @@ def main(label: str) -> int:
 
     from sr_object_detection_tpu_torch.infer.detector import disable_tf32
     from sr_object_detection_tpu_torch.io.weights import init_params
+    from sr_object_detection_tpu_torch.kernels import _build
     from sr_object_detection_tpu_torch.kernels import fused_stem as FS
     from sr_object_detection_tpu_torch.models.zoo import tiny_yolo_voc
     from sr_object_detection_tpu_torch.train.trainer import Trainer
@@ -127,9 +165,33 @@ def main(label: str) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    libs = {"library": _build.load()}
+    if variants:
+        libs.update((name, build_variant(name, flags))
+                    for name, flags in VARIANTS.items())
     for k in range(5):
         h, c = NET >> k, 16 << k
         y, dp, k4, c3 = stem_args(170 + k, h, c, dev)
+        f2 = min(cuda_ms(lambda: FS.f2(y, *k4)) for _ in range(2))
+        gf = graph_ms(lambda: FS.f2(y, *k4))
+        print(f"{label} F2 {h}x{h}x{c} B={BATCH}: {f2} ms, graph {gf} ms "
+              f"[{card}]", flush=True)
+        ref = FS.f2(y, *k4)
+        for name, lib in libs.items():
+            if name == "library":
+                continue
+            _build._lib = lib
+            FS._row_grid.cache_clear()
+            try:
+                same = torch.equal(FS.f2(y, *k4), ref)
+                gv = min(graph_ms(lambda: FS.f2(y, *k4)) for _ in range(2))
+            finally:
+                _build._lib = libs["library"]
+                FS._row_grid.cache_clear()
+            print(f"{label} F2 {h}x{h}x{c} B={BATCH}, {name} "
+                  f"({' '.join(VARIANTS[name])}; output "
+                  f"{'equal' if same else 'DIFFERS'}): graph {gv} ms "
+                  f"[{card}]", flush=True)
         b1 = min(cuda_ms(lambda: FS.b1(y, dp, *k4)) for _ in range(2))
         b2 = min(cuda_ms(lambda: FS.b2(y, dp, *k4, *c3)) for _ in range(2))
         g1 = graph_ms(lambda: FS.b1(y, dp, *k4))
@@ -149,6 +211,7 @@ def main(label: str) -> int:
     t_np[:, 0] = [0.5, 0.5, 0.3, 0.3, 1]
     t = torch.from_numpy(t_np).to(dev)
     backward = re.compile(r"\b(b[12](_row)?|colsum)_kernel\b")
+    forward = re.compile(r"\bf2(_row)?_kernel\b")
     for name, kw in (("fused_stem", dict(fused_stem=True)),
                      ("phase_train + fused_stem",
                       dict(phase_train=True, fused_stem=True))):
@@ -174,13 +237,17 @@ def main(label: str) -> int:
                 and e.self_device_time_total > 0]
         busy = sum(ms for ms, _ in rows)
         bwd = sum(ms for ms, key in rows if backward.search(key))
+        fwd = sum(ms for ms, key in rows if forward.search(key))
         print(f"{label} step bf16 + {name} {NET} B={BATCH}: {rates[0]}, "
-              f"{rates[1]} images/s; device busy {busy} ms per step, B1 + "
-              f"B2 kernels and colsum {bwd} ms [{card}]", flush=True)
+              f"{rates[1]} images/s; device busy {busy} ms per step, F2 "
+              f"kernels {fwd} ms, B1 + B2 kernels and colsum {bwd} ms "
+              f"[{card}]", flush=True)
         del trainer
         torch.cuda.empty_cache()
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1] if len(sys.argv) > 1 else "this"))
+    args = sys.argv[1:]
+    sys.exit(main(next((a for a in args if not a.startswith("--")), "this"),
+                  "--variants" in args))
