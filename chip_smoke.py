@@ -11,8 +11,10 @@ PyTorch version. Phases, in order; any failure ends the run with a
 non-zero status and no result line:
 
   0. device: a CUDA device, its name and power limit, the kernel build;
-  1. the NMS kernel against its plain version (C=20, k=128 and k=845,
-     random boxes plus ties): same suppression pattern, values to 1e-6;
+  1. the NMS kernel (32-rank chunks) against its plain version (C=20,
+     k=128 and k=845, random boxes plus ties): torch.equal; its device
+     time from a CUDA graph beside the launch floor, an empty kernel with
+     its grid, block and shared memory from a graph;
   2. the batch-1 stem kernel (the tensor-core conv tile's stem mode of
      csrc/phase_train.cu, its taps fold at pair 1; by b1_stem.paths, no
      pair on stem_pair_kernel) against its plain version at the four
@@ -29,9 +31,10 @@ non-zero status and no result line:
      to the in-process Detector;
   5. times from CUDA events: each batch-1 kernel beside its plain
      version and LatencyEngine per frame fused beside plain, each pair
-     timed in turns (plain, kernel, kernel, plain), the stem chain and
-     each of its pairs also replayed from a CUDA graph (device time
-     without the host's launch cost); Detector.predict_batch and detect;
+     timed in turns (plain, kernel, kernel, plain), NMS on a frame's
+     candidates, the stem chain and each of its pairs also replayed from
+     a CUDA graph (device time without the host's launch cost) — NMS
+     beside its launch floor; Detector.predict_batch and detect;
   6. the int8 stem kernel (csrc/phase_stem.cu, phase_pair_tc_kernel on
      the int8 tensor cores) against its plain version at the four
      tiny-yolo-416 pair shapes at batch 128 with random int8 data (pair 1
@@ -40,10 +43,12 @@ non-zero status and no result line:
      engine's own chain from u8 frames, the whole chain, and two launches
      on one input: every one torch.equal (the chain is exact);
   7. the batch-128 slice at full width: ThroughputEngine (bf16) with and
-     without its phase stem (the training pair's fwdstats + apply
-     kernels with identity BN, each link within one bf16 ulp of the plain
-     engine's layers; pairs 2-4 on the tensor-core conv tile, pair 1 on
-     the tile's taps fold, none on the FP32-core loop, counted) and
+     without its phase stem (kernel 4's mode fwd, one launch a pair on
+     the conv tile: pairs 2-4 on the tile, pair 1 on its taps fold, none
+     on the FP32-core path, no fwdstats, colsum or apply, counted; each
+     link torch.equal to fwdstats + apply with identity BN, within one
+     bf16 ulp of the plain engine's layers and of fwd_pair_plain, the
+     bias add's and the leaky's roundings allowed for) and
      QuantizedThroughputEngine (int8,
      u8 frames)
      with and without the phase stem (its four pairs counted under their
@@ -59,6 +64,8 @@ non-zero status and no result line:
      in-process int8 Detector calibrated on the same first frame;
  10. times from CUDA events, in turns: the int8 stem chain against its
      plain chain, and each pair on the chain's inputs beside its bound;
+     the same for the bf16 serving stem (kernel 4's mode fwd), each pair
+     and the chain also from a CUDA graph;
      images/s of ThroughputEngine bf16 without and with its
      phase stem and of the int8 engine on u8 frames without and with the
      phase stem (host clock
@@ -66,8 +73,8 @@ non-zero status and no result line:
      and best_latency_engine's selection;
  11. torch.profiler over each engine: wall and device busy time per
      frame or batch, the device's idle share, the top kernels; the bf16
-     phase stem's batch ran fwdstats_tc_kernel 3 times,
-     fwdstats_fold_kernel once and no fwdstats_kernel, the int8 phase
+     phase stem's batch ran fwd_tc_kernel 3 times, fwd_fold_kernel once
+     and no fwdstats, colsum or apply kernel, the int8 phase
      stem's batch
      phase_pair_tc_kernel and no dp4a phase_pair_kernel;
  12. the three training kernels (csrc/phase_train.cu) against their
@@ -148,8 +155,7 @@ non-zero status and no result line:
      library call, cuDNN, timed in the same run), fwdstats on the
      tensor-core tile at 16->32 @208, 32->64 @104 and 64->128 @52 beside
      its bounds (cuDNN's bf16 F.conv2d at those shapes for reference: the
-     conv alone), the bf16 serving stem (mode fwd) at its four pair
-     shapes;
+     conv alone);
      Trainer.step images/s of the three paths against bf16 + phase_train;
  21. torch.profiler over one step of each of the three paths; the two
      with the pair ran bwdg_tc_kernel, not bwdg_kernel; the two with the
@@ -160,11 +166,15 @@ non-zero status and no result line:
      chain_bwd_kernel; the pair + fused stem step fwdstats_fold_kernel.
 
 The last lines are the card (nvidia-smi), one JSON object describing the
-13 kernels (time, plain time, bound, launches and library call of each;
+14 kernels (time, plain time, bound, launches and library call of each;
 ``stem_pair`` is the batch-1 stem on the tensor-core conv tile of
 csrc/phase_train.cu (``stem_fold_kernel`` at pair 1, ``stem_tc_kernel``
 at pairs 2-4; ``stem_pair_kernel`` in csrc/b1_stem.cu takes the other
 shapes), its time the four-pair chain's from a CUDA graph replay,
+``nms_per_class`` its time on a frame's candidates from a CUDA graph,
+``phase_train_fwd`` kernel 4's mode fwd (``fwd_fold_kernel`` at pair 1,
+``fwd_tc_kernel`` at pairs 2-4), its time the bf16 serving stem's
+four-pair chain at B=128 in turns with the plain chain,
 ``fused_stem_f2`` the row kernel ``f2_row_kernel``,
 ``phase_train_dgrad`` is the tensor-core implicit GEMM in
 csrc/phase_train.cu, ``phase_train_bwdg`` its tensor-core
@@ -194,7 +204,8 @@ GOLDEN = ROOT / "tests" / "golden"
 WORK = ROOT / "build" / "chip_smoke"
 sys.path.insert(0, str(ROOT / "tests"))
 from torch_parity import (  # noqa: E402  (JAX-free helpers)
-    TRAIN_GOLDENS, assert_bf16_close, assert_stem_link_close, chain_case,
+    TRAIN_GOLDENS, assert_bf16_close, assert_fwd_close,
+    assert_stem_link_close, chain_case,
     check_chain_kernels, check_fused_op, check_fused_stem_kernels,
     check_fwdstats, check_pair_gradient, check_train_golden,
     check_train_kernels, check_y_consistency, random_bn, phase_pair_case,
@@ -544,7 +555,7 @@ def main() -> int:
 
     # ---------------------------------------------------------- phase 1
     rng = np.random.default_rng(0)
-    nms_err = 0.0
+    nms_err, nms_cases = 0.0, []
     before = NMS.launches
     for k in (128, 845):
         n, c = 845, 20
@@ -561,12 +572,19 @@ def main() -> int:
         got = NMS.nms_per_class(tb, tp, 0.4)
         ref = NMS.nms_per_class_plain(tb, tp, 0.4)
         torch.cuda.synchronize()
-        assert torch.equal(got > 0, ref > 0), f"NMS pattern differs, k={k}"
-        err = (got - ref).abs().max().item()
-        assert err <= 1e-6, f"NMS values differ by {err}, k={k}"
-        nms_err = max(nms_err, err)
+        assert torch.equal(got, ref), f"NMS differs from plain, k={k}"
+        nms_err = max(nms_err, (got - ref).abs().max().item())
+        nms_cases.append((k, tb, tp))
     assert NMS.launches == before + 2
-    log(f"phase 1 ok: NMS kernel == plain at C=20 k=128,845 "
+    # device time from a CUDA graph, beside the launch floor: an empty
+    # kernel with the same grid, block and shared memory
+    for k, tb, tp in nms_cases:
+        g_ms = graph_ms(lambda: NMS.nms_per_class(tb, tp, 0.4), 50)
+        f_ms = graph_ms(lambda: NMS.empty_launch(20, k, dev), 50)
+        log(f"time nms_per_class C=20 k={k} from a CUDA graph: {g_ms} ms; "
+            f"launch floor (empty kernel, same launch shape, graph) "
+            f"{f_ms} ms; {g_ms / f_ms:.1f}x the floor [{gpu}]")
+    log(f"phase 1 ok: NMS kernel torch.equal to plain at C=20 k=128,845 "
         f"(max |err| {nms_err}) [{gpu}]")
 
     # ---------------------------------------------------------- phase 2
@@ -745,6 +763,11 @@ def main() -> int:
     # without the host's launch cost, which sets the kernel's figures
     # above (the plain chain's are device time); the kernels line carries
     # the chain's graph time
+    nms_graph = graph_ms(lambda: NMS.nms_per_class(tb, tp, 0.4), 50)
+    nms_floor = graph_ms(lambda: NMS.empty_launch(*tp.shape, dev), 50)
+    times["nms_per_class"] = (nms_graph, times["nms_per_class"][1])
+    log(f"time nms_per_class C=20 k=128 (a frame's candidates) from a CUDA "
+        f"graph: {nms_graph} ms; launch floor {nms_floor} ms [{gpu}]")
     stem_graph = {"chain": graph_ms(lambda: stem_fn(x))}
     times["stem_pair"] = (stem_graph["chain"], times["stem_pair"][1])
     log(f"time stem, 4 chained pairs @416 from a CUDA graph: "
@@ -774,6 +797,10 @@ def main() -> int:
     bounds = {"nms_per_class": bound(
         tb.numel() * 4 + 2 * tp.numel() * 4,
         IOU_FLOPS * sum(n * (n - 1) // 2 for n in live), "f32")}
+    log(f"bound nms_per_class C=20 k=128: {bounds['nms_per_class'][0]} ms "
+        f"by {bounds['nms_per_class'][1]}; the launch floor {nms_floor} ms "
+        f"sets what a launch can take; kernel {nms_graph / nms_floor:.1f}x "
+        f"the floor [{gpu}]")
     n_bytes = n_ops = 0
     for (w, b), (ci, _) in zip(packed, pairs):
         l = fspec.layers[ci]
@@ -878,35 +905,50 @@ def main() -> int:
     out_s = q_stem(frames_u8)
     out_p = q_plain(frames_u8)
     torch.cuda.synchronize()
-    launches_b128, want = counts(phase_stem_pair=4, phase_train_fwdstats=4,
-                                 phase_train_apply=4)
+    # the bf16 stem: one fwd kernel a pair, no fwdstats, colsum or apply
+    launches_b128, want = counts(phase_stem_pair=4, phase_train_fwd=4)
     assert launches_b128 == want, launches_b128
     # the int8 batch's four pairs on the tensor-core kernel, by K fold
     assert PS.folds == {"taps": 1, "tap_pairs": 1, "chunks": 2}, PS.folds
     # the stem's pairs 2-4 (Cin 16, 32, 64) on the tensor-core conv tile,
-    # pair 1 (3 -> 16) on the tile's taps fold, none on the FP32-core loop
-    assert PT.conv_kernels["fwdstats"] == {
-        "tensor_core": 3, "tensor_core_fold": 1,
-        "fp32_core": 0}, PT.conv_kernels
-    # the bf16 phase stem link by link against the plain engine's conv +
-    # pool layers on the same input
+    # pair 1 (3 -> 16) on the tile's taps fold, none on the FP32-core path
+    fwd_paths = dict(PT.conv_kernels["fwd"])
+    assert fwd_paths == {"tensor_core": 3, "tensor_core_fold": 1,
+                         "fp32_core": 0}, PT.conv_kernels
+    # the bf16 phase stem link by link (the same input to each): the fwd
+    # kernel torch.equal to fwdstats + apply with identity BN, within one
+    # bf16 ulp of the plain engine's conv + pool layers (ROADMAP queue 3,
+    # item 10: where two conv sums round apart, one ulp of the pooled
+    # conv value more) and of fwd_pair_plain (assert_fwd_close: there the
+    # bias add and the bf16 leaky round once more each)
     v = x_b128.to(torch.bfloat16)
-    stem_link_err = 0.0
+    stem_link_err, fwd_err, fwd_links = 0.0, 0.0, []
     for ci in (0, 2, 4, 6):
         p = bf_stem.params[ci]
+        l = qspec.layers[ci]
         cout = p["weights"].shape[0]
         zero = torch.zeros(cout, device=dev)
         one = torch.ones(cout, device=dev)
-        z, _, _ = PT.fwdstats(v, p["weights"].permute(2, 3, 1, 0)
-                              .contiguous(), zero, one)
-        got = PT.apply(z, zero, one, one, p["biases"].float())
+        w_hwio = p["weights"].permute(2, 3, 1, 0).contiguous()
+        bias = p["biases"].float()
+        got = PT.fwd_pair(v, w_hwio, bias)
+        z, _, _ = PT.fwdstats(v, w_hwio, zero, one)
+        comp = PT.apply(z, zero, one, one, bias)
+        assert torch.equal(got, comp), (ci, (got != comp).sum().item())
+        z_np = z.float().cpu().numpy()
+        fwd_err = max(fwd_err, assert_fwd_close(
+            got.float().cpu().numpy(),
+            PT.fwd_pair_plain(v, w_hwio, bias).float().cpu().numpy(), z_np))
         with torch.no_grad():
             ref = bf._net.layers[ci + 1](bf._net.layers[ci](
                 v.permute(0, 3, 1, 2))).permute(0, 2, 3, 1)
         stem_link_err = max(stem_link_err, assert_stem_link_close(
-            got.float().cpu().numpy(), ref.float().cpu().numpy(),
-            z.float().cpu().numpy()))
+            got.float().cpu().numpy(), ref.float().cpu().numpy(), z_np))
+        fwd_links.append((l, v, w_hwio, bias))
+        del z, comp, ref
         v = got
+    assert torch.equal(bf_stem._stem(x_b128), v)
+    torch.cuda.empty_cache()
     bfs_diff = (out_bfs.float() - out_bf.float()).abs().max().item()
     for o, dt in ((out_bf, torch.bfloat16), (out_bfs, torch.bfloat16),
                   (out_s, torch.float32), (out_p, torch.float32)):
@@ -919,7 +961,9 @@ def main() -> int:
     # one engine: then within one bf16 step of the logits
     assert out_diff <= 2 ** -7, out_diff
     log(f"phase 7 ok: bf16 ThroughputEngine with and without the phase "
-        f"stem (stem link by link within one bf16 ulp of the plain layers, "
+        f"stem (kernel 4's mode fwd, by path {fwd_paths}; "
+        f"link by link torch.equal to fwdstats + apply, within one bf16 ulp "
+        f"of fwd_pair_plain, max |err| {fwd_err}, and of the plain layers, "
         f"max |err| {stem_link_err}; whole outputs max |diff| {bfs_diff}) "
         f"and int8 engines at B={BATCH} "
         f"@{NET} on u8 frames: outputs finite, (B, {n_out}); int8 trunk "
@@ -1031,6 +1075,44 @@ def main() -> int:
     log(f"bound int8 stem chain: {bounds['phase_stem_pair'][0]} ms by "
         f"{bounds['phase_stem_pair'][1]} ({n_bytes} bytes, {n_ops} int8 "
         f"ops) [{gpu}]")
+    # the bf16 serving stem (kernel 4's mode fwd): each pair on its input
+    # along the engine's chain, in turns with fwd_pair_plain and from a
+    # CUDA graph, beside its bound (input read once, weights and bias read
+    # once, output written once; or its bf16 products); then the chain
+    n_bytes = n_ops = 0
+    for l, xi, w_hwio, bias in fwd_links:
+        tag = f"{l.c}->{l.filters} @{l.h} B={BATCH}"
+        p_ms, _ = abba(f"bf16 serving stem pair (fwd kernel) {tag}",
+                       lambda: PT.fwd_pair(xi, w_hwio, bias),
+                       lambda: PT.fwd_pair_plain(xi, w_hwio, bias), iters=20,
+                       plain_iters=3)
+        g_ms = graph_ms(lambda: PT.fwd_pair(xi, w_hwio, bias), 10)
+        p_bytes = (2 * xi.numel() + 2 * w_hwio.numel() + 4 * bias.numel()
+                   + 2 * BATCH * (l.h // 2) * (l.w // 2) * l.filters)
+        p_ops = 2 * BATCH * l.h * l.w * l.filters * 9 * l.c
+        b_ms, b_by = bound(p_bytes, p_ops, "bf16")
+        log(f"bound bf16 serving stem pair {tag}: {b_ms} ms by {b_by}; "
+            f"kernel {p_ms / b_ms:.2f}x in turns, from a CUDA graph {g_ms} "
+            f"ms ({g_ms / b_ms:.2f}x) [{gpu}]")
+        n_bytes += p_bytes
+        n_ops += p_ops
+    x_bf = x_b128.to(torch.bfloat16)
+
+    def plain_fwd_chain(v):
+        for _, _, w_hwio, bias in fwd_links:
+            v = PT.fwd_pair_plain(v, w_hwio, bias)
+        return v
+    times["phase_train_fwd"] = abba(
+        f"bf16 serving stem, 4 chained pairs @{NET} B={BATCH} (fwd kernel)",
+        lambda: bf_stem._stem(x_bf), lambda: plain_fwd_chain(x_bf), iters=20,
+        plain_iters=3)
+    bounds["phase_train_fwd"] = bound(n_bytes, n_ops, "bf16")
+    log(f"time bf16 serving stem chain from a CUDA graph: "
+        f"{graph_ms(lambda: bf_stem._stem(x_bf), 5)} ms; bound "
+        f"{bounds['phase_train_fwd'][0]} ms by "
+        f"{bounds['phase_train_fwd'][1]} [{gpu}]")
+    del x_bf
+    torch.cuda.empty_cache()
 
     bf.warmup()
     bf_stem.warmup()
@@ -1067,10 +1149,13 @@ def main() -> int:
     profile(f"ThroughputEngine bf16 B={BATCH} @{NET}, per batch",
             lambda: bf(frames_u8.float() / 255.0), 5, gpu)
     name = f"ThroughputEngine bf16 + phase stem B={BATCH} @{NET}, per batch"
-    assert_conv_tensor_core(name, profile(
-        name, lambda: bf_stem(frames_u8.float() / 255.0), 5, gpu), 5,
-        {"fwdstats_tc_kernel": 3, "fwdstats_fold_kernel": 1,
-         "fwdstats_kernel": 0})
+    seen = profile(name, lambda: bf_stem(frames_u8.float() / 255.0), 5, gpu)
+    assert_conv_tensor_core(name, seen, 5, {
+        "fwd_tc_kernel": 3, "fwd_fold_kernel": 1, "fwdstats_tc_kernel": 0,
+        "fwdstats_fold_kernel": 0, "fwdstats_kernel": 0})
+    assert not any(named(k, key) for k in ("colsum_kernel", "apply_kernel")
+                   for key in seen), (name, seen)
+    log(f"  {name}: no colsum_kernel or apply_kernel")
     name = f"int8 engine B={BATCH} @{NET} u8, phase stem, per batch"
     seen = profile(name, lambda: q_stem(frames_u8), 5, gpu)
     assert any("phase_pair_tc_kernel" in k for k in seen), (name, seen)
@@ -1319,7 +1404,7 @@ def main() -> int:
     del x17, w17
     assert {m: c["tensor_core"] - tc_before[m]
             for m, c in PT.conv_kernels.items()} == {
-        "fwdstats": 2, "red": 1, "dy": 2}, PT.conv_kernels
+        "fwdstats": 2, "red": 1, "dy": 2, "fwd": 0}, PT.conv_kernels
     torch.cuda.empty_cache()
     stem_shapes = [(NET >> k, 16 << k) for k in range(5)]      # (H, C)
     stem_errs = {"f2": 0.0, "b1": 0.0, "b2": 0.0}
@@ -1440,8 +1525,8 @@ def main() -> int:
 
     # --------------------------------------------------------- phase 20
     # times, in turns: the six kernels beside their bounds, dgrad's
-    # library call, the bf16 serving stem (mode fwd) per pair; Trainer.step
-    # images/s of the opt-in paths against bf16 + phase_train
+    # library call; Trainer.step images/s of the opt-in paths against
+    # bf16 + phase_train
     cargs = [ccase[k] for k in ("x", "w", "dp", "mean", "inv", "scales",
                                 "biases")]
     c123 = [ccase[k] for k in ("c1", "c2", "c3")]
@@ -1564,34 +1649,6 @@ def main() -> int:
             bounds["phase_train_fwdstats_tc"] = b_tc
         del xs, xc
     torch.cuda.empty_cache()
-    # the bf16 serving stem (kernel 4's mode fwd: fwdstats + apply with
-    # identity BN) at its four pair shapes, B=128
-    for h, cin, cout in ((NET, 3, 16), (NET // 2, 16, 32),
-                         (NET // 4, 32, 64), (NET // 8, 64, 128)):
-        xs = torch.rand((BATCH, h, h, cin), generator=g20,
-                        device=dev).to(torch.bfloat16)
-        ws = (0.3 * torch.randn((3, 3, cin, cout), generator=g20,
-                                device=dev)).to(torch.bfloat16)
-        bs = 0.2 * torch.randn(cout, generator=g20, device=dev)
-        zero = torch.zeros(cout, device=dev)
-        one = torch.ones(cout, device=dev)
-
-        def stem_fwd(fwdstats, app):
-            z, _, _ = fwdstats(xs, ws, zero, one)
-            return app(z, zero, one, one, bs)
-        k_ms, p_ms = abba(
-            f"bf16 serving stem pair (mode fwd) {cin}->{cout} @{h} "
-            f"B={BATCH}", lambda: stem_fwd(PT.fwdstats, PT.apply),
-            lambda: stem_fwd(PT.fwdstats_plain, PT.apply_plain), iters=10,
-            plain_iters=3)
-        pooled = BATCH * (h // 2) * (h // 2) * cout
-        b_ms, b_by = bound(2 * BATCH * h * h * cin + 2 * 9 * cin * cout
-                           + 4 * cout + 2 * pooled,
-                           2 * BATCH * h * h * cout * 9 * cin, "bf16")
-        log(f"bound bf16 serving stem pair {cin}->{cout} @{h}: {b_ms} ms "
-            f"by {b_by} [{gpu}]")
-    del xs
-    torch.cuda.empty_cache()
     for name in ("phase_train_red", "phase_train_dy", "phase_train_dgrad",
                  "fused_stem_f2", "fused_stem_b1", "fused_stem_b2"):
         log(f"bound {name}: {bounds[name][0]} ms by {bounds[name][1]} "
@@ -1628,6 +1685,8 @@ def main() -> int:
             "sr_object_detection_tpu/kernels/phase_train.py:209",
         "phase_train_fwdstats_tc":
             "sr_object_detection_tpu/kernels/phase_train.py:209",
+        "phase_train_fwd":
+            "sr_object_detection_tpu/kernels/phase_train.py:209",
         "phase_train_apply":
             "sr_object_detection_tpu/kernels/phase_train.py:722",
         "phase_train_bwdg":
@@ -1658,12 +1717,14 @@ def main() -> int:
                    **{k: v for k, v in launches_opt["bf16 + fused_stem"]
                       .items() if k.startswith("fused_stem")},
                    "phase_train_fwdstats_tc":
-                       conv_opt["bf16 + chain"]["fwdstats"]}
+                       conv_opt["bf16 + chain"]["fwdstats"],
+                   "phase_train_fwd": launches_b128["phase_train_fwd"]}
     errs = {"nms_per_class": nms_err, "stem_pair": stem_err,
             "phase_stem_pair": ps_err,
             **{f"phase_train_{k}": v for k, v in train_errs.items()},
             **{f"phase_train_{k}": v for k, v in chain_errs.items()},
             "phase_train_fwdstats_tc": fwd_tc_err,
+            "phase_train_fwd": fwd_err,
             **{f"fused_stem_{k}": v for k, v in stem_errs.items()}}
     kernels = [
         {"name": name, "route": "cuda",

@@ -127,6 +127,26 @@
 // the block's prologue (the group's weights, the ring's first halos) and
 // the launch set its time.
 //
+// The bf16 serving stem (kernel 4's mode "fwd", phase_train.py:455-474 of
+// the TPU package, chained four times by build_bf16_stem, :1464-1517;
+// srod_pt_fwd_pair): per tap v = bf16(y), zb = bf16(v + bias) with the
+// bf16 bias, out = zb > 0 ? zb : bf16(zb * 0.10009765625), then the
+// first maximum of the window, at any batch, on the same tile in mode
+// CT_FWD (fwd_tc_kernel<NC>; fwd_fold_kernel<CIN, NC>, the taps fold, at
+// Cin <= 3). It shares CT_STEM's window maximum of the raw float32 sums
+// and its one 4-byte store a lane pair; the epilogue then rounds as the
+// mode does: v = bf16(m), zb = bf16(v + bias), the bf16 leaky. Rounding
+// to bf16, the rounded add and the leaky are nondecreasing, so this is
+// the per-tap value (up to the sign of a zero), bit-equal to fwdstats +
+// apply with identity constants, which it replaces on the serving path:
+// no argmax, no statistics, no partial rows, no colsum, no Z written and
+// read back. Bound at B=128 by bytes at the leading pairs (x read once,
+// the pooled output written once: 3 -> 16 @416 0.0926 ms, 16 -> 32 @208
+// 0.0793 ms at 3.35 TB/s) and by the bf16 products at the later two
+// (0.0516 ms each at 989 TFLOP/s). Shapes the tile refuses (Cin 4-15,
+// Cin > 16 no multiple of 16) run fwdstats_kernel + apply_kernel, a
+// dispatch by shape in the wrapper (kernels/phase_train.fwd_pair).
+//
 // apply (kernel 5): zb = bf16(bf16((z - mean) * inv * scale) + bf16(bias)),
 // out = zb > 0 ? zb : bf16(0.10009765625 * zb) — the exact expressions of
 // _apply_kernel (phase_train.py:739-742), with __fmul_rn/__fsub_rn/
@@ -1446,7 +1466,7 @@ int bwdg_grid(int B, int H, int W, int Cin, int Cout, int* smem) {
 // The tensor-core conv tile of fwdstats, red and dy (Cin a multiple of 16;
 // see the note at the top) and of the batch-1 stem (CT_STEM, below).
 // Modes of conv_tc_body:
-enum { CT_FWDSTATS = 0, CT_RED = 1, CT_DY = 2, CT_STEM = 3 };
+enum { CT_FWDSTATS = 0, CT_RED = 1, CT_DY = 2, CT_STEM = 3, CT_FWD = 4 };
 // the conv path of a launch (conv_path): the FP32-core loop, the tile,
 // the tile with the taps fold (fwdstats and the stem at Cin <= 3)
 enum { CP_FP32 = 0, CP_TILE = 1, CP_FOLD = 2 };
@@ -1630,7 +1650,25 @@ __device__ __forceinline__ void fold_xprime(const unsigned char* slot,
 // CT_STEM (the batch-1 serving stem, kernel 2): k0 the bias (Cout,)
 // float32, z the output (B, H/2, W/2, Cout) bf16 = bf16(leaky_0.1(max of
 // the window's four float32 sums + bias)); no statistics, no argmax, no
-// partial rows.
+// partial rows. CT_FWD (the bf16 serving stem, kernel 4's mode "fwd"):
+// the same with fwd's roundings (serve_out).
+//
+// The serving modes' value of a window from the maximum m of its four
+// raw float32 sums: CT_STEM fl(m + b) and the 0.1f leaky, one rounding;
+// CT_FWD v = bf16(m), zb = bf16(v + b) (b rounded to bf16), the bf16 slope
+// 0.10009765625 and a rounding (zb * slope is exact in float32). Each
+// step is nondecreasing in m, so either is its per-tap order's value.
+template <int MODE>
+__device__ __forceinline__ unsigned short serve_out(float m, float b) {
+  if constexpr (MODE == CT_STEM) {
+    const float v = __fadd_rn(m, b);
+    return bf16_bits(v > 0.f ? v : __fmul_rn(0.1f, v));
+  } else {
+    const float zb = bf16r(__fadd_rn(bf16r(m), b));
+    return bf16_bits(zb > 0.f ? zb : __fmul_rn(zb, 0.10009765625f));
+  }
+}
+
 template <int MODE, int NC, int FOLD = 0>
 __device__ __forceinline__ void conv_tc_body(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
@@ -1641,8 +1679,10 @@ __device__ __forceinline__ void conv_tc_body(
   constexpr int NT = NC / 8;         // n8 tiles; also 16-byte units a row
   constexpr bool FD = FOLD > 0;
   static_assert(FOLD >= 0 && FOLD <= 3 &&
-                    (!FD || MODE == CT_FWDSTATS || MODE == CT_STEM),
-                "the taps fold serves fwdstats and the stem at Cin <= 3");
+                    (!FD || MODE == CT_FWDSTATS || MODE == CT_STEM ||
+                     MODE == CT_FWD),
+                "the taps fold serves fwdstats and the stems at Cin <= 3");
+  constexpr bool SERVE = MODE == CT_STEM || MODE == CT_FWD;
   extern __shared__ __align__(128) unsigned char csm[];
   const ConvTcLayout L = conv_tc_layout(MODE, Cin, NC, FD);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -1657,10 +1697,11 @@ __device__ __forceinline__ void conv_tc_body(
                       static_cast<int>(gridDim.x) + 1;
   const int S = ntl * nch;           // (tile, chunk) stages of the block
   const unsigned smb = smem_u32(csm);
-  // the group's constants [7][NC]: red and dy the rows of k0, the stem
-  // its first (the bias); fwdstats the shift as float64 (rows 2-3) and the
-  // sign mask that turns the channel's extreme into a maximum (row 4: 0
-  // where scales > 0, else the bf16x2 sign bits), so no tile converts them
+  // the group's constants [7][NC]: red and dy the rows of k0, the stems
+  // its first (the bias; CT_FWD's rounded to bf16, as apply's); fwdstats
+  // the shift as float64 (rows 2-3) and the sign mask that turns the
+  // channel's extreme into a maximum (row 4: 0 where scales > 0, else the
+  // bf16x2 sign bits), so no tile converts them
   float* kcs = reinterpret_cast<float*>(csm + L.kc);
   for (int i = tid; i < (MODE == CT_RED || MODE == CT_DY ? 7 * NC : NC);
        i += PT_THREADS) {
@@ -1669,6 +1710,8 @@ __device__ __forceinline__ void conv_tc_body(
       reinterpret_cast<double*>(kcs + 2 * NC)[i] = k0[c];
       reinterpret_cast<unsigned*>(kcs)[4 * NC + i] =
           k1[c] > 0.f ? 0u : 0x80008000u;
+    } else if constexpr (MODE == CT_FWD) {
+      kcs[i] = bf16r(k0[c]);
     } else {
       kcs[i] = k0[(i / NC) * Cout + c];
     }
@@ -1890,11 +1933,11 @@ __device__ __forceinline__ void conv_tc_body(
     const int b = cw.b, ty = cw.ty, tx = cw.tx;
     cw.next();
     const int oy = ty * PT_PT + warp;
-    if constexpr (MODE == CT_STEM) {
+    if constexpr (SERVE) {
       // The window's maximum of the raw float32 sums, then bias and leaky
-      // once: fl(m + b) and the leaky are nondecreasing in m, so this is
-      // the value of stem_pair_kernel's per-tap order (up to the sign of
-      // a zero), with one rounding to bf16.
+      // once (serve_out): the value of the per-tap order (up to the sign
+      // of a zero) of stem_pair_kernel (CT_STEM) or of fwdstats + apply
+      // (CT_FWD).
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const int c = 8 * nt + 2 * q + (g & 1);    // the window's channel
@@ -1906,8 +1949,7 @@ __device__ __forceinline__ void conv_tc_body(
           const float m0 = fmaxf(acc[mt][nt][0], acc[mt][nt][2]);
           const float m1 = fmaxf(acc[mt][nt][1], acc[mt][nt][3]);
           const float r = __shfl_xor_sync(0xffffffffu, even ? m1 : m0, 4);
-          const float v = __fadd_rn(fmaxf(even ? m0 : m1, r), kcs[c]);
-          o[mt] = bf16_bits(v > 0.f ? v : __fmul_rn(0.1f, v));
+          o[mt] = serve_out<MODE>(fmaxf(even ? m0 : m1, r), kcs[c]);
         }
         // channels 8 nt + 2 q, + 1 of a pixel: the even lane stores mt 0's,
         // the odd one mt 1's
@@ -2109,7 +2151,7 @@ __device__ __forceinline__ void conv_tc_body(
               (e & 1)] = dws[(j * 4 + e) * 32];
       }
     }
-  } else if constexpr (MODE != CT_STEM) {
+  } else if constexpr (!SERVE) {
     // the lanes of a channel (lane bits 3, 4), then the warps in order
     Acc* red = reinterpret_cast<Acc*>(csm + L.halo);   // [8][2][NC]
 #pragma unroll
@@ -2183,24 +2225,41 @@ stem_fold_kernel(CONV_TC_PARAMS) {
   conv_tc_body<CT_STEM, NC, CIN>(CONV_TC_ARGS);
 }
 
+// The bf16 serving stem (kernel 4's mode "fwd") on the tile, and at Cin
+// <= 3 on its taps fold
+template <int NC>
+__global__ void __launch_bounds__(PT_THREADS, 2)
+fwd_tc_kernel(CONV_TC_PARAMS) {
+  conv_tc_body<CT_FWD, NC>(CONV_TC_ARGS);
+}
+
+template <int CIN, int NC>
+__global__ void __launch_bounds__(PT_THREADS, NC == 16 ? 3 : 2)
+fwd_fold_kernel(CONV_TC_PARAMS) {
+  conv_tc_body<CT_FWD, NC, CIN>(CONV_TC_ARGS);
+}
+
 using ConvTc = void (*)(const __nv_bfloat16*, const __nv_bfloat16*,
                         const __nv_bfloat16*, const float*, const float*,
                         __nv_bfloat16*, int8_t*, __nv_bfloat16*, float*, int,
                         int, int, int, int);
 
-// the conv path of fwdstats, red, dy and the stem for a shape: the
+// the conv path of fwdstats, red, dy and the two stems for a shape: the
 // tensor-core tile for Cin a multiple of 16 in every mode (so the chain's
-// forward and backward compute one y; the stem up to PT_MAX_CIN_STEM), the
-// tile with the taps fold for fwdstats and the stem at Cin <= 3 (red and
-// dy take Cin a multiple of 8), else the FP32-core loop (the stem's:
-// stem_pair_kernel, csrc/b1_stem.cu)
+// forward and backward compute one y; the batch-1 stem up to
+// PT_MAX_CIN_STEM), the tile with the taps fold for fwdstats and the
+// stems at Cin <= 3 (red and dy take Cin a multiple of 8), else the
+// FP32-core loop (the batch-1 stem's: stem_pair_kernel, csrc/b1_stem.cu;
+// the bf16 serving stem's: fwdstats_kernel + apply_kernel)
 int conv_path(int mode, int Cin, int Cout) {
   if (Cin <= 0 || Cout <= 0 || Cout % 16 ||
       (mode == CT_STEM && Cin > PT_MAX_CIN_STEM))
     return CP_FP32;
   if (Cin % CT_CH == 0) return CP_TILE;
-  return (mode == CT_FWDSTATS || mode == CT_STEM) && Cin <= 3 ? CP_FOLD
-                                                               : CP_FP32;
+  return (mode == CT_FWDSTATS || mode == CT_STEM || mode == CT_FWD) &&
+                 Cin <= 3
+             ? CP_FOLD
+             : CP_FP32;
 }
 
 // the kernel of a mode at NC, on the taps fold or not
@@ -2210,6 +2269,10 @@ ConvTc conv_tc_kernel(int mode, int Cin, bool fold) {
     return Cin == 1   ? stem_fold_kernel<1, NC>
            : Cin == 2 ? stem_fold_kernel<2, NC>
                       : stem_fold_kernel<3, NC>;
+  if (fold && mode == CT_FWD)
+    return Cin == 1   ? fwd_fold_kernel<1, NC>
+           : Cin == 2 ? fwd_fold_kernel<2, NC>
+                      : fwd_fold_kernel<3, NC>;
   if (fold)
     return Cin == 1   ? fwdstats_fold_kernel<1, NC>
            : Cin == 2 ? fwdstats_fold_kernel<2, NC>
@@ -2217,13 +2280,14 @@ ConvTc conv_tc_kernel(int mode, int Cin, bool fold) {
   return mode == CT_FWDSTATS ? fwdstats_tc_kernel<NC>
          : mode == CT_RED    ? red_tc_kernel<NC>
          : mode == CT_DY     ? dy_tc_kernel<NC>
+         : mode == CT_FWD    ? fwd_tc_kernel<NC>
                              : stem_tc_kernel<NC>;
 }
 
 // launches mode `mode` of the tile (the fold where conv_path says so):
 // grid (n, Cout / NC), n = min(the tiles, rows_cap, the blocks resident
 // at once / groups); *nblk = n, the partial rows written. NC = 32 where
-// Cout allows (the stem: PT_STEM_NC), else 16.
+// Cout allows (the batch-1 stem: PT_STEM_NC), else 16.
 int conv_tc_launch(int mode, const void* x, const void* w, const void* dp,
                    const void* k0, const void* k1, void* z, void* am,
                    void* dy, void* partial, int B, int H, int W, int Cin,
@@ -2319,9 +2383,11 @@ extern "C" int srod_pt_fwdstats(const void* x, const void* w,
 }
 
 // The conv path srod_pt_fwdstats (mode 0), srod_pt_red (1), srod_pt_dy
-// (2) and the batch-1 stem (3) run for a shape: 1 the tensor-core tile
-// (Cin a multiple of 16), 2 the tile with the taps fold (fwdstats and the
-// stem at Cin <= 3), 0 the FP32-core loop (the stem: srod_stem_pair).
+// (2), the batch-1 stem (3) and the bf16 serving stem (4) run for a
+// shape: 1 the tensor-core tile (Cin a multiple of 16), 2 the tile with
+// the taps fold (fwdstats and the stems at Cin <= 3), 0 the FP32-core
+// loop (the batch-1 stem: srod_stem_pair; the serving stem:
+// srod_pt_fwdstats + srod_pt_apply).
 extern "C" int srod_pt_conv_tensor_core(int mode, int Cin, int Cout) {
   return conv_path(mode, Cin, Cout);
 }
@@ -2345,6 +2411,28 @@ extern "C" int srod_pt_stem_pair(const void* x, const void* w,
   int nblk = 0;
   return conv_tc_launch(CT_STEM, x, w, nullptr, bias, nullptr, out, nullptr,
                         nullptr, nullptr, 1, H, W, Cin, Cout, tiles, &nblk,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 serving stem's pair on the tensor-core tile (kernel 4's mode
+// "fwd"): x (B, H, W, Cin) bf16 NHWC, w (3, 3, Cin, Cout) bf16 HWIO, bias
+// (Cout,) float32, rounded to bf16 as apply_kernel rounds it -> out (B,
+// H/2, W/2, Cout) bf16, fwd's per-tap roundings (see the note at the
+// top). The shapes srod_pt_conv_tensor_core(4, Cin, Cout) puts on the
+// tile (Cin <= 64); x and w 16-byte aligned, out 4-byte aligned. One
+// launch a pair.
+extern "C" int srod_pt_fwd_pair(const void* x, const void* w,
+                                const void* bias, void* out, int B, int H,
+                                int W, int Cin, int Cout, void* stream) {
+  if (!shapes_ok(B, H, W, Cin, Cout, PT_MAX_CIN_FWD, PT_MAX_CO_FWD) ||
+      conv_path(CT_FWD, Cin, Cout) == CP_FP32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = static_cast<long long>(B) *
+                          ((H / 2 + PT_PT - 1) / PT_PT) *
+                          ((W / 2 + PT_PT - 1) / PT_PT);
+  int nblk = 0;
+  return conv_tc_launch(CT_FWD, x, w, nullptr, bias, nullptr, out, nullptr,
+                        nullptr, nullptr, B, H, W, Cin, Cout, tiles, &nblk,
                         static_cast<cudaStream_t>(stream));
 }
 

@@ -48,6 +48,8 @@ SIGNATURES = {
     # boxes (C,k,4) f32, probs (C,k) f32, out (C,k) f32, C, k, thresh, stream
     "srod_nms_per_class": ([_P, _P, _P, _I, _I, _F, _P], _I),
     "srod_nms_max_k": ([], _I),
+    # C, k, stream: an empty kernel on srod_nms_per_class's launch shape
+    "srod_nms_empty": ([_I, _I, _P], _I),
     # x (1,H,W,Cin) bf16, w (3,3,Cin,Cout) bf16, bias (Cout,) f32,
     # out (1,H/2,W/2,Cout) bf16, H, W, Cin, Cout, stream
     "srod_stem_pair": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
@@ -67,12 +69,17 @@ SIGNATURES = {
     # z bf16, mean, inv, scales, bias (Cout,) f32, out bf16, n, Cout, stream
     "srod_pt_apply": ([_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _P],
                       _I),
-    # mode (0 fwdstats, 1 red, 2 dy, 3 the batch-1 stem), Cin, Cout -> the
-    # conv path: 0 the FP32-core loop (the stem: srod_stem_pair), 1 the
-    # tensor-core tile, 2 the tile with the taps fold
+    # mode (0 fwdstats, 1 red, 2 dy, 3 the batch-1 stem, 4 the bf16 serving
+    # stem), Cin, Cout -> the conv path: 0 the FP32-core loop (the batch-1
+    # stem: srod_stem_pair), 1 the tensor-core tile, 2 the tile with the
+    # taps fold
     "srod_pt_conv_tensor_core": ([_I, _I, _I], _I),
     # the batch-1 stem on the tile: as srod_stem_pair
     "srod_pt_stem_pair": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    # the bf16 serving stem's pair on the tile: x (B,H,W,Cin) bf16, w
+    # (3,3,Cin,Cout) bf16, bias (Cout,) f32, out (B,H/2,W/2,Cout) bf16, B,
+    # H, W, Cin, Cout, stream
+    "srod_pt_fwd_pair": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     # Cin, Cout -> 1 where bwdg runs on the tensor cores, else 0
     "srod_pt_bwdg_tensor_core": ([_I, _I], _I),
     # B, H, W, Cin, Cout -> the partial scratch's rows, or -1

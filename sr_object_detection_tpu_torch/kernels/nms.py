@@ -51,6 +51,16 @@ def nms_per_class(top_boxes, top_p, iou_thresh: float):
     return out
 
 
+def empty_launch(n_classes: int, k: int, device):
+    """Launch an empty kernel with :func:`nms_per_class`'s grid, block and
+    shared memory for (C, k): the launch floor the NMS kernel is measured
+    against (``chip_smoke.py`` phase 1, ``tools/nms_ab.py``). Not counted
+    in ``launches``."""
+    lib = _build.load()
+    _build.check(lib.srod_nms_empty(n_classes, k, _build.stream_ptr(device)),
+                 "srod_nms_empty")
+
+
 def nms_sort_topk(boxes, probs, iou_thresh: float, k: int = 128):
     """Drop-in for ``ops.boxes.nms_sort_topk`` with the per-class core
     going through :func:`nms_per_class`. boxes (N, 4), probs (N, C)."""
@@ -60,4 +70,4 @@ def nms_sort_topk(boxes, probs, iou_thresh: float, k: int = 128):
 
 
 __all__ = ["nms_per_class", "nms_per_class_plain", "nms_sort_topk",
-           "launches"]
+           "empty_launch", "launches"]

@@ -15,8 +15,10 @@ full-resolution conv output never reaches device memory:
   saved argmax, the BN reductions, and the weight gradient in its Gram
   form) -> darknet's hand-written BN constants -> ``dw``.
 
-:func:`build_bf16_stem` reuses fwdstats + apply with identity constants
-as the bf16 serving stem of ``ThroughputEngine(phase_stem=True)``.
+:func:`build_bf16_stem` is the bf16 serving stem of
+``ThroughputEngine(phase_stem=True)``: the JAX kernel's mode ``fwd``
+(conv, per tap bf16 rounding, bf16 bias and leaky, first-max pool), one
+launch of :func:`fwd_pair` a pair on the conv tile.
 
 :func:`phase_train_chain2` (``phase_train="chain"``) runs the leading two
 pairs: pair 0 as above, and pair 1 (whose input gradient is needed)
@@ -30,11 +32,11 @@ Each kernel has a plain PyTorch version beside it (``*_plain``); a CPU
 tensor takes it, a CUDA tensor launches the kernel or raises.
 ``launches`` counts each kernel's launches and nothing else;
 ``bwdg_kernels`` says which of bwdg's two kernels they ran, and
-``conv_kernels`` which conv path fwdstats, red and dy ran
+``conv_kernels`` which conv path fwdstats, red, dy and fwd ran
 (:func:`conv_path`): the tensor-core tile for Cin a multiple of 16 in
 every mode (so the chain's pair 1 recomputes its forward's y bit for
-bit), the tile with the taps fold for fwdstats at Cin <= 3 (the leading
-pair's 3 -> 16), the FP32-core loop for the rest.
+bit), the tile with the taps fold for fwdstats and fwd at Cin <= 3 (the
+leading pair's 3 -> 16), the FP32-core loop for the rest.
 
 Not ported: the TPU layout (``to_phase_np``/``from_phase_np``, the halo
 sidebands, ``Geom``/``plan_pair``'s VMEM planner, ``_pack_w`` and the
@@ -57,21 +59,22 @@ from ..ops.conv import BN_EPS, EPS_B, _sqrt_rn
 from . import _build
 
 launches = {"fwdstats": 0, "apply": 0, "bwdg": 0, "red": 0, "dy": 0,
-            "dgrad": 0}
+            "dgrad": 0, "fwd": 0}
 # which of bwdg's two kernels each launch ran: bwdg_tc_kernel (the tensor
 # cores; Cin <= 3, Cout 16 or 32) or bwdg_kernel (the FP32 cores)
 bwdg_kernels = {"tensor_core": 0, "fp32_core": 0}
-# which conv path each launch of fwdstats, red and dy ran (conv_path): the
-# tensor-core tile (fwdstats_tc_kernel, red_tc_kernel, dy_tc_kernel; Cin a
-# multiple of 16), the tile with the taps fold (fwdstats_fold_kernel;
-# fwdstats at Cin <= 3) or the FP32-core loop (fwdstats_kernel,
-# chain_bwd_kernel)
-CONV_MODES = ("fwdstats", "red", "dy")
+# which conv path each launch of fwdstats, red, dy and fwd ran
+# (conv_path): the tensor-core tile (fwdstats_tc_kernel, red_tc_kernel,
+# dy_tc_kernel, fwd_tc_kernel; Cin a multiple of 16), the tile with the
+# taps fold (fwdstats_fold_kernel, fwd_fold_kernel; Cin <= 3) or the
+# FP32-core loop (fwdstats_kernel, chain_bwd_kernel; fwd's shapes off the
+# tile run fwdstats_kernel + apply_kernel)
+CONV_MODES = ("fwdstats", "red", "dy", "fwd")
 CONV_PATHS = ("fp32_core", "tensor_core", "tensor_core_fold")
 conv_kernels = {mode: dict.fromkeys(CONV_PATHS, 0) for mode in CONV_MODES}
-# the library's mode numbers (csrc CT_*): the three above and the batch-1
-# stem's (kernels/b1_stem.py), which runs on the same tile
-MODE_INDEX = {**{m: i for i, m in enumerate(CONV_MODES)}, "stem": 3}
+# the library's mode numbers (csrc CT_*), the batch-1 stem's
+# (kernels/b1_stem.py) among them: it runs on the same tile
+MODE_INDEX = {"fwdstats": 0, "red": 1, "dy": 2, "stem": 3, "fwd": 4}
 
 # the kernels' shape limits (csrc/phase_train.cu)
 MAX_CIN_FWD, MAX_COUT_FWD = 64, 128
@@ -88,18 +91,20 @@ def reset_launches():
 
 
 def conv_path(mode, cin, cout):
-    """The conv path a launch of fwdstats, red, dy or the batch-1 stem
-    (``mode`` "stem") runs for a shape, as the library picks it
-    (``srod_pt_conv_tensor_core``): the tensor-core tile for Cin a
-    multiple of 16 (the stem's up to ``MAX_CIN_STEM``), the tile with the
-    taps fold for fwdstats and the stem at Cin <= 3, else the FP32-core
-    loop (the stem's: ``stem_pair_kernel``)."""
+    """The conv path a launch of fwdstats, red, dy, the batch-1 stem
+    (``mode`` "stem") or the bf16 serving stem ("fwd") runs for a shape,
+    as the library picks it (``srod_pt_conv_tensor_core``): the
+    tensor-core tile for Cin a multiple of 16 (the batch-1 stem's up to
+    ``MAX_CIN_STEM``), the tile with the taps fold for fwdstats and the
+    two stems at Cin <= 3, else the FP32-core loop (the batch-1 stem's:
+    ``stem_pair_kernel``; fwd's: fwdstats_kernel + apply_kernel)."""
     if (cin <= 0 or cout <= 0 or cout % 16
             or (mode == "stem" and cin > MAX_CIN_STEM)):
         return "fp32_core"
     if cin % 16 == 0:
         return "tensor_core"
-    return ("tensor_core_fold" if mode in ("fwdstats", "stem") and cin <= 3
+    return ("tensor_core_fold"
+            if mode in ("fwdstats", "stem", "fwd") and cin <= 3
             else "fp32_core")
 
 
@@ -110,7 +115,7 @@ def library_conv_path(lib, mode, cin, cout):
 
 
 def _count_conv(lib, mode, cin, cout):
-    """One launch of fwdstats, red or dy, and the conv path it ran."""
+    """One launch of fwdstats, red, dy or fwd, and the conv path it ran."""
     launches[mode] += 1
     conv_kernels[mode][library_conv_path(lib, mode, cin, cout)] += 1
 
@@ -181,7 +186,17 @@ def fwdstats(x, w_hwio, shift, scales):
     x, w_hwio = x.contiguous(), w_hwio.contiguous()
     if x.data_ptr() % 16:            # the tile's paths copy 16-byte units
         x = x.clone()
-    shift, scales = _f32(shift, scales)
+    lib = _build.load()
+    out = _launch_fwdstats(lib, x, w_hwio, *_f32(shift, scales))
+    _count_conv(lib, "fwdstats", cin, cout)
+    return out
+
+
+def _launch_fwdstats(lib, x, w_hwio, shift, scales):
+    """srod_pt_fwdstats on checked, contiguous inputs (float32 shift and
+    scales) -> (Z, argmax, stats (2, Cout))."""
+    n, h, w, cin = x.shape
+    cout = w_hwio.shape[3]
     h2, w2 = h // 2, w // 2
     tiles = -(-h2 // 8) * -(-w2 // 8)
     z = torch.empty((n, h2, w2, cout), dtype=torch.bfloat16, device=x.device)
@@ -189,13 +204,11 @@ def fwdstats(x, w_hwio, shift, scales):
     partial = torch.empty((n * tiles, 2 * cout), dtype=torch.float32,
                           device=x.device)
     stats = torch.empty((2, cout), dtype=torch.float32, device=x.device)
-    lib = _build.load()
     err = lib.srod_pt_fwdstats(
         x.data_ptr(), w_hwio.data_ptr(), shift.data_ptr(), scales.data_ptr(),
         z.data_ptr(), am.data_ptr(), partial.data_ptr(), stats.data_ptr(),
         n, h, w, cin, cout, _build.stream_ptr(x.device))
     _build.check(err, "srod_pt_fwdstats")
-    _count_conv(lib, "fwdstats", cin, cout)
     return z, am, stats
 
 
@@ -225,15 +238,19 @@ def apply(z, mean, inv, scales, biases):
             "of 8 and four (Cout,) constants on its device; got "
             f"{tuple(z.shape)} {z.dtype}, "
             f"{[tuple(c.shape) for c in consts]}")
-    z = z.contiguous()
-    mean, inv, scales, biases = _f32(*consts)
+    out = _launch_apply(_build.load(), z.contiguous(), *_f32(*consts))
+    launches["apply"] += 1
+    return out
+
+
+def _launch_apply(lib, z, mean, inv, scales, biases):
+    """srod_pt_apply on a contiguous z and float32 constants."""
     out = torch.empty_like(z)
-    err = _build.load().srod_pt_apply(
+    err = lib.srod_pt_apply(
         z.data_ptr(), mean.data_ptr(), inv.data_ptr(), scales.data_ptr(),
-        biases.data_ptr(), out.data_ptr(), z.numel(), cout,
+        biases.data_ptr(), out.data_ptr(), z.numel(), z.shape[-1],
         _build.stream_ptr(z.device))
     _build.check(err, "srod_pt_apply")
-    launches["apply"] += 1
     return out
 
 
@@ -626,13 +643,88 @@ def phase_train_chain2(x_nhwc, params0, spec0, params2, spec2):
 
 # ------------------------------------------------ the bf16 serving stem
 
+def fwd_epilogue_plain(y, bias):
+    """The JAX kernel's mode ``fwd`` after the conv (phase_train.py:455-474
+    of the JAX package), per tap in its order: y (B,H,W,Cout) float32 conv
+    sums, bias (Cout,) float32 rounded to bf16 -> v = bf16(y), zb = bf16(v +
+    bias), a = zb > 0 ? zb : bf16(zb * 0.10009765625), then the first
+    maximum of each 2x2 window in row-major order (a later tap replaces
+    the best only when strictly greater): (B,H/2,W/2,Cout) bf16."""
+    v = y.to(torch.bfloat16).float()
+    zb = (v + bias.to(torch.bfloat16).float()).to(torch.bfloat16)
+    a = torch.where(zb > 0, zb, (zb.float() * LEAKY_BF16).to(torch.bfloat16))
+    best = a[:, 0::2, 0::2]
+    for tap in (a[:, 0::2, 1::2], a[:, 1::2, 0::2], a[:, 1::2, 1::2]):
+        best = torch.where(tap.float() > best.float(), tap, best)
+    return best.contiguous()
+
+
+def fwd_pair_plain(x, w_hwio, bias):
+    """Plain version of the fwd kernel, same inputs and output: x
+    (B,H,W,Cin) bf16, w_hwio (3,3,Cin,Cout) bf16, bias (Cout,) float32,
+    rounded to bf16 as ``apply`` rounds it -> (B,H/2,W/2,Cout) bf16. The
+    conv in float32 (on the card with TF32 off:
+    ``infer.detector.disable_tf32``), then :func:`fwd_epilogue_plain`; no
+    shortcut through fwdstats."""
+    y = F.conv2d(x.float().permute(0, 3, 1, 2),
+                 w_hwio.float().permute(3, 2, 0, 1), padding=1)
+    return fwd_epilogue_plain(y.permute(0, 2, 3, 1), bias)
+
+
+def fwd_pair(x, w_hwio, bias):
+    """The fwd kernel (one launch a pair of the bf16 serving stem);
+    arguments and result as :func:`fwd_pair_plain`. The library puts the
+    shape on the tile or its taps fold (:func:`conv_path`); the shapes it
+    refuses (Cin 4-15, Cin > 16 no multiple of 16) run fwdstats_kernel +
+    apply_kernel with identity constants, the same function, by shape.
+    ``launches["fwd"]`` counts the pairs, ``conv_kernels["fwd"]`` which
+    path each ran."""
+    if x.device.type == "cpu":
+        return fwd_pair_plain(x, w_hwio, bias)
+    n, h, w, cin = x.shape
+    cout = w_hwio.shape[3]
+    if (x.dtype != torch.bfloat16 or w_hwio.dtype != torch.bfloat16
+            or w_hwio.shape != (3, 3, cin, cout) or h % 2 or w % 2
+            or cin > MAX_CIN_FWD or cout % 16 or cout > MAX_COUT_FWD
+            or bias.shape != (cout,) or bias.dtype != torch.float32
+            or not (x.device == w_hwio.device == bias.device)):
+        raise ValueError(
+            "phase_train.fwd_pair: want x (B,H,W,Cin<=64) bf16 with H, W "
+            "even, w (3,3,Cin,Cout) bf16 with Cout a multiple of 16 up to "
+            "128 and bias (Cout,) float32 on one device; got "
+            f"{tuple(x.shape)} {x.dtype}, {tuple(w_hwio.shape)} "
+            f"{w_hwio.dtype}, {tuple(bias.shape)} {bias.dtype}")
+    x, w_hwio, bias = x.contiguous(), w_hwio.contiguous(), bias.contiguous()
+    if x.data_ptr() % 16:            # the tile copies 16-byte units
+        x = x.clone()
+    if w_hwio.data_ptr() % 16:
+        w_hwio = w_hwio.clone()
+    lib = _build.load()
+    path = library_conv_path(lib, "fwd", cin, cout)
+    if path == "fp32_core":
+        # fwdstats_kernel + apply_kernel with identity BN constants
+        zero = torch.zeros(cout, dtype=torch.float32, device=x.device)
+        one = torch.ones(cout, dtype=torch.float32, device=x.device)
+        z, _, _ = _launch_fwdstats(lib, x, w_hwio, zero, one)
+        out = _launch_apply(lib, z, zero, one, one, bias)
+    else:
+        out = torch.empty((n, h // 2, w // 2, cout), dtype=torch.bfloat16,
+                          device=x.device)
+        _build.check(lib.srod_pt_fwd_pair(
+            x.data_ptr(), w_hwio.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            n, h, w, cin, cout, _build.stream_ptr(x.device)),
+            "srod_pt_fwd_pair")
+    launches["fwd"] += 1
+    conv_kernels["fwd"][path] += 1
+    return out
+
+
 def build_bf16_stem(spec, params):
     """bf16 serving stem: the leading [conv3x3 + bias + leaky, maxpool
-    2x2/2] pairs of a BN-folded spec through fwdstats + apply with
-    identity BN constants (mean 0, inv 1, scale 1: z = y + bias, the
-    JAX package's ``build_bf16_stem`` through its ``fwd`` mode). For a
-    positive scale and a monotone leaky, pooling the raw values and then
-    applying equals the per-tap expression.
+    2x2/2] pairs of a BN-folded spec, one :func:`fwd_pair` a pair (the JAX
+    package's ``build_bf16_stem`` through its ``fwd`` mode: the per-tap
+    bf16 roundings of fwdstats + apply with identity BN constants, mean
+    0, inv 1, scale 1).
 
     ``params``: the folded torch params (OIHW bf16 weights, bf16 biases).
     Returns (stem_fn, n_consumed) or (None, 0); stem_fn takes the NHWC
@@ -647,28 +739,22 @@ def build_bf16_stem(spec, params):
             break
     if not pairs:
         return None, 0
-    packed = []
-    for ci, _ in pairs:
-        p = params[ci]
-        cout = p["weights"].shape[0]
-        dev = p["weights"].device
-        zero = torch.zeros(cout, dtype=torch.float32, device=dev)
-        one = torch.ones(cout, dtype=torch.float32, device=dev)
-        packed.append((p["weights"].permute(2, 3, 1, 0).to(torch.bfloat16)
-                       .contiguous(), p["biases"].float(), zero, one))
+    packed = [(params[ci]["weights"].permute(2, 3, 1, 0).to(torch.bfloat16)
+               .contiguous(), params[ci]["biases"].float().contiguous())
+              for ci, _ in pairs]
 
     def stem_fn(x):
         cur = x.to(torch.bfloat16)
-        for w_hwio, bias, zero, one in packed:
-            z, _, _ = fwdstats(cur, w_hwio, zero, one)
-            cur = apply(z, zero, one, one, bias)
+        for w_hwio, bias in packed:
+            cur = fwd_pair(cur, w_hwio, bias)
         return cur
 
     return stem_fn, pairs[-1][1] + 1
 
 
 __all__ = ["phase_train_block", "phase_train_dx_block", "phase_train_chain2",
-           "build_bf16_stem",
+           "build_bf16_stem", "fwd_pair", "fwd_pair_plain",
+           "fwd_epilogue_plain",
            "fwdstats", "fwdstats_plain", "apply", "apply_plain", "bwdg",
            "bwdg_plain", "red", "red_plain", "dy", "dy_plain", "dgrad",
            "dgrad_plain", "bn_backward_consts", "supported",

@@ -26,7 +26,8 @@ from sr_object_detection_tpu_torch.models.zoo import tiny_yolo_voc
 from sr_object_detection_tpu_torch.ops import boxes as TB
 from sr_object_detection_tpu_torch.ops import conv as TC
 from sr_object_detection_tpu_torch.ops import pooling as TP
-from torch_parity import (assert_bf16_close, assert_stem_link_close,
+from torch_parity import (assert_bf16_close, assert_fwd_close,
+                          assert_stem_link_close,
                           chain_case, check_chain_kernels, check_fwdstats,
                           check_y_consistency, dgrad_case,
                           check_fused_stem_kernels, check_pair_gradient,
@@ -58,8 +59,7 @@ def test_nms_kernel_matches_plain(cuda, name):
     torch.cuda.synchronize()
     assert TN.launches == before + 1
     ref = TB.nms_per_class_plain(tb, tp, float(thresh))
-    assert torch.equal(got > 0, ref > 0)
-    assert (got - ref).abs().max().item() <= 1e-6
+    assert torch.equal(got, ref)
 
 
 @pytest.mark.cuda
@@ -75,8 +75,71 @@ def test_nms_kernel_large_k(cuda):
         np.float32)).to(cuda)
     got = TN.nms_sort_topk(boxes, probs, 0.45, k=n)
     ref = TB.nms_sort_topk(boxes, probs, 0.45, k=n)
-    assert torch.equal(got > 0, ref > 0)
-    assert (got - ref).abs().max().item() <= 1e-6
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 31, 32, 33, 64, 100, 128, 845, 1805,
+                               4096, 8192])
+def test_nms_kernel_chunks(cuda, k):
+    """The chunked recurrence (32 ranks a chunk) equal to the plain walk
+    at chunk edges and up to SROD_NMS_MAX_K (8192: 204,800 bytes of
+    shared memory, past the 48 KB default), with duplicate boxes, equal
+    probs, zero probs, a class of one box in every rank (all but its
+    first suppressed), a class whose last positive lies inside a chunk,
+    and one with no positive at all."""
+    rng = np.random.default_rng(k)
+    n, c = max(k, 64), 5 if k <= 2048 else 3
+    boxes = np.stack([rng.uniform(0, 1, n), rng.uniform(0, 1, n),
+                      rng.uniform(.02, .4, n), rng.uniform(.02, .4, n)],
+                     axis=1).astype(np.float32)
+    boxes[n // 3:n // 3 + 8] = boxes[n // 3 - 1]
+    probs = rng.uniform(0, 1, (n, c)).astype(np.float32) ** 4
+    probs[probs < 0.05] = 0
+    probs[::7, 0] = probs[0, 0]
+    tb, tp, _ = TB.topk_candidates(torch.from_numpy(boxes).to(cuda),
+                                   torch.from_numpy(probs).to(cuda), k)
+    tb, tp = tb.clone(), tp.clone()
+    tb[1] = tb[1, :1]
+    tp[1] = torch.where(tp[1] > 0, torch.linspace(1, .5, k, device=cuda), 0)
+    tp[2, k * 3 // 5 + 3:] = 0
+    if c > 3:
+        tp[4] = 0
+    before = TN.launches
+    got = TN.nms_per_class(tb, tp, 0.4)
+    torch.cuda.synchronize()
+    assert TN.launches == before + 1
+    assert torch.equal(got, TB.nms_per_class_plain(tb, tp, 0.4))
+    if k > 1:
+        assert ((tp > 0) & (got == 0)).any() and (got[1] > 0).sum() == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [128, 845])
+def test_nms_kernel_tail_bits(cuda, k):
+    """Past the last positive prob, -0.0 and negative probs on boxes that
+    rank 0 overlaps: the kernel still zeroes them as the plain version
+    does, bit for bit (a view as int32, since -0.0 == 0.0)."""
+    rng = np.random.default_rng(k + 1)
+    n, c = max(k, 64), 4
+    boxes = np.stack([rng.uniform(0, 1, n), rng.uniform(0, 1, n),
+                      rng.uniform(.02, .4, n), rng.uniform(.02, .4, n)],
+                     axis=1).astype(np.float32)
+    probs = rng.uniform(0, 1, (n, c)).astype(np.float32) ** 4
+    probs[probs < 0.3] = 0
+    tb, tp, _ = TB.topk_candidates(torch.from_numpy(boxes).to(cuda),
+                                   torch.from_numpy(probs).to(cuda), k)
+    tb, tp = tb.clone(), tp.clone()
+    tail = torch.tensor([-0.0, -0.25, 0.0, -1e-30, -0.0], device=cuda)
+    for ci in range(c):
+        last = int((tp[ci] > 0).nonzero()[-1]) + 1
+        m = min(len(tail), k - last)
+        tp[ci, last:last + m] = tail[:m]
+        tb[ci, last:last + m] = tb[ci, 0]
+    got = TN.nms_per_class(tb, tp, 0.4)
+    ref = TB.nms_per_class_plain(tb, tp, 0.4)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert (torch.signbit(tp) & (got == 0) & ~torch.signbit(got)).any()
 
 
 @pytest.mark.cuda
@@ -175,6 +238,122 @@ def test_stem_tile_misaligned_input(cuda):
     xm.copy_(x)
     assert xm.data_ptr() % 16 == 2
     assert torch.equal(TBS.stem_pair(xm, wt, b), TBS.stem_pair(x, wt, b))
+
+
+def _fwd_composition(x, w, bias):
+    """fwdstats + apply with identity constants: the bf16 serving stem's
+    pair as it ran before its own kernel, and the pooled raw conv Z."""
+    cout = w.shape[3]
+    zero = torch.zeros(cout, device=x.device)
+    one = torch.ones(cout, device=x.device)
+    z, _, _ = TPT.fwdstats(x, w, zero, one)
+    return TPT.apply(z, zero, one, one, bias), z
+
+
+def _fwd_inputs(cuda, seed, b, h, w, cin, cout):
+    """x (b, h, w, Cin) bf16, HWIO weights bf16, a bias of bf16 values."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.uniform(0, 1, (b, h, w, cin)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    wt = torch.from_numpy(rng.normal(0, 0.3, (3, 3, cin, cout)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    bias = torch.from_numpy(rng.normal(0, 0.3, cout).astype(np.float32))
+    return x, wt, bias.to(cuda, torch.bfloat16).float()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,cin,cout", [
+    (4, 416, 416, 3, 16), (4, 208, 208, 16, 32), (4, 104, 104, 32, 64),
+    (4, 52, 52, 64, 128), (3, 52, 52, 16, 32), (2, 22, 38, 3, 16),
+    (2, 22, 38, 16, 32), (2, 26, 26, 1, 32), (2, 26, 26, 2, 128),
+    (5, 20, 20, 48, 16)])
+def test_fwd_pair_matches_composition(cuda, b, h, w, cin, cout):
+    """The bf16 serving stem's kernel (mode fwd of the conv tile; its taps
+    fold at Cin <= 3) at tiny-yolo-voc's four pairs and at partial 8x8
+    pooled tiles (a 52 -> 26 pair; 11 x 19 pooled pixels): torch.equal to
+    fwdstats + apply with identity constants, within one bf16 ulp of
+    fwd_pair_plain (torch_parity.assert_fwd_close: where the two conv
+    sums round apart, ROADMAP queue 3, item 10, the bias add and the
+    leaky round once more each), two launches bit-equal, counted under
+    its path."""
+    x, wt, bias = _fwd_inputs(cuda, h + w + cin + cout, b, h, w, cin, cout)
+    path = "tensor_core_fold" if cin <= 3 else "tensor_core"
+    assert TPT.conv_path("fwd", cin, cout) == path
+    before, paths = TPT.launches["fwd"], dict(TPT.conv_kernels["fwd"])
+    got = TPT.fwd_pair(x, wt, bias)
+    again = TPT.fwd_pair(x, wt, bias)
+    torch.cuda.synchronize()
+    assert TPT.launches["fwd"] == before + 2
+    assert {k: TPT.conv_kernels["fwd"][k] - paths[k] for k in paths} == {
+        **dict.fromkeys(paths, 0), path: 2}
+    assert torch.equal(got, again)
+    comp, z = _fwd_composition(x, wt, bias)
+    assert torch.equal(got, comp)
+    ref = TPT.fwd_pair_plain(x, wt, bias)
+    assert_fwd_close(got.float().cpu().numpy(), ref.float().cpu().numpy(),
+                     z.float().cpu().numpy())
+    assert (got.float() < 0).any() and (got.float() > 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(8, 16), (24, 32), (5, 48)])
+def test_fwd_pair_other_shapes_take_fp32_path(cuda, cin, cout):
+    """Shapes off the tile (Cin 4-15, Cin > 16 no multiple of 16) run
+    fwdstats_kernel + apply_kernel by shape: equal to the composition,
+    counted as fp32_core under fwd, not under fwdstats or apply."""
+    x, wt, bias = _fwd_inputs(cuda, cin + cout, 2, 30, 22, cin, cout)
+    assert TPT.conv_path("fwd", cin, cout) == "fp32_core"
+    before = dict(TPT.launches)
+    paths = dict(TPT.conv_kernels["fwd"])
+    got = TPT.fwd_pair(x, wt, bias)
+    torch.cuda.synchronize()
+    assert TPT.launches == {**before, "fwd": before["fwd"] + 1}
+    assert {k: TPT.conv_kernels["fwd"][k] - paths[k] for k in paths} == {
+        **dict.fromkeys(paths, 0), "fp32_core": 1}
+    assert torch.equal(got, _fwd_composition(x, wt, bias)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(3, 16), (16, 32)])
+def test_fwd_pair_rounds_float32_bias(cuda, cin, cout):
+    """A float32 bias whose values are no bf16 values: the kernel (fold
+    and tile) rounds it to bf16 as apply does, torch.equal to the
+    composition and to the kernel given the rounded bias."""
+    x, wt, bias = _fwd_inputs(cuda, 11 + cin, 2, 52, 52, cin, cout)
+    fine = bias + torch.linspace(1e-4, 3e-3, cout, device=cuda)
+    assert not torch.equal(fine.to(torch.bfloat16).float(), fine)
+    got = TPT.fwd_pair(x, wt, fine)
+    assert torch.equal(got, _fwd_composition(x, wt, fine)[0])
+    assert torch.equal(got, TPT.fwd_pair(
+        x, wt, fine.to(torch.bfloat16).float()))
+
+
+@pytest.mark.cuda
+def test_fwd_pair_misaligned_input(cuda):
+    """An input view 2 bytes past a 16-byte boundary: the wrapper copies
+    it for the tile's 16-byte loads (the fold's and the tile's)."""
+    for cin, cout in ((3, 16), (16, 32)):
+        x, wt, bias = _fwd_inputs(cuda, 7 + cin, 2, 52, 52, cin, cout)
+        buf = torch.empty(x.numel() + 8, dtype=x.dtype, device=cuda)
+        k = next(k for k in range(8) if (buf.data_ptr() + 2 * k) % 16 == 2)
+        xm = buf[k:k + x.numel()].view(x.shape)
+        xm.copy_(x)
+        assert xm.data_ptr() % 16 == 2
+        assert torch.equal(TPT.fwd_pair(xm, wt, bias),
+                           TPT.fwd_pair(x, wt, bias))
+
+
+@pytest.mark.cuda
+def test_fwd_pair_rejects_bad_inputs(cuda):
+    x, wt, bias = _fwd_inputs(cuda, 9, 2, 16, 16, 16, 32)
+    with pytest.raises(ValueError):
+        TPT.fwd_pair(x.float(), wt, bias)               # f32 input
+    with pytest.raises(ValueError):
+        TPT.fwd_pair(x, wt, bias.to(torch.bfloat16))    # bf16 bias
+    with pytest.raises(ValueError):
+        TPT.fwd_pair(x[:, :15], wt, bias)               # odd H
+    with pytest.raises(ValueError):
+        TPT.fwd_pair(x, wt[..., :24], bias[:24])        # Cout 24
 
 
 @pytest.mark.cuda
@@ -362,7 +541,8 @@ def test_train_kernels_match_plain(cuda, cin, cout):
     check_train_kernels(TPT, case)
     torch.cuda.synchronize()
     assert {k: TPT.launches[k] - before[k] for k in before} == {
-        "fwdstats": 1, "apply": 1, "bwdg": 1, "red": 0, "dy": 0, "dgrad": 0}
+        "fwdstats": 1, "apply": 1, "bwdg": 1, "red": 0, "dy": 0, "dgrad": 0,
+        "fwd": 0}
 
 
 @pytest.mark.cuda
@@ -632,10 +812,12 @@ def test_train_wrappers_reject_bad_inputs(cuda):
 
 @pytest.mark.cuda
 def test_throughput_engine_phase_stem_on_cuda(cuda):
-    """ThroughputEngine(phase_stem=True) on the card: four pairs through
-    fwdstats + apply, each link within one bf16 ulp of the plain engine's
-    layers on the same input (see assert_stem_link_close for where the
-    two conv sums round apart)."""
+    """ThroughputEngine(phase_stem=True) on the card: four pairs, one fwd
+    kernel each (the taps fold at pair 1, the tile at pairs 2-4), no
+    fwdstats or apply; each link equal to fwdstats + apply with identity
+    constants and within one bf16 ulp of the plain engine's layers on the
+    same input (see assert_stem_link_close for where the two conv sums
+    round apart)."""
     spec = tiny_yolo_voc(width=64, height=64)
     params = random_bn(init_params(spec, seed=0), 1)
     eng = ThroughputEngine(spec, params, device=cuda, batch=8,
@@ -645,20 +827,21 @@ def test_throughput_engine_phase_stem_on_cuda(cuda):
     x = torch.from_numpy(np.random.default_rng(2).uniform(
         0, 1, (8, 64, 64, 3)).astype(np.float32)).to(cuda, torch.bfloat16)
     before = dict(TPT.launches)
+    paths = dict(TPT.conv_kernels["fwd"])
     out = eng(x)
     torch.cuda.synchronize()
-    assert TPT.launches["fwdstats"] == before["fwdstats"] + 4
-    assert TPT.launches["apply"] == before["apply"] + 4
+    # one fwd kernel a pair (pair 1 on the taps fold), no fwdstats or apply
+    assert TPT.launches == {**before, "fwd": before["fwd"] + 4}
+    assert {k: TPT.conv_kernels["fwd"][k] - paths[k] for k in paths} == {
+        "tensor_core": 3, "tensor_core_fold": 1, "fp32_core": 0}
     assert out.shape == plain(x).shape
     v = x
     for ci in (0, 2, 4, 6):
         p = eng.params[ci]
-        cout = p["weights"].shape[0]
-        zero = torch.zeros(cout, device=cuda)
-        one = torch.ones(cout, device=cuda)
-        z, _, _ = TPT.fwdstats(v, p["weights"].permute(2, 3, 1, 0)
-                               .contiguous(), zero, one)
-        got = TPT.apply(z, zero, one, one, p["biases"].float())
+        w = p["weights"].permute(2, 3, 1, 0).contiguous()
+        got = TPT.fwd_pair(v, w, p["biases"].float())
+        comp, z = _fwd_composition(v, w, p["biases"].float())
+        assert torch.equal(got, comp)
         with torch.no_grad():
             ref = plain._net.layers[ci + 1](plain._net.layers[ci](
                 v.permute(0, 3, 1, 2))).permute(0, 2, 3, 1)
@@ -682,7 +865,8 @@ def test_chain_kernels_match_plain(cuda, b, h, cin, cout):
     check_chain_kernels(TPT, chain_case(h + cin, b, h, cin, cout, cuda))
     torch.cuda.synchronize()
     assert {k: TPT.launches[k] - before[k] for k in before} == {
-        "fwdstats": 0, "apply": 0, "bwdg": 0, "red": 1, "dy": 1, "dgrad": 1}
+        "fwdstats": 0, "apply": 0, "bwdg": 0, "red": 1, "dy": 1, "dgrad": 1,
+        "fwd": 0}
     assert TPT.conv_kernels["dy"]["tensor_core"] == tc + (cin == 16)
 
 

@@ -396,15 +396,15 @@ def test_fold_matches_jax_pallas(monkeypatch):
 @pytest.mark.parametrize("mode", TPT.CONV_MODES)
 def test_conv_path_by_mode(mode):
     """The mirror of the library's mode-aware predicate: the tile for
-    Cin a multiple of 16 in every mode, the taps fold for fwdstats at
-    Cin <= 3 only, the FP32-core loop for the rest; Cout must be a
-    multiple of 16."""
+    Cin a multiple of 16 in every mode, the taps fold for fwdstats and
+    the bf16 serving stem (fwd) at Cin <= 3 only, the FP32-core loop for
+    the rest; Cout must be a multiple of 16."""
     want = {1: "tensor_core_fold", 2: "tensor_core_fold",
             3: "tensor_core_fold", 4: "fp32_core", 8: "fp32_core",
             15: "fp32_core", 16: "tensor_core", 24: "fp32_core",
             32: "tensor_core", 40: "fp32_core", 64: "tensor_core"}
     for cin, path in want.items():
-        if mode != "fwdstats" and path == "tensor_core_fold":
+        if mode not in ("fwdstats", "fwd") and path == "tensor_core_fold":
             path = "fp32_core"
         assert TPT.conv_path(mode, cin, 16) == path, (cin, path)
         assert TPT.conv_path(mode, cin, 24) == "fp32_core"

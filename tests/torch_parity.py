@@ -668,3 +668,29 @@ def assert_stem_link_close(got, ref, z):
     assert not bad.any(), (f"{bad.sum()} of {bad.size} elements beyond one "
                            f"bf16 ulp: got {got[bad][:8]}, want {ref[bad][:8]}")
     return float(np.abs(got - ref).max())
+
+
+def assert_fwd_close(got, ref, z, slope=0.10009765625):
+    """Two implementations of the bf16 serving stem's pair (kernel 4's
+    mode fwd: v = bf16(y), zb = bf16(v + b), out = zb > 0 ? zb :
+    bf16(slope * zb), then the window's maximum) whose float32 conv sums
+    round to bf16 values at most one ulp of the pooled conv value z apart
+    (ROADMAP queue 3, item 10). The rounding of v + b can then land one
+    ulp of zb apart, and the leaky scales that by the slope and rounds
+    once more. Where both outputs are positive (out = zb) the bound is
+    assert_stem_link_close's, ulp(z) + ulp(out); elsewhere |got - ref| <=
+    s * (ulp(z) + ulp(zb)) + ulp(out), with s the slope and zb = out / s
+    where both are negative, s = 1 and zb = out across the sign change.
+    Arrays are float32 NHWC; returns the max absolute difference."""
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    z = np.asarray(z, np.float32)
+    out = np.maximum(np.abs(got), np.abs(ref))
+    s = np.where((got > 0) | (ref > 0), np.float32(1), np.float32(slope))
+    bound = np.where(
+        (got > 0) & (ref > 0), _bf16_ulp(np.abs(z)) + _bf16_ulp(out),
+        s * (_bf16_ulp(np.abs(z)) + _bf16_ulp(out / s)) + _bf16_ulp(out))
+    bad = (bf16_ulps(got, ref) > 1) & (np.abs(got - ref) > bound)
+    assert not bad.any(), (f"{bad.sum()} of {bad.size} elements beyond the "
+                           f"fwd roundings' bound: got {got[bad][:8]}, want "
+                           f"{ref[bad][:8]}")
+    return float(np.abs(got - ref).max())
