@@ -3,11 +3,11 @@
     python3 chip_smoke.py
 
 Drives the port's main paths — tiny-yolo-voc-416 detection at batch 1,
-batch-128 serving in bf16 and int8, and bf16 training at batch 128 with
-the fused pair, the two-pair chain and the fused stem — through the
-entry points a user calls, builds the hand-written CUDA kernels from
-``sr_object_detection_tpu_torch/csrc`` and holds each against its plain
-PyTorch version. Phases, in order; any failure ends the run with a
+batch-128 serving in bf16 and int8, bf16 training at batch 128 with
+the fused pair, the two-pair chain and the fused stem, and yolov2-608
+serving (route, reorg) — through the entry points a user calls, builds
+the hand-written CUDA kernels from ``sr_object_detection_tpu_torch/csrc``
+and holds each against its plain PyTorch version. Phases, in order; any failure ends the run with a
 non-zero status and no result line:
 
   0. device: a CUDA device, its name and power limit, the kernel build;
@@ -163,9 +163,40 @@ non-zero status and no result line:
      f2_kernel, b1_kernel or b2_kernel; the chain's step
      ran fwdstats_tc_kernel, red_tc_kernel and dy_tc_kernel once each,
      fwdstats_fold_kernel once (pair 0), no fwdstats_kernel and no
-     chain_bwd_kernel; the pair + fused stem step fwdstats_fold_kernel.
+     chain_bwd_kernel; the pair + fused stem step fwdstats_fold_kernel;
+ 22. yolov2-608 (cfg/yolo.cfg, 80 classes; random weights from seed 0
+     with randomized BN and biases, written as a .weights file): its four
+     serving kernels at its shapes against their plain versions — kernel
+     4's mode fwd at B=128 (3 -> 32 @608 on fwd_fold_kernel, 32 -> 64
+     @304 on fwd_tc_kernel, by conv_kernels; each torch.equal to fwdstats
+     + apply with identity BN, within assert_fwd_close of fwd_pair_plain),
+     the int8 stem from u8 frames (taps and chunks folds; torch.equal),
+     the batch-1 stem on the conv tile (within one bf16 ulp) and NMS at
+     C=80, k=128 (a frame's candidates, all and gated, and random ones
+     with every rank live; bit-equal);
+ 23. the yolov2-608 main path, counted (every count reset just before and
+     read just after): Detector.detect float32 and int8, the three
+     LatencyEngines on u8 frames and the four batch-128 engines; the
+     float32 Detector det for det against the CPU, the int8 Detector
+     within the prob band that the two calibrations leave, the C-oracle
+     golden yolo_coco_416.npz on CUDA (2e-4), the pipe server on the
+     yolov2 cfg (3 requests equal to the in-process Detector);
+ 24. yolov2-608 at B=128: the bf16 phase stem link by link within
+     assert_stem_link_close of the plain engine's layers, the int8 trunks
+     with and without the phase stem equal; at batch 1 the fused stem's
+     candidates against the plain engine's within the band their probs
+     leave, the int8 engine's finite;
+ 25. yolov2-608 times: each of the four kernels and its chain from a CUDA
+     graph in turns with its plain version, beside its bound (NMS beside
+     its launch floor); images/s of the four batch-128 engines in turns;
+     the three LatencyEngines' device time a frame; torch.profiler over a
+     bf16 and an int8 phase-stem batch (fwd_fold_kernel and fwd_tc_kernel
+     once each, no colsum or apply kernel; phase_pair_tc_kernel, no
+     phase_pair_kernel).
 
-The last lines are the card (nvidia-smi), one JSON object describing the
+The last lines are one JSON object with the four kernels at yolov2-608's
+shapes (the keys of the kernels line; their launches counted in phase
+23), the card (nvidia-smi), one JSON object describing the
 14 kernels (time, plain time, bound, launches and library call of each;
 ``stem_pair`` is the batch-1 stem on the tensor-core conv tile of
 csrc/phase_train.cu (``stem_fold_kernel`` at pair 1, ``stem_tc_kernel``
@@ -315,7 +346,7 @@ def profile(name, fn, iters, gpu, top=6):
     # the top kernels, and every tensor-core kernel of the port below them
     ranked = sorted(rows, reverse=True)
     for i, (t, key, _) in enumerate(ranked):
-        if i < top or "_tc_kernel" in key:
+        if i < top or "_tc_kernel" in key or "_fold_kernel" in key:
             log(f"  {t} ms ({t / busy:.1%}) {key[:90]}")
     return {key: calls for _, key, calls in rows}
 
@@ -503,6 +534,555 @@ def candidates(boxes, probs):
     boxes, probs = boxes.cpu().numpy(), probs.cpu().numpy()
     return [(int(p.argmax()), float(p.max()), bx)
             for bx, p in zip(boxes, probs)]
+
+
+Y_NET = 608        # yolov2's published width and height (cfg/yolo.cfg)
+Y_PAIRS = [(0, 1), (2, 3)]    # its stem pairs: 3 -> 32 @608, 32 -> 64 @304
+
+
+def abba_graph(name, kernel_fn, plain_fn, gpu, iters=10, plain_iters=3):
+    """A kernel from a CUDA graph (graph_ms) in turns with its plain
+    version from CUDA events (cuda_ms): plain, kernel, kernel, plain.
+    Returns (kernel ms, plain ms), each the mean of its two readings."""
+    p1 = cuda_ms(plain_fn, plain_iters, 1)
+    k1, k2 = graph_ms(kernel_fn, iters), graph_ms(kernel_fn, iters)
+    p2 = cuda_ms(plain_fn, plain_iters, 1)
+    log(f"time {name}: kernel from a CUDA graph {(k1 + k2) / 2} ms ({k1}, "
+        f"{k2}), plain {(p1 + p2) / 2} ms ({p1}, {p2}) [{gpu}]")
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def yolov2_608(gpu, dev, reset_counts, counts):
+    """Phases 22-25 (the module docstring): yolov2-608 serving. Returns
+    the kernels line's entries for the four kernels on this path, at
+    yolov2-608's shapes."""
+    from sr_object_detection_tpu_torch.graph.spec import parse_network_cfg
+    from sr_object_detection_tpu_torch.infer.detector import Detector
+    from sr_object_detection_tpu_torch.infer.engine import (
+        LatencyEngine, ThroughputEngine)
+    from sr_object_detection_tpu_torch.infer.quant import (
+        QuantizedThroughputEngine)
+    from sr_object_detection_tpu_torch.io.weights import (
+        init_params, save_weights)
+    from sr_object_detection_tpu_torch.kernels import b1_stem as BS
+    from sr_object_detection_tpu_torch.kernels import nms as NMS
+    from sr_object_detection_tpu_torch.kernels import phase_stem as PS
+    from sr_object_detection_tpu_torch.kernels import phase_train as PT
+    from sr_object_detection_tpu_torch.models.zoo import yolov2
+    from sr_object_detection_tpu_torch.ops import boxes as B
+
+    # ---------------------------------------------------------- phase 22
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(22)
+    bf16 = torch.bfloat16
+    spec = yolov2(width=Y_NET, height=Y_NET)
+    # random weights from seed 0, BN statistics and biases randomized; the
+    # head scaled so that the 80-class probs spread
+    params_np = random_bn(init_params(spec, seed=0), 1, head_gain=16.0)
+    g416 = np.load(GOLDEN / "yolo_coco_416.npz")
+    cfg_text = bytes(g416["cfg"]).decode()       # cfg/yolo.cfg at 416
+    WORK.mkdir(parents=True, exist_ok=True)
+    cfg = WORK / "yolo-608.cfg"
+    cfg.write_text(cfg_text.replace("width=416", f"width={Y_NET}")
+                   .replace("height=416", f"height={Y_NET}"))
+    assert parse_network_cfg(str(cfg)).layers == spec.layers
+    weights = WORK / "yolo-608.weights"
+    save_weights(spec, params_np, str(weights))
+    tag = f"yolov2-{Y_NET}"
+    y16 = Y_NET // 32        # the region grid: 19 at 608
+    n_boxes = y16 * y16 * 5
+    n_out = n_boxes * 85
+    k_nms = min(128, n_boxes)                # the Detector's NMS top-k
+    k_lat = min(LatencyEngine.TOPK, n_boxes)
+
+    bf = ThroughputEngine(spec, params_np, batch=BATCH, device=dev)
+    bf_stem = ThroughputEngine(spec, params_np, batch=BATCH, device=dev,
+                               phase_stem=True)
+    calib = rng.uniform(0, 1, (4, Y_NET, Y_NET, 3)).astype(np.float32)
+    q_stem = QuantizedThroughputEngine(spec, params_np, batch=BATCH,
+                                       device=dev, calib_x=calib,
+                                       phase_stem=True)
+    q_plain = QuantizedThroughputEngine(spec, params_np, batch=BATCH,
+                                        device=dev, calib_x=calib)
+    assert bf_stem.phase_stem
+    assert PS.plan_pairs(q_stem.qnet.spec) == Y_PAIRS
+    assert BS.plan_pairs(bf_stem.spec) == Y_PAIRS
+    frames_u8 = torch.from_numpy(rng.integers(
+        0, 256, (BATCH, Y_NET, Y_NET, 3), dtype=np.uint8)).to(dev)
+    x_b = frames_u8.float() / 255.0
+    x_bf = x_b.to(bf16)
+
+    # kernel 4's mode fwd at B=128 along the bf16 engine's chain: each
+    # pair torch.equal to fwdstats + apply with identity BN, within
+    # assert_fwd_close of fwd_pair_plain; the fold at pair 1, the tile at
+    # pair 2, nothing on the FP32-core path
+    fwd_err, fwd_links = 0.0, []
+    before = dict(PT.conv_kernels["fwd"])
+    v = x_bf
+    for ci, _ in Y_PAIRS:
+        p = bf_stem.params[ci]
+        l = spec.layers[ci]
+        cout = p["weights"].shape[0]
+        zero = torch.zeros(cout, device=dev)
+        one = torch.ones(cout, device=dev)
+        w_hwio = p["weights"].permute(2, 3, 1, 0).contiguous()
+        bias = p["biases"].float()
+        got = PT.fwd_pair(v, w_hwio, bias)
+        z, _, _ = PT.fwdstats(v, w_hwio, zero, one)
+        comp = PT.apply(z, zero, one, one, bias)
+        assert torch.equal(got, comp), (ci, (got != comp).sum().item())
+        del comp
+        z_np = z.float().cpu().numpy()
+        del z
+        ref = PT.fwd_pair_plain(v, w_hwio, bias).float().cpu().numpy()
+        fwd_err = max(fwd_err, assert_fwd_close(got.float().cpu().numpy(),
+                                                ref, z_np))
+        del ref, z_np
+        torch.cuda.empty_cache()
+        fwd_links.append((l, v, w_hwio, bias))
+        log(f"  bf16 serving stem pair {l.c}->{l.filters} @{l.h} "
+            f"B={BATCH}: fwd == fwdstats + apply "
+            f"({PT.conv_path('fwd', l.c, l.filters)}) "
+            f"({time.perf_counter() - T0:.1f} s)")
+        v = got
+    assert {k: PT.conv_kernels["fwd"][k] - before[k] for k in before} == {
+        "tensor_core": 1, "tensor_core_fold": 1, "fp32_core": 0}, (
+        PT.conv_kernels)
+    assert torch.equal(bf_stem._stem(x_b), v)
+
+    # kernel 3 at B=128 from u8 frames along the int8 engine's chain:
+    # torch.equal to the plain int8 chain, each launch under its K fold
+    qn = q_stem.qnet
+    links = [(qn.qparams[ci]["weights"], qn.qparams[ci]["dequant"],
+              qn.qparams[ci]["biases"],
+              float(np.float32(1.0 / qn.act_scales[ci])))
+             for ci, _ in Y_PAIRS]
+    inv_u8 = float(np.float32(1.0 / (255.0 * qn.in_scale)))
+    folds = dict(PS.folds)
+    v, ps_inputs = frames_u8, []
+    for (w, dq, b, inv_out), (ci, _) in zip(links, Y_PAIRS):
+        l = qn.spec.layers[ci]
+        args = (v, w, dq, b, inv_out,
+                inv_u8 if v.dtype == torch.uint8 else None)
+        ps_inputs.append((l, args))
+        out = PS.stem_pair_i8(*args)
+        ref = PS.stem_pair_i8_plain(*args)
+        assert torch.equal(out, ref), (ci, (out != ref).sum().item())
+        del ref
+        torch.cuda.empty_cache()
+        log(f"  int8 stem pair {l.c}->{l.filters} @{l.h} B={BATCH}: kernel "
+            f"== plain ({time.perf_counter() - T0:.1f} s)")
+        v = out
+    assert {k: PS.folds[k] - folds[k] for k in folds} == {
+        "taps": 1, "tap_pairs": 0, "chunks": 1}, PS.folds
+    assert torch.equal(qn.forward(frames_u8, stop=4), v)
+    assert v.abs().max().item() > 60
+
+    # kernel 2 (the batch-1 stem) at the two pairs, link by link, within
+    # one bf16 ulp of its plain version, on the conv tile
+    lat_f = LatencyEngine(spec, params_np, device=dev, fused_stem=True)
+    lat_p = LatencyEngine(spec, params_np, device=dev)
+    assert lat_f.fused_stem and not lat_p.fused_stem
+    paths = dict(BS.paths)
+    x1 = torch.from_numpy(rng.uniform(0, 1, (1, Y_NET, Y_NET, 3)).astype(
+        np.float32)).to(dev, bf16)
+    b1_err, b1_links, v = 0.0, [], x1
+    for ci, _ in Y_PAIRS:
+        p = lat_f.params[ci]
+        w = p["weights"].permute(2, 3, 1, 0).to(bf16).contiguous()
+        b = p["biases"].float()
+        got = BS.stem_pair(v, w, b)
+        b1_err = max(b1_err, bf16_err(got, BS.stem_pair_plain(v, w, b)))
+        b1_links.append((spec.layers[ci], v, w, b))
+        v = got
+    assert {k: BS.paths[k] - paths[k] for k in paths} == {
+        "tensor_core": 1, "tensor_core_fold": 1, "fp32_core": 0}, BS.paths
+    assert torch.equal(lat_f._stem(x1), v)
+
+    # kernel 1 at C=80, k=128: a frame's candidates as the Detector makes
+    # them (every prob kept, and gated at the detection threshold), and
+    # random candidates with every rank live
+    det = Detector(str(cfg), str(weights), device=dev)
+    frames = [rng.uniform(0, 1, (480, 640, 3)).astype(np.float32)
+              for _ in range(3)]
+    fb, fp = det.predict_batch(det.preprocess(frames[0])[None])
+    assert fp.shape == (1, n_boxes, 80)
+    thresh = float(np.sort(fp[0].max(-1).values.cpu().numpy())[::-1][
+        min(10, n_boxes - 1)])
+    nms_cases = []
+    for name, probs in (("every prob", fp[0]),
+                        ("gated", torch.where(fp[0] > thresh, fp[0], 0.0))):
+        nms_cases.append((name, *B.topk_candidates(fb[0], probs,
+                                                   k_nms)[:2]))
+    n = n_boxes
+    rb = torch.from_numpy(np.stack(
+        [rng.uniform(0, 1, n), rng.uniform(0, 1, n), rng.uniform(.02, .4, n),
+         rng.uniform(.02, .4, n)], axis=1).astype(np.float32)).to(dev)
+    rp = torch.from_numpy(rng.uniform(.05, 1, (n, 80)).astype(
+        np.float32)).to(dev)
+    nms_cases.append(("random, every rank live",
+                      *B.topk_candidates(rb, rp, k_nms)[:2]))
+    nms_err = 0.0
+    for name, tb, tp in nms_cases:
+        assert tp.shape == (80, k_nms)
+        got = NMS.nms_per_class(tb, tp, 0.4)
+        ref = NMS.nms_per_class_plain(tb, tp, 0.4)
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), name
+        nms_err = max(nms_err, (got - ref).abs().max().item())
+    torch.cuda.synchronize()
+    log(f"phase 22 ok: {tag}'s four serving kernels at its shapes == their "
+        f"plain versions: kernel 4's fwd at B={BATCH} (3->32 @{Y_NET} on "
+        f"the fold, 32->64 @{Y_NET // 2} on the tile; torch.equal to "
+        f"fwdstats + apply, max |err| against fwd_pair_plain {fwd_err}), "
+        f"kernel 3 from u8 frames (taps and chunks folds, torch.equal), "
+        f"the batch-1 stem on the conv tile (max |err| {b1_err}), NMS at "
+        f"C=80 k={k_nms} (torch.equal, {len(nms_cases)} cases) [{gpu}]")
+
+    # ---------------------------------------------------------- phase 23
+    # the main path, counted: detection, the batch-1 engines and the four
+    # batch-128 engines through the entry points a user calls
+    calib8 = det.preprocess(frames[0])[None]
+    det8 = Detector(str(cfg), str(weights), device=dev, int8_calib=calib8)
+    lat8 = LatencyEngine(spec, params_np, device=dev, int8_calib=calib8)
+    u8 = [rng.integers(0, 256, (Y_NET, Y_NET, 3), dtype=np.uint8)
+          for _ in range(3)]
+    reset_counts()
+    dets = [det.detect(f, thresh=thresh - 1e-4) for f in frames]
+    dets8 = [det8.detect(frames[0], thresh=0.0)]
+    lat_out = [(lat_f(f), lat_p(f), lat8(f)) for f in u8]
+    out_bf = bf(x_b)
+    out_bfs = bf_stem(x_b)
+    out_s = q_stem(frames_u8)
+    out_p = q_plain(frames_u8)
+    torch.cuda.synchronize()
+    launches_y, want = counts(nms_per_class=4, stem_pair=6,
+                              phase_stem_pair=2, phase_train_fwd=2)
+    log(f"  {tag} main path: launches {launches_y} "
+        f"({time.perf_counter() - T0:.1f} s)")
+    assert launches_y == want, launches_y
+    for o, dt in ((out_bf, bf16), (out_bfs, bf16), (out_s, torch.float32),
+                  (out_p, torch.float32)):
+        assert o.shape == (BATCH, n_out) and o.dtype == dt, o.shape
+        assert torch.isfinite(o.float()).all()
+
+    # the float32 Detector on CUDA against the CPU, det for det
+    det_cpu = Detector(str(cfg), str(weights), device="cpu")
+    n_dets = 0
+    for f, got in zip(frames, dets):
+        want = det_cpu.detect(f, thresh=thresh - 1e-4)
+        n_dets += match_dets(
+            [(d.class_id, d.prob, np.asarray(d.box)) for d in got],
+            [(d.class_id, d.prob, np.asarray(d.box)) for d in want],
+            thresh, 1e-4)
+    # the int8 Detector: CUDA and CPU calibrate with float32 sums in other
+    # orders, so scales and codes may differ in the last bits, and the
+    # bf16 head's logits by a bf16 step. Random weights give probs closer
+    # together than that shift (phase 8), so at 608 the two are held to a
+    # band before NMS, and det for det runs on the trained yolov2-style
+    # A/B model of tests/golden/map_ab_v2.npz (route -3, reorg 2, route
+    # -1,-3), with its mAP gates on CUDA
+    det8_cpu = Detector(str(cfg), str(weights), device="cpu",
+                        int8_calib=calib8)
+    x0 = det8.preprocess(frames[0])[None]
+    p8 = det8.predict_batch(x0)[1][0].cpu()
+    p8_diff = (p8 - det8_cpu.predict_batch(x0)[1][0]).abs().max().item()
+    assert torch.isfinite(p8).all() and p8_diff <= 0.1, p8_diff
+    assert all(np.isfinite(d.prob) for d in dets8[0])
+    from sr_object_detection_tpu_torch.ops.image import load_image_rgb
+    from tools.synth_dataset import make_dataset
+    g = np.load(GOLDEN / "map_ab_v2.npz")
+    list_path, gt = make_dataset(str(WORK / "map_ab_v2"),
+                                 int(g["n_images"]), int(g["seed"]))
+    (WORK / "map_ab_v2.cfg").write_text(bytes(g["cfg"]).decode())
+    (WORK / "map_ab_v2.weights").write_bytes(bytes(g["weights"]))
+    ab = (str(WORK / "map_ab_v2.cfg"), str(WORK / "map_ab_v2.weights"))
+    ab_paths = [l.strip() for l in open(list_path) if l.strip()]
+    d32 = Detector(*ab, device=dev)
+    calib_ab = np.stack([d32.preprocess(load_image_rgb(p))
+                         for p in ab_paths[:8]])
+    d8 = Detector(*ab, device=dev, int8_calib=calib_ab)
+    d8_cpu = Detector(*ab, device="cpu", int8_calib=calib_ab)
+    s8 = d8.net.qnet.act_scales
+    assert s8[9] == max(s8[8], s8[6]) and s8[8] == s8[4] and s8[6] != s8[8]
+    thr_ab, margin_ab = 0.15, 0.02
+    n_ab, p_ab = 0, 0.0
+    for path in ab_paths:
+        img = load_image_rgb(path)
+        xf = d8.preprocess(img)[None]
+        p_ab = max(p_ab, (d8.predict_batch(xf)[1].cpu()
+                          - d8_cpu.predict_batch(xf)[1]).abs().max().item())
+        got, want = (
+            [(d.class_id, d.prob, np.asarray(d.box)) for d in
+             d_.detect(img, thresh=thr_ab - margin_ab)] for d_ in (d8, d8_cpu))
+        n_ab += match_dets(got, want, thr_ab, margin_ab, require=False)
+    assert n_ab > 0 and p_ab <= margin_ab, (n_ab, p_ab)
+    oracle = float(g["oracle_map"])
+    map32 = voc_map(d32, ab_paths, gt, float(g["thresh"]), float(g["nms"]))
+    map8 = voc_map(d8, ab_paths, gt, float(g["thresh"]), float(g["nms"]))
+    assert abs(map32 - oracle) <= 0.1 and abs(map8 - map32) <= 0.05, (
+        oracle, map32, map8)
+    # the C-oracle golden at 416 (cfg/yolo.cfg at full width) on CUDA
+    gcfg = WORK / "yolo-416.cfg"
+    gcfg.write_text(cfg_text)
+    gspec = parse_network_cfg(str(gcfg))
+    save_weights(gspec, init_params(gspec, seed=int(g416["seed"])),
+                 str(WORK / "yolo-416.weights"))
+    gdet = Detector(str(gcfg), str(WORK / "yolo-416.weights"), device=dev)
+    with torch.no_grad():
+        gout, _ = gdet.net(torch.from_numpy(
+            np.transpose(g416["input_chw"], (1, 2, 0))[None].copy()).to(dev))
+    gout = gout[0].cpu().numpy()
+    assert np.allclose(gout, g416["output"], rtol=2e-4, atol=2e-4)
+    golden_err = float(np.abs(gout - g416["output"]).max())
+    del gdet
+    # the pipe server on the yolov2 cfg: 3 requests, equal to the
+    # in-process Detector
+    req = b"".join(struct.pack("<3if", f.shape[1], f.shape[0], f.shape[2],
+                               thresh) + f.astype("<f4").tobytes()
+                   for f in frames) + struct.pack("<3if", 0, 0, 0, 0.0)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "sr_object_detection_tpu_torch.infer.serve",
+         str(cfg), str(weights)], cwd=ROOT, stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        out, err = proc.communicate(req, timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0, err.decode()[-2000:]
+    assert struct.unpack("<5i", out[:20]) == (0x53524456, Y_NET, Y_NET,
+                                              n_boxes, 80)
+    per = 4 * n_boxes * (4 + 80)
+    assert len(out) == 20 + 3 * per
+    for i, f in enumerate(frames):
+        blob = np.frombuffer(out[20 + i * per:20 + (i + 1) * per], "<f4")
+        wb, wp = det.predict_batch(det.preprocess(f)[None], thresh=thresh)
+        assert np.allclose(blob[:n_boxes * 4].reshape(-1, 4),
+                           wb[0].cpu().numpy(), rtol=1e-5, atol=1e-6)
+        assert np.allclose(blob[n_boxes * 4:].reshape(-1, 80),
+                           wp[0].cpu().numpy(), rtol=1e-5, atol=1e-6)
+    log(f"phase 23 ok: {tag} detection: {n_dets} float32 detections "
+        f"matched on CUDA and CPU; int8 probs on CUDA and CPU max |diff| "
+        f"{p8_diff} before NMS (band 0.1); map_ab_v2 int8: {n_ab} "
+        f"detections matched on CUDA and CPU within {margin_ab} (max |prob "
+        f"diff| before NMS {p_ab}), mAP on CUDA f32 {map32}, int8 {map8}, "
+        f"oracle {oracle}; golden yolo_coco_416 on CUDA (max |err| "
+        f"{golden_err}); the server answered 3 requests, equal to the "
+        f"in-process Detector [{gpu}]")
+
+    # ---------------------------------------------------------- phase 24
+    # batch 128: the bf16 phase stem link by link against the plain
+    # engine's conv + pool layers on the same input; the int8 trunks
+    stem_link_err = 0.0
+    for l, xi, w_hwio, bias in fwd_links:
+        got = PT.fwd_pair(xi, w_hwio, bias)
+        with torch.no_grad():
+            ref = bf._net.layers[l.index + 1](bf._net.layers[l.index](
+                xi.permute(0, 3, 1, 2))).permute(0, 2, 3, 1)
+        zero = torch.zeros(bias.shape[0], device=dev)
+        z, _, _ = PT.fwdstats(xi, w_hwio, zero, torch.ones_like(zero))
+        stem_link_err = max(stem_link_err, assert_stem_link_close(
+            got.float().cpu().numpy(), ref.float().cpu().numpy(),
+            z.float().cpu().numpy()))
+        del got, ref, z
+        torch.cuda.empty_cache()
+    bfs_diff = (out_bfs.float() - out_bf.float()).abs().max().item()
+    head = len(spec.layers) - 2
+    assert torch.equal(q_stem.qnet.forward(frames_u8, stop=head),
+                       q_plain.qnet.forward(frames_u8, stop=head))
+    out_diff = (out_s - out_p).abs().max().item()
+    assert out_diff <= 2 ** -7, out_diff
+    # batch 1: the fused stem rounds once, the plain chain twice, so the
+    # two engines' candidates match within the band their probs leave
+    # (measured on every box and class of the frame); the int8 engine's
+    # candidates are finite
+    def frame_probs(eng, f):
+        """Every box's class probs of a u8 frame, as LatencyEngine's call
+        computes them before its top-k."""
+        x = torch.as_tensor(f).to(dev).float() / 255.0
+        out, _ = eng.forward(x[None].to(eng.dtype))
+        acts = out.float().reshape(-1, 85)
+        return acts[:, 4:5] * acts[:, 5:]
+    n_cands, lat_margin = 0, 0.0
+    for f, (of, op, o8) in zip(u8, lat_out):
+        for bx, pr in (of, op, o8):
+            assert bx.shape == (k_lat, 4) and pr.shape == (k_lat, 80)
+            assert torch.isfinite(bx).all() and torch.isfinite(pr).all()
+        pf, pp = (frame_probs(e, f) for e in (lat_f, lat_p))
+        margin = max(1.5 * (pf - pp).abs().max().item(), 1e-3)
+        cf, cp = candidates(*of), candidates(*op)
+        thr = sorted((p for _, p, _ in cp), reverse=True)[4] - margin
+        # every box above thr - margin is a candidate of both engines
+        assert k_lat == n_boxes or max(
+            min(p for _, p, _ in c) for c in (cf, cp)) < thr - margin
+        n_cands += match_dets(cf, cp, thr, margin)
+        lat_margin = max(lat_margin, margin)
+    del out_bf, out_bfs, out_s, out_p
+    torch.cuda.empty_cache()
+    log(f"phase 24 ok: {tag} B={BATCH}: bf16 ThroughputEngine with its "
+        f"phase stem within the link bounds of the plain engine's layers "
+        f"(max |err| {stem_link_err}; whole outputs max |diff| {bfs_diff}); "
+        f"int8 trunks equal with and without the phase stem, outputs "
+        f"{'equal' if out_diff == 0 else f'max |diff| {out_diff}'}; "
+        f"batch 1: {n_cands} candidates matched between the fused and "
+        f"plain engines within {lat_margin}, int8 candidates finite "
+        f"[{gpu}]")
+
+    # ---------------------------------------------------------- phase 25
+    # the four kernels against their plain versions in turns, each from a
+    # CUDA graph, beside their bounds (each input read once, each output
+    # written once; or the operations over their type's peak)
+    times, bounds, errs, plains = {}, {}, {}, {}
+    n_bytes = n_ops = 0
+    for l, xi, w_hwio, bias in fwd_links:
+        name = f"{tag} bf16 serving stem pair (fwd) {l.c}->{l.filters} @{l.h}"
+        k_ms, _ = abba_graph(name, lambda: PT.fwd_pair(xi, w_hwio, bias),
+                             lambda: PT.fwd_pair_plain(xi, w_hwio, bias),
+                             gpu, plain_iters=2)
+        p_bytes = (2 * xi.numel() + 2 * w_hwio.numel() + 4 * bias.numel()
+                   + 2 * BATCH * (l.h // 2) * (l.w // 2) * l.filters)
+        p_ops = 2 * BATCH * l.h * l.w * l.filters * 9 * l.c
+        b_ms, b_by = bound(p_bytes, p_ops, "bf16")
+        log(f"bound {name}: {b_ms} ms by {b_by}; kernel {k_ms / b_ms:.2f}x "
+            f"[{gpu}]")
+        n_bytes += p_bytes
+        n_ops += p_ops
+
+    def plain_fwd_chain(v):
+        for _, _, w_hwio, bias in fwd_links:
+            v = PT.fwd_pair_plain(v, w_hwio, bias)
+        return v
+    times["phase_train_fwd"] = abba_graph(
+        f"{tag} bf16 serving stem, 2 chained pairs B={BATCH}",
+        lambda: bf_stem._stem(x_bf), lambda: plain_fwd_chain(x_bf), gpu,
+        plain_iters=2)
+    bounds["phase_train_fwd"] = bound(n_bytes, n_ops, "bf16")
+    errs["phase_train_fwd"] = fwd_err
+    n_bytes = n_ops = 0
+    for l, args in ps_inputs:
+        name = f"{tag} int8 stem pair {l.c}->{l.filters} @{l.h}"
+        k_ms, _ = abba_graph(name, lambda: PS.stem_pair_i8(*args),
+                             lambda: PS.stem_pair_i8_plain(*args), gpu,
+                             plain_iters=2)
+        p_bytes = (args[0].numel() * args[0].element_size()
+                   + 9 * l.c * l.filters + 8 * l.filters
+                   + BATCH * (l.h // 2) * (l.w // 2) * l.filters)
+        p_ops = 2 * BATCH * l.h * l.w * l.filters * 9 * l.c
+        b_ms, b_by = bound(p_bytes, p_ops, "int8")
+        log(f"bound {name}: {b_ms} ms by {b_by}; kernel {k_ms / b_ms:.2f}x "
+            f"[{gpu}]")
+        n_bytes += p_bytes
+        n_ops += p_ops
+
+    def int8_chain(v, pair_fn):
+        for w, dq, b, inv_out in links:
+            v = pair_fn(v, w, dq, b, inv_out,
+                        inv_u8 if v.dtype == torch.uint8 else None)
+        return v
+    times["phase_stem_pair"] = abba_graph(
+        f"{tag} int8 stem, 2 chained pairs B={BATCH} from u8 frames",
+        lambda: int8_chain(frames_u8, PS.stem_pair_i8),
+        lambda: int8_chain(frames_u8, PS.stem_pair_i8_plain), gpu,
+        plain_iters=2)
+    bounds["phase_stem_pair"] = bound(n_bytes, n_ops, "int8")
+    errs["phase_stem_pair"] = 0
+    n_bytes = n_ops = 0
+    for l, xi, w, b in b1_links:
+        name = f"{tag} batch-1 stem pair {l.c}->{l.filters} @{l.h}"
+        k_ms, _ = abba_graph(name, lambda: BS.stem_pair(xi, w, b),
+                             lambda: BS.stem_pair_plain(xi, w, b), gpu,
+                             iters=50, plain_iters=20)
+        p_bytes = (2 * (l.h * l.w * l.c + l.out_h // 2 * l.out_w // 2
+                        * l.filters) + 2 * w.numel() + 4 * b.numel())
+        p_ops = 2 * l.h * l.w * l.filters * 9 * l.c
+        b_ms, b_by = bound(p_bytes, p_ops, "bf16")
+        log(f"bound {name}: {b_ms} ms by {b_by}; kernel {k_ms / b_ms:.2f}x "
+            f"[{gpu}]")
+        n_bytes += p_bytes
+        n_ops += p_ops
+
+    def plain_b1_chain(v):
+        for _, _, w, b in b1_links:
+            v = BS.stem_pair_plain(v, w, b)
+        return v
+    times["stem_pair"] = abba_graph(
+        f"{tag} batch-1 stem, 2 chained pairs", lambda: lat_f._stem(x1),
+        lambda: plain_b1_chain(x1), gpu, iters=50, plain_iters=20)
+    bounds["stem_pair"] = bound(n_bytes, n_ops, "bf16")
+    errs["stem_pair"] = b1_err
+    _, tb, tp = nms_cases[1]          # the Detector's gated candidates
+    times["nms_per_class"] = abba_graph(
+        f"{tag} nms_per_class C=80 k={k_nms} (a frame's candidates)",
+        lambda: NMS.nms_per_class(tb, tp, 0.4),
+        lambda: NMS.nms_per_class_plain(tb, tp, 0.4), gpu, iters=50,
+        plain_iters=5)
+    nms_floor = graph_ms(lambda: NMS.empty_launch(*tp.shape, dev), 50)
+    live = (tp > 0).sum(dim=1).tolist()
+    bounds["nms_per_class"] = bound(
+        tb.numel() * 4 + 2 * tp.numel() * 4,
+        IOU_FLOPS * sum(k * (k - 1) // 2 for k in live), "f32")
+    errs["nms_per_class"] = nms_err
+    log(f"time {tag} NMS launch floor (an empty kernel, same launch shape, "
+        f"graph): {nms_floor} ms; kernel "
+        f"{times['nms_per_class'][0] / nms_floor:.1f}x the floor [{gpu}]")
+    for name in ("phase_train_fwd", "phase_stem_pair", "stem_pair",
+                 "nms_per_class"):
+        log(f"bound {tag} {name}: {bounds[name][0]} ms by {bounds[name][1]};"
+            f" kernel {times[name][0] / bounds[name][0]:.2f}x [{gpu}]")
+
+    # the batch-128 engines' images/s (host clock around queued batches,
+    # one sync), in turns; the batch-1 engines' device time a frame
+    for kind, pair in (("bf16", (bf, bf_stem)), ("int8 u8", (q_plain,
+                                                             q_stem))):
+        kw = {"input_dtype": torch.uint8} if kind == "int8 u8" else {}
+        for name, eng in zip(("plain", "phase stem", "phase stem", "plain"),
+                             (*pair, *reversed(pair))):
+            r = eng.benchmark(iters=10, warmup=2, **kw)
+            log(f"time {tag} {kind} engine B={BATCH}, {name}: "
+                f"{r['images_per_sec']} images/s ({r['sec_per_batch']} "
+                f"s/batch) [{gpu}]")
+    for name, eng in (("bf16 fused stem", lat_f), ("bf16 plain", lat_p),
+                      ("int8", lat8)):
+        ms = eng.device_benchmark(reps=30)["device_ms_per_frame"]
+        log(f"time {tag} LatencyEngine {name} per frame (CUDA events, 30 "
+            f"queued frames): {ms} ms [{gpu}]")
+    # torch.profiler over a bf16 and an int8 batch with their stems
+    name = f"{tag} ThroughputEngine bf16 + phase stem B={BATCH}, per batch"
+    seen = profile(name, lambda: bf_stem(x_b), 3, gpu)
+    assert_conv_tensor_core(name, seen, 3, {
+        "fwd_tc_kernel": 1, "fwd_fold_kernel": 1, "fwdstats_tc_kernel": 0,
+        "fwdstats_fold_kernel": 0, "fwdstats_kernel": 0})
+    assert not any(named(k, key) for k in ("colsum_kernel", "apply_kernel")
+                   for key in seen), (name, seen)
+    name = f"{tag} int8 engine B={BATCH} u8, phase stem, per batch"
+    seen = profile(name, lambda: q_stem(frames_u8), 3, gpu)
+    assert any("phase_pair_tc_kernel" in k for k in seen), (name, seen)
+    assert not any(named("phase_pair_kernel", k) for k in seen), (name, seen)
+    log(f"  {name}: the stem ran as phase_pair_tc_kernel (int8 tensor "
+        f"cores), no phase_pair_kernel")
+    log(f"phase 25 ok: {tag} times, bounds and profiles; peak device "
+        f"memory since phase 22 "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{gpu}]")
+
+    replaces = {
+        "nms_per_class": "sr_object_detection_tpu/kernels/nms_pallas.py:29",
+        "stem_pair": "sr_object_detection_tpu/kernels/b1_stem.py:82",
+        "phase_stem_pair":
+            "sr_object_detection_tpu/kernels/phase_stem.py:235",
+        "phase_train_fwd":
+            "sr_object_detection_tpu/kernels/phase_train.py:209"}
+    sources = {"nms_per_class": "nms.cu", "stem_pair": "phase_train.cu",
+               "phase_stem_pair": "phase_stem.cu",
+               "phase_train_fwd": "phase_train.cu"}
+    return [{"name": name, "route": "cuda",
+             "source": f"sr_object_detection_tpu_torch/csrc/{sources[name]}",
+             "replaces": replaces[name], "launches": launches_y[name],
+             "max_abs_err": errs[name], "ms": times[name][0],
+             "plain_ms": times[name][1], "bound_ms": bounds[name][0],
+             "bound_by": bounds[name][1], "library_ms": None}
+            for name in replaces]
 
 
 def main() -> int:
@@ -1676,6 +2256,11 @@ def main() -> int:
             assert_fused_stem_rows(name, seen)
         assert_conv_tensor_core(name, seen, 2, conv_per_step[name])
 
+    # --------------------------------------------------- phases 22-25
+    log(f"  device memory before yolov2-608: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    yolo_kernels = yolov2_608(gpu, dev, reset_counts, counts)
+
     replaces = {
         "nms_per_class": "sr_object_detection_tpu/kernels/nms_pallas.py:29",
         "stem_pair": "sr_object_detection_tpu/kernels/b1_stem.py:82",
@@ -1741,6 +2326,7 @@ def main() -> int:
          # BN/leaky/pool passes
          "library_ms": library.get(name)}
         for name in replaces]
+    log(json.dumps({"yolov2_608_kernels": yolo_kernels}))
     log(gpu)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

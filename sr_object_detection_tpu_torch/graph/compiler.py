@@ -10,11 +10,13 @@ the network is converted back — spatial outputs as NHWC, the region
 output as the flat darknet raster ``[row][col][anchor][field]``
 (compiler.py:417-424 of the JAX package).
 
-This slice holds the kinds tiny-yolo-voc runs: conv, maxpool and region,
+The port holds the kinds tiny-yolo-voc runs (conv, maxpool and region)
 for inference and for training (``Network.forward(x, train=True)``, with
-the bf16 training kernels of ``phase_train`` and ``fused_stem``).
-Any other kind raises ``NotImplementedError`` when the network is built,
-naming the ROADMAP queue item that ports it.
+the bf16 training kernels of ``phase_train`` and ``fused_stem``), and
+yolov2's route and reorg, with shortcut, for inference only: the
+training forward refuses them (ROADMAP queue 1, item 16). Any other kind
+raises ``NotImplementedError`` when the network is built, naming the
+ROADMAP queue item that ports it.
 """
 
 from __future__ import annotations
@@ -26,11 +28,25 @@ from . import spec as S
 from ..ops import activations as A
 from ..ops import boxes as B
 from ..ops import conv as C
+from ..ops import layout as L
 from ..ops import pooling as P
 
 # kinds that come with the apps slice (ROADMAP queue 1, item 10); every
 # other kind not built here comes with the graph builder (item 3)
 _APPS_KINDS = (S.DetectionSpec, S.RNNSpec, S.GRUSpec, S.CRNNSpec)
+# kinds the inference forward runs and the training forward does not yet
+_INFERENCE_ONLY = (S.RouteSpec, S.ReorgSpec, S.ShortcutSpec)
+
+
+def check_trainable(spec: S.NetworkSpec) -> None:
+    """Raise ``NotImplementedError`` for a spec the training forward
+    cannot run: route, reorg and shortcut come with yolov2 training."""
+    for l in spec.layers:
+        if isinstance(l, _INFERENCE_ONLY):
+            raise NotImplementedError(
+                f"layer {l.index} ({l.kind}): training through route, "
+                "reorg and shortcut is not ported yet (ROADMAP queue 1, "
+                "item 16)")
 
 
 class ConvLayer(nn.Module):
@@ -87,6 +103,45 @@ class RegionLayer(nn.Module):
         return acts.reshape(acts.shape[0], -1)
 
 
+class RouteLayer(nn.Module):
+    """Channel concat of earlier NCHW outputs (``forward(outputs)``)."""
+
+    def __init__(self, spec: S.RouteSpec):
+        super().__init__()
+        if spec.out_c <= 0:
+            raise NotImplementedError(
+                f"layer {spec.index}: a route of flat outputs is not "
+                "ported yet (ROADMAP queue 1, item 3)")
+        self.spec = spec
+
+    def forward(self, outputs):
+        return L.route([outputs[j] for j in self.spec.layers], dim=1)
+
+
+class ReorgLayer(nn.Module):
+    def __init__(self, spec: S.ReorgSpec):
+        super().__init__()
+        self.spec = spec
+
+    def forward(self, x):
+        l = self.spec
+        fn = (L.reorg_reverse_darknet_nchw if l.reverse
+              else L.reorg_darknet_nchw)
+        return fn(x, stride=l.stride)
+
+
+class ShortcutLayer(nn.Module):
+    """Residual add of an earlier NCHW output (``forward(x, outputs)``)."""
+
+    def __init__(self, spec: S.ShortcutSpec):
+        super().__init__()
+        self.spec = spec
+        self.act = A.get_activation(spec.activation)
+
+    def forward(self, x, outputs):
+        return L.shortcut_nchw(x, outputs[self.spec.from_index], self.act)
+
+
 def build_layer(l: S.LayerSpec, params: dict, compute_dtype=None):
     if isinstance(l, S.ConvSpec):
         return ConvLayer(l, params, compute_dtype)
@@ -94,6 +149,12 @@ def build_layer(l: S.LayerSpec, params: dict, compute_dtype=None):
         return MaxPoolLayer(l)
     if isinstance(l, S.RegionSpec):
         return RegionLayer(l)
+    if isinstance(l, S.RouteSpec):
+        return RouteLayer(l)
+    if isinstance(l, S.ReorgSpec):
+        return ReorgLayer(l)
+    if isinstance(l, S.ShortcutSpec):
+        return ShortcutLayer(l)
     item = 10 if isinstance(l, _APPS_KINDS) else 3
     raise NotImplementedError(
         f"layer {l.index} ({l.kind}) is not ported yet (ROADMAP queue 1, "
@@ -118,7 +179,7 @@ def _phase_pair_ok(layers, ci: int) -> bool:
             and nxt.size == 2 and nxt.stride == 2 and nxt.pad == 0)
 
 
-def _live_set(spec: S.NetworkSpec) -> set[int]:
+def live_set(spec: S.NetworkSpec) -> set[int]:
     """Indices whose outputs a later non-adjacent layer reads."""
     live: set[int] = set()
     for l in spec.layers:
@@ -158,7 +219,8 @@ class Network(nn.Module):
         self.out_idx = spec.output_layer_index()
         self.phase_pair = self.phase_chain = False
         self.fusable: set[int] = set()
-        layers, live = spec.layers, _live_set(spec)
+        layers = spec.layers
+        self.live = live = live_set(spec)
         bf16 = compute_dtype == torch.bfloat16
         if phase_train and bf16:
             from ..kernels import phase_train as PT
@@ -193,15 +255,23 @@ class Network(nn.Module):
         updates}."""
         if not train:
             cur = x.permute(0, 3, 1, 2)
-            saved = {}
+            saved, kept = {}, {}    # public outputs; NCHW ones read later
             for i, layer in enumerate(self.layers):
-                cur = layer(cur)
+                if isinstance(layer, RouteLayer):
+                    cur = layer(kept)
+                elif isinstance(layer, ShortcutLayer):
+                    cur = layer(cur, kept)
+                else:
+                    cur = layer(cur)
+                if i in self.live:
+                    kept[i] = cur
                 if keep_all or i == self.out_idx:
                     saved[i] = _to_public(cur)
             return saved[self.out_idx], {"outputs": saved}
         return self._forward_train(x, keep_all, params)
 
     def _forward_train(self, x, keep_all, params):
+        check_trainable(self.spec)
         if params is None:
             params = [dict(layer.named_buffers()) for layer in self.layers]
         saved, bn_updates = {}, {}
@@ -255,4 +325,5 @@ class Network(nn.Module):
 
 
 __all__ = ["Network", "ConvLayer", "MaxPoolLayer", "RegionLayer",
-           "build_layer"]
+           "RouteLayer", "ReorgLayer", "ShortcutLayer", "build_layer",
+           "check_trainable", "live_set"]

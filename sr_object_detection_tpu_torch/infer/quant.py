@@ -22,11 +22,14 @@ the int8 stem kernel (``kernels/phase_stem.py``), bit-exact to the chain
 above, at batch 128 only — the JAX rule (its kernel's lanes are the
 batch), kept though the CUDA kernel needs no particular batch.
 
+Route and reorg run on the int8 codes as in the JAX module: reorg keeps
+its input's scale, and a route takes the largest of its sources' scales
+and requantizes each source whose scale differs.
+
 Activations are NHWC throughout, like the JAX module. Not ported yet:
-route and reorg layers and the float tail after an int8 trunk (ROADMAP
-queue 1, item 3), ``presplit`` (item 5), WordTree heads (item 4) and a
-``mesh`` (item 11); each raises ``NotImplementedError`` naming its
-item.
+the float tail after an int8 trunk (ROADMAP queue 1, item 3),
+``presplit`` (item 5), WordTree heads (item 4) and a ``mesh`` (item
+11); each raises ``NotImplementedError`` naming its item.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ import numpy as np
 import torch
 
 from ..graph import spec as S
-from ..graph.compiler import Network
+from ..graph.compiler import Network, live_set
 from ..io.convert import params_to_torch
 from ..kernels import _build
 from ..kernels import phase_stem as PS
@@ -46,6 +49,7 @@ from ..kernels.phase_stem import requant as _requant
 from ..ops import activations as A
 from ..ops import boxes as B
 from ..ops import conv as C
+from ..ops import layout as L
 from ..ops import pooling as P
 from .engine import checksum_benchmark, fold_params_for_inference, \
     sync_checksum
@@ -183,11 +187,6 @@ def quantize_for_inference(spec: S.NetworkSpec, params, calib_x, *,
         raise NotImplementedError(
             "no int8-quantizable prefix (first layers unsupported); "
             "use the bf16 ThroughputEngine")
-    for l in fspec.layers[:split]:
-        if isinstance(l, (S.RouteSpec, S.ReorgSpec)):
-            raise NotImplementedError(
-                f"layer {l.index} ({l.kind}): int8 route/reorg are not "
-                "ported yet (ROADMAP queue 1, item 3)")
     if split < len(fspec.layers):
         # the JAX module runs the rest (a classifier's avgpool + softmax)
         # as a float tail; none of those layer kinds is ported yet
@@ -248,8 +247,13 @@ def quantize_for_inference(spec: S.NetworkSpec, params, calib_x, *,
                      "dequant": dev(np.asarray(s_x * w_s, np.float32)),
                      "biases": dev(np.asarray(b, np.float32))}
                 s_out[i] = -1.0 if i in heads else scale_of(amax[i])
-        elif isinstance(l, S.MaxPoolSpec):
+        elif isinstance(l, (S.MaxPoolSpec, S.ReorgSpec)):
             s_out[i] = in_scale_of(i)   # scale-preserving
+        elif isinstance(l, S.RouteSpec):
+            srcs = [s_out[j] for j in l.layers]
+            if any(s < 0 for s in srcs):
+                raise NotImplementedError("route from a head conv")
+            s_out[i] = max(srcs)
         elif isinstance(l, S.RegionSpec):
             s_out[i] = -1.0
         qparams.append(p)
@@ -272,6 +276,7 @@ def quantize_for_inference(spec: S.NetworkSpec, params, calib_x, *,
     # float heads run F.conv2d, which wants OIHW
     head_w = {i: qparams[i]["weights"].permute(3, 2, 0, 1).contiguous()
               for i in heads if "dequant" not in qparams[i]}
+    live = live_set(fspec)             # outputs a route reads later
 
     @torch.no_grad()
     def forward(x, stop=None):
@@ -283,9 +288,11 @@ def quantize_for_inference(spec: S.NetworkSpec, params, calib_x, *,
         x = torch.as_tensor(x).to(device)
         if x.dtype not in (torch.uint8, torch.float32):
             x = x.float()
-        start = 0
+        start, saved = 0, {}
         if stem_fn is not None and x.shape[0] == 128:
-            cur = stem_fn(x)            # requant + pairs [0, n_stem)
+            # requant + pairs [0, n_stem); plan_pairs keeps every route
+            # source past the stem
+            cur = stem_fn(x)
             start = n_stem
         elif x.dtype == torch.uint8:
             # raw camera frames: the /255 folds into the input requant
@@ -318,11 +325,28 @@ def quantize_for_inference(spec: S.NetworkSpec, params, calib_x, *,
             elif isinstance(l, S.MaxPoolSpec):
                 cur = P.maxpool_i8(cur, size=l.size, stride=l.stride,
                                    pad=l.pad)
+            elif isinstance(l, S.ReorgSpec):
+                cur = (L.reorg_reverse_darknet(cur, stride=l.stride)
+                       if l.reverse else
+                       L.reorg_darknet(cur, stride=l.stride))
+            elif isinstance(l, S.RouteSpec):
+                parts = []
+                for j in l.layers:
+                    t = saved[j]
+                    if s_out[j] != s_out[i]:
+                        # to the route's (largest) scale in the int8
+                        # domain, the JAX module's expression
+                        r = np.float32(s_out[j] / s_out[i])
+                        t = _requant(t.float() * float(r), 1.0)
+                    parts.append(t)
+                cur = L.route(parts)
             elif isinstance(l, S.RegionSpec):
                 acts = B.region_activate(
                     cur.to(rdt), l.n, l.coords + l.classes + 1,
                     softmax=l.softmax)
                 cur = acts.reshape(acts.shape[0], -1)
+            if i in live:
+                saved[i] = cur
         if stop is None and cur.dtype == torch.int8:
             # a net ending on a non-head int8 layer: dequantize so the
             # contract — float outputs — holds

@@ -15,10 +15,12 @@ The bf16 step takes the JAX trainer's kernel options: ``phase_train``
 pairs) and ``fused_stem`` (the fused BN/leaky/pool kernels on every later
 conv + maxpool pair); ``graph/compiler.Network`` says how they combine.
 
-Not ported here: ``mesh`` (ROADMAP queue 1, item 11), ``remat`` (a later
-slice: yolov2-608 is the configuration that needs it), the detection and
-cost heads (queue 1, item 10) and ``make_multi_step`` (a scan-dispatch
-experiment that lost in the JAX package; ROADMAP "Not ported").
+Not ported here: ``mesh`` (ROADMAP queue 1, item 11), ``remat`` and
+training through route, reorg and shortcut (item 16, yolov2-608
+training: ``make_train_step`` refuses such a spec when it is built), the
+detection and cost heads (queue 1, item 10) and ``make_multi_step`` (a
+scan-dispatch experiment that lost in the JAX package; ROADMAP "Not
+ported").
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import numpy as np
 import torch
 
 from ..graph import spec as S
-from ..graph.compiler import Network
+from ..graph.compiler import Network, check_trainable
 from ..io.convert import params_to_torch
 from ..io.weights import init_params
 from .region_loss import make_region_loss
@@ -89,8 +91,9 @@ def make_train_step(spec: S.NetworkSpec, *, mesh=None, compute_dtype=None,
             "mesh training is not ported yet (ROADMAP queue 1, item 11)")
     if remat:
         raise NotImplementedError(
-            "remat is not ported yet: it comes with the yolov2-608 training "
-            "slice, the configuration that needs it")
+            "remat is not ported yet: it comes with yolov2-608 training, "
+            "the configuration that needs it (ROADMAP queue 1, item 16)")
+    check_trainable(spec)
     net = spec.net
     head_idx = _find_head(spec)
     head = spec.layers[head_idx]

@@ -17,12 +17,14 @@ import sr_object_detection_tpu_torch.kernels.nms as TN
 import sr_object_detection_tpu_torch.kernels.phase_stem as TPS
 import sr_object_detection_tpu_torch.kernels.phase_train as TPT
 from sr_object_detection_tpu_torch.graph import spec as TS
-from sr_object_detection_tpu_torch.infer.engine import (LatencyEngine,
-                                                        ThroughputEngine)
+from sr_object_detection_tpu_torch.graph.compiler import Network
+from sr_object_detection_tpu_torch.infer.engine import (
+    LatencyEngine, ThroughputEngine, fold_params_for_inference)
 from sr_object_detection_tpu_torch.infer.quant import (
     QuantizedThroughputEngine)
+from sr_object_detection_tpu_torch.io.convert import params_to_torch
 from sr_object_detection_tpu_torch.io.weights import init_params
-from sr_object_detection_tpu_torch.models.zoo import tiny_yolo_voc
+from sr_object_detection_tpu_torch.models.zoo import tiny_yolo_voc, yolov2
 from sr_object_detection_tpu_torch.ops import boxes as TB
 from sr_object_detection_tpu_torch.ops import conv as TC
 from sr_object_detection_tpu_torch.ops import pooling as TP
@@ -986,3 +988,133 @@ def test_chain_and_fused_stem_wrappers_reject_bad_inputs(cuda):
         TFS.b1(stem["y"], stem["dp"], *k4)
     with pytest.raises(ValueError):
         TFS.f2(stem["y"][:, :, :7], *k4)
+
+
+# ------------------------------------------------------------- yolov2 ---
+
+
+@pytest.fixture
+def yolov2_params(cuda):
+    """yolov2's numpy params (the same at every input size) with random
+    BN statistics and biases."""
+    spec = yolov2(width=64, height=64)
+    return random_bn(init_params(spec, seed=0), 1, head_gain=4.0)
+
+
+@pytest.mark.cuda
+def test_yolov2_network_on_cuda(cuda, yolov2_params):
+    """The float32 Network on yolov2 at 64x64 (route -9, reorg 2, route
+    -1,-4) on the card against the CPU, every layer (TF32 off: cuDNN's
+    and the CPU's float32 sums differ in order only)."""
+    spec = yolov2(width=64, height=64)
+    x = torch.from_numpy(np.random.default_rng(6).uniform(
+        0, 1, (2, 64, 64, 3)).astype(np.float32))
+    outs = {}
+    for dev in ("cpu", cuda):
+        net = Network(spec, params_to_torch(spec, yolov2_params, dev))
+        with torch.no_grad():
+            _, aux = net(x.to(dev), keep_all=True)
+        outs[str(dev)] = {i: t.float().cpu() for i, t in
+                          aux["outputs"].items()}
+    for i, l in enumerate(spec.layers):
+        torch.testing.assert_close(outs["cuda"][i], outs["cpu"][i],
+                                   rtol=1e-4, atol=1e-4,
+                                   msg=f"layer {i} ({l.kind})")
+
+
+@pytest.mark.cuda
+def test_yolov2_int8_route_on_cuda(cuda, yolov2_params, monkeypatch):
+    """The int8 program on yolov2 at 64x64 on the card and on the CPU,
+    calibrated to the same amax: equal scales, the route's requantized
+    source included, and the int8 trunk (the route's output and the last
+    3x3 conv's) equal bit for bit."""
+    import sr_object_detection_tpu_torch.infer.quant as TQ
+    spec = yolov2(width=64, height=64)
+    calib = np.random.default_rng(0).uniform(0, 1, (2, 64, 64, 3)).astype(
+        np.float32)
+    pf, fspec = fold_params_for_inference(
+        spec, params_to_torch(spec, yolov2_params, "cpu"), torch.float32)
+    amax = TQ.calibrate_amax(fspec, pf, calib, device="cpu")
+    monkeypatch.setattr(TQ, "calibrate_amax", lambda *a, **k: amax)
+    qc = TQ.quantize_for_inference(spec, yolov2_params, calib, device="cpu")
+    qg = TQ.quantize_for_inference(spec, yolov2_params, calib, device=cuda)
+    s = qg.act_scales
+    assert s == qc.act_scales and s[27] != s[24]
+    assert s[28] == max(s[27], s[24])
+    x = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 256, (4, 64, 64, 3), dtype=np.uint8))
+    for stop in (29, 30):
+        got = qg.forward(x.to(cuda), stop=stop)
+        assert got.dtype == torch.int8
+        assert torch.equal(got.cpu(), qc.forward(x, stop=stop)), stop
+    out = qg.forward(x.to(cuda))
+    assert out.shape == (4, 2 * 2 * 5 * 85) and torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+def test_yolov2_stems_on_cuda(cuda, yolov2_params):
+    """yolov2's two stem pairs (3 -> 32 @64, 32 -> 64 @32) in the three
+    stems on the card against their plain versions: the bf16 serving stem
+    (fwd on the taps fold and on the tile, each link equal to fwdstats +
+    apply and within assert_fwd_close of fwd_pair_plain), the int8 stem at
+    batch 128 (taps and chunks folds; the stem engine's trunk equal to the
+    plain engine's) and the batch-1 stem (the tile's stem mode, within one
+    bf16 ulp of stem_pair_plain)."""
+    spec = yolov2(width=64, height=64)
+    rng = np.random.default_rng(2)
+    # bf16 serving stem
+    eng = ThroughputEngine(spec, yolov2_params, device=cuda, batch=8,
+                           phase_stem=True)
+    x = torch.from_numpy(rng.uniform(0, 1, (8, 64, 64, 3)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    before, paths = dict(TPT.launches), dict(TPT.conv_kernels["fwd"])
+    out = eng(x)
+    torch.cuda.synchronize()
+    assert TPT.launches == {**before, "fwd": before["fwd"] + 2}
+    assert {k: TPT.conv_kernels["fwd"][k] - paths[k] for k in paths} == {
+        "tensor_core": 1, "tensor_core_fold": 1, "fp32_core": 0}
+    assert out.shape == (8, 2 * 2 * 5 * 85)
+    v = x
+    for ci in (0, 2):
+        p = eng.params[ci]
+        w = p["weights"].permute(2, 3, 1, 0).contiguous()
+        got = TPT.fwd_pair(v, w, p["biases"].float())
+        comp, z = _fwd_composition(v, w, p["biases"].float())
+        assert torch.equal(got, comp)
+        assert_fwd_close(got.float().cpu().numpy(),
+                         TPT.fwd_pair_plain(v, w, p["biases"].float())
+                         .float().cpu().numpy(), z.float().cpu().numpy())
+        v = got
+    # int8 stem at the serving batch
+    calib = rng.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
+    q_stem = QuantizedThroughputEngine(spec, yolov2_params, batch=128,
+                                       device=cuda, calib_x=calib,
+                                       phase_stem=True)
+    q_plain = QuantizedThroughputEngine(spec, yolov2_params, batch=128,
+                                        device=cuda, calib_x=calib)
+    u8 = torch.from_numpy(rng.integers(0, 256, (128, 64, 64, 3),
+                                       dtype=np.uint8)).to(cuda)
+    folds = dict(TPS.folds)
+    trunk = q_stem.qnet.forward(u8, stop=30)
+    torch.cuda.synchronize()
+    assert {k: TPS.folds[k] - folds[k] for k in folds} == {
+        "taps": 1, "tap_pairs": 0, "chunks": 1}
+    assert torch.equal(trunk, q_plain.qnet.forward(u8, stop=30))
+    # batch-1 stem
+    fused = LatencyEngine(spec, yolov2_params, device=cuda, fused_stem=True)
+    assert fused.fused_stem
+    before, paths = TBS.launches, dict(TBS.paths)
+    v = x[:1]
+    fused.forward(v)
+    torch.cuda.synchronize()
+    assert TBS.launches == before + 2
+    assert {k: TBS.paths[k] - paths[k] for k in paths} == {
+        "tensor_core": 1, "tensor_core_fold": 1, "fp32_core": 0}
+    for ci in (0, 2):
+        p = fused.params[ci]
+        w = p["weights"].permute(2, 3, 1, 0).to(torch.bfloat16).contiguous()
+        b = p["biases"].float()
+        got = TBS.stem_pair(v, w, b)
+        assert_bf16_close(got.float().cpu().numpy(),
+                          TBS.stem_pair_plain(v, w, b).float().cpu().numpy())
+        v = got

@@ -176,7 +176,9 @@ def test_network_layers_match_jax():
 
 
 def test_unported_layer_kinds_raise_at_build():
-    spec = TZ.yolov2(width=64, height=64)
+    """route and reorg are built since yolov2 (tests/test_torch_yolov2.py);
+    darknet19's avgpool is still item 3."""
+    spec = TZ.darknet19(width=64, height=64, classes=10)
     params = params_to_torch(spec, init_params(spec, seed=0), "cpu")
     with pytest.raises(NotImplementedError, match="queue 1, item 3"):
         Network(spec, params)
