@@ -4,8 +4,8 @@
 
 Drives the port's main paths — tiny-yolo-voc-416 detection at batch 1,
 batch-128 serving in bf16 and int8, bf16 training at batch 128 with
-the fused pair, the two-pair chain and the fused stem, and yolov2-608
-serving (route, reorg) — through the entry points a user calls, builds
+the fused pair, the two-pair chain and the fused stem, yolov2-608
+serving (route, reorg) and yolov2-608 training at batch 128 — through the entry points a user calls, builds
 the hand-written CUDA kernels from ``sr_object_detection_tpu_torch/csrc``
 and holds each against its plain PyTorch version. Phases, in order; any failure ends the run with a
 non-zero status and no result line:
@@ -192,12 +192,46 @@ non-zero status and no result line:
      the three LatencyEngines' device time a frame; torch.profiler over a
      bf16 and an int8 phase-stem batch (fwd_fold_kernel and fwd_tc_kernel
      once each, no colsum or apply kernel; phase_pair_tc_kernel, no
-     phase_pair_kernel).
+     phase_pair_kernel);
+ 26. yolov2-608 training's kernels at its shapes, B=128, against their
+     plain versions (the plain versions 16 or 32 images at a time, every
+     image compared): the pair 3 -> 32 at 608 and at 152 (W2 = 76,
+     partial 8x8 pooled tiles) at phase 12's tolerances, fwdstats on the
+     taps fold and bwdg on the tensor cores, two launches of each
+     bit-equal, the pair's gradient against the float64 evaluation
+     (check_pair_gradient; at 608 on 16 images); F2, B1 and B2 at the
+     four fused-stem pairs (layers 0, 2, 6, 10: 608x32 ... 76x256) on the
+     row kernels, layer 0's y 3.03 GB, its images past 2^31 bytes
+     included, with the batch's own statistics; each kernel's time from
+     a CUDA graph in turns with its plain version on the whole batch,
+     beside its bound (fwdstats beside cuDNN's F.conv2d alone);
+ 27. Trainer on yolov2-608 (cfg/yolo.cfg, 80 classes, full depth, random
+     weights from seed 0) at B=128, bf16, 3 steps a path, counts reset
+     just before and read just after each: (d) no kernels with
+     remat="selective:2" (the JAX package's bench configuration), (a)
+     phase_train + "selective:2", (b) phase_train + fused_stem, (c)
+     fused_stem; launches a step (a) the pair once, (b) the pair and F2,
+     B1, B2 three times, (c) F2, B1, B2 four times (layer 16 is live), on
+     the row kernels; each first loss within 0.03*|loss| + 0.05 of (d)'s;
+     each path's peak device memory, images/s and a torch.profiler step;
+     (a) at 416 through Trainer._step_for; (a) and (d) with remat
+     against without: the first loss (equal for (a)) and the parameters
+     after one step within the spread of two runs without remat, and
+     the peak memory without remat; phase_train="chain" runs the pair
+     alone (no red, dy or dgrad: layer 2's Cin is 32);
+ 28. `cli detector train -bf16` on yolo.cfg at 608 with its published
+     batch=64, subdivisions=8 on 128 synthetic PPMs: two iterations
+     (random=1 resizes at the first), a _final.weights that loads, seen
+     128, layer 0's rolling statistics moved.
 
 The last lines are one JSON object with the four kernels at yolov2-608's
 shapes (the keys of the kernels line; their launches counted in phase
 23), the card (nvidia-smi), one JSON object describing the
-14 kernels (time, plain time, bound, launches and library call of each;
+14 kernels and, under names that end in "(yolov2-608 training: ...)",
+the pair's and the fused stem's kernels at yolov2-608's training shapes
+(phase 26's times; the fused stem's summed over its four pairs; their
+launches counted in phase 27's paths (a) and (c)) (time, plain time,
+bound, launches and library call of each;
 ``stem_pair`` is the batch-1 stem on the tensor-core conv tile of
 csrc/phase_train.cu (``stem_fold_kernel`` at pair 1, ``stem_tc_kernel``
 at pairs 2-4; ``stem_pair_kernel`` in csrc/b1_stem.cu takes the other
@@ -239,8 +273,9 @@ from torch_parity import (  # noqa: E402  (JAX-free helpers)
     assert_stem_link_close, chain_case,
     check_chain_kernels, check_fused_op, check_fused_stem_kernels,
     check_fwdstats, check_pair_gradient, check_train_golden,
-    check_train_kernels, check_y_consistency, random_bn, phase_pair_case,
-    stem_case, train_case, train_cfg_text, write_ppm_dataset)
+    check_train_kernels, check_y_consistency, images_past_2g, pair_spec,
+    random_bn, phase_pair_case, stem_case, train_case, train_cfg_text,
+    write_ppm_dataset)
 
 NET = 416          # tiny-yolo-voc's published width and height
 BATCH = 128        # the batch serving engines' batch
@@ -312,6 +347,17 @@ def graph_ms(fn, iters=20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def step_rate(trainer, x, t, iters):
+    """images/s of Trainer.step on (x, t): host clock around ``iters``
+    queued steps and one .item() at the end, after one warm-up step."""
+    float(trainer.step(x, t)["loss"])
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        m = trainer.step(x, t)
+    float(m["loss"])
+    return iters * x.shape[0] / (time.perf_counter() - t0)
 
 
 def profile(name, fn, iters, gpu, top=6):
@@ -1085,6 +1131,392 @@ def yolov2_608(gpu, dev, reset_counts, counts):
             for name in replaces]
 
 
+Y2_CHUNK = 16      # images a plain version takes at once at 608
+Y_ALT = 416        # a multi-scale size for Trainer._step_for
+
+
+def yolov2_608_train(gpu, dev, reset_counts, counts):
+    """Phases 26-28 (the module docstring): yolov2-608 training. Returns
+    the kernels line's entries for the pair's and the fused stem's
+    kernels at yolov2-608's training shapes."""
+    import torch.nn.functional as F
+    from sr_object_detection_tpu_torch.graph.spec import parse_network_cfg
+    from sr_object_detection_tpu_torch.infer.engine import analytic_flops
+    from sr_object_detection_tpu_torch.io.weights import (
+        init_params, load_weights)
+    from sr_object_detection_tpu_torch.kernels import fused_stem as FS
+    from sr_object_detection_tpu_torch.kernels import phase_train as PT
+    from sr_object_detection_tpu_torch.models.zoo import yolov2
+    from sr_object_detection_tpu_torch.ops import conv as C
+    from sr_object_detection_tpu_torch.ops import pooling as P
+    from sr_object_detection_tpu_torch.train.trainer import Trainer
+    tag = f"yolov2-{Y_NET}"
+    bf16 = torch.bfloat16
+    GiB = 2 ** 30
+
+    # ---------------------------------------------------------- phase 26
+    # the pair (3 -> 32) at 608 and at 152 (W2 = 76, partial 8x8 pooled
+    # tiles), B=128, and F2/B1/B2 at the four fused-stem pairs, against
+    # their plain versions; each time from a CUDA graph in turns with
+    # its plain version, beside its bound
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times, bounds, errs, plains, library = {}, {}, {}, {}, {}
+    conv0, tc0 = dict(PT.conv_kernels["fwdstats"]), dict(PT.bwdg_kernels)
+    pair_errs = {}
+    for h, chunk in ((Y_NET // 4, None), (Y_NET, Y2_CHUNK)):
+        case = train_case(26 + h, BATCH, h, 3, 32, dev)
+        e = check_train_kernels(PT, case, chunk=chunk)
+        pair_errs[h] = e
+        log(f"  pair 3->32 @{h} B={BATCH}: fwdstats, apply, bwdg == plain "
+            f"(max |err| {e}; W2 = {h // 2}: "
+            f"{'whole' if (h // 2) % 8 == 0 else 'partial'} 8x8 pooled "
+            f"tiles) ({time.perf_counter() - T0:.1f} s)")
+        if h != Y_NET:
+            del case
+            continue
+        x0, w0, dp0 = case["x"], case["w"], case["dp"]
+        sh0, sc0, b0 = case["shift"], case["scales"], case["biases"]
+        f1, f2 = (PT.fwdstats(x0, w0, sh0, sc0) for _ in range(2))
+        assert all(torch.equal(a, b) for a, b in zip(f1, f2))
+        z0, am0, st0 = f1
+        del f1, f2
+        n0 = BATCH * h * h
+        mean0, _, inv0 = PT._batch_stats(st0, sh0, n0)
+        bw = [PT.bwdg(x0, dp0, z0, am0, mean0, inv0, sc0, b0)
+              for _ in range(2)]
+        assert all(torch.equal(a, b) for a, b in zip(*bw))
+        del bw
+    assert PT.conv_kernels["fwdstats"]["tensor_core_fold"] - conv0[
+        "tensor_core_fold"] == 4 and PT.conv_kernels["fwdstats"][
+        "fp32_core"] == conv0["fp32_core"], PT.conv_kernels
+    assert PT.bwdg_kernels == {"tensor_core": tc0["tensor_core"] + 4,
+                               "fp32_core": tc0["fp32_core"]}
+    # the pair's gradient against a float64 evaluation of the unfused
+    # chain's formulas: at 608 on 16 images (the float64 evaluation holds
+    # several 1.5 GB copies of the conv output), at 152 on all 128
+    grads = {}
+    for h, b in ((Y_NET, 16), (Y_NET // 4, BATCH)):
+        grads[h] = check_pair_gradient(
+            PT, C, P, pair_spec(h, 3, 32),
+            train_case(260 + h, b, h, 3, 32, dev, flat=False))
+        torch.cuda.empty_cache()
+    # times: fwdstats, apply and bwdg at 608 B=128
+    x_bytes = 2 * x0.numel()
+    pooled = z0.numel()
+    conv_ops = 2 * BATCH * Y_NET * Y_NET * 32 * 27
+    name = "phase_train_fwdstats"
+    times[name] = abba_graph(f"{tag} {name} 3->32 B={BATCH}",
+                             lambda: PT.fwdstats(x0, w0, sh0, sc0),
+                             lambda: PT.fwdstats_plain(x0, w0, sh0, sc0),
+                             gpu, plain_iters=2)
+    bounds[name] = bound(x_bytes + 2 * 27 * 32 + 8 * 32 + 3 * pooled
+                         + 8 * 32, conv_ops, "bf16")
+    xc0, wc0 = x0.permute(0, 3, 1, 2), w0.permute(3, 2, 0, 1).contiguous()
+    library[name] = (cuda_ms(lambda: F.conv2d(xc0, wc0, padding=1), 5)
+                     + cuda_ms(lambda: F.conv2d(xc0, wc0, padding=1), 5)) / 2
+    del xc0
+    name = "phase_train_apply"
+    times[name] = abba_graph(
+        f"{tag} {name} 32 ch B={BATCH}",
+        lambda: PT.apply(z0, mean0, inv0, sc0, b0),
+        lambda: PT.apply_plain(z0, mean0, inv0, sc0, b0), gpu,
+        plain_iters=2)
+    bounds[name] = bound(4 * pooled + 16 * 32, 6 * pooled, "bf16")
+    name = "phase_train_bwdg"
+    times[name] = abba_graph(
+        f"{tag} {name} 3->32 B={BATCH}",
+        lambda: PT.bwdg(x0, dp0, z0, am0, mean0, inv0, sc0, b0),
+        lambda: PT.bwdg_plain(x0, dp0, z0, am0, mean0, inv0, sc0, b0), gpu,
+        plain_iters=2)
+    bounds[name] = bound(
+        x_bytes + 5 * pooled + 16 * 32
+        + 4 * (2 * 32 + 27 * 32 + 27 + 27 * 27),
+        2 * BATCH * Y_NET * Y_NET * 27 * 27 + 2 * pooled * 27, "bf16")
+    for name in ("phase_train_fwdstats", "phase_train_apply",
+                 "phase_train_bwdg"):
+        errs[name] = pair_errs[Y_NET][name[len("phase_train_"):]]
+        log(f"bound {tag} {name}: {bounds[name][0]} ms by {bounds[name][1]}"
+            f"; kernel {times[name][0] / bounds[name][0]:.2f}x [{gpu}]")
+    log(f"time {tag} library F.conv2d bf16 (cuDNN, the conv alone) 3->32 "
+        f"B={BATCH}: {library['phase_train_fwdstats']} ms [{gpu}]")
+    del case, x0, w0, dp0, z0, am0
+    torch.cuda.empty_cache()
+    # F2, B1 and B2 at the four fused-stem pairs' conv outputs, B=128,
+    # channels-last as the conv writes them; the plain versions 16 or 32
+    # images at a time for the check, the whole batch for the time
+    stem_errs = {"f2": 0.0, "b1": 0.0, "b2": 0.0}
+    # per kernel: kernel ms, plain ms, bound ms summed over the pairs, and
+    # the largest pair's (bound, bound_by)
+    fs = {n: [0.0, 0.0, 0.0, (0.0, "bytes")] for n in ("f2", "b1", "b2")}
+    # the fused-stem pairs (layer, H, C): layers 0, 2, 6 and 10
+    for li, h, c in ((0, Y_NET, 32), (2, Y_NET // 2, 64),
+                     (6, Y_NET // 4, 128), (10, Y_NET // 8, 256)):
+        scase = stem_case(2600 + li, BATCH, h, c, dev)
+        paths0 = dict(FS.paths)
+        y2 = scase["y"]
+        past = images_past_2g(y2)
+        e = check_fused_stem_kernels(FS, scase, chunk=Y2_CHUNK if h == Y_NET
+                                     else 2 * Y2_CHUNK)
+        stem_errs = {n: max(stem_errs[n], e[n]) for n in e}
+        # the check's launches: F2 once, B1 twice, B2 once, row kernels
+        assert {k: FS.paths[k] - paths0[k] for k in FS.paths} == {
+            **dict.fromkeys(FS.paths, 0), "f2_row": 1, "b1_row": 2,
+            "b2_row": 1}, FS.paths
+        log(f"  fused stem layer {li} {h}x{h}x{c} B={BATCH}: F2, B1, B2 == "
+            f"plain (max |err| {e}); y {y2.numel() * 2 / 1e9:.2f} GB, "
+            f"images {past}-{BATCH - 1} wholly past 2^31 bytes"
+            f"{' (none)' if past == BATCH else ''} "
+            f"({time.perf_counter() - T0:.1f} s)")
+        dp2 = scase["dp"]
+        k4 = [scase[n] for n in ("mean", "inv", "scales", "biases")]
+        s123 = [scase[n] for n in ("c1", "c2", "c3")]
+        yb, win = y2.numel() * 2, y2.numel() // 4
+        pb = {"f2": bound(yb + yb // 4 + 16 * c, 36 * win, "f32"),
+              "b1": bound(yb + yb // 4 + 16 * c + 8 * c, 52 * win, "f32"),
+              "b2": bound(2 * yb + yb // 4 + 28 * c, 64 * win, "f32")}
+        fns = {"f2": (lambda: FS.f2(y2, *k4), lambda: FS.f2_plain(y2, *k4)),
+               "b1": (lambda: FS.b1(y2, dp2, *k4),
+                      lambda: FS.b1_plain(y2, dp2, *k4)),
+               "b2": (lambda: FS.b2(y2, dp2, *k4, *s123),
+                      lambda: FS.b2_plain(y2, dp2, *k4, *s123))}
+        for n, (kf, pf) in fns.items():
+            k_ms, p_ms = abba_graph(f"{tag} fused_stem {n.upper()} layer "
+                                    f"{li} {h}x{h}x{c} B={BATCH}", kf, pf,
+                                    gpu, plain_iters=2)
+            log(f"bound {tag} fused_stem {n.upper()} layer {li}: "
+                f"{pb[n][0]} ms by {pb[n][1]}; kernel "
+                f"{k_ms / pb[n][0]:.2f}x [{gpu}]")
+            acc = fs[n]
+            acc[0] += k_ms
+            acc[1] += p_ms
+            acc[2] += pb[n][0]
+            acc[3] = max(acc[3], pb[n])
+        del scase, y2, dp2, k4, s123, fns
+        torch.cuda.empty_cache()
+    for n, (k_ms, p_ms, b_ms, (_, b_by)) in fs.items():
+        name = f"fused_stem_{n}"
+        times[name] = (k_ms, p_ms)
+        bounds[name] = (b_ms, b_by)
+        errs[name] = stem_errs[n]
+    torch.cuda.synchronize()
+    log(f"phase 26 ok: {tag} training kernels == plain: the pair 3->32 at "
+        f"{Y_NET} and {Y_NET // 4} (W2 = {Y_NET // 8}) B={BATCH}, fwdstats "
+        f"on the taps fold and bwdg on the tensor cores, two launches of "
+        f"each bit-equal; its gradient within {grads[Y_NET]['fused']} "
+        f"({Y_NET}, B=16) and {grads[Y_NET // 4]['fused']} ({Y_NET // 4}, "
+        f"B={BATCH}) of a "
+        f"float64 evaluation (gate 1e-3); F2, B1, B2 at layers 0, 2, 6, 10 "
+        f"on the row kernels (max |err| {stem_errs}), layer 0's images "
+        f"past 2^31 bytes included; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / GiB:.2f} GiB [{gpu}]")
+
+    # ---------------------------------------------------------- phase 27
+    # Trainer on yolov2-608 at B=128 (one micro-batch, as the JAX
+    # package's bench), 3 steps on one batch a path, each path's peak
+    # device memory; input as bench.py's training bench
+    base = yolov2(Y_NET, Y_NET)
+    yspec = dataclasses.replace(base, net=dataclasses.replace(
+        base.net, batch=BATCH, subdivisions=1))
+    yparams = init_params(yspec, seed=0)
+    gx = torch.Generator(device=dev).manual_seed(27)
+    xy = torch.rand((BATCH, Y_NET, Y_NET, 3), generator=gx, device=dev)
+    ty_np = np.zeros((BATCH, 30, 5), np.float32)
+    ty_np[:, 0] = [0.5, 0.5, 0.3, 0.3, 1]
+    ty_np[::2, 1] = [0.3, 0.6, 0.2, 0.25, 17]
+    ty = torch.from_numpy(ty_np).to(dev)
+    step_flops = 3 * analytic_flops(yspec)
+    paths = {
+        "(d) bf16 + remat selective:2": dict(remat="selective:2"),
+        "(a) bf16 + phase_train + remat selective:2": dict(
+            phase_train=True, remat="selective:2"),
+        "(b) bf16 + phase_train + fused_stem": dict(phase_train=True,
+                                                    fused_stem=True),
+        "(c) bf16 + fused_stem": dict(fused_stem=True)}
+    pair1 = dict(phase_train_fwdstats=1, phase_train_apply=1,
+                 phase_train_bwdg=1)
+    per_step = {
+        "(d) bf16 + remat selective:2": {},
+        "(a) bf16 + phase_train + remat selective:2": pair1,
+        "(b) bf16 + phase_train + fused_stem": dict(
+            pair1, fused_stem_f2=3, fused_stem_b1=3, fused_stem_b2=3),
+        "(c) bf16 + fused_stem": dict(fused_stem_f2=4, fused_stem_b1=4,
+                                      fused_stem_b2=4)}
+
+    def trainer(**kw):
+        return Trainer(yspec, yparams, device=dev, compute_dtype=bf16,
+                       **kw)
+
+    first, peaks, launches_p = {}, {}, {}
+    for name, kw in paths.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tr = trainer(**kw)
+        reset_counts()
+        losses = [float(tr.step(xy, ty)["loss"]) for _ in range(3)]
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() / GiB
+        got, want = counts(**{k: 3 * v for k, v in per_step[name].items()})
+        assert got == want, (name, got)
+        assert FS.paths == {"f2_row": got["fused_stem_f2"],
+                            "b1_row": got["fused_stem_b1"],
+                            "b2_row": got["fused_stem_b2"], "f2": 0,
+                            "b1": 0, "b2": 0}, (name, FS.paths)
+        assert not any(c["fp32_core"] for c in PT.conv_kernels.values())
+        assert PT.bwdg_kernels["fp32_core"] == 0
+        assert all(np.isfinite(losses)), (name, losses)
+        first[name] = losses[0]
+        ref = first["(d) bf16 + remat selective:2"]
+        assert abs(losses[0] - ref) <= 0.03 * abs(ref) + 0.05, (
+            name, losses[0], ref)
+        launches_p[name] = got
+        log(f"  Trainer {tag} {name} B={BATCH}, 3 steps: losses {losses}; "
+            f"launches {dict((k, v) for k, v in got.items() if v)}; peak "
+            f"device memory {peaks[name]:.2f} GiB "
+            f"({time.perf_counter() - T0:.1f} s)")
+        ips = step_rate(tr, xy, ty, 3)
+        log(f"time Trainer.step {tag} {name} B={BATCH}: {ips} images/s, "
+            f"{ips * step_flops / 1e12} TFLOP/s, MFU "
+            f"{ips * step_flops / PEAK_OPS_S['bf16']} of the bf16 dense "
+            f"peak [{gpu}]")
+        seen = profile(f"Trainer.step {tag} {name} B={BATCH}, per step",
+                       lambda: tr.step(xy, ty), 1, gpu, top=8)
+        if "fused_stem" in name:
+            assert_fused_stem_rows(name, seen)
+        if "phase_train" in name:
+            assert_bwdg_tensor_core(name, seen)
+        if name.startswith("(a)"):
+            # one step at another size through Trainer._step_for
+            x_alt = torch.rand((BATCH, Y_ALT, Y_ALT, 3), generator=gx,
+                               device=dev)
+            reset_counts()
+            l_alt = float(tr.step(x_alt, ty)["loss"])
+            got_alt, want_alt = counts(**pair1)
+            assert (Y_ALT, Y_ALT) in tr._steps and got_alt == want_alt, (
+                got_alt)
+            assert np.isfinite(l_alt), l_alt
+            log(f"  {name} at {Y_ALT} through Trainer._step_for: loss "
+                f"{l_alt}, launches "
+                f"{dict((k, v) for k, v in got_alt.items() if v)}")
+            del x_alt
+        del tr
+    # remat against no remat, for (a) (the pair's output is layer 1's,
+    # which selective:2 saves: nothing is checkpointed) and (d) (layer 0
+    # is checkpointed): the first loss and the parameters after one step
+    # against the spread of two runs without remat; the peak memory
+    # without remat
+    for name, kw in (("(a)", dict(phase_train=True)), ("(d)", {})):
+        runs = []
+        for remat in (False, False, "selective:2"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            tr = trainer(remat=remat, **kw)
+            loss = float(tr.step(xy, ty)["loss"])
+            flat = torch.cat([v.float().flatten() for p in tr.state.params
+                              for _, v in sorted(p.items())])
+            runs.append((loss, flat, torch.cuda.max_memory_allocated() / GiB))
+            del tr
+        (l1, p1, m1), (l2, p2, m2), (l3, p3, m3) = runs
+        spread = (p1 - p2).abs().max().item()
+        apart = (p3 - p1).abs().max().item()
+        assert apart <= 2 * spread, (name, apart, spread)
+        if name == "(a)":
+            assert l3 == l1, (l3, l1)
+        else:
+            assert abs(l3 - l1) <= 2 * abs(l2 - l1), (l3, l1, l2)
+        peaks[f"{name} without remat"] = max(m1, m2)
+        log(f"  {name} remat selective:2 against none: first losses {l3} / "
+            f"{l1}, {l2}; parameters after one step max |diff| {apart} "
+            f"(two runs without remat: {spread}); peak device memory "
+            f"{m3:.2f} GiB with remat, {max(m1, m2):.2f} GiB without")
+        del runs, p1, p2, p3
+    # phase_train="chain": the chain refuses layer 2 at Cin 32 and runs
+    # the single pair
+    torch.cuda.empty_cache()
+    tr = trainer(phase_train="chain")
+    reset_counts()
+    float(tr.step(xy, ty)["loss"])
+    got, want = counts(**pair1)
+    assert got == want, got
+    del tr
+    torch.cuda.empty_cache()
+    log(f"phase 27 ok: {tag} Trainer B={BATCH}, paths (a)-(d) 3 steps each "
+        f"with the launch counts a step {per_step}; first losses within "
+        f"0.03*|loss| + 0.05 of (d)'s {first['(d) bf16 + remat selective:2']}"
+        f"; phase_train=\"chain\" ran the pair alone (no red, dy or dgrad); "
+        f"peak device memory by path "
+        f"{ {k: round(v, 2) for k, v in peaks.items()} } GiB [{gpu}]")
+
+    # ---------------------------------------------------------- phase 28
+    # `cli detector train -bf16` on the yolov2 cfg at its published
+    # training batch (batch=64, subdivisions=8), 2 iterations on
+    # synthetic PPMs; random=1 resizes to one of 320..608 at iteration 1
+    g416 = np.load(GOLDEN / "yolo_coco_416.npz")
+    cfg_text = bytes(g416["cfg"]).decode()
+    WORK.mkdir(parents=True, exist_ok=True)
+    ycfg = WORK / f"yolo-{Y_NET}-train.cfg"
+    ycfg.write_text(train_cfg_text(cfg_text, size=Y_NET, batch=64,
+                                   subdivisions=8, max_batches=2))
+    lst = write_ppm_dataset(WORK / "coco-synth", 128, classes=80, seed=28)
+    backup = WORK / "backup-yolo"
+    data_cfg = WORK / "coco-synth.data"
+    data_cfg.write_text(f"classes=80\ntrain={lst}\nbackup={backup}\n")
+    final = backup / f"{ycfg.stem}_final.weights"
+    final.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "sr_object_detection_tpu_torch.apps.cli",
+         "detector", "train", str(data_cfg), str(ycfg), "-bf16"], cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    lines = res.stdout.splitlines()
+    iters = [l for l in lines if l.split(":")[0] in ("1", "2")]
+    resized = [l for l in lines if l.startswith("Resizing")]
+    assert len(iters) == 2 and len(resized) == 1, res.stdout[-2000:]
+    assert all(np.isfinite(float(l.split()[1].rstrip(","))) for l in iters)
+    cspec = parse_network_cfg(str(ycfg))
+    got_w, seen_w = load_weights(cspec, str(final))
+    init_w = init_params(cspec, seed=0)
+    assert seen_w == 2 * 64
+    assert not np.allclose(got_w[0]["rolling_mean"],
+                           init_w[0]["rolling_mean"])
+    log(f"phase 28 ok: cli detector train -bf16 on {ycfg.name} (batch=64, "
+        f"subdivisions=8) ran 2 iterations in "
+        f"{time.perf_counter() - t0:.1f} s ({resized[0]}; "
+        f"{' | '.join(iters)}); {final.name} loads, seen {seen_w}, layer "
+        f"0's rolling statistics moved [{gpu}]")
+
+    launches_k = {
+        **{k: launches_p["(a) bf16 + phase_train + remat selective:2"][k]
+           for k in ("phase_train_fwdstats", "phase_train_apply",
+                     "phase_train_bwdg")},
+        **{k: launches_p["(c) bf16 + fused_stem"][k]
+           for k in ("fused_stem_f2", "fused_stem_b1", "fused_stem_b2")}}
+    replaces = {
+        "phase_train_fwdstats":
+            "sr_object_detection_tpu/kernels/phase_train.py:209",
+        "phase_train_apply":
+            "sr_object_detection_tpu/kernels/phase_train.py:722",
+        "phase_train_bwdg":
+            "sr_object_detection_tpu/kernels/phase_train.py:209",
+        "fused_stem_f2": "sr_object_detection_tpu/kernels/fused_stem.py:135",
+        "fused_stem_b1": "sr_object_detection_tpu/kernels/fused_stem.py:170",
+        "fused_stem_b2": "sr_object_detection_tpu/kernels/fused_stem.py:187"}
+    shapes = {"phase_train": f"3->32 @{Y_NET} B={BATCH}",
+              "fused_stem": f"layers 0, 2, 6, 10 B={BATCH}"}
+    return [{"name": f"{name} ({tag} training: "
+                     f"{shapes[name.rsplit('_', 1)[0]]})", "route": "cuda",
+             "source": "sr_object_detection_tpu_torch/csrc/"
+                       + ("phase_train.cu" if name.startswith("phase")
+                          else "fused_stem.cu"),
+             "replaces": replaces[name], "launches": launches_k[name],
+             "max_abs_err": errs[name], "ms": times[name][0],
+             "plain_ms": times[name][1], "bound_ms": bounds[name][0],
+             "bound_by": bounds[name][1],
+             "library_ms": library.get(name)}
+            for name in replaces]
+
+
 def main() -> int:
     # ---------------------------------------------------------- phase 0
     if not torch.cuda.is_available():
@@ -1750,7 +2182,6 @@ def main() -> int:
     # --------------------------------------------------------- phase 12
     # the training kernels against their plain versions at the training
     # pair's shape (416, B=128, 3 -> 16), TF32 off (disable_tf32 above)
-    from sr_object_detection_tpu_torch.graph import spec as TS
     from sr_object_detection_tpu_torch.ops import conv as C
     from sr_object_detection_tpu_torch.ops import pooling as P
     from sr_object_detection_tpu_torch.train.trainer import Trainer
@@ -1805,13 +2236,9 @@ def main() -> int:
     assert all(torch.equal(a, b) for a, b in zip(bw1, bw2))
     assert PT.bwdg_kernels["tensor_core"] == tc_before + 2
     del bw1, bw2
-    pair_spec = TS.ConvSpec(
-        index=0, h=NET, w=NET, c=3, inputs=NET * NET * 3, out_h=NET,
-        out_w=NET, out_c=16, outputs=NET * NET * 16, size=3, stride=1,
-        pad=1, filters=16, activation="leaky", batch_normalize=True)
     grad = check_pair_gradient(
-        PT, C, P, pair_spec, train_case(12, BATCH, NET, 3, 16, dev,
-                                        flat=False))
+        PT, C, P, pair_spec(NET, 3, 16), train_case(12, BATCH, NET, 3, 16,
+                                                    dev, flat=False))
     torch.cuda.synchronize()
     log(f"phase 12 ok: training kernels == plain at {NET} B={BATCH} 3->16 "
         f"(max |err| {train_errs}); fwdstats on the taps fold and bwdg on "
@@ -1927,21 +2354,11 @@ def main() -> int:
     step_flops = 3 * analytic_flops(tspec)           # per image
     PEAK_BF16 = PEAK_OPS_S["bf16"]
 
-    def step_rate(trainer, iters):
-        """images/s: host clock around `iters` queued steps and one
-        .item() at the end."""
-        float(trainer.step(xt, tt)["loss"])
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            m = trainer.step(xt, tt)
-        float(m["loss"])
-        return iters * BATCH / (time.perf_counter() - t0)
-
     order = ["bf16 + phase_train", "bf16", "f32", "f32", "bf16",
              "bf16 + phase_train"]
     rates = {}
     for name in order:
-        ips = step_rate(trainers[name], 5)
+        ips = step_rate(trainers[name], xt, tt, 5)
         rates.setdefault(name, []).append(ips)
         log(f"time Trainer.step {name} {NET} B={BATCH}: {ips} images/s, "
             f"{ips * step_flops / 1e12} TFLOP/s, MFU "
@@ -2236,7 +2653,7 @@ def main() -> int:
     order = ["bf16 + phase_train", *cfgs, *reversed(cfgs),
              "bf16 + phase_train"]
     for name in order:
-        ips = step_rate(trainers[name], 5)
+        ips = step_rate(trainers[name], xt, tt, 5)
         log(f"time Trainer.step {name} {NET} B={BATCH}: {ips} images/s, "
             f"{ips * step_flops / 1e12} TFLOP/s, MFU "
             f"{ips * step_flops / PEAK_BF16} of the bf16 dense peak "
@@ -2260,6 +2677,13 @@ def main() -> int:
     log(f"  device memory before yolov2-608: "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
     yolo_kernels = yolov2_608(gpu, dev, reset_counts, counts)
+
+    # --------------------------------------------------- phases 26-28
+    trainers.clear()
+    torch.cuda.empty_cache()
+    log(f"  device memory before yolov2-608 training: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    yolo_train_kernels = yolov2_608_train(gpu, dev, reset_counts, counts)
 
     replaces = {
         "nms_per_class": "sr_object_detection_tpu/kernels/nms_pallas.py:29",
@@ -2325,7 +2749,7 @@ def main() -> int:
          # backward, the recomputing BN-backward passes or the fused
          # BN/leaky/pool passes
          "library_ms": library.get(name)}
-        for name in replaces]
+        for name in replaces] + yolo_train_kernels
     log(json.dumps({"yolov2_608_kernels": yolo_kernels}))
     log(gpu)
     log(json.dumps({"kernels": kernels}))

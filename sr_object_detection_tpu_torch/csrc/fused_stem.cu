@@ -63,8 +63,8 @@
 //     one channel a thread (grid-stride loop), walked channel-fastest when
 //     y is channels-last, width-fastest otherwise. Their limits, which the
 //     row kernels remove: 2-byte loads and stores, seven constant loads a
-//     window, about 10 bytes in flight a thread, four or five 32-bit
-//     divisions a window (and B1's 64-bit ones). B1 gives a block a fixed
+//     window, about 10 bytes in flight a thread, four or five 64-bit
+//     divisions a window. B1 gives a block a fixed
 //     range of pooled pixels, thread t a fixed channel (t mod C, C
 //     dividing 256 or a multiple of it) and a pixel lane, and reduces as
 //     above.
@@ -101,9 +101,12 @@ __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 
-__device__ __forceinline__ void decompose(unsigned e, const FsArgs& A,
+// A pooled element's index e -> (b, c, ph, pw). e counts in 64 bits, as
+// every offset here does: at yolov2-608's layer 0 (B=128, C 32) y holds
+// 1.51 G bf16 values, 3.03 GB, past 2^31 bytes.
+__device__ __forceinline__ void decompose(long long e, const FsArgs& A,
                                           int& b, int& c, int& ph, int& pw) {
-  const unsigned H2 = A.H / 2, W2 = A.W / 2, C = A.C;
+  const long long H2 = A.H / 2, W2 = A.W / 2, C = A.C;
   if (A.cfast) {
     c = e % C;
     e /= C;
@@ -177,10 +180,11 @@ __device__ __forceinline__ void route(const float a[4], const bool pos[4],
 }
 
 __global__ void __launch_bounds__(FS_THREADS) f2_kernel(FsArgs A) {
-  const unsigned n =
-      static_cast<unsigned>(A.B) * A.C * (A.H / 2) * (A.W / 2);
-  for (unsigned e = blockIdx.x * blockDim.x + threadIdx.x; e < n;
-       e += gridDim.x * blockDim.x) {
+  const long long n =
+      static_cast<long long>(A.B) * A.C * (A.H / 2) * (A.W / 2);
+  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       e < n; e += static_cast<long long>(gridDim.x) * blockDim.x) {
     int b, c, ph, pw;
     decompose(e, A, b, c, ph, pw);
     float xm[4], xh[4], a[4];
@@ -193,10 +197,11 @@ __global__ void __launch_bounds__(FS_THREADS) f2_kernel(FsArgs A) {
 }
 
 __global__ void __launch_bounds__(FS_THREADS) b2_kernel(FsArgs A) {
-  const unsigned n =
-      static_cast<unsigned>(A.B) * A.C * (A.H / 2) * (A.W / 2);
-  for (unsigned e = blockIdx.x * blockDim.x + threadIdx.x; e < n;
-       e += gridDim.x * blockDim.x) {
+  const long long n =
+      static_cast<long long>(A.B) * A.C * (A.H / 2) * (A.W / 2);
+  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       e < n; e += static_cast<long long>(gridDim.x) * blockDim.x) {
     int b, c, ph, pw;
     decompose(e, A, b, c, ph, pw);
     float xm[4], xh[4], a[4], dz[4];
@@ -442,7 +447,8 @@ __device__ __forceinline__ void row_pair(const unsigned w[4], unsigned g,
 // thread's column q and channel group cg, issued before any arithmetic:
 // the four taps' vectors v. Returns false past the row's last column; yo
 // = the vector offset of the window's first tap, po = that of the pooled
-// pixel (dp's, F2's output).
+// pixel (dp's, F2's output), both 64-bit: at yolov2-608's layer 0 (B=128,
+// C 32) yo reaches 189 M vectors, 3.03 GB of y.
 __device__ __forceinline__ bool row_loads(const RowArgs& A, int task, int q,
                                           int cg, uint4 v[4], long long& yo,
                                           long long& po) {

@@ -10,18 +10,21 @@ the network is converted back — spatial outputs as NHWC, the region
 output as the flat darknet raster ``[row][col][anchor][field]``
 (compiler.py:417-424 of the JAX package).
 
-The port holds the kinds tiny-yolo-voc runs (conv, maxpool and region)
-for inference and for training (``Network.forward(x, train=True)``, with
-the bf16 training kernels of ``phase_train`` and ``fused_stem``), and
-yolov2's route and reorg, with shortcut, for inference only: the
-training forward refuses them (ROADMAP queue 1, item 16). Any other kind
-raises ``NotImplementedError`` when the network is built, naming the
-ROADMAP queue item that ports it.
+The port holds conv, maxpool, region, and yolov2's route, reorg and
+shortcut, for inference and for training (``Network.forward(x,
+train=True)``, with the bf16 training kernels of ``phase_train`` and
+``fused_stem``, and the trainer's ``remat``); autograd gives route,
+reorg and shortcut their backwards. Any other kind raises
+``NotImplementedError`` when the network is built, naming the ROADMAP
+queue item that ports it.
 """
 
 from __future__ import annotations
 
+import itertools
+
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from . import spec as S
@@ -34,19 +37,6 @@ from ..ops import pooling as P
 # kinds that come with the apps slice (ROADMAP queue 1, item 10); every
 # other kind not built here comes with the graph builder (item 3)
 _APPS_KINDS = (S.DetectionSpec, S.RNNSpec, S.GRUSpec, S.CRNNSpec)
-# kinds the inference forward runs and the training forward does not yet
-_INFERENCE_ONLY = (S.RouteSpec, S.ReorgSpec, S.ShortcutSpec)
-
-
-def check_trainable(spec: S.NetworkSpec) -> None:
-    """Raise ``NotImplementedError`` for a spec the training forward
-    cannot run: route, reorg and shortcut come with yolov2 training."""
-    for l in spec.layers:
-        if isinstance(l, _INFERENCE_ONLY):
-            raise NotImplementedError(
-                f"layer {l.index} ({l.kind}): training through route, "
-                "reorg and shortcut is not ported yet (ROADMAP queue 1, "
-                "item 16)")
 
 
 class ConvLayer(nn.Module):
@@ -190,6 +180,33 @@ def live_set(spec: S.NetworkSpec) -> set[int]:
     return live
 
 
+def remat_divisor(remat):
+    """The trainer's ``remat`` as a number: None when off, 0 for
+    ``True`` (every unit of the training forward a checkpointed segment
+    of its own), k for ``"selective:k"`` (``"selective"`` is k = 8, as
+    in the JAX trainer)."""
+    if remat is False or remat is None:
+        return None
+    if remat is True:
+        return 0
+    if isinstance(remat, str) and remat.split(":")[0] == "selective":
+        k = int(remat.split(":", 1)[1]) if ":" in remat else 8
+        if k >= 1:
+            return k
+    raise ValueError(f"remat={remat!r}: want False, True, 'selective' or "
+                     "'selective:k' with k >= 1")
+
+
+def remat_saved(spec: S.NetworkSpec, k: int) -> set[int]:
+    """The layers whose outputs ``remat="selective:k"`` saves: those of
+    output area at most max((net.w // k) * (net.h // k), 1), the JAX
+    trainer's saved names (sr_object_detection_tpu/train/trainer.py:
+    124-133)."""
+    cut = max((spec.net.w // k) * (spec.net.h // k), 1)
+    return {i for i, l in enumerate(spec.layers)
+            if l.out_w and l.out_w * l.out_h <= cut}
+
+
 class Network(nn.Module):
     """A NetworkSpec bound to torch params (see ``io.convert``).
 
@@ -244,7 +261,7 @@ class Network(nn.Module):
                     self.fusable.add(i)
 
     def forward(self, x, keep_all: bool = False, *, train: bool = False,
-                params=None):
+                params=None, want=None, remat=False):
         """x: NHWC input. Returns (out, aux): out is the output layer's
         tensor in the public layout, aux = {'outputs': {i: tensor}}
         (every layer when ``keep_all``, else only the output layer).
@@ -252,7 +269,12 @@ class Network(nn.Module):
         ``train=True`` runs the training forward (batch-statistics BN with
         darknet's hand-written backward) over ``params`` (default: the
         network's own tensors) and adds aux['bn'] = {i: rolling-stat
-        updates}."""
+        updates}. It runs the layers up to the last index of ``want``
+        (default: the output layer), returns that layer's output as out
+        and keeps the outputs of ``want`` (of every unit with
+        ``keep_all``); ``remat`` (the trainer's option, see
+        :meth:`remat_segments`) recomputes the checkpointed segments'
+        activations in the backward."""
         if not train:
             cur = x.permute(0, 3, 1, 2)
             saved, kept = {}, {}    # public outputs; NCHW ones read later
@@ -268,62 +290,141 @@ class Network(nn.Module):
                 if keep_all or i == self.out_idx:
                     saved[i] = _to_public(cur)
             return saved[self.out_idx], {"outputs": saved}
-        return self._forward_train(x, keep_all, params)
+        return self._forward_train(x, keep_all, params, want, remat)
 
-    def _forward_train(self, x, keep_all, params):
-        check_trainable(self.spec)
-        if params is None:
-            params = [dict(layer.named_buffers()) for layer in self.layers]
-        saved, bn_updates = {}, {}
+    def train_units(self, h: int, w: int):
+        """The training forward's units at input height h and width w,
+        in order: (first layer, last layer, kind), kind "chain" (layers
+        0-3 through ``phase_train_chain2``), "pair" (layers 0-1 through
+        ``phase_train_block``), "fused" (a conv and its pool through
+        ``fused_stem_block``) or "layer". A unit's output is its last
+        layer's; a kernel unit never materializes the others."""
+        units, i = [], 0
+        if self.phase_chain and h % 4 == 0 and w % 4 == 0:
+            units.append((0, 3, "chain"))
+            i = 4
+        elif self.phase_pair and h % 2 == 0 and w % 2 == 0:
+            units.append((0, 1, "pair"))
+            i = 2
+        while i < len(self.layers):
+            if i in self.fusable:
+                units.append((i, i + 1, "fused"))
+                i += 2
+            else:
+                units.append((i, i, "layer"))
+                i += 1
+        return units
+
+    def remat_segments(self, remat, h: int, w: int):
+        """The checkpointed segments of ``remat`` at input h x w, each a
+        list of consecutive units (:meth:`train_units`). A segment keeps
+        its input and its outputs (its last unit's and the live ones
+        inside it) for the backward and recomputes everything else there.
+
+        * ``True``: every unit is a segment of its own, so only unit
+          outputs are saved, and each conv's BN, bias and leaky
+          internals are recomputed;
+        * ``"selective:k"``: each run of consecutive units whose outputs
+          lie outside :func:`remat_saved` is one segment; on yolov2 and
+          tiny-yolo that is the leading layers. A unit counts as its
+          last layer, so the fused pair's pooled output counts as layer
+          1's, as the JAX compiler names it. Everything else runs as
+          without remat."""
+        k = remat_divisor(remat)
+        units = self.train_units(h, w)
+        if k is None:
+            return []
+        if k == 0:
+            return [[u] for u in units]
+        saved = remat_saved(self.spec, k)
+        return [list(run) for kept, run in itertools.groupby(
+            units, key=lambda u: u[1] in saved) if not kept]
+
+    def _run_unit(self, unit, cur, kept, params):
+        """One unit on NCHW ``cur`` -> (its NCHW output, {i: bn update})."""
+        i, j, kind = unit
         layers = self.spec.layers
-        cur = x.permute(0, 3, 1, 2)
-        start = 0
-        if self.phase_chain and x.shape[1] % 4 == 0 and x.shape[2] % 4 == 0:
+        if kind == "chain":
             # the leading two pairs (compiler.py:219-236 of the JAX
             # package); pair 0's pooled output is not kept
             from ..kernels.phase_train import phase_train_chain2
-            pooled, bn_updates[0], bn_updates[2] = phase_train_chain2(
-                x, params[0], layers[0], params[2], layers[2])
-            cur = pooled.permute(0, 3, 1, 2)
-            start = 4
-            if keep_all or self.out_idx == 3:
-                saved[3] = pooled
-        elif (self.phase_pair and x.shape[1] % 2 == 0
-              and x.shape[2] % 2 == 0):
+            pooled, bn0, bn2 = phase_train_chain2(
+                cur.permute(0, 2, 3, 1), params[0], layers[0], params[2],
+                layers[2])
+            return pooled.permute(0, 3, 1, 2), {0: bn0, 2: bn2}
+        if kind == "pair":
             from ..kernels.phase_train import phase_train_block
-            pooled, bn_updates[0] = phase_train_block(x, params[0],
-                                                      layers[0])
-            cur = pooled.permute(0, 3, 1, 2)
-            start = 2
-            if keep_all or self.out_idx == 1:
-                saved[1] = pooled
-        consumed = set()
-        for i in range(start, len(self.layers)):
-            l = layers[i]
-            if i in consumed:
-                continue
-            if i in self.fusable:
-                # conv + fused BN/leaky/pool (compiler.py:255-285 of the
-                # JAX package): the conv output is never kept, the pool
-                # output when asked for
-                from ..kernels.fused_stem import fused_stem_block
-                cur, bn_updates[i] = fused_stem_block(cur, params[i], l)
-                consumed.add(i + 1)
-                if keep_all or self.out_idx == i + 1:
-                    saved[i + 1] = _to_public(cur)
-                continue
-            if isinstance(l, S.ConvSpec):
-                cur, bn = C.conv_block_train(cur, params[i], l,
-                                             compute_dtype=self.compute_dtype)
-                if bn is not None:
-                    bn_updates[i] = bn
+            pooled, bn = phase_train_block(cur.permute(0, 2, 3, 1),
+                                           params[0], layers[0])
+            return pooled.permute(0, 3, 1, 2), {0: bn}
+        if kind == "fused":
+            # conv + fused BN/leaky/pool (compiler.py:255-285 of the JAX
+            # package): the conv output is never kept
+            from ..kernels.fused_stem import fused_stem_block
+            pooled, bn = fused_stem_block(cur, params[i], layers[i])
+            return pooled, {i: bn}
+        l, layer = layers[i], self.layers[i]
+        if isinstance(l, S.ConvSpec):
+            cur, bn = C.conv_block_train(cur, params[i], l,
+                                         compute_dtype=self.compute_dtype)
+            return cur, ({} if bn is None else {i: bn})
+        if isinstance(layer, RouteLayer):
+            return layer(kept), {}
+        if isinstance(layer, ShortcutLayer):
+            return layer(cur, kept), {}
+        return layer(cur), {}
+
+    def _forward_train(self, x, keep_all, params, want, remat):
+        if params is None:
+            params = [dict(layer.named_buffers()) for layer in self.layers]
+        want = {self.out_idx} if want is None else set(want)
+        last = max(want)
+        units = [u for u in self.train_units(x.shape[1], x.shape[2])
+                 if u[0] <= last]
+        inner = [i for i in want if any(u[0] <= i < u[1] for u in units)]
+        if inner:
+            raise ValueError(f"layers {inner} run inside a kernel unit and "
+                             "have no output of their own")
+        # consecutive units of one segment run as one checkpointed call
+        seg_of = {u: n for n, seg in enumerate(
+            self.remat_segments(remat, x.shape[1], x.shape[2]))
+            for u in seg}
+        groups = []
+        for u in units:
+            n = seg_of.get(u)
+            if groups and n is not None and groups[-1][1] == n:
+                groups[-1][0].append(u)
             else:
-                cur = self.layers[i](cur)
-            if keep_all or i == self.out_idx:
-                saved[i] = _to_public(cur)
-        return saved[self.out_idx], {"outputs": saved, "bn": bn_updates}
+                groups.append(([u], n))
+
+        def run(group, cur, kept):
+            """A group's units -> (last output, live outputs, outputs
+            asked for, bn updates): a pure function of its arguments and
+            the params, so a checkpoint's recompute gives the same
+            tensors and its rolling updates are dropped."""
+            live, outs, bn = {}, {}, {}
+            for u in group:
+                cur, upd = self._run_unit(u, cur, {**kept, **live}, params)
+                bn.update(upd)
+                if u[1] in self.live:
+                    live[u[1]] = cur
+                if keep_all or u[1] in want:
+                    outs[u[1]] = cur
+            return cur, live, outs, bn
+
+        cur, kept, saved, bn_updates = x.permute(0, 3, 1, 2), {}, {}, {}
+        for group, n in groups:
+            if n is None:
+                cur, live, outs, bn = run(group, cur, kept)
+            else:
+                cur, live, outs, bn = torch.utils.checkpoint.checkpoint(
+                    run, group, cur, kept, use_reentrant=False)
+            kept.update(live)
+            saved.update({i: _to_public(t) for i, t in outs.items()})
+            bn_updates.update(bn)
+        return saved[last], {"outputs": saved, "bn": bn_updates}
 
 
 __all__ = ["Network", "ConvLayer", "MaxPoolLayer", "RegionLayer",
            "RouteLayer", "ReorgLayer", "ShortcutLayer", "build_layer",
-           "check_trainable", "live_set"]
+           "live_set", "remat_divisor", "remat_saved"]

@@ -14,13 +14,13 @@ The bf16 step takes the JAX trainer's kernel options: ``phase_train``
 (False, True for the fused leading pair, "chain" for the leading two
 pairs) and ``fused_stem`` (the fused BN/leaky/pool kernels on every later
 conv + maxpool pair); ``graph/compiler.Network`` says how they combine.
+``remat`` (False, True, "selective" or "selective:k", the JAX trainer's
+modes) recomputes activations in the backward through
+``torch.utils.checkpoint``; ``Network.remat_segments`` says which.
 
-Not ported here: ``mesh`` (ROADMAP queue 1, item 11), ``remat`` and
-training through route, reorg and shortcut (item 16, yolov2-608
-training: ``make_train_step`` refuses such a spec when it is built), the
-detection and cost heads (queue 1, item 10) and ``make_multi_step`` (a
-scan-dispatch experiment that lost in the JAX package; ROADMAP "Not
-ported").
+Not ported here: ``mesh`` (ROADMAP queue 1, item 11), the detection and
+cost heads (queue 1, item 10) and ``make_multi_step`` (a scan-dispatch
+experiment that lost in the JAX package; ROADMAP "Not ported").
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ..graph import spec as S
-from ..graph.compiler import Network, check_trainable
+from ..graph.compiler import Network, remat_divisor
 from ..io.convert import params_to_torch
 from ..io.weights import init_params
 from .region_loss import make_region_loss
@@ -85,15 +85,18 @@ def make_train_step(spec: S.NetworkSpec, *, mesh=None, compute_dtype=None,
 
     x: (B, H, W, C) float32 or bf16 NHWC on the state's device, where
     B = net.batch * net.subdivisions; truth: (B, 30, 5). The metrics are
-    0-d tensors on the device (reading one waits for the step)."""
+    0-d tensors on the device (reading one waits for the step).
+
+    ``remat``: False, True (every layer's internals recomputed in the
+    backward, only layer outputs saved) or "selective[:k]" (the leading
+    layers whose outputs the JAX trainer's policy does not save run as
+    one checkpointed segment; k = 8 by default). The recompute runs the
+    same kernels on the same inputs, and the BN rolling updates come
+    from the first run only."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh training is not ported yet (ROADMAP queue 1, item 11)")
-    if remat:
-        raise NotImplementedError(
-            "remat is not ported yet: it comes with yolov2-608 training, "
-            "the configuration that needs it (ROADMAP queue 1, item 16)")
-    check_trainable(spec)
+    remat_divisor(remat)
     net = spec.net
     head_idx = _find_head(spec)
     head = spec.layers[head_idx]
@@ -131,8 +134,8 @@ def make_train_step(spec: S.NetworkSpec, *, mesh=None, compute_dtype=None,
                         q[k] = v.detach().requires_grad_(True)
                         leaves.append((i, k, q[k]))
                 params.append(q)
-            _, aux = network(xs[m], keep_all=True, train=True, params=params)
-            raw = aux["outputs"][head_idx - 1]
+            raw, aux = network(xs[m], train=True, params=params,
+                               want=(head_idx - 1,), remat=remat)
             raw = raw.reshape(raw.shape[0], -1).float()
             cost, stats = loss_with_stats(raw, ts[m], seen)
             grads = torch.autograd.grad(cost, [t for _, _, t in leaves])

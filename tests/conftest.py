@@ -40,3 +40,5 @@ def ref_cfg_dir():
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "cuda: needs a CUDA device; skips without one")
+    config.addinivalue_line(
+        "markers", "slow: long; the tier-1 run leaves it out")

@@ -33,8 +33,9 @@ from torch_parity import (assert_bf16_close, assert_fwd_close,
                           chain_case, check_chain_kernels, check_fwdstats,
                           check_y_consistency, dgrad_case,
                           check_fused_stem_kernels, check_pair_gradient,
-                          check_train_kernels, misaligned, nms_case,
-                          phase_pair_case, random_bn, stem_case, train_case)
+                          check_train_kernels, images_past_2g, misaligned,
+                          nms_case, pair_spec, phase_pair_case, random_bn,
+                          stem_case, train_case)
 
 # tiny-yolo-voc-416's four stem pairs: (H, Cin, Cout)
 STEM_PAIRS = [(416, 3, 16), (208, 16, 32), (104, 32, 64), (52, 64, 128)]
@@ -784,12 +785,8 @@ def test_phase_train_block_gradient_on_cuda(cuda):
     and bias gradients against the chain's (torch_parity.
     check_pair_gradient)."""
     case = train_case(5, 8, 32, 3, 16, cuda, flat=False)
-    spec = TS.ConvSpec(index=0, h=32, w=32, c=3, inputs=32 * 32 * 3,
-                       out_h=32, out_w=32, out_c=16, outputs=32 * 32 * 16,
-                       size=3, stride=1, pad=1, filters=16,
-                       activation="leaky", batch_normalize=True)
     before = dict(TPT.launches)
-    check_pair_gradient(TPT, TC, TP, spec, case)
+    check_pair_gradient(TPT, TC, TP, pair_spec(32, 3, 16), case)
     assert TPT.launches["bwdg"] == before["bwdg"] + 1
 
 
@@ -933,6 +930,69 @@ def test_fused_stem_kernels_match_plain(cuda, c, h, channels_last):
     assert {k: TFS.paths[k] - paths[k] for k in paths} == {
         "f2_row": row, "b1_row": 2 * row, "b2_row": row, "f2": not row,
         "b1": 2 * (not row), "b2": not row}
+
+
+# yolov2-608's fused-stem pairs (H, C): layers 0, 2, 6 and 10
+Y2_STEM = [(608, 32), (304, 64), (152, 128), (76, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h", [(2, 608), (8, 152)])
+def test_train_kernels_yolov2_pair(cuda, b, h):
+    """The training pair at yolov2-608's 3 -> 32: fwdstats on the taps
+    fold, apply and bwdg on the tensor cores against their plain
+    versions (chip_smoke's phase-12 tolerances) at 608 (38x38 whole 8x8
+    pooled tiles) and at 152 (W2 = 76: partial tiles), and at 152 the
+    pair's gradient against the float64 evaluation
+    (check_pair_gradient)."""
+    case = train_case(h + b, b, h, 3, 32, cuda)
+    before = {k: dict(v) for k, v in (("conv", TPT.conv_kernels["fwdstats"]),
+                                      ("bwdg", TPT.bwdg_kernels))}
+    check_train_kernels(TPT, case)
+    torch.cuda.synchronize()
+    assert TPT.conv_kernels["fwdstats"]["tensor_core_fold"] == \
+        before["conv"]["tensor_core_fold"] + 1
+    assert TPT.bwdg_kernels["tensor_core"] == \
+        before["bwdg"]["tensor_core"] + 1
+    if h == 152:
+        check_pair_gradient(TPT, TC, TP, pair_spec(h, 3, 32),
+                            train_case(h, b, h, 3, 32, cuda, flat=False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,c", Y2_STEM)
+def test_fused_stem_kernels_yolov2_pairs(cuda, h, c):
+    """F2, B1 and B2 at yolov2-608's four fused-stem pairs (B=2,
+    channels-last) on the row kernels, against their plain versions."""
+    paths = dict(TFS.paths)
+    check_fused_stem_kernels(TFS, stem_case(h + c, 2, h, c, cuda))
+    torch.cuda.synchronize()
+    assert {k: TFS.paths[k] - paths[k] for k in paths} == {
+        **dict.fromkeys(paths, 0), "f2_row": 1, "b1_row": 2, "b2_row": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.slow
+def test_fused_stem_past_2g_bytes(cuda):
+    """yolov2-608's layer 0 at B=128: y (128, 32, 608, 608) bf16 is 3.03
+    GB, so images 91-127 lie past 2^31 bytes; F2, B1 and B2 on the row
+    kernels against their plain versions on every image (16 at a time),
+    with the batch's own statistics."""
+    case = stem_case(608, 128, 608, 32, cuda)
+    assert images_past_2g(case["y"]) == 91
+    paths = dict(TFS.paths)
+    check_fused_stem_kernels(TFS, case, chunk=16)
+    torch.cuda.synchronize()
+    assert TFS.paths["b2_row"] == paths["b2_row"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.slow
+def test_train_kernels_yolov2_pair_b128(cuda):
+    """The pair at yolov2-608's full training batch (B=128, 3 -> 32 @608),
+    the plain versions 16 images at a time."""
+    check_train_kernels(TPT, train_case(608, 128, 608, 3, 32, cuda),
+                        chunk=16)
 
 
 @pytest.mark.cuda

@@ -23,7 +23,12 @@ the plain versions of kernels/fused_stem.py:
   colsum) in float32 are within 1e-4 of ``b1_plain``'s largest
   magnitude;
 * ``_row_path`` picks the row kernels for dense channels-last, C a
-  multiple of 8 and 16-byte aligned tensors only (F2's output too).
+  multiple of 8 and 16-byte aligned tensors only (F2's output too);
+* at yolov2-608's four fused-stem pairs and B=128 (pooled widths 304,
+  152, 76 and 38, rows split into partial column tiles) the tasks count
+  in 32 bits, every window is covered once, and the vector offsets
+  formed in int64 equal the same offsets in int32, while layer 0's byte
+  offsets pass 2^31 within image 90.
 """
 
 import numpy as np
@@ -93,6 +98,53 @@ def test_row_maps_cover_every_window_once(b, h, w, c):
     rows = np.arange(b * (h // 2))
     assert np.array_equal(vector_offsets(rows, 0, 0, g, w // 2)[0][0],
                           rows * 2 * w * g)
+
+
+# yolov2-608's fused-stem pairs (H = W, C): layers 0, 2, 6 and 10
+Y2_PAIRS = [(608, 32), (304, 64), (152, 128), (76, 256)]
+
+
+@pytest.mark.parametrize("h,c", Y2_PAIRS)
+def test_row_maps_at_yolov2_pairs(h, c):
+    """At B=128 the tasks' count fits 32 bits and the column tiles cover
+    each row's W/2 pooled columns, the last tile partial where W/2 does
+    not divide; every (column, channel group) of a row is covered once.
+    The vector offsets of y's four taps and of dp (csrc row_loads) at the
+    rows of images 0, 90, 91 and 127, formed in int64 and in int32, are
+    equal: at most 189 M vectors. Their byte offsets (16 a vector) pass
+    2^31 at layer 0 (y is 3.03 GB) within image 90 and for every image
+    from 91 on, and there an int32 byte offset would wrap: the kernels
+    index 16-byte vectors with 64-bit offsets."""
+    b, h2 = 128, h // 2
+    g, kper, ntile, threads, tasks, nblk = grid(b, c, h, h)
+    assert tasks < 2 ** 31 and threads == kper * g <= FS.ROW_THREADS
+    assert kper * ntile >= h2 and kper * (ntile - 1) < h2
+    assert ntile > 1                    # wider rows than one block's 448
+    pw, cg, ok = thread_windows(c, h)
+    cover = np.zeros((h2, g), np.int64)
+    np.add.at(cover, (pw[ok], cg[ok]), 1)
+    assert (cover == 1).all() and (~ok).sum() == (kper * ntile - h2) * g
+    imgs = (0, 90, 91, b - 1)
+    rows = np.concatenate([np.arange(i * h2, (i + 1) * h2) for i in imgs])
+    taps, dpo = vector_offsets(rows[:, None], pw[ok][None], cg[ok][None], g,
+                               h2)
+    i32 = np.int32
+    taps32, dpo32 = vector_offsets(rows.astype(i32)[:, None],
+                                   pw[ok].astype(i32)[None],
+                                   cg[ok].astype(i32)[None], i32(g),
+                                   i32(h2))
+    assert taps32.dtype == i32
+    assert np.array_equal(taps32, taps) and np.array_equal(dpo32, dpo)
+    assert taps.max() == b * h * h * g - 1        # y's last vector
+    past = 16 * taps >= 2 ** 31
+    image = rows[:, None] // h2
+    image = np.broadcast_to(image[None], past.shape)
+    if c == 32:                                   # layer 0: 3.03 GB
+        assert past[image >= 91].all() and not past[image <= 89].any()
+        assert past[image == 90].any() and not past[image == 90].all()
+        assert not np.array_equal((16 * taps32)[past], (16 * taps)[past])
+    else:
+        assert not past.any()
 
 
 def bf16r(v):

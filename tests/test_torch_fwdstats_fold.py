@@ -34,6 +34,10 @@ eight distinct bank groups; on inputs of an exact grid (every float32
 conv sum exact) its float64 arithmetic gives fwdstats_plain's Z and
 argmax bit for bit and its statistics at 1e-6, and at one small shape
 the JAX package's ``_train_kernel`` in mode "fwdstats" in interpret mode.
+At yolov2-608's training pair (B=128, 3 -> 32 at 608, pooled 304, and the
+152 case, pooled 76 with partial tiles) it counts the work items, the
+valid windows of every tile and every offset the fold and bwdg's
+tensor-core kernel form, in int64 against the same offsets in int32.
 tests/test_torch_cuda.py holds the CUDA kernel to fwdstats_plain on the
 card, and the library's path predicate to :func:`conv_path`.
 """
@@ -410,3 +414,67 @@ def test_conv_path_by_mode(mode):
         assert TPT.conv_path(mode, cin, 24) == "fp32_core"
     assert TPT.conv_path(mode, 0, 16) == "fp32_core"
     assert set(TPT.conv_kernels[mode]) == set(TPT.CONV_PATHS)
+
+
+@pytest.mark.parametrize("h", [608, 152])
+def test_fold_offsets_at_yolov2_pair(h):
+    """yolov2-608's training pair, 3 -> 32 at B=128: 608x608 (304x304
+    pooled, 38x38 whole 8x8 pooled tiles) and 152x152 (76x76 pooled: the
+    tenth tile of a row and of a column holds 4 pooled rows or columns).
+    Every work item's count and index fit 32 bits; over the tiles each
+    pooled pixel is valid (oy < H/2 and ox < W/2) exactly once; the
+    loader's byte address of each halo row (conv_tc_body's
+    2 Cin ((b H + gy) W + gx0)), the X' builder's residue of it mod 16
+    (fold_xprime: unsigned 32-bit products, which wrap), bwdg_tc's x, Z,
+    dp and argmax offsets and the epilogue's Z/argmax store offsets,
+    formed in int64, equal the same formulas in int32 (x is 284 MB, Z 757
+    MB at 608: every offset stays below 2^31)."""
+    b, cin, cout = 128, 3, 32
+    h2 = h // 2
+    t = -(-h2 // PT)
+    items = b * t * t
+    assert items < 2 ** 31
+    # valid pooled pixels over the tiles: each once
+    oy = (np.arange(t)[:, None] * PT + np.arange(PT)[None]).reshape(-1)
+    valid = oy < h2
+    assert valid.sum() == h2 and len(np.unique(oy[valid])) == h2
+    assert (h2 % PT == 0) == (h == 608)
+    i64, i32, u32 = np.int64, np.int32, np.uint32
+    img = np.repeat(np.arange(b), t * t)
+    ty = np.tile(np.repeat(np.arange(t), t), b)
+    tx = np.tile(np.arange(t), b * t)
+    assert len(img) == items
+    gy0, gx0 = FULL * ty - 1, FULL * tx - 1
+    hr = np.arange(HALO)
+    for dt in (i64, i32):
+        bb, y0, x0 = (v.astype(dt) for v in (img, gy0, gx0))
+        gy = y0[:, None] + hr.astype(dt)[None]
+        a = dt(2 * cin) * ((bb[:, None] * dt(h) + gy) * dt(h) + x0[:, None])
+        if dt is i64:
+            a64, inside = a, (gy >= 0) & (gy < h)
+        else:
+            assert np.array_equal(a, a64)
+    # rows outside the image load nothing (the loader's n = 0)
+    assert a64[inside].max() < 2 * cin * b * h * h < 2 ** 31
+    # fold_xprime: the residue mod 16 from unsigned products that wrap
+    gyu = (img[:, None] * h + gy0[:, None] + hr[None]).astype(u32)
+    res = (u32(2 * cin) * (gyu * u32(h) + gx0.astype(u32)[:, None])) & u32(15)
+    assert np.array_equal(res.astype(i64), a64 & 15)
+    # the epilogue's and bwdg_tc's pooled offsets: ((b H2 + oy) W2 + ox)
+    # Cout + c at the tile's last pooled pixel and channel; bwdg_tc's x
+    # offset b H W Cin + (gy W + gx) Cin + ci at the halo's last pixel
+    for dt in (i64, i32):
+        bb = img.astype(dt)
+        oyl = np.minimum(ty * PT + PT - 1, h2 - 1).astype(dt)
+        oxl = np.minimum(tx * PT + PT - 1, h2 - 1).astype(dt)
+        zo = ((bb * dt(h2) + oyl) * dt(h2) + oxl) * dt(cout) + dt(cout - 1)
+        gyl = np.minimum(gy0 + HALO - 1, h - 1).astype(dt)
+        gxl = np.minimum(gx0 + HALO - 1, h - 1).astype(dt)
+        xo = bb * dt(h * h * cin) + (gyl * dt(h) + gxl) * dt(cin) + dt(
+            cin - 1)
+        if dt is i64:
+            zo64, xo64 = zo, xo
+        else:
+            assert np.array_equal(zo, zo64) and np.array_equal(xo, xo64)
+    assert zo64.max() == b * h2 * h2 * cout - 1
+    assert xo64.max() == b * h * h * cin - 1

@@ -248,8 +248,7 @@ def test_nan_guarded_keeps_state_on_poisoned_input():
                            before.params[0]["weights"])
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"mesh": object()}, "item 11"), ({"remat": True}, "yolov2-608")])
+@pytest.mark.parametrize("kw,item", [({"mesh": object()}, "item 11")])
 def test_trainer_unported_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         Trainer(_bf16_spec(TZ), device="cpu", **kw)

@@ -10,10 +10,10 @@
   yolov2 at 64x64 with random BN statistics and biases, at 1e-5;
 * ``truncate_spec``'s route shift behind the two-pair stems, and the
   bf16 ``LatencyEngine`` with its fused stem against the JAX engine (the
-  JAX stem in interpret mode);
-* training refuses route, reorg and shortcut (ROADMAP queue 1, item 16).
+  JAX stem in interpret mode).
 
-The Detector, the CLI, the server and the mAP gates on yolov2 are held
+Training through route, reorg and shortcut is held in
+tests/test_torch_yolov2_train.py; the Detector, the CLI, the server and the mAP gates on yolov2 are held
 in tests/test_torch_yolov2_apps.py, the int8 program and the engines in
 tests/test_torch_yolov2_serving.py.
 """
@@ -46,7 +46,6 @@ from sr_object_detection_tpu_torch.kernels import phase_stem as PS
 from sr_object_detection_tpu_torch.models import zoo as TZ
 from sr_object_detection_tpu_torch.ops import layout as L
 from sr_object_detection_tpu_torch.ops.activations import get_activation
-from sr_object_detection_tpu_torch.train.trainer import Trainer
 from torch_parity import random_bn
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -269,25 +268,3 @@ def test_latency_engine_fused_matches_jax(params, interpret_b1):
     # the stem rounds once (fused) or twice (the plain chain)
     np.testing.assert_allclose(np.sort(pf.max(-1).values.numpy()),
                                np.sort(pp.max(-1).values.numpy()), atol=2e-2)
-
-
-# ------------------------------------------------------- training ---
-
-
-def test_training_refuses_route_reorg_shortcut():
-    """Training through route, reorg and shortcut comes with yolov2
-    training (ROADMAP queue 1, item 16): the trainer refuses such a spec
-    when it is built, and the Network's training forward before it
-    computes anything."""
-    g, _ = _golden("map_ab_v2")
-    spec = S.build_network_spec(parse_cfg_text(bytes(g["cfg"]).decode()))
-    for kw in ({}, {"compute_dtype": torch.bfloat16, "phase_train": True,
-                    "fused_stem": True}):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            Trainer(spec, device="cpu", **kw)
-    _, mini = _golden("mini_route_reorg")       # ends in a shortcut
-    with pytest.raises(NotImplementedError, match="item 16"):
-        Trainer(mini, device="cpu")
-    net = Network(spec, params_to_torch(spec, init_params(spec), "cpu"))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        net(torch.zeros(1, 96, 96, 3), train=True)

@@ -154,6 +154,16 @@ def _bf16_ulp(v):
     return np.exp2(np.floor(np.log2(a)) - 7)
 
 
+def pair_spec(h, cin, cout):
+    """The ConvSpec of a training pair's conv: 3x3 s1 p1, BN, leaky, at
+    h x h, cin -> cout (the port's spec class)."""
+    from sr_object_detection_tpu_torch.graph import spec as S
+    return S.ConvSpec(index=0, h=h, w=h, c=cin, inputs=h * h * cin,
+                      out_h=h, out_w=h, out_c=cout, outputs=h * h * cout,
+                      size=3, stride=1, pad=1, filters=cout,
+                      activation="leaky", batch_normalize=True)
+
+
 def train_case(seed, batch, h, cin, cout, device, *, flat=True):
     """Random inputs of the training pair's kernels (kernels/
     phase_train.py) as torch tensors on ``device``: x (B,h,h,Cin) bf16,
@@ -180,52 +190,100 @@ def train_case(seed, batch, h, cin, cout, device, *, flat=True):
     return t
 
 
-def check_fwdstats(PT, x, w, shift, scales):
+def batch_chunks(b, chunk=None):
+    """Slices of a batch of ``b`` images, ``chunk`` images each (one slice
+    when None): the plain versions of the kernels at yolov2-608's B=128
+    hold several float32 copies of a full-resolution conv output, so the
+    card-side checks run them a chunk of images at a time."""
+    chunk = chunk or b
+    return [slice(i, min(i + chunk, b)) for i in range(0, b, chunk)]
+
+
+def _bf16_key(t):
+    """A bf16 tensor's values as int32 keys whose differences count bf16
+    ulps (the torch form of :func:`bf16_ulps`'s ordering)."""
+    import torch
+    u = t.contiguous().view(torch.int16).to(torch.int32) & 0xFFFF
+    mag = u & 0x7FFF
+    return torch.where(u >> 15 == 1, -mag, mag)
+
+
+def _bf16_ulp_t(v):
+    """:func:`_bf16_ulp` on a float32 tensor, on its device."""
+    import torch
+    _, e = torch.frexp(v.abs().clamp_min(np.finfo(np.float32).tiny))
+    return torch.ldexp(torch.ones_like(v), e - 8)
+
+
+def check_fwdstats(PT, x, w, shift, scales, chunk=None):
     """fwdstats against its plain version on the same inputs: Z within one
-    bf16 ulp, the argmax equal wherever the two extreme taps are more than
-    an ulp apart, the sums at 1e-4 of their largest magnitude. Returns
-    (max |Z error|, the plain version's Z, argmax and sums)."""
+    bf16 ulp (as :func:`assert_bf16_close`), the argmax equal wherever
+    the two extreme taps are more than an ulp apart, the sums at 1e-4 of
+    their largest magnitude. The plain version runs ``chunk`` images at a
+    time (its sums added over the chunks); the comparisons run on the
+    tensors' device. Returns (max |Z error|, the plain version's Z,
+    argmax and sums)."""
     import torch
     import torch.nn.functional as F
     z, am, st = PT.fwdstats(x, w, shift, scales)
-    zp, amp, stp = PT.fwdstats_plain(x, w, shift, scales)
-    zf, zpf = z.float().cpu().numpy(), zp.float().cpu().numpy()
-    assert_bf16_close(zf, zpf)
-    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
-                 padding=1).float()
-    b, c, h, wd = y.shape
-    taps = y.reshape(b, c, h // 2, 2, wd // 2, 2).permute(
-        0, 2, 4, 1, 3, 5).reshape(b, h // 2, wd // 2, c, 4)
-    taps = torch.where(scales.reshape(-1, 1) > 0, taps, -taps)
-    top2 = taps.topk(2, dim=-1).values.cpu().numpy()
-    del taps, y
-    sep = (top2[..., 0] - top2[..., 1]) > _bf16_ulp(top2[..., 0])
-    same = (am == amp).cpu().numpy()
-    assert same[sep].all(), f"{(~same[sep]).sum()} argmax differ"
+    zps, amps, stp, err = [], [], 0, 0.0
+    for s in batch_chunks(x.shape[0], chunk):
+        zp, amp, stc = PT.fwdstats_plain(x[s], w, shift, scales)
+        diff = (z[s].float() - zp.float()).abs()
+        bad = ((_bf16_key(z[s]) - _bf16_key(zp)).abs() > 1) & (diff > 1e-5)
+        assert not bad.any(), (f"{int(bad.sum())} of {bad.numel()} Z "
+                               f"values differ by more than one bf16 ulp")
+        err = max(err, diff.max().item())
+        del diff, bad
+        y = F.conv2d(x[s].permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                     padding=1).float()
+        b, c, h, wd = y.shape
+        taps = y.reshape(b, c, h // 2, 2, wd // 2, 2).permute(
+            0, 2, 4, 1, 3, 5).reshape(b, h // 2, wd // 2, c, 4)
+        del y
+        taps = torch.where(scales.reshape(-1, 1) > 0, taps, -taps)
+        top2 = taps.topk(2, dim=-1).values
+        del taps
+        sep = (top2[..., 0] - top2[..., 1]) > _bf16_ulp_t(top2[..., 0])
+        same = am[s] == amp
+        assert same[sep].all(), f"{int((~same[sep]).sum())} argmax differ"
+        del top2, sep, same
+        zps.append(zp)
+        amps.append(amp)
+        stp = stp + stc
     rel = ((st - stp).abs().max(dim=1).values
            / stp.abs().max(dim=1).values.clamp_min(1e-30)).max().item()
     assert rel <= 1e-4, rel
-    return float(np.abs(zf - zpf).max()), zp, amp, stp
+    return err, torch.cat(zps), torch.cat(amps), stp
 
 
-def check_train_kernels(PT, case):
+def check_train_kernels(PT, case, chunk=None):
     """The three training kernels against their plain versions on the
     same inputs: fwdstats as :func:`check_fwdstats`; apply equal bit for
-    bit; every bwdg reduction at 1e-3 of its largest magnitude. Returns
-    the max absolute error of each kernel."""
+    bit; every bwdg reduction at 1e-3 of its largest magnitude. The
+    plain versions run ``chunk`` images at a time (bwdg's reductions
+    added over the chunks). Returns the max absolute error of each
+    kernel."""
     import torch
     x, w, dp = case["x"], case["w"], case["dp"]
     shift, scales, biases = case["shift"], case["scales"], case["biases"]
     errs = {}
-    errs["fwdstats"], zp, amp, stp = check_fwdstats(PT, x, w, shift, scales)
+    errs["fwdstats"], zp, amp, stp = check_fwdstats(PT, x, w, shift, scales,
+                                                    chunk)
     n = x.shape[0] * x.shape[1] * x.shape[2]
     mean, _, inv = PT._batch_stats(stp, shift, n)
     a = PT.apply(zp, mean, inv, scales, biases)
-    ap = PT.apply_plain(zp, mean, inv, scales, biases)
-    assert torch.equal(a, ap)
+    for s in batch_chunks(x.shape[0], chunk):
+        assert torch.equal(a[s], PT.apply_plain(zp[s], mean, inv, scales,
+                                                biases))
+    del a
     errs["apply"] = 0.0
     got = PT.bwdg(x, dp, zp, amp, mean, inv, scales, biases)
-    want = PT.bwdg_plain(x, dp, zp, amp, mean, inv, scales, biases)
+    want = None
+    for s in batch_chunks(x.shape[0], chunk):
+        part = PT.bwdg_plain(x[s], dp[s], zp[s], amp[s], mean, inv, scales,
+                             biases)
+        want = part if want is None else [a + b for a, b in zip(want, part)]
     errs["bwdg"] = 0.0
     for name, g, wv in zip(("S", "A", "D", "G"), got, want):
         err = (g - wv).abs().max().item()
@@ -548,26 +606,45 @@ def misaligned(t):
     return v
 
 
-def check_fused_stem_kernels(FS, case):
+def images_past_2g(t):
+    """The first image of a (B, ...) tensor whose bytes begin at or past
+    2^31 bytes from its start (B when none does): where a 32-bit byte
+    offset would wrap."""
+    per = t[0].numel() * t.element_size()
+    return min(t.shape[0], -(-(1 << 31) // per))
+
+
+def check_fused_stem_kernels(FS, case, chunk=None):
     """F2, B1 and B2 against their plain versions on the same inputs
     (:func:`stem_case`): F2 and B2 (at fixed constants) bit-equal, B1's
     sums at 1e-4 of their largest magnitude (float32 sums in other
-    orders) and bit-equal across two launches (fixed-order sums). Returns
-    the max absolute error of each kernel."""
+    orders) and bit-equal across two launches (fixed-order sums). The
+    kernels run on the whole batch; the plain versions ``chunk`` images
+    at a time (B1's sums added over the chunks), so at yolov2-608's
+    layer 0 every image is compared, those past 2^31 bytes of y
+    (:func:`images_past_2g`) too, with the batch's own statistics.
+    Returns the max absolute error of each kernel."""
     import torch
     y, dp = case["y"], case["dp"]
     k4 = [case[k] for k in ("mean", "inv", "scales", "biases")]
     c123 = [case[k] for k in ("c1", "c2", "c3")]
-    p, pp = FS.f2(y, *k4), FS.f2_plain(y, *k4)
-    assert torch.equal(p, pp), ("f2", (p != pp).sum().item())
-    s, sp = FS.b1(y, dp, *k4), FS.b1_plain(y, dp, *k4)
-    rel = ((s - sp).abs().max(dim=0).values
+    chunks = batch_chunks(y.shape[0], chunk)
+    p = FS.f2(y, *k4)
+    for s in chunks:
+        pp = FS.f2_plain(y[s], *k4)
+        assert torch.equal(p[s], pp), ("f2", s, (p[s] != pp).sum().item())
+    del p, pp
+    s1 = FS.b1(y, dp, *k4)
+    sp = sum(FS.b1_plain(y[s], dp[s], *k4) for s in chunks)
+    rel = ((s1 - sp).abs().max(dim=0).values
            / sp.abs().max(dim=0).values.clamp_min(1e-30)).max().item()
     assert rel <= 1e-4, ("b1", rel)
-    assert torch.equal(s, FS.b1(y, dp, *k4)), "b1 differs across launches"
-    d, dpl = FS.b2(y, dp, *k4, *c123), FS.b2_plain(y, dp, *k4, *c123)
-    assert torch.equal(d, dpl), ("b2", (d != dpl).sum().item())
-    return {"f2": 0.0, "b1": (s - sp).abs().max().item(), "b2": 0.0}
+    assert torch.equal(s1, FS.b1(y, dp, *k4)), "b1 differs across launches"
+    d = FS.b2(y, dp, *k4, *c123)
+    for s in chunks:
+        dpl = FS.b2_plain(y[s], dp[s], *k4, *c123)
+        assert torch.equal(d[s], dpl), ("b2", s, (d[s] != dpl).sum().item())
+    return {"f2": 0.0, "b1": (s1 - sp).abs().max().item(), "b2": 0.0}
 
 
 def check_fused_op(FS, C, P, case):
