@@ -5,7 +5,9 @@
 Drives the port's main paths — tiny-yolo-voc-416 detection at batch 1,
 batch-128 serving in bf16 and int8, bf16 training at batch 128 with
 the fused pair, the two-pair chain and the fused stem, yolov2-608
-serving (route, reorg) and yolov2-608 training at batch 128 — through the entry points a user calls, builds
+serving (route, reorg), yolov2-608 training at batch 128 and
+yolo9000-416 serving (the WordTree head, the aligned and pre-split
+heads) — through the entry points a user calls, builds
 the hand-written CUDA kernels from ``sr_object_detection_tpu_torch/csrc``
 and holds each against its plain PyTorch version. Phases, in order; any failure ends the run with a
 non-zero status and no result line:
@@ -222,11 +224,40 @@ non-zero status and no result line:
  28. `cli detector train -bf16` on yolo.cfg at 608 with its published
      batch=64, subdivisions=8 on 128 synthetic PPMs: two iterations
      (random=1 resizes at the first), a _final.weights that loads, seen
-     128, layer 0's rolling statistics moved.
+     128, layer 0's rolling statistics moved;
+ 29. yolo9000-416 (cfg/yolo9000.cfg from models/zoo.py, 28,269-channel
+     head; the real 9k.tree and coco9k.map are not in the repository, so
+     a tree of 9,418 nodes in 2,429 sibling groups and an 80-entry map are
+     written from a seed; random weights from seed 0 with randomized BN
+     and biases): its four serving kernels at its shapes against their
+     plain versions, as in phase 22 (check_serving_kernels), and NMS at
+     C=9,418 (the hierarchy walk's candidates, and random ones with every
+     class and rank live) and at C=80 (the map's), k=128, torch.equal,
+     empty classes exact zeros;
+ 30. the yolo9000-416 main path, counted: Detector.detect without the
+     map (the walk, gated on objectness), with the map, with presplit and
+     as the int8 full stack (int8 trunk and head, bf16 region decode,
+     with the map), the two LatencyEngines on u8 frames and the four
+     batch-128 engines with the flat pre-split head; the float32
+     Detectors det for det against the CPU, the int8 one against a CPU
+     Detector calibrated to its amax within the band its bf16 decode
+     leaves; the pipe server on the tree cfg (3 requests, 9,418 classes);
+ 31. yolo9000-416 at B=128 with the flat pre-split head against
+     presplit=False: the int8 trunks equal with and without the stem and
+     the head, the int8 fields equal, the bf16 fields within 2^-7 (of
+     their value, or absolute), the
+     class lanes within 2^-4 and, on two images, the bf16 fields and
+     class lanes within a bf16 ulp of the CPU's region layer on the
+     card's own head logits; the four
+     kernels' times (as phase 25; NMS at its three cases beside the
+     launch floor); images/s of the bf16 and int8 engines in turns;
+     torch.profiler over a batch of each, with the grouped softmax's
+     device time.
 
 The last lines are one JSON object with the four kernels at yolov2-608's
 shapes (the keys of the kernels line; their launches counted in phase
-23), the card (nvidia-smi), one JSON object describing the
+23), one with the four at yolo9000-416's (launches from phase 30), the
+card (nvidia-smi), one JSON object describing the
 14 kernels and, under names that end in "(yolov2-608 training: ...)",
 the pair's and the fused stem's kernels at yolov2-608's training shapes
 (phase 26's times; the fused stem's summed over its four pairs; their
@@ -291,6 +322,16 @@ def bound(n_bytes, n_ops, kind):
     t_bytes = n_bytes / HBM_BYTES_S * 1e3
     t_ops = n_ops / PEAK_OPS_S[kind] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nms_bound(top_boxes, top_p):
+    """:func:`bound` of per-class NMS on these candidates: the probs read
+    and the kept probs written once, but only the live candidates' boxes
+    read (a rank past a class's last live prob needs no box), and one
+    IoU test for each pair of a class's live candidates."""
+    live = (top_p > 0).sum(dim=1).tolist()
+    return bound(4 * 4 * sum(live) + 2 * top_p.numel() * 4,
+                 IOU_FLOPS * sum(n * (n - 1) // 2 for n in live), "f32")
 
 
 T0 = time.perf_counter()
@@ -360,12 +401,13 @@ def step_rate(trainer, x, t, iters):
     return iters * x.shape[0] / (time.perf_counter() - t0)
 
 
-def profile(name, fn, iters, gpu, top=6):
+def profile(name, fn, iters, gpu, top=6, ranges=()):
     """torch.profiler over ``iters`` calls of fn after one warm-up: wall
     time per call (host clock, ending in a synchronize, profiler
     overhead included), device busy time per call (the CUDA kernels'
     self time; the port runs one stream, so kernels do not overlap),
-    the idle share, and the kernels that take the most device time.
+    the idle share, the kernels that take the most device time, and the
+    device span of each of the port's ``record_function`` ``ranges``.
     Returns {name: calls over the ``iters`` calls} of the CUDA kernels
     the profiler saw."""
     from torch.autograd import DeviceType
@@ -379,9 +421,17 @@ def profile(name, fn, iters, gpu, top=6):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / iters * 1e3
-    rows = [(e.self_device_time_total / iters / 1e3, e.key, e.count)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    # a record_function range shows up as a CUDA event too (its span on
+    # the device), so the busy time and the kernels leave ranges out
+    span = {r: 0.0 for r in ranges}
+    rows = []
+    for e in prof.key_averages():
+        if e.key in span:
+            span[e.key] = e.self_device_time_total / iters / 1e3
+        elif (e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0):
+            rows.append((e.self_device_time_total / iters / 1e3, e.key,
+                         e.count))
     busy = sum(t for t, _, _ in rows)
     if busy == 0:
         log(f"profile {name}: wall {wall} ms; device time not measured "
@@ -394,6 +444,9 @@ def profile(name, fn, iters, gpu, top=6):
     for i, (t, key, _) in enumerate(ranked):
         if i < top or "_tc_kernel" in key or "_fold_kernel" in key:
             log(f"  {t} ms ({t / busy:.1%}) {key[:90]}")
+    for r, t in span.items():
+        log(f"  range {r}: {t} ms of the device a call ({t / busy:.1%} of "
+            f"busy)")
     return {key: calls for _, key, calls in rows}
 
 
@@ -598,6 +651,246 @@ def abba_graph(name, kernel_fn, plain_fn, gpu, iters=10, plain_iters=3):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def check_serving_kernels(spec, pairs, bf_stem, q_stem, lat_f, frames_u8,
+                          x1, int8_folds):
+    """Kernels 4 (mode fwd), 3 and 2 along the engines' own stems, link by
+    link, against their plain versions on the same inputs: ``pairs`` the
+    stem's (conv, pool) layers, a fold at pair 1 and the tile after it,
+    nothing on the FP32-core paths, the int8 launches under
+    ``int8_folds``. ``frames_u8`` the batch's u8 frames,
+    ``x1`` a batch-1 bf16 input. Returns the links (inputs of each pair)
+    and the errors, for the timings of :func:`time_serving_kernels`."""
+    from sr_object_detection_tpu_torch.kernels import b1_stem as BS
+    from sr_object_detection_tpu_torch.kernels import phase_stem as PS
+    from sr_object_detection_tpu_torch.kernels import phase_train as PT
+    bf16, dev = torch.bfloat16, frames_u8.device
+    batch = frames_u8.shape[0]
+    x_b = frames_u8.float() / 255.0
+    tiles = {"tensor_core": len(pairs) - 1, "tensor_core_fold": 1,
+             "fp32_core": 0}
+    # kernel 4's mode fwd along the bf16 engine's chain: each pair
+    # torch.equal to fwdstats + apply with identity BN, within
+    # assert_fwd_close of fwd_pair_plain
+    fwd_err, fwd_links = 0.0, []
+    before = dict(PT.conv_kernels["fwd"])
+    v = x_b.to(bf16)
+    for ci, _ in pairs:
+        p = bf_stem.params[ci]
+        l = spec.layers[ci]
+        cout = p["weights"].shape[0]
+        zero = torch.zeros(cout, device=dev)
+        one = torch.ones(cout, device=dev)
+        w_hwio = p["weights"].permute(2, 3, 1, 0).contiguous()
+        bias = p["biases"].float()
+        got = PT.fwd_pair(v, w_hwio, bias)
+        z, _, _ = PT.fwdstats(v, w_hwio, zero, one)
+        comp = PT.apply(z, zero, one, one, bias)
+        assert torch.equal(got, comp), (ci, (got != comp).sum().item())
+        del comp
+        z_np = z.float().cpu().numpy()
+        del z
+        ref = PT.fwd_pair_plain(v, w_hwio, bias).float().cpu().numpy()
+        fwd_err = max(fwd_err, assert_fwd_close(got.float().cpu().numpy(),
+                                                ref, z_np))
+        del ref, z_np
+        torch.cuda.empty_cache()
+        fwd_links.append((l, v, w_hwio, bias))
+        log(f"  bf16 serving stem pair {l.c}->{l.filters} @{l.h} "
+            f"B={batch}: fwd == fwdstats + apply "
+            f"({PT.conv_path('fwd', l.c, l.filters)}) "
+            f"({time.perf_counter() - T0:.1f} s)")
+        v = got
+    assert {k: PT.conv_kernels["fwd"][k] - before[k]
+            for k in before} == tiles, PT.conv_kernels
+    assert torch.equal(bf_stem._stem(x_b), v)
+
+    # kernel 3 from u8 frames along the int8 engine's chain: torch.equal
+    # to the plain int8 chain, each launch under its K fold
+    qn = q_stem.qnet
+    links = [(qn.qparams[ci]["weights"], qn.qparams[ci]["dequant"],
+              qn.qparams[ci]["biases"],
+              float(np.float32(1.0 / qn.act_scales[ci])))
+             for ci, _ in pairs]
+    inv_u8 = float(np.float32(1.0 / (255.0 * qn.in_scale)))
+    folds = dict(PS.folds)
+    v, ps_inputs = frames_u8, []
+    for (w, dq, b, inv_out), (ci, _) in zip(links, pairs):
+        l = qn.spec.layers[ci]
+        args = (v, w, dq, b, inv_out,
+                inv_u8 if v.dtype == torch.uint8 else None)
+        ps_inputs.append((l, args))
+        out = PS.stem_pair_i8(*args)
+        ref = PS.stem_pair_i8_plain(*args)
+        assert torch.equal(out, ref), (ci, (out != ref).sum().item())
+        del ref
+        torch.cuda.empty_cache()
+        log(f"  int8 stem pair {l.c}->{l.filters} @{l.h} B={batch}: kernel "
+            f"== plain ({time.perf_counter() - T0:.1f} s)")
+        v = out
+    assert {k: PS.folds[k] - folds[k] for k in folds} == int8_folds, (
+        PS.folds)
+    assert torch.equal(qn.forward(frames_u8, stop=2 * len(pairs)), v)
+    assert v.abs().max().item() > 60
+
+    # kernel 2 (the batch-1 stem), link by link, within one bf16 ulp of
+    # its plain version, on the conv tile
+    paths = dict(BS.paths)
+    b1_err, b1_links, v = 0.0, [], x1
+    for ci, _ in pairs:
+        p = lat_f.params[ci]
+        w = p["weights"].permute(2, 3, 1, 0).to(bf16).contiguous()
+        b = p["biases"].float()
+        got = BS.stem_pair(v, w, b)
+        b1_err = max(b1_err, bf16_err(got, BS.stem_pair_plain(v, w, b)))
+        b1_links.append((spec.layers[ci], v, w, b))
+        v = got
+    assert {k: BS.paths[k] - paths[k] for k in paths} == tiles, BS.paths
+    assert torch.equal(lat_f._stem(x1), v)
+    return {"fwd_err": fwd_err, "fwd_links": fwd_links, "links": links,
+            "inv_u8": inv_u8, "ps_inputs": ps_inputs, "b1_err": b1_err,
+            "b1_links": b1_links}
+
+
+def time_serving_kernels(tag, sk, bf_stem_fn, b1_stem_fn, frames_u8, x1,
+                         nms_cases, nms_err, gpu):
+    """Each of the four serving kernels and its chain from a CUDA graph in
+    turns with its plain version, beside its bound (each input read once,
+    each output written once; or the operations over their type's peak):
+    ``sk`` :func:`check_serving_kernels`' links, ``bf_stem_fn`` /
+    ``b1_stem_fn`` the engines' stems, ``nms_cases`` [(label, top boxes,
+    top probs)] of NMS candidates, the first one the kernels line's, each
+    beside its launch floor. Returns (times, bounds, errs) under the
+    kernels line's names."""
+    from sr_object_detection_tpu_torch.kernels import b1_stem as BS
+    from sr_object_detection_tpu_torch.kernels import nms as NMS
+    from sr_object_detection_tpu_torch.kernels import phase_stem as PS
+    from sr_object_detection_tpu_torch.kernels import phase_train as PT
+    batch, n_pairs = frames_u8.shape[0], len(sk["fwd_links"])
+    x_bf = (frames_u8.float() / 255.0).to(torch.bfloat16)
+    times, bounds, errs = {}, {}, {}
+    n_bytes = n_ops = 0
+    for l, xi, w_hwio, bias in sk["fwd_links"]:
+        name = f"{tag} bf16 serving stem pair (fwd) {l.c}->{l.filters} @{l.h}"
+        k_ms, _ = abba_graph(name, lambda: PT.fwd_pair(xi, w_hwio, bias),
+                             lambda: PT.fwd_pair_plain(xi, w_hwio, bias),
+                             gpu, plain_iters=2)
+        p_bytes = (2 * xi.numel() + 2 * w_hwio.numel() + 4 * bias.numel()
+                   + 2 * batch * (l.h // 2) * (l.w // 2) * l.filters)
+        p_ops = 2 * batch * l.h * l.w * l.filters * 9 * l.c
+        b_ms, b_by = bound(p_bytes, p_ops, "bf16")
+        log(f"bound {name}: {b_ms} ms by {b_by}; kernel {k_ms / b_ms:.2f}x "
+            f"[{gpu}]")
+        n_bytes += p_bytes
+        n_ops += p_ops
+
+    def plain_fwd_chain(v):
+        for _, _, w_hwio, bias in sk["fwd_links"]:
+            v = PT.fwd_pair_plain(v, w_hwio, bias)
+        return v
+    times["phase_train_fwd"] = abba_graph(
+        f"{tag} bf16 serving stem, {n_pairs} chained pairs B={batch}",
+        lambda: bf_stem_fn(x_bf), lambda: plain_fwd_chain(x_bf), gpu,
+        plain_iters=2)
+    bounds["phase_train_fwd"] = bound(n_bytes, n_ops, "bf16")
+    errs["phase_train_fwd"] = sk["fwd_err"]
+    n_bytes = n_ops = 0
+    for l, args in sk["ps_inputs"]:
+        name = f"{tag} int8 stem pair {l.c}->{l.filters} @{l.h}"
+        k_ms, _ = abba_graph(name, lambda: PS.stem_pair_i8(*args),
+                             lambda: PS.stem_pair_i8_plain(*args), gpu,
+                             plain_iters=2)
+        p_bytes = (args[0].numel() * args[0].element_size()
+                   + 9 * l.c * l.filters + 8 * l.filters
+                   + batch * (l.h // 2) * (l.w // 2) * l.filters)
+        p_ops = 2 * batch * l.h * l.w * l.filters * 9 * l.c
+        b_ms, b_by = bound(p_bytes, p_ops, "int8")
+        log(f"bound {name}: {b_ms} ms by {b_by}; kernel {k_ms / b_ms:.2f}x "
+            f"[{gpu}]")
+        n_bytes += p_bytes
+        n_ops += p_ops
+
+    def int8_chain(v, pair_fn):
+        for w, dq, b, inv_out in sk["links"]:
+            v = pair_fn(v, w, dq, b, inv_out,
+                        sk["inv_u8"] if v.dtype == torch.uint8 else None)
+        return v
+    times["phase_stem_pair"] = abba_graph(
+        f"{tag} int8 stem, {n_pairs} chained pairs B={batch} from u8 frames",
+        lambda: int8_chain(frames_u8, PS.stem_pair_i8),
+        lambda: int8_chain(frames_u8, PS.stem_pair_i8_plain), gpu,
+        plain_iters=2)
+    bounds["phase_stem_pair"] = bound(n_bytes, n_ops, "int8")
+    errs["phase_stem_pair"] = 0
+    n_bytes = n_ops = 0
+    for l, xi, w, b in sk["b1_links"]:
+        name = f"{tag} batch-1 stem pair {l.c}->{l.filters} @{l.h}"
+        k_ms, _ = abba_graph(name, lambda: BS.stem_pair(xi, w, b),
+                             lambda: BS.stem_pair_plain(xi, w, b), gpu,
+                             iters=50, plain_iters=20)
+        p_bytes = (2 * (l.h * l.w * l.c + l.out_h // 2 * l.out_w // 2
+                        * l.filters) + 2 * w.numel() + 4 * b.numel())
+        p_ops = 2 * l.h * l.w * l.filters * 9 * l.c
+        b_ms, b_by = bound(p_bytes, p_ops, "bf16")
+        log(f"bound {name}: {b_ms} ms by {b_by}; kernel {k_ms / b_ms:.2f}x "
+            f"[{gpu}]")
+        n_bytes += p_bytes
+        n_ops += p_ops
+
+    def plain_b1_chain(v):
+        for _, _, w, b in sk["b1_links"]:
+            v = BS.stem_pair_plain(v, w, b)
+        return v
+    times["stem_pair"] = abba_graph(
+        f"{tag} batch-1 stem, {n_pairs} chained pairs",
+        lambda: b1_stem_fn(x1), lambda: plain_b1_chain(x1), gpu, iters=50,
+        plain_iters=20)
+    bounds["stem_pair"] = bound(n_bytes, n_ops, "bf16")
+    errs["stem_pair"] = sk["b1_err"]
+    for i, (label, tb, tp) in enumerate(nms_cases):
+        c, k = tp.shape
+        t = abba_graph(
+            f"{tag} nms_per_class C={c} k={k} ({label})",
+            lambda: NMS.nms_per_class(tb, tp, 0.4),
+            lambda: NMS.nms_per_class_plain(tb, tp, 0.4), gpu, iters=50,
+            plain_iters=5)
+        floor = graph_ms(lambda: NMS.empty_launch(c, k, tp.device), 50)
+        b = nms_bound(tb, tp)
+        log(f"time {tag} NMS C={c} launch floor (an empty kernel, same "
+            f"launch shape, graph): {floor} ms; kernel {t[0] / floor:.1f}x "
+            f"the floor; bound {b[0]} ms by {b[1]} [{gpu}]")
+        if i == 0:
+            times["nms_per_class"], bounds["nms_per_class"] = t, b
+    errs["nms_per_class"] = nms_err
+    for name in ("phase_train_fwd", "phase_stem_pair", "stem_pair",
+                 "nms_per_class"):
+        log(f"bound {tag} {name}: {bounds[name][0]} ms by {bounds[name][1]};"
+            f" kernel {times[name][0] / bounds[name][0]:.2f}x [{gpu}]")
+    return times, bounds, errs
+
+
+def serving_entries(times, bounds, errs, launches):
+    """The kernels line's entries of the four serving kernels on a model's
+    serving path: times, bounds and errors from that path's run,
+    ``launches`` its counted main path."""
+    replaces = {
+        "nms_per_class": "sr_object_detection_tpu/kernels/nms_pallas.py:29",
+        "stem_pair": "sr_object_detection_tpu/kernels/b1_stem.py:82",
+        "phase_stem_pair":
+            "sr_object_detection_tpu/kernels/phase_stem.py:235",
+        "phase_train_fwd":
+            "sr_object_detection_tpu/kernels/phase_train.py:209"}
+    sources = {"nms_per_class": "nms.cu", "stem_pair": "phase_train.cu",
+               "phase_stem_pair": "phase_stem.cu",
+               "phase_train_fwd": "phase_train.cu"}
+    return [{"name": name, "route": "cuda",
+             "source": f"sr_object_detection_tpu_torch/csrc/{sources[name]}",
+             "replaces": replaces[name], "launches": launches[name],
+             "max_abs_err": errs[name], "ms": times[name][0],
+             "plain_ms": times[name][1], "bound_ms": bounds[name][0],
+             "bound_by": bounds[name][1], "library_ms": None}
+            for name in replaces]
+
+
 def yolov2_608(gpu, dev, reset_counts, counts):
     """Phases 22-25 (the module docstring): yolov2-608 serving. Returns
     the kernels line's entries for the four kernels on this path, at
@@ -659,92 +952,16 @@ def yolov2_608(gpu, dev, reset_counts, counts):
     x_b = frames_u8.float() / 255.0
     x_bf = x_b.to(bf16)
 
-    # kernel 4's mode fwd at B=128 along the bf16 engine's chain: each
-    # pair torch.equal to fwdstats + apply with identity BN, within
-    # assert_fwd_close of fwd_pair_plain; the fold at pair 1, the tile at
-    # pair 2, nothing on the FP32-core path
-    fwd_err, fwd_links = 0.0, []
-    before = dict(PT.conv_kernels["fwd"])
-    v = x_bf
-    for ci, _ in Y_PAIRS:
-        p = bf_stem.params[ci]
-        l = spec.layers[ci]
-        cout = p["weights"].shape[0]
-        zero = torch.zeros(cout, device=dev)
-        one = torch.ones(cout, device=dev)
-        w_hwio = p["weights"].permute(2, 3, 1, 0).contiguous()
-        bias = p["biases"].float()
-        got = PT.fwd_pair(v, w_hwio, bias)
-        z, _, _ = PT.fwdstats(v, w_hwio, zero, one)
-        comp = PT.apply(z, zero, one, one, bias)
-        assert torch.equal(got, comp), (ci, (got != comp).sum().item())
-        del comp
-        z_np = z.float().cpu().numpy()
-        del z
-        ref = PT.fwd_pair_plain(v, w_hwio, bias).float().cpu().numpy()
-        fwd_err = max(fwd_err, assert_fwd_close(got.float().cpu().numpy(),
-                                                ref, z_np))
-        del ref, z_np
-        torch.cuda.empty_cache()
-        fwd_links.append((l, v, w_hwio, bias))
-        log(f"  bf16 serving stem pair {l.c}->{l.filters} @{l.h} "
-            f"B={BATCH}: fwd == fwdstats + apply "
-            f"({PT.conv_path('fwd', l.c, l.filters)}) "
-            f"({time.perf_counter() - T0:.1f} s)")
-        v = got
-    assert {k: PT.conv_kernels["fwd"][k] - before[k] for k in before} == {
-        "tensor_core": 1, "tensor_core_fold": 1, "fp32_core": 0}, (
-        PT.conv_kernels)
-    assert torch.equal(bf_stem._stem(x_b), v)
-
-    # kernel 3 at B=128 from u8 frames along the int8 engine's chain:
-    # torch.equal to the plain int8 chain, each launch under its K fold
-    qn = q_stem.qnet
-    links = [(qn.qparams[ci]["weights"], qn.qparams[ci]["dequant"],
-              qn.qparams[ci]["biases"],
-              float(np.float32(1.0 / qn.act_scales[ci])))
-             for ci, _ in Y_PAIRS]
-    inv_u8 = float(np.float32(1.0 / (255.0 * qn.in_scale)))
-    folds = dict(PS.folds)
-    v, ps_inputs = frames_u8, []
-    for (w, dq, b, inv_out), (ci, _) in zip(links, Y_PAIRS):
-        l = qn.spec.layers[ci]
-        args = (v, w, dq, b, inv_out,
-                inv_u8 if v.dtype == torch.uint8 else None)
-        ps_inputs.append((l, args))
-        out = PS.stem_pair_i8(*args)
-        ref = PS.stem_pair_i8_plain(*args)
-        assert torch.equal(out, ref), (ci, (out != ref).sum().item())
-        del ref
-        torch.cuda.empty_cache()
-        log(f"  int8 stem pair {l.c}->{l.filters} @{l.h} B={BATCH}: kernel "
-            f"== plain ({time.perf_counter() - T0:.1f} s)")
-        v = out
-    assert {k: PS.folds[k] - folds[k] for k in folds} == {
-        "taps": 1, "tap_pairs": 0, "chunks": 1}, PS.folds
-    assert torch.equal(qn.forward(frames_u8, stop=4), v)
-    assert v.abs().max().item() > 60
-
-    # kernel 2 (the batch-1 stem) at the two pairs, link by link, within
-    # one bf16 ulp of its plain version, on the conv tile
     lat_f = LatencyEngine(spec, params_np, device=dev, fused_stem=True)
     lat_p = LatencyEngine(spec, params_np, device=dev)
     assert lat_f.fused_stem and not lat_p.fused_stem
-    paths = dict(BS.paths)
     x1 = torch.from_numpy(rng.uniform(0, 1, (1, Y_NET, Y_NET, 3)).astype(
         np.float32)).to(dev, bf16)
-    b1_err, b1_links, v = 0.0, [], x1
-    for ci, _ in Y_PAIRS:
-        p = lat_f.params[ci]
-        w = p["weights"].permute(2, 3, 1, 0).to(bf16).contiguous()
-        b = p["biases"].float()
-        got = BS.stem_pair(v, w, b)
-        b1_err = max(b1_err, bf16_err(got, BS.stem_pair_plain(v, w, b)))
-        b1_links.append((spec.layers[ci], v, w, b))
-        v = got
-    assert {k: BS.paths[k] - paths[k] for k in paths} == {
-        "tensor_core": 1, "tensor_core_fold": 1, "fp32_core": 0}, BS.paths
-    assert torch.equal(lat_f._stem(x1), v)
+    sk = check_serving_kernels(spec, Y_PAIRS, bf_stem, q_stem, lat_f,
+                               frames_u8, x1, {"taps": 1, "tap_pairs": 0,
+                                               "chunks": 1})
+    fwd_err, b1_err = sk["fwd_err"], sk["b1_err"]
+    fwd_links = sk["fwd_links"]
 
     # kernel 1 at C=80, k=128: a frame's candidates as the Detector makes
     # them (every prob kept, and gated at the detection threshold), and
@@ -977,106 +1194,9 @@ def yolov2_608(gpu, dev, reset_counts, counts):
         f"[{gpu}]")
 
     # ---------------------------------------------------------- phase 25
-    # the four kernels against their plain versions in turns, each from a
-    # CUDA graph, beside their bounds (each input read once, each output
-    # written once; or the operations over their type's peak)
-    times, bounds, errs, plains = {}, {}, {}, {}
-    n_bytes = n_ops = 0
-    for l, xi, w_hwio, bias in fwd_links:
-        name = f"{tag} bf16 serving stem pair (fwd) {l.c}->{l.filters} @{l.h}"
-        k_ms, _ = abba_graph(name, lambda: PT.fwd_pair(xi, w_hwio, bias),
-                             lambda: PT.fwd_pair_plain(xi, w_hwio, bias),
-                             gpu, plain_iters=2)
-        p_bytes = (2 * xi.numel() + 2 * w_hwio.numel() + 4 * bias.numel()
-                   + 2 * BATCH * (l.h // 2) * (l.w // 2) * l.filters)
-        p_ops = 2 * BATCH * l.h * l.w * l.filters * 9 * l.c
-        b_ms, b_by = bound(p_bytes, p_ops, "bf16")
-        log(f"bound {name}: {b_ms} ms by {b_by}; kernel {k_ms / b_ms:.2f}x "
-            f"[{gpu}]")
-        n_bytes += p_bytes
-        n_ops += p_ops
-
-    def plain_fwd_chain(v):
-        for _, _, w_hwio, bias in fwd_links:
-            v = PT.fwd_pair_plain(v, w_hwio, bias)
-        return v
-    times["phase_train_fwd"] = abba_graph(
-        f"{tag} bf16 serving stem, 2 chained pairs B={BATCH}",
-        lambda: bf_stem._stem(x_bf), lambda: plain_fwd_chain(x_bf), gpu,
-        plain_iters=2)
-    bounds["phase_train_fwd"] = bound(n_bytes, n_ops, "bf16")
-    errs["phase_train_fwd"] = fwd_err
-    n_bytes = n_ops = 0
-    for l, args in ps_inputs:
-        name = f"{tag} int8 stem pair {l.c}->{l.filters} @{l.h}"
-        k_ms, _ = abba_graph(name, lambda: PS.stem_pair_i8(*args),
-                             lambda: PS.stem_pair_i8_plain(*args), gpu,
-                             plain_iters=2)
-        p_bytes = (args[0].numel() * args[0].element_size()
-                   + 9 * l.c * l.filters + 8 * l.filters
-                   + BATCH * (l.h // 2) * (l.w // 2) * l.filters)
-        p_ops = 2 * BATCH * l.h * l.w * l.filters * 9 * l.c
-        b_ms, b_by = bound(p_bytes, p_ops, "int8")
-        log(f"bound {name}: {b_ms} ms by {b_by}; kernel {k_ms / b_ms:.2f}x "
-            f"[{gpu}]")
-        n_bytes += p_bytes
-        n_ops += p_ops
-
-    def int8_chain(v, pair_fn):
-        for w, dq, b, inv_out in links:
-            v = pair_fn(v, w, dq, b, inv_out,
-                        inv_u8 if v.dtype == torch.uint8 else None)
-        return v
-    times["phase_stem_pair"] = abba_graph(
-        f"{tag} int8 stem, 2 chained pairs B={BATCH} from u8 frames",
-        lambda: int8_chain(frames_u8, PS.stem_pair_i8),
-        lambda: int8_chain(frames_u8, PS.stem_pair_i8_plain), gpu,
-        plain_iters=2)
-    bounds["phase_stem_pair"] = bound(n_bytes, n_ops, "int8")
-    errs["phase_stem_pair"] = 0
-    n_bytes = n_ops = 0
-    for l, xi, w, b in b1_links:
-        name = f"{tag} batch-1 stem pair {l.c}->{l.filters} @{l.h}"
-        k_ms, _ = abba_graph(name, lambda: BS.stem_pair(xi, w, b),
-                             lambda: BS.stem_pair_plain(xi, w, b), gpu,
-                             iters=50, plain_iters=20)
-        p_bytes = (2 * (l.h * l.w * l.c + l.out_h // 2 * l.out_w // 2
-                        * l.filters) + 2 * w.numel() + 4 * b.numel())
-        p_ops = 2 * l.h * l.w * l.filters * 9 * l.c
-        b_ms, b_by = bound(p_bytes, p_ops, "bf16")
-        log(f"bound {name}: {b_ms} ms by {b_by}; kernel {k_ms / b_ms:.2f}x "
-            f"[{gpu}]")
-        n_bytes += p_bytes
-        n_ops += p_ops
-
-    def plain_b1_chain(v):
-        for _, _, w, b in b1_links:
-            v = BS.stem_pair_plain(v, w, b)
-        return v
-    times["stem_pair"] = abba_graph(
-        f"{tag} batch-1 stem, 2 chained pairs", lambda: lat_f._stem(x1),
-        lambda: plain_b1_chain(x1), gpu, iters=50, plain_iters=20)
-    bounds["stem_pair"] = bound(n_bytes, n_ops, "bf16")
-    errs["stem_pair"] = b1_err
-    _, tb, tp = nms_cases[1]          # the Detector's gated candidates
-    times["nms_per_class"] = abba_graph(
-        f"{tag} nms_per_class C=80 k={k_nms} (a frame's candidates)",
-        lambda: NMS.nms_per_class(tb, tp, 0.4),
-        lambda: NMS.nms_per_class_plain(tb, tp, 0.4), gpu, iters=50,
-        plain_iters=5)
-    nms_floor = graph_ms(lambda: NMS.empty_launch(*tp.shape, dev), 50)
-    live = (tp > 0).sum(dim=1).tolist()
-    bounds["nms_per_class"] = bound(
-        tb.numel() * 4 + 2 * tp.numel() * 4,
-        IOU_FLOPS * sum(k * (k - 1) // 2 for k in live), "f32")
-    errs["nms_per_class"] = nms_err
-    log(f"time {tag} NMS launch floor (an empty kernel, same launch shape, "
-        f"graph): {nms_floor} ms; kernel "
-        f"{times['nms_per_class'][0] / nms_floor:.1f}x the floor [{gpu}]")
-    for name in ("phase_train_fwd", "phase_stem_pair", "stem_pair",
-                 "nms_per_class"):
-        log(f"bound {tag} {name}: {bounds[name][0]} ms by {bounds[name][1]};"
-            f" kernel {times[name][0] / bounds[name][0]:.2f}x [{gpu}]")
+    times, bounds, errs = time_serving_kernels(
+        tag, sk, bf_stem._stem, lat_f._stem, frames_u8, x1,
+        [("a frame's candidates", *nms_cases[1][1:])], nms_err, gpu)
 
     # the batch-128 engines' images/s (host clock around queued batches,
     # one sync), in turns; the batch-1 engines' device time a frame
@@ -1112,23 +1232,404 @@ def yolov2_608(gpu, dev, reset_counts, counts):
         f"memory since phase 22 "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{gpu}]")
 
-    replaces = {
-        "nms_per_class": "sr_object_detection_tpu/kernels/nms_pallas.py:29",
-        "stem_pair": "sr_object_detection_tpu/kernels/b1_stem.py:82",
-        "phase_stem_pair":
-            "sr_object_detection_tpu/kernels/phase_stem.py:235",
-        "phase_train_fwd":
-            "sr_object_detection_tpu/kernels/phase_train.py:209"}
-    sources = {"nms_per_class": "nms.cu", "stem_pair": "phase_train.cu",
-               "phase_stem_pair": "phase_stem.cu",
-               "phase_train_fwd": "phase_train.cu"}
-    return [{"name": name, "route": "cuda",
-             "source": f"sr_object_detection_tpu_torch/csrc/{sources[name]}",
-             "replaces": replaces[name], "launches": launches_y[name],
-             "max_abs_err": errs[name], "ms": times[name][0],
-             "plain_ms": times[name][1], "bound_ms": bounds[name][0],
-             "bound_by": bounds[name][1], "library_ms": None}
-            for name in replaces]
+    return serving_entries(times, bounds, errs, launches_y)
+
+
+def gap_thresh(values, lo, hi, margin):
+    """A detection threshold in the widest gap between the ``values``
+    that lie in (lo, hi), so that differences below ``margin`` cannot
+    move a value across it; the gap must be wider than twice that."""
+    v = np.sort(values[(values > lo) & (values < hi)])
+    i = int(np.argmax(v[1:] - v[:-1]))
+    assert v[i + 1] - v[i] > 2 * margin, (v, margin)
+    return float((v[i] + v[i + 1]) / 2)
+
+
+N9 = 416           # yolo9000's published width and height (cfg/yolo9000.cfg)
+N9_PAIRS = [(0, 1), (2, 3)]   # its stem pairs: 3 -> 32 @416, 32 -> 64 @208
+N9_CLASSES, N9_GROUPS = 9418, 2429   # its tree's nodes and sibling groups
+N9_HEAD_GAIN = 4.0  # the head's scale: random probs spread, logits < 80
+
+
+def yolo9000_416(gpu, dev, reset_counts, counts):
+    """Phases 29-31 (the module docstring): yolo9000-416 serving. Returns
+    the kernels line's entries for the four kernels on this path, at
+    yolo9000-416's shapes."""
+    from sr_object_detection_tpu_torch.graph.compiler import RegionLayer
+    from sr_object_detection_tpu_torch.graph.spec import parse_network_cfg
+    from sr_object_detection_tpu_torch.infer import quant as Q
+    from sr_object_detection_tpu_torch.infer.detector import Detector
+    from sr_object_detection_tpu_torch.infer.engine import (
+        LatencyEngine, ThroughputEngine)
+    from sr_object_detection_tpu_torch.io.weights import (
+        init_params, save_weights)
+    from sr_object_detection_tpu_torch.kernels import b1_stem as BS
+    from sr_object_detection_tpu_torch.kernels import nms as NMS
+    from sr_object_detection_tpu_torch.kernels import phase_stem as PS
+    from sr_object_detection_tpu_torch.models.zoo import yolo9000
+    from sr_object_detection_tpu_torch.ops import boxes as B
+    from torch_parity import (seeded_class_map, seeded_tree_lines,
+                              zoo_cfg_text)
+
+    # ---------------------------------------------------------- phase 29
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(29)
+    bf16 = torch.bfloat16
+    tag = f"yolo9000-{N9}"
+    d = WORK / "yolo9000"
+    d.mkdir(parents=True, exist_ok=True)
+    # the real 9k.tree and coco9k.map are not in the repository: a tree of
+    # the same size (nodes, sibling groups) and an 80-entry map from a seed
+    tree, cmap = d / "9k.tree", d / "coco9k.map"
+    tree.write_text("\n".join(seeded_tree_lines(N9_CLASSES, N9_GROUPS, 0))
+                    + "\n")
+    cmap.write_text("\n".join(map(str, seeded_class_map(N9_CLASSES, 80, 0)))
+                    + "\n")
+    cfg = d / "yolo9000.cfg"
+    zoo_kw = dict(width=N9, height=N9, tree_file=str(tree),
+                  map_file=str(cmap))
+    cfg.write_text(zoo_cfg_text(yolo9000, **zoo_kw))
+    spec = parse_network_cfg(str(cfg))
+    assert spec.layers == yolo9000(**zoo_kw).layers
+    # random weights from seed 0, BN statistics and biases randomized, the
+    # head scaled so that objectness and the tree's path probs spread
+    params_np = random_bn(init_params(spec, seed=0), 1,
+                          head_gain=N9_HEAD_GAIN)
+    weights = d / "yolo9000.weights"
+    save_weights(spec, params_np, str(weights))
+    region = spec.layers[-1]
+    n_boxes = region.h * region.w * region.n             # 507 at 416
+    k_nms = min(128, n_boxes)
+    log(f"  {tag}: {len(spec.layers)} layers, head {spec.layers[-2].c} -> "
+        f"{spec.layers[-2].filters}, {N9_CLASSES} classes in {N9_GROUPS} "
+        f"sibling groups (seeded tree), {n_boxes} boxes "
+        f"({time.perf_counter() - T0:.1f} s)")
+
+    # the batch-128 engines of bench.py's yolo9000 configuration: bf16 and
+    # the int8 full stack (int8 trunk and head, bf16 region decode), both
+    # with the flat pre-split head, with and without their stems, and
+    # with presplit=False for the comparison
+    bf = ThroughputEngine(spec, params_np, batch=BATCH, device=dev,
+                          presplit="flat")
+    bf_stem = ThroughputEngine(spec, params_np, batch=BATCH, device=dev,
+                               presplit="flat", phase_stem=True)
+    bf_ref = ThroughputEngine(spec, params_np, batch=BATCH, device=dev,
+                              phase_stem=True)
+    calib = rng.uniform(0, 1, (4, N9, N9, 3)).astype(np.float32)
+    full = dict(quantize_head=True, region_dtype=bf16)
+    q_stem = Q.QuantizedThroughputEngine(
+        spec, params_np, batch=BATCH, device=dev, calib_x=calib,
+        presplit="flat", phase_stem=True, **full)
+    q_plain = Q.QuantizedThroughputEngine(
+        spec, params_np, batch=BATCH, device=dev, calib_x=calib,
+        presplit="flat", **full)
+    q_ref = Q.QuantizedThroughputEngine(
+        spec, params_np, batch=BATCH, device=dev, calib_x=calib,
+        phase_stem=True, **full)
+    assert bf_stem.phase_stem and bf.presplit and bf_stem.presplit
+    assert q_stem.presplit and not q_ref.presplit
+    assert PS.plan_pairs(q_stem.qnet.spec) == N9_PAIRS
+    assert BS.plan_pairs(bf_stem.spec) == N9_PAIRS
+    lat_f = LatencyEngine(spec, params_np, device=dev, fused_stem=True)
+    lat_p = LatencyEngine(spec, params_np, device=dev)
+    assert lat_f.fused_stem and not lat_p.fused_stem
+    frames_u8 = torch.from_numpy(rng.integers(
+        0, 256, (BATCH, N9, N9, 3), dtype=np.uint8)).to(dev)
+    x_b = frames_u8.float() / 255.0
+    x1 = torch.from_numpy(rng.uniform(0, 1, (1, N9, N9, 3)).astype(
+        np.float32)).to(dev, bf16)
+    sk = check_serving_kernels(spec, N9_PAIRS, bf_stem, q_stem, lat_f,
+                               frames_u8, x1, {"taps": 1, "tap_pairs": 0,
+                                               "chunks": 1})
+
+    # kernel 1 at C=9,418 and C=80: a frame's candidates after the walk
+    # (no map: at most one live class a box), random candidates with
+    # every class live, and the map's candidates gated at the detection
+    # threshold
+    det = Detector(str(cfg), str(weights), device=dev)
+    det_map = Detector(str(cfg), str(weights), device=dev, map_path=str(cmap))
+    frames = [rng.uniform(0, 1, (480, 640, 3)).astype(np.float32)
+              for _ in range(2)]
+    x0 = det.preprocess(frames[0])[None]
+    with torch.no_grad():
+        acts = det.net(torch.from_numpy(x0).to(dev))[0].float().reshape(
+            n_boxes, -1)
+    # the no-map gate on objectness, below the walk's 0.5 so that every
+    # gated box's walk passes the detection threshold too; the map's on
+    # obj * the mapped class's path prob, among the best 16 boxes
+    obj_thresh = gap_thresh(acts[:, 4].cpu().numpy(), 0.25, 0.5, 1e-4)
+    fb, fp = det.predict_batch(x0, thresh=obj_thresh)
+    assert fp.shape == (1, n_boxes, N9_CLASSES)
+    assert ((fp[0] > 0).sum(-1) <= 1).all() and (fp[0] > 0).any()
+    mb, mp = det_map.predict_batch(x0)
+    best = np.sort(mp[0].max(-1).values.cpu().numpy())[::-1][:16]
+    map_thresh = gap_thresh(best, 0.0, 1.0, 1e-4)
+    n = n_boxes
+    rb = torch.from_numpy(np.stack(
+        [rng.uniform(0, 1, n), rng.uniform(0, 1, n), rng.uniform(.02, .4, n),
+         rng.uniform(.02, .4, n)], axis=1).astype(np.float32)).to(dev)
+    rp = torch.from_numpy(rng.uniform(.05, 1, (n, N9_CLASSES)).astype(
+        np.float32)).to(dev)
+    nms_cases = [
+        ("the walk's candidates", *B.topk_candidates(fb[0], fp[0], k_nms)[:2]),
+        ("random, every class and rank live",
+         *B.topk_candidates(rb, rp, k_nms)[:2]),
+        ("the map's candidates, gated",
+         *B.topk_candidates(mb[0], torch.where(mp[0] > map_thresh, mp[0], 0.0),
+                            k_nms)[:2])]
+    del rp
+    nms_err = 0.0
+    for name, tb, tp in nms_cases:
+        got = NMS.nms_per_class(tb, tp, 0.4)
+        ref = NMS.nms_per_class_plain(tb, tp, 0.4)
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), name
+        # mostly-empty classes come back as exact zeros
+        assert torch.equal(got[tp == 0].view(torch.int32),
+                           torch.zeros_like(got[tp == 0]).view(torch.int32))
+        nms_err = max(nms_err, (got - ref).abs().max().item())
+        log(f"  NMS C={tp.shape[0]} k={tp.shape[1]} ({name}): kernel == "
+            f"plain, {(tp > 0).any(1).sum().item()} live classes "
+            f"({time.perf_counter() - T0:.1f} s)")
+        del ref
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 29 ok: {tag}'s four serving kernels at its shapes == their "
+        f"plain versions: kernel 4's fwd at B={BATCH} (torch.equal to "
+        f"fwdstats + apply, max |err| against fwd_pair_plain "
+        f"{sk['fwd_err']}), kernel 3 from u8 frames (torch.equal), the "
+        f"batch-1 stem on the conv tile (max |err| {sk['b1_err']}), NMS at "
+        f"C={N9_CLASSES} and C=80, k={k_nms} (torch.equal, "
+        f"{len(nms_cases)} cases) [{gpu}]")
+
+    # ---------------------------------------------------------- phase 30
+    # the main path, counted: Detector (no map, map, presplit, int8 full
+    # stack), the batch-1 engines and the batch-128 engines with the flat
+    # pre-split head, through the entry points a user calls
+    det_pre = Detector(str(cfg), str(weights), device=dev, presplit=True)
+    calib8 = det.preprocess(frames[0])[None]
+    det8 = Detector(str(cfg), str(weights), device=dev, map_path=str(cmap))
+    amax = {}
+    calibrate = Q.calibrate_amax
+
+    def keep_amax(*a, **k):
+        amax["v"] = calibrate(*a, **k)
+        return amax["v"]
+    Q.calibrate_amax = keep_amax
+    try:
+        det8.quantize(calib8, **full)
+    finally:
+        Q.calibrate_amax = calibrate
+    u8 = [rng.integers(0, 256, (N9, N9, 3), dtype=np.uint8)
+          for _ in range(3)]
+    reset_counts()
+    dets = [det.detect(f, thresh=obj_thresh) for f in frames]
+    dets_map = [det_map.detect(frames[0], thresh=map_thresh)]
+    dets_pre = [det_pre.detect(frames[0], thresh=obj_thresh)]
+    p8 = det8.predict_batch(calib8)[1][0].cpu()
+    dets8 = [det8.detect(frames[0], thresh=0.0)]
+    lat_out = [(lat_f(f), lat_p(f)) for f in u8]
+    out_bf = bf(x_b)
+    out_bfs = bf_stem(x_b)
+    out_s = q_stem(frames_u8)
+    out_p = q_plain(frames_u8)
+    torch.cuda.synchronize()
+    launches_9, want = counts(nms_per_class=5, stem_pair=6,
+                              phase_stem_pair=2, phase_train_fwd=2)
+    log(f"  {tag} main path: launches {launches_9} "
+        f"({time.perf_counter() - T0:.1f} s)")
+    assert launches_9 == want, launches_9
+    blk = bf_stem.spec.layers[-1].head_block
+    for (f, c), dt in ((out_bf, bf16), (out_bfs, bf16), (out_s, bf16),
+                       (out_p, bf16)):
+        assert f.shape == (BATCH, region.h, region.w, 3, 5), f.shape
+        assert c.shape == (BATCH, region.h, region.w, 3 * blk), c.shape
+        assert c.dtype == dt and torch.isfinite(c).all()
+        assert torch.isfinite(f.float()).all()
+    for (bo, pr), _ in lat_out:
+        assert pr.shape == (min(LatencyEngine.TOPK, n_boxes), N9_CLASSES)
+        assert torch.isfinite(bo).all() and torch.isfinite(pr).all()
+
+    # CUDA against the CPU, det for det: no map (a path prob within 1e-4
+    # of the walk's 0.5 cut is reported), the map, presplit
+    n_dets, near = {}, 1.0
+    for name, d_gpu, got_all, kw, thr in (
+            ("no map", det, dets, {}, obj_thresh),
+            ("map", det_map, dets_map, {"map_path": str(cmap)}, map_thresh),
+            ("presplit", det_pre, dets_pre, {"presplit": True}, obj_thresh)):
+        d_cpu = Detector(str(cfg), str(weights), device="cpu", **kw)
+        n_dets[name] = 0
+        for f, got in zip(frames, got_all):
+            want = d_cpu.detect(f, thresh=thr)
+            n_dets[name] += match_dets(
+                [(g.class_id, g.prob, np.asarray(g.box)) for g in got],
+                [(w.class_id, w.prob, np.asarray(w.box)) for w in want],
+                thr, 1e-4)
+        if name == "no map":
+            x = d_cpu.preprocess(frames[0])[None]
+            with torch.no_grad():
+                a = d_cpu.net(torch.from_numpy(x))[0].reshape(n_boxes, -1)
+                path = B.hierarchy_multiply(a[:, 5:], d_cpu._chain)
+            live = a[:, 4] > obj_thresh
+            near = float((path[live] - 0.5).abs().min()) if live.any() else 1
+        del d_cpu
+    # int8 full stack: the CPU Detector calibrated to the CUDA one's amax,
+    # so that the int8 trunks and head logits are equal; the bf16 decode
+    # may round an ulp apart (exp, sums in another order), so the probs
+    # before NMS are held within 2^-7, and the detections above a
+    # threshold in a gap of the probs wider than twice their measured
+    # band are matched within it
+    d8_cpu = Detector(str(cfg), str(weights), device="cpu",
+                      map_path=str(cmap))
+    Q.calibrate_amax = lambda *a, **k: amax["v"]
+    try:
+        d8_cpu.quantize(calib8, **full)
+    finally:
+        Q.calibrate_amax = calibrate
+    p8_cpu = d8_cpu.predict_batch(calib8)[1][0]
+    p8_diff = (p8 - p8_cpu).abs().max().item()
+    assert torch.isfinite(p8).all() and p8_diff <= 2 ** -7, p8_diff
+    margin8 = max(1.5 * p8_diff, 1e-6)
+    thr8 = gap_thresh(np.sort(p8_cpu.max(-1).values.numpy())[::-1][:16],
+                      0.0, 1.0, margin8)
+    n_dets["int8 full stack"] = match_dets(
+        [(g.class_id, g.prob, np.asarray(g.box)) for g in dets8[0]
+         if g.prob > thr8],
+        [(w.class_id, w.prob, np.asarray(w.box))
+         for w in d8_cpu.detect(frames[0], thresh=thr8)], thr8, margin8)
+    del d8_cpu
+    # the pipe server on the tree cfg, no map: the handshake names the
+    # 9,418 classes; 3 requests equal to the in-process Detector
+    reqs = frames + [frames[0]]
+    req = b"".join(struct.pack("<3if", f.shape[1], f.shape[0], f.shape[2],
+                               obj_thresh) + f.astype("<f4").tobytes()
+                   for f in reqs) + struct.pack("<3if", 0, 0, 0, 0.0)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "sr_object_detection_tpu_torch.infer.serve",
+         str(cfg), str(weights)], cwd=ROOT, stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        out, err = proc.communicate(req, timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0, err.decode()[-2000:]
+    assert struct.unpack("<5i", out[:20]) == (0x53524456, N9, N9, n_boxes,
+                                              N9_CLASSES)
+    per = 4 * n_boxes * (4 + N9_CLASSES)
+    assert len(out) == 20 + len(reqs) * per
+    for i, f in enumerate(reqs):
+        blob = np.frombuffer(out[20 + i * per:20 + (i + 1) * per], "<f4")
+        wb, wp = det.predict_batch(det.preprocess(f)[None], thresh=obj_thresh)
+        assert np.allclose(blob[:n_boxes * 4].reshape(-1, 4),
+                           wb[0].cpu().numpy(), rtol=1e-5, atol=1e-6)
+        assert np.allclose(blob[n_boxes * 4:].reshape(-1, N9_CLASSES),
+                           wp[0].cpu().numpy(), rtol=1e-5, atol=1e-6)
+    log(f"phase 30 ok: {tag} detection on CUDA and the CPU det for det "
+        f"{n_dets} (the closest path prob to the walk's 0.5 cut among the "
+        f"gated boxes {near} away), int8 full stack probs max |diff| "
+        f"{p8_diff} before NMS (band {margin8}); the server answered {len(reqs)} requests "
+        f"({N9_CLASSES} classes), equal to the in-process Detector [{gpu}]")
+
+    # ---------------------------------------------------------- phase 31
+    # B=128 with the flat pre-split head against presplit=False: the int8
+    # trunks equal (with and without the stem, flat and not), the int8
+    # fields equal; the bf16 fields within 2^-7 of their value or 2^-7
+    # absolute (the two heads' cuDNN convs, of 28,800 and 28,269 outputs,
+    # sum in other orders and round an ulp or two apart), the class
+    # lanes within 2^-4 (the flat head's offset is the whole row's max,
+    # so its bf16 x - max rounds elsewhere); and the bf16 fields and class
+    # lanes within a bf16 ulp of the CPU's region layer on the card's
+    # own head logits
+    head = len(spec.layers) - 2
+    trunk = q_stem.qnet.forward(frames_u8, stop=head)
+    assert torch.equal(trunk, q_ref.qnet.forward(frames_u8, stop=head))
+    assert torch.equal(trunk, q_plain.qnet.forward(frames_u8, stop=head))
+    del trunk
+
+    def lanes(c):
+        return torch.stack([c[..., a * blk + 128:a * blk + 128 + N9_CLASSES]
+                            for a in range(3)], dim=3)
+    f_ref, c_ref = q_ref(frames_u8).reshape(
+        BATCH, region.h, region.w, 3, -1).split([5, N9_CLASSES], dim=-1)
+    assert torch.equal(out_s[0], f_ref)
+    q_diff = (lanes(out_s[1]).float() - c_ref.float()).abs().max().item()
+    del f_ref, c_ref
+    f_ref, c_ref = bf_ref(x_b).reshape(
+        BATCH, region.h, region.w, 3, -1).split([5, N9_CLASSES], dim=-1)
+    bf_fdiff = (out_bfs[0].float() - f_ref.float()).abs().max().item()
+    assert torch.allclose(out_bfs[0].float(), f_ref.float(), rtol=2 ** -7,
+                          atol=2 ** -7), bf_fdiff
+    bf_diff = (lanes(out_bfs[1]).float() - c_ref.float()).abs().max().item()
+    del f_ref, c_ref
+    assert q_diff <= 2 ** -4 and bf_diff <= 2 ** -4, (q_diff, bf_diff)
+    with torch.no_grad():
+        logits = bf_stem._net(bf_stem._stem(x_b), keep_all=True)[1][
+            "outputs"][head - 2 * len(N9_PAIRS)][:2]
+    cpu_region = RegionLayer(bf_stem.spec.layers[-1],
+                             bf_stem._net.trees[len(spec.layers) - 1
+                                                - 2 * len(N9_PAIRS)])
+    want_f, want_c = cpu_region.activate(logits.cpu())
+    assert_bf16_close(out_bfs[0][:2].float().cpu().numpy(),
+                      want_f.float().numpy())
+    assert_bf16_close(out_bfs[1][:2].float().cpu().numpy(),
+                      want_c.float().numpy())
+    del logits, want_f, want_c, out_bf, out_bfs, out_s, out_p
+    torch.cuda.empty_cache()
+    log(f"  {tag} B={BATCH} flat pre-split head: int8 trunks equal, int8 "
+        f"fields equal, class lanes max |diff| against presplit=False int8 "
+        f"{q_diff}, bf16 {bf_diff} (bf16 fields {bf_fdiff}); bf16 fields "
+        f"and class lanes within a bf16 ulp of the CPU's region layer on "
+        f"the card's head logits")
+
+    times, bounds, errs = time_serving_kernels(
+        tag, sk, bf_stem._stem, lat_f._stem, frames_u8, x1,
+        nms_cases, nms_err, gpu)
+    # the batch-128 engines' images/s in turns (host clock around queued
+    # batches, one sync)
+    for kind, engs, kw in (
+            ("bf16", (("flat pre-split", bf), ("flat pre-split + phase stem",
+                                                bf_stem),
+                      ("presplit=False + phase stem", bf_ref)), {}),
+            ("int8 full stack u8", (("flat pre-split", q_plain),
+                                    ("flat pre-split + phase stem", q_stem),
+                                    ("presplit=False + phase stem", q_ref)),
+             {"input_dtype": torch.uint8})):
+        for name, eng in (*engs, *reversed(engs)):
+            r = eng.benchmark(iters=10, warmup=2, **kw)
+            log(f"time {tag} {kind} engine B={BATCH}, {name}: "
+                f"{r['images_per_sec']} images/s ({r['sec_per_batch']} "
+                f"s/batch) [{gpu}]")
+    # the batch-1 engines in turns (fused, plain, plain, fused, twice),
+    # then ten profiled frames of each: device busy time against the wall
+    # says whether a frame waits on the card or on the host's launches
+    lats = (("bf16 fused stem", lat_f), ("bf16 plain", lat_p))
+    for name, eng in (*lats, *reversed(lats)) * 2:
+        ms = eng.device_benchmark(reps=30)["device_ms_per_frame"]
+        log(f"time {tag} LatencyEngine {name} per frame (CUDA events, 30 "
+            f"queued frames): {ms} ms [{gpu}]")
+    for name, eng in lats:
+        profile(f"{tag} LatencyEngine {name}, per frame",
+                lambda: eng.forward(x1), 10, gpu, top=8,
+                ranges=("grouped_softmax",))
+    # where a batch goes, the grouped softmax's share included
+    for name, fn in ((f"{tag} ThroughputEngine bf16 flat pre-split + phase "
+                      f"stem B={BATCH}, per batch", lambda: bf_stem(x_b)),
+                     (f"{tag} int8 full stack flat pre-split + phase stem "
+                      f"B={BATCH} u8, per batch", lambda: q_stem(frames_u8))):
+        seen = profile(name, fn, 3, gpu, top=8, ranges=("grouped_softmax",))
+        if "bf16" in name:
+            assert_conv_tensor_core(name, seen, 3, {
+                "fwd_tc_kernel": 1, "fwd_fold_kernel": 1,
+                "fwdstats_tc_kernel": 0, "fwdstats_fold_kernel": 0,
+                "fwdstats_kernel": 0})
+        else:
+            assert any("phase_pair_tc_kernel" in k for k in seen), seen
+    log(f"phase 31 ok: {tag} times, bounds and profiles; peak device "
+        f"memory since phase 29 "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{gpu}]")
+    return serving_entries(times, bounds, errs, launches_9)
 
 
 Y2_CHUNK = 16      # images a plain version takes at once at 608
@@ -1801,14 +2302,11 @@ def main() -> int:
         f"{cuda_ms(lambda: det.detect(frames[0], thresh=thresh), iters=10)}"
         f" ms [{gpu}]")
 
-    # bounds of the batch-1 kernels at the timed shapes: NMS moves its
-    # candidates once and tests each pair of live boxes of a class once;
-    # the stem chain reads each pair's input, weights and bias and writes
-    # its output once
-    live = (tp > 0).sum(dim=1).tolist()
-    bounds = {"nms_per_class": bound(
-        tb.numel() * 4 + 2 * tp.numel() * 4,
-        IOU_FLOPS * sum(n * (n - 1) // 2 for n in live), "f32")}
+    # bounds of the batch-1 kernels at the timed shapes: NMS reads the
+    # probs and its live candidates' boxes, writes the kept probs once and
+    # tests each pair of live boxes of a class once; the stem chain reads
+    # each pair's input, weights and bias and writes its output once
+    bounds = {"nms_per_class": nms_bound(tb, tp)}
     log(f"bound nms_per_class C=20 k=128: {bounds['nms_per_class'][0]} ms "
         f"by {bounds['nms_per_class'][1]}; the launch floor {nms_floor} ms "
         f"sets what a launch can take; kernel {nms_graph / nms_floor:.1f}x "
@@ -2685,6 +3183,12 @@ def main() -> int:
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
     yolo_train_kernels = yolov2_608_train(gpu, dev, reset_counts, counts)
 
+    # --------------------------------------------------- phases 29-31
+    torch.cuda.empty_cache()
+    log(f"  device memory before yolo9000-416: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    yolo9000_kernels = yolo9000_416(gpu, dev, reset_counts, counts)
+
     replaces = {
         "nms_per_class": "sr_object_detection_tpu/kernels/nms_pallas.py:29",
         "stem_pair": "sr_object_detection_tpu/kernels/b1_stem.py:82",
@@ -2751,6 +3255,7 @@ def main() -> int:
          "library_ms": library.get(name)}
         for name in replaces] + yolo_train_kernels
     log(json.dumps({"yolov2_608_kernels": yolo_kernels}))
+    log(json.dumps({"yolo9000_416_kernels": yolo9000_kernels}))
     log(gpu)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -10,7 +10,9 @@ the network is converted back — spatial outputs as NHWC, the region
 output as the flat darknet raster ``[row][col][anchor][field]``
 (compiler.py:417-424 of the JAX package).
 
-The port holds conv, maxpool, region, and yolov2's route, reorg and
+The port holds conv, maxpool, region (with the WordTree softmax of a
+``tree=`` head, and the engines' aligned and pre-split head layouts),
+and yolov2's route, reorg and
 shortcut, for inference and for training (``Network.forward(x,
 train=True)``, with the bf16 training kernels of ``phase_train`` and
 ``fused_stem``, and the trainer's ``remat``); autograd gives route,
@@ -22,12 +24,15 @@ queue item that ports it.
 from __future__ import annotations
 
 import itertools
+import os
+from typing import Optional
 
 import torch
 import torch.utils.checkpoint
 from torch import nn
 
 from . import spec as S
+from ..io.tree import WordTree, read_tree
 from ..ops import activations as A
 from ..ops import boxes as B
 from ..ops import conv as C
@@ -70,27 +75,85 @@ class MaxPoolLayer(nn.Module):
         return P.maxpool(x, size=l.size, stride=l.stride, pad=l.pad)
 
 
-class RegionLayer(nn.Module):
-    """NCHW head output -> flat (B, H*W*A*F) activated region output."""
+def _resolve_tree(spec_layer, search_dirs) -> Optional[WordTree]:
+    if getattr(spec_layer, "tree_file", None) is None:
+        return None
+    tf = spec_layer.tree_file
+    candidates = [tf] + [os.path.join(d, os.path.basename(tf))
+                         for d in search_dirs]
+    pad_to = getattr(spec_layer, "classes", None)
+    for c in candidates:
+        if os.path.exists(c):
+            return read_tree(c, pad_to=pad_to)
+    raise FileNotFoundError(f"tree file not found: {tf}")
 
-    def __init__(self, spec: S.RegionSpec):
+
+def resolve_trees(spec: S.NetworkSpec) -> dict[int, WordTree]:
+    """The WordTree of every ``tree=`` layer (the JAX compiler's
+    ``resolve_trees``): the path as given, then beside the cfg; a
+    truncated file is padded to the layer's classes with singleton roots
+    (``io.tree.read_tree``)."""
+    dirs = []
+    if spec.cfg_path:
+        dirs.append(os.path.dirname(os.path.abspath(spec.cfg_path)))
+    trees: dict[int, WordTree] = {}
+    for i, l in enumerate(spec.layers):
+        if isinstance(l, (S.RegionSpec, S.SoftmaxSpec)):
+            t = _resolve_tree(l, dirs)
+            if t is not None:
+                trees[i] = t
+    return trees
+
+
+class RegionLayer(nn.Module):
+    """NCHW head output -> the activated region output: the flat darknet
+    raster (B, H*W*A*F), or with ``presplit`` the (fields, cls) pair of
+    ``ops.boxes.region_activate_split[_flat]`` (the JAX compiler's
+    region branch, compiler.py:397-423). ``tree``: the layer's WordTree,
+    whose sibling groups the class softmax runs over; its group ids (and
+    the flat head's extended ids and mask) are built once, on
+    ``device``."""
+
+    def __init__(self, spec: S.RegionSpec, tree: Optional[WordTree] = None,
+                 device="cpu"):
         super().__init__()
-        if spec.tree_file is not None:
-            raise NotImplementedError(
-                f"layer {spec.index}: WordTree region heads are not "
-                "ported yet (ROADMAP queue 1, item 4)")
-        if spec.head_block or spec.presplit:
-            raise NotImplementedError(
-                f"layer {spec.index}: aligned/pre-split region heads are "
-                "not ported yet (ROADMAP queue 1, item 5)")
+        if spec.tree_file is not None and tree is None:
+            raise ValueError(f"layer {spec.index}: tree={spec.tree_file} "
+                             "but no WordTree was given")
         self.spec = spec
+        self.tree = tree
+        self.gids = None if tree is None else B.GroupIds(tree.group, device)
+        self.flat_gids = None
+        if (spec.presplit and spec.presplit_flat and spec.head_block
+                and (tree is not None or spec.softmax)):
+            ext, mask = B.flat_head_gids(
+                spec.n, spec.coords, spec.classes, spec.head_block,
+                None if tree is None else tree.group)
+            self.flat_gids = (B.GroupIds(ext, device),
+                              torch.from_numpy(mask).to(device))
+
+    def activate(self, x):
+        """The region activations of an NHWC head output."""
+        l = self.spec
+        if l.presplit and l.head_block:
+            if l.presplit_flat:
+                return B.region_activate_split_flat(
+                    x, l.n, l.coords, l.head_block,
+                    flat_gids=self.flat_gids)
+            return B.region_activate_split(
+                x, l.n, l.coords, l.classes, l.head_block,
+                softmax=l.softmax, tree_groups=self.gids)
+        if l.head_block:
+            acts = B.region_activate_aligned(
+                x, l.n, l.coords, l.classes, l.head_block,
+                softmax=l.softmax, tree_groups=self.gids)
+        else:
+            acts = B.region_activate(x, l.n, l.coords + l.classes + 1,
+                                     softmax=l.softmax, tree_groups=self.gids)
+        return acts.reshape(acts.shape[0], -1)
 
     def forward(self, x):
-        l = self.spec
-        nhwc = x.permute(0, 2, 3, 1)
-        acts = B.region_activate(nhwc, l.n, l.coords + l.classes + 1,
-                                 softmax=l.softmax)
-        return acts.reshape(acts.shape[0], -1)
+        return self.activate(x.permute(0, 2, 3, 1))
 
 
 class RouteLayer(nn.Module):
@@ -132,13 +195,14 @@ class ShortcutLayer(nn.Module):
         return L.shortcut_nchw(x, outputs[self.spec.from_index], self.act)
 
 
-def build_layer(l: S.LayerSpec, params: dict, compute_dtype=None):
+def build_layer(l: S.LayerSpec, params: dict, compute_dtype=None, *,
+                tree: Optional[WordTree] = None, device="cpu"):
     if isinstance(l, S.ConvSpec):
         return ConvLayer(l, params, compute_dtype)
     if isinstance(l, S.MaxPoolSpec):
         return MaxPoolLayer(l)
     if isinstance(l, S.RegionSpec):
-        return RegionLayer(l)
+        return RegionLayer(l, tree, device)
     if isinstance(l, S.RouteSpec):
         return RouteLayer(l)
     if isinstance(l, S.ReorgSpec):
@@ -152,8 +216,10 @@ def build_layer(l: S.LayerSpec, params: dict, compute_dtype=None):
 
 
 def _to_public(t):
-    """NCHW -> NHWC for a spatial tensor; flat tensors pass through."""
-    return t.permute(0, 2, 3, 1) if t.ndim == 4 else t
+    """NCHW -> NHWC for a spatial tensor; flat tensors and the pre-split
+    region's (fields, cls) pair pass through."""
+    return t.permute(0, 2, 3, 1) if not isinstance(t, tuple) and \
+        t.ndim == 4 else t
 
 
 def _phase_pair_ok(layers, ci: int) -> bool:
@@ -223,16 +289,24 @@ class Network(nn.Module):
     gradient. ``fused_stem=True`` runs every later [conv + BN + leaky,
     maxpool 2x2/2] pair as the library conv followed by the fused
     BN/leaky/pool kernels (``kernels/fused_stem.py``). The JAX package's
-    batch-128 and VMEM planner gates were TPU rules and are dropped."""
+    batch-128 and VMEM planner gates were TPU rules and are dropped.
+
+    ``trees``: {layer: WordTree} of the ``tree=`` layers, as
+    :func:`resolve_trees` finds them; the region layer's group ids live
+    on the params' device."""
 
     def __init__(self, spec: S.NetworkSpec, params, *, compute_dtype=None,
                  phase_train=False, fused_stem: bool = False):
         super().__init__()
         self.spec = spec
         self.compute_dtype = compute_dtype
+        self.trees = resolve_trees(spec)
+        device = next((v.device for p in params for v in p.values()),
+                      torch.device("cpu"))
         self.layers = nn.ModuleList(
-            build_layer(l, p, compute_dtype)
-            for l, p in zip(spec.layers, params))
+            build_layer(l, p, compute_dtype, tree=self.trees.get(i),
+                        device=device)
+            for i, (l, p) in enumerate(zip(spec.layers, params)))
         self.out_idx = spec.output_layer_index()
         self.phase_pair = self.phase_chain = False
         self.fusable: set[int] = set()
@@ -427,4 +501,4 @@ class Network(nn.Module):
 
 __all__ = ["Network", "ConvLayer", "MaxPoolLayer", "RegionLayer",
            "RouteLayer", "ReorgLayer", "ShortcutLayer", "build_layer",
-           "live_set", "remat_divisor", "remat_saved"]
+           "live_set", "remat_divisor", "remat_saved", "resolve_trees"]

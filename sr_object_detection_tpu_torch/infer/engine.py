@@ -27,9 +27,15 @@ src_yolo2/KinectUtil.cpp:379-487).
   (``LatencyEngine.device_benchmark``, CUDA events) and returns the
   fastest.
 
+``ThroughputEngine(align_head=True)`` runs the region head rewritten by
+:func:`align_region_head` (each anchor's block 128 + ceil(classes/128)
+* 128 channels, the JAX engine's rewrite, so that both packages' specs
+and pre-split outputs have the same shapes); ``presplit=True`` or
+``"flat"`` returns the head's (fields, cls) pair instead of the flat
+darknet output (``ops.boxes.region_activate_split[_flat]``).
+
 Not ported: ``fuse_pool`` (the polyphase conv+pool rewrite, measured
-slower in the JAX package; ROADMAP "Not ported"), ``align_head`` /
-``presplit`` (queue 1, item 5), the checksum protocol's
+slower in the JAX package; ROADMAP "Not ported"), the checksum protocol's
 ``chunk`` probe (measured negative in the JAX package) and the sharded
 engine (queue 1, item 11).
 """
@@ -71,6 +77,70 @@ def fold_params_for_inference(spec: S.NetworkSpec, params,
     folded = S.NetworkSpec(net=spec.net, layers=tuple(new_layers),
                            cfg_path=spec.cfg_path)
     return new_params, folded
+
+
+def align_region_head(spec: S.NetworkSpec, params, *,
+                      min_classes: int = 1024):
+    """The JAX engine's head rewrite (``infer/engine.py``
+    ``align_region_head``): re-lay the region head conv's output channels
+    so that each anchor's block is [coords+1 fields | zeros to 128 |
+    classes | zeros to a multiple of 128], and set the region's
+    ``head_block``. The 128 is the TPU's lane width; the port keeps it so
+    that both packages give the same specs and pre-split outputs. Exact:
+    the extra channels are zero and the activations read only the real
+    ones.
+
+    ``params``: the port's folded tensors (OIHW). Returns (spec, params)
+    unchanged unless the last layer is a region with at least
+    ``min_classes`` classes fed by a conv without BN whose filters are
+    the region's A * (coords + 1 + classes)."""
+    region = spec.layers[-1]
+    head = spec.layers[-2] if len(spec.layers) >= 2 else None
+    nf = region.coords + region.classes + 1 if isinstance(
+        region, S.RegionSpec) else 0
+    if (not isinstance(region, S.RegionSpec)
+            or region.classes < min_classes
+            or not isinstance(head, S.ConvSpec)
+            or head.batch_normalize          # fold BN first
+            or head.filters != region.n * nf):
+        return spec, params
+    fields = region.coords + 1
+    block = 128 + -(-region.classes // 128) * 128
+    w, bias = params[-2]["weights"], params[-2]["biases"]
+    w2 = w.new_zeros((region.n * block, *w.shape[1:]))
+    b2 = bias.new_zeros((region.n * block,))
+    for a in range(region.n):
+        src, dst = a * nf, a * block
+        w2[dst:dst + fields] = w[src:src + fields]
+        b2[dst:dst + fields] = bias[src:src + fields]
+        w2[dst + 128:dst + 128 + region.classes] = w[src + fields:src + nf]
+        b2[dst + 128:dst + 128 + region.classes] = bias[src + fields:src + nf]
+    new_head = dataclasses.replace(
+        head, filters=region.n * block, out_c=region.n * block,
+        outputs=head.out_h * head.out_w * region.n * block)
+    new_region = dataclasses.replace(
+        region, c=region.n * block, head_block=block,
+        inputs=region.h * region.w * region.n * block)
+    new_params = list(params)
+    new_params[-2] = {"weights": w2, "biases": b2}
+    return S.NetworkSpec(net=spec.net,
+                         layers=(*spec.layers[:-2], new_head, new_region),
+                         cfg_path=spec.cfg_path), new_params
+
+
+def presplit_spec(spec: S.NetworkSpec, presplit) -> S.NetworkSpec:
+    """``spec`` with its aligned region head switched to the pre-split
+    contract (``presplit_flat`` when ``presplit == "flat"``); a spec
+    without an aligned region head comes back unchanged."""
+    last = spec.layers[-1]
+    if not (presplit and isinstance(last, S.RegionSpec)
+            and last.head_block):
+        return spec
+    return S.NetworkSpec(
+        net=spec.net,
+        layers=(*spec.layers[:-1], dataclasses.replace(
+            last, presplit=True, presplit_flat=(presplit == "flat"))),
+        cfg_path=spec.cfg_path)
 
 
 def sync_checksum(out):
@@ -116,7 +186,11 @@ class ThroughputEngine:
     runs bf16 (the JAX engine's defaults, the only values its callers
     use).
 
-    ``params``: numpy params in the JAX package's layout (HWIO)."""
+    ``params``: numpy params in the JAX package's layout (HWIO).
+    ``align_head`` rewrites a region head of at least 1024 classes with
+    :func:`align_region_head`; ``presplit`` (True or ``"flat"``) aligns
+    any region head and returns its (fields, cls) pair (``presplit``
+    tells whether it engaged)."""
 
     DTYPE = torch.bfloat16
 
@@ -129,14 +203,16 @@ class ThroughputEngine:
                 "fuse_pool (the polyphase conv+pool rewrite, measured "
                 "slower in the JAX package) is not ported (ROADMAP, "
                 "'Not ported')")
-        if align_head or presplit:
-            raise NotImplementedError(
-                "the aligned/pre-split region head is not ported yet "
-                "(ROADMAP queue 1, item 5)")
         self.batch = batch
         self.device = torch.device(device)
         self.params, self.spec = fold_params_for_inference(
             spec, params_to_torch(spec, params, self.device), self.DTYPE)
+        if align_head or presplit:
+            self.spec, self.params = align_region_head(
+                self.spec, self.params,
+                min_classes=1 if presplit else 1024)
+        self.spec = presplit_spec(self.spec, presplit)
+        self.presplit = getattr(self.spec.layers[-1], "presplit", False)
         self._stem, n = None, 0
         if phase_stem:
             self._stem, n = PT.build_bf16_stem(self.spec, self.params)
@@ -335,5 +411,6 @@ def analytic_flops(spec: S.NetworkSpec) -> float:
 
 
 __all__ = ["ThroughputEngine", "LatencyEngine", "best_latency_engine",
-           "fold_params_for_inference", "analytic_flops", "sync_checksum",
+           "fold_params_for_inference", "align_region_head",
+           "presplit_spec", "analytic_flops", "sync_checksum",
            "checksum_benchmark"]

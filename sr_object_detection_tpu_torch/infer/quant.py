@@ -26,10 +26,16 @@ Route and reorg run on the int8 codes as in the JAX module: reorg keeps
 its input's scale, and a route takes the largest of its sources' scales
 and requantizes each source whose scale differs.
 
+The region decode runs the compiler's ``RegionLayer`` on the head's
+float output: a WordTree head's grouped softmax (its group ids built
+once on the device) and, with ``presplit``, the aligned head's (fields,
+cls) pair (``infer.engine.align_region_head``; ``"flat"`` keeps the
+class tensor in the head conv's layout).
+
 Activations are NHWC throughout, like the JAX module. Not ported yet:
-the float tail after an int8 trunk (ROADMAP queue 1, item 3),
-``presplit`` (item 5), WordTree heads (item 4) and a ``mesh`` (item
-11); each raises ``NotImplementedError`` naming its item.
+the float tail after an int8 trunk (ROADMAP queue 1, item 3) and a
+``mesh`` (item 11); each raises ``NotImplementedError`` naming its
+item.
 """
 
 from __future__ import annotations
@@ -41,18 +47,17 @@ import numpy as np
 import torch
 
 from ..graph import spec as S
-from ..graph.compiler import Network, live_set
+from ..graph.compiler import Network, RegionLayer, live_set, resolve_trees
 from ..io.convert import params_to_torch
 from ..kernels import _build
 from ..kernels import phase_stem as PS
 from ..kernels.phase_stem import requant as _requant
 from ..ops import activations as A
-from ..ops import boxes as B
 from ..ops import conv as C
 from ..ops import layout as L
 from ..ops import pooling as P
-from .engine import checksum_benchmark, fold_params_for_inference, \
-    sync_checksum
+from .engine import align_region_head, checksum_benchmark, \
+    fold_params_for_inference, presplit_spec, sync_checksum
 
 I8MIN, I8MAX = -127, 127     # symmetric: keep -128 out so |q| <= 127
 HEAD_DTYPE = torch.bfloat16  # the float head conv's dtype
@@ -125,9 +130,10 @@ def _supported_prefix(layers) -> int:
 def calibrate_amax(spec: S.NetworkSpec, params_f32, calib_x, *,
                    device) -> tuple[float, dict[int, float]]:
     """One float32 forward over calibration images on ``device``;
-    returns (input_amax, {layer_index: output_amax}). ``params_f32``:
-    the port's float32 tensors (OIHW, BN folded). On CUDA it switches
-    TF32 off first, as the float32 Detector does."""
+    returns (input_amax, {layer_index: output_amax}); a pre-split
+    region's amax is that of both its tensors. ``params_f32``: the
+    port's float32 tensors (OIHW, BN folded). On CUDA it switches TF32
+    off first, as the float32 Detector does."""
     if torch.device(device).type == "cuda":
         from .detector import disable_tf32
         disable_tf32()
@@ -135,8 +141,12 @@ def calibrate_amax(spec: S.NetworkSpec, params_f32, calib_x, *,
                          for p in params_f32])
     x = torch.as_tensor(np.asarray(calib_x, np.float32)).to(device)
     _, aux = net(x, keep_all=True)
-    amax = {i: float(t.float().abs().max()) for i, t in
-            aux["outputs"].items()}
+
+    def amax_of(t):
+        if isinstance(t, tuple):
+            return max(amax_of(p) for p in t)
+        return float(t.float().abs().max())
+    amax = {i: amax_of(t) for i, t in aux["outputs"].items()}
     return float(np.max(np.abs(np.asarray(calib_x)))), amax
 
 
@@ -159,7 +169,7 @@ class QuantizedNetwork:
 
 
 def quantize_for_inference(spec: S.NetworkSpec, params, calib_x, *,
-                           device, presplit: bool = False,
+                           device, presplit=False,
                            quantize_head: bool = False,
                            region_dtype=None,
                            phase_stem: bool = False) -> QuantizedNetwork:
@@ -173,15 +183,16 @@ def quantize_for_inference(spec: S.NetworkSpec, params, calib_x, *,
     epilogue, no requant of the logits); ``region_dtype`` sets the dtype
     of the region decode (default float32); ``phase_stem`` owns the
     leading conv+pool pairs with the stem kernel (batch 128 only) and
-    raises ``NotImplementedError`` if the spec has none."""
-    if presplit:
-        raise NotImplementedError(
-            "the pre-split int8 head is not ported yet (ROADMAP queue 1, "
-            "item 5)")
+    raises ``NotImplementedError`` if the spec has none. ``presplit``
+    (True or ``"flat"``) aligns the region head and returns its (fields,
+    cls) pair, as ``ThroughputEngine(presplit=...)`` does."""
     device = torch.device(device)
     calib_x = _resolve_calib(calib_x)
     params_f, fspec = fold_params_for_inference(
         spec, params_to_torch(spec, params, "cpu"), torch.float32)
+    if presplit:
+        fspec, params_f = align_region_head(fspec, params_f, min_classes=1)
+        fspec = presplit_spec(fspec, presplit)
     split = _supported_prefix(fspec.layers)
     if split < 2:
         raise NotImplementedError(
@@ -198,11 +209,6 @@ def quantize_for_inference(spec: S.NetworkSpec, params, calib_x, *,
             and not isinstance(fspec.layers[-2], S.ConvSpec):
         raise NotImplementedError(
             "int8 path: [region] must be fed by a conv layer")
-    for l in fspec.layers:
-        if isinstance(l, S.RegionSpec) and l.tree_file is not None:
-            raise NotImplementedError(
-                "WordTree region heads are not ported yet (ROADMAP queue "
-                "1, item 4)")
 
     in_amax, amax = calibrate_amax(fspec, params_f, calib_x, device=device)
     # darknet inputs are [0,1] images; floor the input amax at 1.0 so a
@@ -277,6 +283,10 @@ def quantize_for_inference(spec: S.NetworkSpec, params, calib_x, *,
     head_w = {i: qparams[i]["weights"].permute(3, 2, 0, 1).contiguous()
               for i in heads if "dequant" not in qparams[i]}
     live = live_set(fspec)             # outputs a route reads later
+    # the region decode, its tree's group ids built once on the device
+    trees = resolve_trees(fspec)
+    regions = {i: RegionLayer(l, trees.get(i), device)
+               for i, l in enumerate(layers) if isinstance(l, S.RegionSpec)}
 
     @torch.no_grad()
     def forward(x, stop=None):
@@ -341,13 +351,11 @@ def quantize_for_inference(spec: S.NetworkSpec, params, calib_x, *,
                     parts.append(t)
                 cur = L.route(parts)
             elif isinstance(l, S.RegionSpec):
-                acts = B.region_activate(
-                    cur.to(rdt), l.n, l.coords + l.classes + 1,
-                    softmax=l.softmax)
-                cur = acts.reshape(acts.shape[0], -1)
+                cur = regions[i].activate(cur.to(rdt))
             if i in live:
                 saved[i] = cur
-        if stop is None and cur.dtype == torch.int8:
+        if stop is None and not isinstance(cur, tuple) \
+                and cur.dtype == torch.int8:
             # a net ending on a non-head int8 layer: dequantize so the
             # contract — float outputs — holds
             cur = cur.float() * float(np.float32(s_out[len(layers) - 1]))
@@ -375,7 +383,7 @@ class QuantizedThroughputEngine:
     as ``infer.engine.ThroughputEngine`` (checksum readback)."""
 
     def __init__(self, spec: S.NetworkSpec, params, *, device,
-                 batch: int = 128, calib_x=None, presplit: bool = False,
+                 batch: int = 128, calib_x=None, presplit=False,
                  quantize_head: bool = False, region_dtype=None,
                  mesh=None, phase_stem: bool = False):
         if mesh is not None:
@@ -404,6 +412,8 @@ class QuantizedThroughputEngine:
             spec, params, calib_x, device=self.device, presplit=presplit,
             quantize_head=quantize_head, region_dtype=region_dtype,
             phase_stem=phase_stem)
+        last = self.qnet.spec.layers[-1]
+        self.presplit = isinstance(last, S.RegionSpec) and last.presplit
         self.input_shape = (batch, spec.net.h, spec.net.w, spec.net.c)
 
     def warmup(self):

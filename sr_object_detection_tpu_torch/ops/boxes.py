@@ -1,11 +1,15 @@
 """Box math, YOLOv2 region decode, and the plain per-class NMS.
 
 Counterpart of ``sr_object_detection_tpu/ops/boxes.py`` (``box_iou``,
-``region_activate`` with the flat softmax, ``decode_region_boxes``,
-``region_class_probs``, ``nms_sort_topk``). Boxes are (x, y, w, h)
-CENTER format, like the reference (src_yolo2/box.c, region_layer.c).
-The WordTree softmax and hierarchy come with the yolo9000 slice (ROADMAP
-queue 1, item 4).
+``region_activate`` with the flat and the WordTree softmax, its aligned
+and pre-split forms, ``grouped_softmax``, ``hierarchy_multiply``,
+``decode_region_boxes``, ``region_class_probs``, ``nms_sort_topk``).
+Boxes are (x, y, w, h) CENTER format, like the reference
+(src_yolo2/box.c, region_layer.c).
+
+``grouped_softmax`` is one plain form for every group-id array: the JAX
+module's band matmuls (contiguous ids), padded buckets and segment
+scatter were TPU lowerings of the same function (ROADMAP "Not ported").
 
 ``nms_sort_topk`` here is the PLAIN version of the NMS kernel: the CUDA
 kernel in ``kernels/nms.py`` computes the same per-class recurrence and
@@ -14,6 +18,7 @@ shares this module's candidate selection and scatter.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -35,24 +40,193 @@ def box_iou(a, b):
     return inter / union
 
 
+def _class_softmax(cls, softmax: bool, tree_groups):
+    if tree_groups is not None:
+        return grouped_softmax(cls, tree_groups)
+    if softmax:
+        return torch.softmax(cls, dim=-1)
+    return cls
+
+
 def region_activate(raw, n_anchors: int, n_fields: int, *,
                     softmax: bool = False, tree_groups=None):
     """Region layer activations (region_layer.c:144-176).
 
     raw: NHWC (B, H, W, A*F). Returns (B, H, W, A, F): logistic on the
-    objectness slot, softmax over the class slots when ``softmax``; box
-    slots stay raw (decode applies logistic/exp)."""
-    if tree_groups is not None:
-        raise NotImplementedError(
-            "the WordTree grouped softmax is not ported yet (ROADMAP "
-            "queue 1, item 4)")
+    objectness slot, softmax (flat, or grouped by ``tree_groups``, a
+    WordTree's sibling groups as :class:`GroupIds`) over the class slots;
+    box slots stay raw (decode applies logistic/exp)."""
     b, h, w, _ = raw.shape
     x = raw.reshape(b, h, w, n_anchors, n_fields)
     obj = torch.sigmoid(x[..., 4:5])
-    cls = x[..., 5:]
-    if softmax:
-        cls = torch.softmax(cls, dim=-1)
+    cls = _class_softmax(x[..., 5:], softmax, tree_groups)
     return torch.cat([x[..., :4], obj, cls], dim=-1)
+
+
+def region_activate_aligned(raw, n_anchors: int, coords: int,
+                            classes: int, block: int, *,
+                            softmax: bool = False, tree_groups=None):
+    """:func:`region_activate` on the aligned head layout
+    (``infer.engine.align_region_head``): raw is (B, H, W, A*block) with
+    per-anchor channels [coords+1 fields | pad to 128 | classes | pad].
+    Returns the same (B, H, W, A, F) darknet field order."""
+    b, h, w, _ = raw.shape
+    x = raw.reshape(b, h, w, n_anchors, block)
+    obj = torch.sigmoid(x[..., coords:coords + 1])
+    cls = _class_softmax(x[..., 128:128 + classes], softmax, tree_groups)
+    return torch.cat([x[..., :coords], obj, cls], dim=-1)
+
+
+def region_activate_split(raw, n_anchors: int, coords: int,
+                          classes: int, block: int, *,
+                          softmax: bool = False, tree_groups=None):
+    """Pre-split region activation on the aligned head layout: the
+    darknet field order is never reassembled. Returns
+
+      fields: (B, H, W, A, coords+1) raw box slots + logistic obj
+      cls:    (B, H, W, A, classes) softmaxed class probabilities
+
+    ``torch.cat([fields, cls], -1)`` is :func:`region_activate`'s
+    output."""
+    b, h, w, _ = raw.shape
+    x = raw.reshape(b, h, w, n_anchors, block)
+    obj = torch.sigmoid(x[..., coords:coords + 1])
+    fields = torch.cat([x[..., :coords], obj], dim=-1)
+    cls = _class_softmax(x[..., 128:128 + classes], softmax, tree_groups)
+    return fields, cls
+
+
+def flat_head_gids(n_anchors: int, coords: int, classes: int, block: int,
+                   base_gids):
+    """Group ids and additive mask for the flat aligned head row (A*block
+    lanes), the JAX module's ``_flat_head_gids``: each anchor contributes
+    [fields + pad | classes | tail pad]; the junk lanes get groups of
+    their own (masked to -1e9, they normalize among themselves), the
+    class lanes the groups of ``base_gids`` (one group when None), each
+    anchor's after the last. Returns (ext int64 (A*block,), mask float32
+    (A*block,)) in numpy."""
+    g0 = (np.zeros(classes, np.int64) if base_gids is None
+          else np.asarray(base_gids, np.int64))
+    ng = int(g0.max()) + 1
+    total = n_anchors * block
+    ext = np.zeros(total, np.int64)
+    mask = np.full(total, -1e9, np.float32)
+    nxt = 0
+    tail = block - 128 - classes
+    for a in range(n_anchors):
+        o = a * block
+        ext[o:o + 128] = nxt
+        nxt += 1
+        ext[o + 128:o + 128 + classes] = nxt + g0
+        mask[o + 128:o + 128 + classes] = 0.0
+        nxt += ng
+        if tail > 0:
+            ext[o + 128 + classes:o + block] = nxt
+            nxt += 1
+    return ext, mask
+
+
+def region_activate_split_flat(raw, n_anchors: int, coords: int,
+                               block: int, *, flat_gids):
+    """Pre-split region activation that keeps the class tensor flat in
+    the head conv's own layout. Returns
+
+      fields:   (B, H, W, A, coords+1) raw box slots + logistic obj
+      cls_flat: (B, H, W, A*block): class probs at
+                [a*block+128 : a*block+128+classes] for anchor a; every
+                other lane is junk that the consumer slices away.
+
+    ``flat_gids``: :func:`flat_head_gids`' (ext, mask) pair as
+    (:class:`GroupIds`, mask tensor) on raw's device, built once by the
+    caller; None for a head without a class softmax (raw passes
+    through). The mask is added in raw's dtype (so in bf16 it is
+    rounded), and the softmax runs over the extended groups with the
+    whole row's max as the shared offset."""
+    f = coords + 1
+    fields = torch.stack([raw[..., a * block:a * block + f]
+                          for a in range(n_anchors)], dim=3)
+    obj = torch.sigmoid(fields[..., coords:coords + 1])
+    fields = torch.cat([fields[..., :coords], obj], dim=-1)
+    if flat_gids is None:
+        return fields, raw
+    ext, mask = flat_gids
+    return fields, grouped_softmax(raw + mask.to(raw.dtype), ext)
+
+
+class GroupIds:
+    """Group ids (a numpy array or list) on a device with their group
+    count: what a layer builds once at construction, so that no forward
+    reads ids back from the card."""
+
+    def __init__(self, group_ids, device):
+        ids = np.asarray(group_ids, np.int64)
+        self.n_groups = int(ids.max()) + 1
+        self.ids = torch.from_numpy(ids).to(device)
+
+
+def grouped_softmax(logits, group_ids):
+    """Segmented softmax over the last axis (softmax_tree semantics,
+    tree.c:53-103): ``group_ids`` maps each of the C classes to its
+    sibling group, as :class:`GroupIds` on logits' device (built once by
+    the caller).
+
+    The shared offset is the row's max, as in the JAX module's matmul
+    form (``_grouped_softmax_matmul``): softmax within a group is exact
+    for any per-row offset, and the clamp of x - max at -80 keeps a
+    group far below the row max from 0/0. The per-group sums are an
+    index-add over the class axis in float32, gathered back by group id.
+    It rounds where the JAX form does: x - max in logits' dtype, e = exp
+    in float32 rounded to the dtype (and summed as rounded), the
+    reciprocal of the sums rounded to the dtype, and the product of the
+    float32 e and that reciprocal rounded to the dtype. Gapped or
+    non-contiguous ids stay finite: an empty group's sum is 0, but no
+    class gathers it. A profiler range of the same name shows its device
+    time in a trace."""
+    gid = group_ids.ids
+    with torch.profiler.record_function("grouped_softmax"):
+        dt = logits.dtype
+        vmax = logits.max(dim=-1, keepdim=True).values
+        e32 = (logits - vmax).float().clamp_(min=-80.0).exp_()
+        e = e32.to(dt)
+        gsum = torch.zeros((*logits.shape[:-1], group_ids.n_groups),
+                           dtype=torch.float32, device=logits.device)
+        gsum.index_add_(-1, gid, e.float())
+        del e
+        inv = gsum.reciprocal_().to(dt)
+        return e32.mul_(inv.index_select(-1, gid).float()).to(dt)
+
+
+def hierarchy_chain(parents, device=None):
+    """The static ancestor-chain table of :func:`hierarchy_multiply`:
+    (chain int64 (C, depth), valid bool (C, depth)) tensors on
+    ``device``. chain[c] walks c, parent(c), ... to its root and repeats
+    the root; valid marks the strictly new entries. Built once per tree
+    (parents precede children in a tree file)."""
+    parents = np.asarray(parents)
+    c = parents.shape[0]
+    chain = [np.arange(c)]
+    cur = parents.copy()
+    while (cur >= 0).any():
+        chain.append(np.where(cur >= 0, cur, chain[-1]))
+        cur = np.where(cur >= 0, parents[np.maximum(cur, 0)], -1)
+    chain = np.stack(chain, axis=1)
+    valid = np.ones_like(chain, dtype=bool)
+    valid[:, 1:] = chain[:, 1:] != chain[:, :-1]
+    return (torch.from_numpy(chain.astype(np.int64)).to(device),
+            torch.from_numpy(valid).to(device))
+
+
+def hierarchy_multiply(probs, chain):
+    """hierarchy_predictions (tree.c:37-51): each class's prob times its
+    ancestors', i.e. the product along its path to the root.
+
+    probs (..., C); ``chain``: the (chain, valid) pair of
+    :func:`hierarchy_chain` on probs' device, built once. Returns the
+    path products (..., C)."""
+    chain, valid = chain
+    gathered = probs[..., chain]                      # (..., C, depth)
+    gathered = torch.where(valid, gathered, torch.ones_like(gathered))
+    return gathered.prod(dim=-1)
 
 
 def decode_region_boxes(acts, anchors, *, img_w, img_h):
@@ -136,7 +310,10 @@ def nms_sort_topk(boxes, probs, iou_thresh: float, k: int = 128):
 
 
 __all__ = [
-    "box_iou", "region_activate", "decode_region_boxes",
+    "box_iou", "region_activate", "region_activate_aligned",
+    "region_activate_split", "region_activate_split_flat",
+    "flat_head_gids", "grouped_softmax", "GroupIds",
+    "hierarchy_chain", "hierarchy_multiply", "decode_region_boxes",
     "region_class_probs", "topk_candidates", "scatter_kept",
     "nms_per_class_plain", "nms_sort_topk",
 ]

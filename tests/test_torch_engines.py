@@ -186,15 +186,18 @@ def test_unported_options_raise(net):
     # the bf16 phase stem is ported (kernels/phase_train.build_bf16_stem)
     assert TE.ThroughputEngine(spec_t, params, device="cpu", batch=128,
                                phase_stem=True).phase_stem
-    for kw, item in (({"fuse_pool": True}, "Not ported"),
-                     ({"presplit": True}, "item 5"),
-                     ({"align_head": True}, "item 5")):
-        with pytest.raises(NotImplementedError, match=item):
-            TE.ThroughputEngine(spec_t, params, device="cpu", batch=128,
-                                **kw)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        TQ.QuantizedThroughputEngine(spec_t, params, device="cpu",
-                                     calib_x=calib, presplit=True)
+    with pytest.raises(NotImplementedError, match="Not ported"):
+        TE.ThroughputEngine(spec_t, params, device="cpu", batch=128,
+                            fuse_pool=True)
+    # the aligned and pre-split heads are ported (tests/
+    # test_torch_yolo9000.py): align_head leaves a 20-class head as it
+    # is, presplit aligns any region head
+    assert not TE.ThroughputEngine(spec_t, params, device="cpu", batch=4,
+                                   align_head=True).spec.layers[-1].head_block
+    assert TE.ThroughputEngine(spec_t, params, device="cpu", batch=4,
+                               presplit=True).presplit
+    assert TQ.QuantizedThroughputEngine(spec_t, params, device="cpu",
+                                        calib_x=calib, presplit=True).presplit
     with pytest.raises(NotImplementedError, match="item 11"):
         TQ.QuantizedThroughputEngine(spec_t, params, device="cpu",
                                      calib_x=calib, mesh=object())

@@ -1,8 +1,8 @@
 """The port's JAX-free host modules against their JAX-package originals.
 
 ``sr_object_detection_tpu_torch`` carries its own copies of config.py,
-graph/spec.py, io/weights.py, models/zoo.py, eval/voc.py and
-data/augment.py, because the
+graph/spec.py, io/weights.py, models/zoo.py, eval/voc.py,
+data/augment.py and io/tree.py, because the
 JAX package's ``__init__`` imports jax and the GPU machine has none. These tests hold
 each copy equal to its original: the source text, the specs it builds,
 the params it draws and the bytes it writes. ``io/convert.py`` (numpy
@@ -29,7 +29,7 @@ from sr_object_detection_tpu_torch.io.convert import params_to_torch
 REPO = pathlib.Path(__file__).resolve().parent.parent
 GOLDEN = REPO / "tests" / "golden"
 COPIES = ["config.py", "graph/spec.py", "io/weights.py", "models/zoo.py",
-          "eval/voc.py", "data/augment.py"]
+          "eval/voc.py", "data/augment.py", "io/tree.py"]
 
 
 @pytest.mark.parametrize("rel", COPIES)

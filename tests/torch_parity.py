@@ -771,3 +771,54 @@ def assert_fwd_close(got, ref, z, slope=0.10009765625):
                            f"fwd roundings' bound: got {got[bad][:8]}, want "
                            f"{ref[bad][:8]}")
     return float(np.abs(got - ref).max())
+
+
+def seeded_tree_lines(n, n_groups, seed):
+    """A WordTree of ``n`` nodes in darknet's ``name parent`` format,
+    made from ``seed``: parents come before their children and each
+    node's children form one contiguous run, so the runs are the
+    tree's ``n_groups`` sibling groups (``io/tree.read_tree`` numbers
+    them 0 ... n_groups - 1, the roots' run first). Group sizes are
+    drawn so that about a third of the groups are singletons, as in
+    yolo9000's 9k.tree (751 of its 2,429 groups)."""
+    rng = np.random.default_rng(seed)
+    sizes = np.ones(n_groups, np.int64)
+    extra = n - n_groups
+    w = (rng.pareto(1.5, n_groups - 1) + 0.5) * (
+        rng.uniform(size=n_groups - 1) > 0.25)
+    w = np.concatenate([[w.sum() / n_groups + 1.0], w])  # roots' run
+    sizes += rng.multinomial(extra, w / w.sum())
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    parents = np.full(n, -1, np.int64)
+    p = -1
+    for k in range(1, n_groups):
+        # a new parent for every run: after the last one, before the run
+        hi = int(starts[k]) - 1
+        p = int(rng.integers(p + 1, max(p + 2, min(hi, p + 3)) + 1))
+        assert p <= hi
+        parents[starts[k]:starts[k] + sizes[k]] = p
+    return [f"n{i:05d} {int(q)}" for i, q in enumerate(parents)]
+
+
+def seeded_class_map(n_nodes, n_classes, seed):
+    """``n_classes`` distinct tree nodes drawn from ``seed``: a class map
+    (``config.read_map``, one node index a line)."""
+    rng = np.random.default_rng(seed)
+    return [int(v) for v in rng.choice(n_nodes, n_classes, replace=False)]
+
+
+def zoo_cfg_text(zoo_fn, **kw):
+    """The darknet cfg text of a network of the port's ``models/zoo.py``
+    (``zoo_fn(**kw)``): the text its CfgBuilder assembles."""
+    from sr_object_detection_tpu_torch.models import zoo as Z
+    texts, build = [], Z.CfgBuilder.build
+
+    def keep(self):
+        texts.append(self.text())
+        return build(self)
+    Z.CfgBuilder.build = keep
+    try:
+        zoo_fn(**kw)
+    finally:
+        Z.CfgBuilder.build = build
+    return texts[-1]
