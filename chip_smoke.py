@@ -5,9 +5,11 @@
 Drives the port's main paths — tiny-yolo-voc-416 detection at batch 1,
 batch-128 serving in bf16 and int8, bf16 training at batch 128 with
 the fused pair, the two-pair chain and the fused stem, yolov2-608
-serving (route, reorg), yolov2-608 training at batch 128 and
+serving (route, reorg), yolov2-608 training at batch 128,
 yolo9000-416 serving (the WordTree head, the aligned and pre-split
-heads) — through the entry points a user calls, builds
+heads) and yolo9000-416 training from disk (the WordTree loss, device
+augmentation, the packed loader) — through the entry points a user
+calls, builds
 the hand-written CUDA kernels from ``sr_object_detection_tpu_torch/csrc``
 and holds each against its plain PyTorch version. Phases, in order; any failure ends the run with a
 non-zero status and no result line:
@@ -252,7 +254,40 @@ non-zero status and no result line:
      kernels' times (as phase 25; NMS at its three cases beside the
      launch floor); images/s of the bf16 and int8 engines in turns;
      torch.profiler over a batch of each, with the grouped softmax's
-     device time.
+     device time;
+ 32. yolo9000-416's WordTree region loss (region_delta with the seeded
+     tree and map) on the card against the same loss on the CPU at full
+     width, B=8, on a seeded head output, classfix 0 and 2: truths with
+     padding, two on one cell, mapped ids and classification-only items
+     (whose cell, a first maximum of objectness x path prob, is checked
+     to be no near tie on the CPU); delta within 1e-5 of its largest
+     magnitude, the stats within 1e-5, each classification-only item's
+     deltas its class delta at one cell; the float32 Trainer on CUDA
+     reproduces the train_tree_region and train_tree_region_classfix2
+     goldens (weights 2e-4, costs 1e-3);
+ 33. Trainer on yolo9000-416 (the tree loss and the map) at B=128 as one
+     micro-batch, bf16, 3 steps a path, counts reset just before and read
+     just after each: (d) no kernels (the yardstick), (a) phase_train
+     (the CLI's -bf16), (b) phase_train + fused_stem; launches a step
+     (a) the pair once, (b) the pair and F2, B1, B2 four times (layers 2,
+     6, 10, 16) on the row kernels; each first loss within 0.03*|loss| +
+     0.05 of (d)'s; each path's peak device memory, images/s and a
+     torch.profiler step with the region_loss and grouped_softmax
+     ranges;
+ 34. the pair's kernels at 3 -> 32 @416, B=128, and F2, B1, B2 at the
+     layers Network.fusable picks (0, 2, 6, 10, 16: 416x32 ... 26x512)
+     against their plain versions (train_kernels_at, as phase 26), each
+     time from a CUDA graph in turns with its plain version beside its
+     bound;
+ 35. the data path: DeviceAugmenter on the card against the host
+     pipeline (data/augment.py, ops/image.py) with the same parameters at
+     2e-6; its images/s at B=128 @416 from 500x375 u8 frames written from
+     a seed, on the device and with the canvas's upload; a packed set of
+     256 seeded PPMs at 448, PackedDetectionLoader's batches/s host side
+     alone (_host_batch_cpu) and to the card (bf16); the thread and the
+     process decoders' batches equal; `cli detector train -packed
+     -device-aug -bf16` on the yolo9000 cfg at batch=64, subdivisions=8:
+     two iterations, a _final.weights that loads, seen 128.
 
 The last lines are one JSON object with the four kernels at yolov2-608's
 shapes (the keys of the kernels line; their launches counted in phase
@@ -261,7 +296,10 @@ card (nvidia-smi), one JSON object describing the
 14 kernels and, under names that end in "(yolov2-608 training: ...)",
 the pair's and the fused stem's kernels at yolov2-608's training shapes
 (phase 26's times; the fused stem's summed over its four pairs; their
-launches counted in phase 27's paths (a) and (c)) (time, plain time,
+launches counted in phase 27's paths (a) and (c)), and under names that
+end in "(yolo9000-416 training: ...)" the same kernels at yolo9000-416's
+training shapes (phase 34's times, the fused stem's summed over its five
+pairs; launches from phase 33's paths (a) and (b)) (time, plain time,
 bound, launches and library call of each;
 ``stem_pair`` is the batch-1 stem on the tensor-core conv tile of
 csrc/phase_train.cu (``stem_fold_kernel`` at pair 1, ``stem_tc_kernel``
@@ -300,7 +338,7 @@ GOLDEN = ROOT / "tests" / "golden"
 WORK = ROOT / "build" / "chip_smoke"
 sys.path.insert(0, str(ROOT / "tests"))
 from torch_parity import (  # noqa: E402  (JAX-free helpers)
-    TRAIN_GOLDENS, assert_bf16_close, assert_fwd_close,
+    TRAIN_GOLDENS, TREE_TRAIN_GOLDENS, assert_bf16_close, assert_fwd_close,
     assert_stem_link_close, chain_case,
     check_chain_kernels, check_fused_op, check_fused_stem_kernels,
     check_fwdstats, check_pair_gradient, check_train_golden,
@@ -1251,36 +1289,18 @@ N9_CLASSES, N9_GROUPS = 9418, 2429   # its tree's nodes and sibling groups
 N9_HEAD_GAIN = 4.0  # the head's scale: random probs spread, logits < 80
 
 
-def yolo9000_416(gpu, dev, reset_counts, counts):
-    """Phases 29-31 (the module docstring): yolo9000-416 serving. Returns
-    the kernels line's entries for the four kernels on this path, at
-    yolo9000-416's shapes."""
-    from sr_object_detection_tpu_torch.graph.compiler import RegionLayer
+def yolo9000_files():
+    """yolo9000-416's cfg (models/zoo.py's) under WORK/yolo9000, with the
+    tree and map it names. The real 9k.tree and coco9k.map are not in the
+    repository: a tree of the same size (nodes, sibling groups) and an
+    80-entry map are written from a seed. Returns (directory, cfg path,
+    map path, spec)."""
     from sr_object_detection_tpu_torch.graph.spec import parse_network_cfg
-    from sr_object_detection_tpu_torch.infer import quant as Q
-    from sr_object_detection_tpu_torch.infer.detector import Detector
-    from sr_object_detection_tpu_torch.infer.engine import (
-        LatencyEngine, ThroughputEngine)
-    from sr_object_detection_tpu_torch.io.weights import (
-        init_params, save_weights)
-    from sr_object_detection_tpu_torch.kernels import b1_stem as BS
-    from sr_object_detection_tpu_torch.kernels import nms as NMS
-    from sr_object_detection_tpu_torch.kernels import phase_stem as PS
     from sr_object_detection_tpu_torch.models.zoo import yolo9000
-    from sr_object_detection_tpu_torch.ops import boxes as B
     from torch_parity import (seeded_class_map, seeded_tree_lines,
                               zoo_cfg_text)
-
-    # ---------------------------------------------------------- phase 29
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    rng = np.random.default_rng(29)
-    bf16 = torch.bfloat16
-    tag = f"yolo9000-{N9}"
     d = WORK / "yolo9000"
     d.mkdir(parents=True, exist_ok=True)
-    # the real 9k.tree and coco9k.map are not in the repository: a tree of
-    # the same size (nodes, sibling groups) and an 80-entry map from a seed
     tree, cmap = d / "9k.tree", d / "coco9k.map"
     tree.write_text("\n".join(seeded_tree_lines(N9_CLASSES, N9_GROUPS, 0))
                     + "\n")
@@ -1292,6 +1312,32 @@ def yolo9000_416(gpu, dev, reset_counts, counts):
     cfg.write_text(zoo_cfg_text(yolo9000, **zoo_kw))
     spec = parse_network_cfg(str(cfg))
     assert spec.layers == yolo9000(**zoo_kw).layers
+    return d, cfg, cmap, spec
+
+
+def yolo9000_416(gpu, dev, reset_counts, counts):
+    """Phases 29-31 (the module docstring): yolo9000-416 serving. Returns
+    the kernels line's entries for the four kernels on this path, at
+    yolo9000-416's shapes."""
+    from sr_object_detection_tpu_torch.graph.compiler import RegionLayer
+    from sr_object_detection_tpu_torch.infer import quant as Q
+    from sr_object_detection_tpu_torch.infer.detector import Detector
+    from sr_object_detection_tpu_torch.infer.engine import (
+        LatencyEngine, ThroughputEngine)
+    from sr_object_detection_tpu_torch.io.weights import (
+        init_params, save_weights)
+    from sr_object_detection_tpu_torch.kernels import b1_stem as BS
+    from sr_object_detection_tpu_torch.kernels import nms as NMS
+    from sr_object_detection_tpu_torch.kernels import phase_stem as PS
+    from sr_object_detection_tpu_torch.ops import boxes as B
+
+    # ---------------------------------------------------------- phase 29
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(29)
+    bf16 = torch.bfloat16
+    tag = f"yolo9000-{N9}"
+    d, cfg, cmap, spec = yolo9000_files()
     # random weights from seed 0, BN statistics and biases randomized, the
     # head scaled so that objectness and the tree's path probs spread
     params_np = random_bn(init_params(spec, seed=0), 1,
@@ -1636,76 +1682,47 @@ Y2_CHUNK = 16      # images a plain version takes at once at 608
 Y_ALT = 416        # a multi-scale size for Trainer._step_for
 
 
-def yolov2_608_train(gpu, dev, reset_counts, counts):
-    """Phases 26-28 (the module docstring): yolov2-608 training. Returns
-    the kernels line's entries for the pair's and the fused stem's
-    kernels at yolov2-608's training shapes."""
+def train_kernels_at(tag, net, stem_layers, chunk, seed, gpu, dev):
+    """The pair's kernels (3 -> 32 at ``net``, B=128) and F2, B1 and B2 at
+    the fused-stem pairs ``stem_layers`` ((layer, H, C), channels-last as
+    the conv writes them, with the batch's own statistics) against their
+    plain versions, the plain versions ``chunk`` images at a time (twice
+    that after layer 0); fwdstats and bwdg twice more, bit-equal. Each
+    kernel's time from a CUDA graph in turns with its plain version on
+    the whole batch, beside its bound (fwdstats beside cuDNN's F.conv2d
+    alone); F2, B1 and B2 summed over the pairs. Returns (times, bounds,
+    errs, library) under the kernels line's names."""
     import torch.nn.functional as F
-    from sr_object_detection_tpu_torch.graph.spec import parse_network_cfg
-    from sr_object_detection_tpu_torch.infer.engine import analytic_flops
-    from sr_object_detection_tpu_torch.io.weights import (
-        init_params, load_weights)
     from sr_object_detection_tpu_torch.kernels import fused_stem as FS
     from sr_object_detection_tpu_torch.kernels import phase_train as PT
-    from sr_object_detection_tpu_torch.models.zoo import yolov2
-    from sr_object_detection_tpu_torch.ops import conv as C
-    from sr_object_detection_tpu_torch.ops import pooling as P
-    from sr_object_detection_tpu_torch.train.trainer import Trainer
-    tag = f"yolov2-{Y_NET}"
-    bf16 = torch.bfloat16
-    GiB = 2 ** 30
-
-    # ---------------------------------------------------------- phase 26
-    # the pair (3 -> 32) at 608 and at 152 (W2 = 76, partial 8x8 pooled
-    # tiles), B=128, and F2/B1/B2 at the four fused-stem pairs, against
-    # their plain versions; each time from a CUDA graph in turns with
-    # its plain version, beside its bound
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    times, bounds, errs, plains, library = {}, {}, {}, {}, {}
+    times, bounds, errs, library = {}, {}, {}, {}
     conv0, tc0 = dict(PT.conv_kernels["fwdstats"]), dict(PT.bwdg_kernels)
-    pair_errs = {}
-    for h, chunk in ((Y_NET // 4, None), (Y_NET, Y2_CHUNK)):
-        case = train_case(26 + h, BATCH, h, 3, 32, dev)
-        e = check_train_kernels(PT, case, chunk=chunk)
-        pair_errs[h] = e
-        log(f"  pair 3->32 @{h} B={BATCH}: fwdstats, apply, bwdg == plain "
-            f"(max |err| {e}; W2 = {h // 2}: "
-            f"{'whole' if (h // 2) % 8 == 0 else 'partial'} 8x8 pooled "
-            f"tiles) ({time.perf_counter() - T0:.1f} s)")
-        if h != Y_NET:
-            del case
-            continue
-        x0, w0, dp0 = case["x"], case["w"], case["dp"]
-        sh0, sc0, b0 = case["shift"], case["scales"], case["biases"]
-        f1, f2 = (PT.fwdstats(x0, w0, sh0, sc0) for _ in range(2))
-        assert all(torch.equal(a, b) for a, b in zip(f1, f2))
-        z0, am0, st0 = f1
-        del f1, f2
-        n0 = BATCH * h * h
-        mean0, _, inv0 = PT._batch_stats(st0, sh0, n0)
-        bw = [PT.bwdg(x0, dp0, z0, am0, mean0, inv0, sc0, b0)
-              for _ in range(2)]
-        assert all(torch.equal(a, b) for a, b in zip(*bw))
-        del bw
+    case = train_case(seed + net, BATCH, net, 3, 32, dev)
+    e = check_train_kernels(PT, case, chunk=chunk)
+    log(f"  pair 3->32 @{net} B={BATCH}: fwdstats, apply, bwdg == plain "
+        f"(max |err| {e}; W2 = {net // 2}: "
+        f"{'whole' if (net // 2) % 8 == 0 else 'partial'} 8x8 pooled "
+        f"tiles) ({time.perf_counter() - T0:.1f} s)")
+    x0, w0, dp0 = case["x"], case["w"], case["dp"]
+    sh0, sc0, b0 = case["shift"], case["scales"], case["biases"]
+    f1, f2 = (PT.fwdstats(x0, w0, sh0, sc0) for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(f1, f2))
+    z0, am0, st0 = f1
+    del f1, f2
+    mean0, _, inv0 = PT._batch_stats(st0, sh0, BATCH * net * net)
+    bw = [PT.bwdg(x0, dp0, z0, am0, mean0, inv0, sc0, b0) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*bw))
+    del bw
+    # the check's and the two launches: fwdstats on the taps fold, bwdg
+    # on the tensor cores (the timing's graph captures count too)
     assert PT.conv_kernels["fwdstats"]["tensor_core_fold"] - conv0[
-        "tensor_core_fold"] == 4 and PT.conv_kernels["fwdstats"][
+        "tensor_core_fold"] == 3 and PT.conv_kernels["fwdstats"][
         "fp32_core"] == conv0["fp32_core"], PT.conv_kernels
-    assert PT.bwdg_kernels == {"tensor_core": tc0["tensor_core"] + 4,
+    assert PT.bwdg_kernels == {"tensor_core": tc0["tensor_core"] + 3,
                                "fp32_core": tc0["fp32_core"]}
-    # the pair's gradient against a float64 evaluation of the unfused
-    # chain's formulas: at 608 on 16 images (the float64 evaluation holds
-    # several 1.5 GB copies of the conv output), at 152 on all 128
-    grads = {}
-    for h, b in ((Y_NET, 16), (Y_NET // 4, BATCH)):
-        grads[h] = check_pair_gradient(
-            PT, C, P, pair_spec(h, 3, 32),
-            train_case(260 + h, b, h, 3, 32, dev, flat=False))
-        torch.cuda.empty_cache()
-    # times: fwdstats, apply and bwdg at 608 B=128
     x_bytes = 2 * x0.numel()
     pooled = z0.numel()
-    conv_ops = 2 * BATCH * Y_NET * Y_NET * 32 * 27
+    conv_ops = 2 * BATCH * net * net * 32 * 27
     name = "phase_train_fwdstats"
     times[name] = abba_graph(f"{tag} {name} 3->32 B={BATCH}",
                              lambda: PT.fwdstats(x0, w0, sh0, sc0),
@@ -1733,32 +1750,27 @@ def yolov2_608_train(gpu, dev, reset_counts, counts):
     bounds[name] = bound(
         x_bytes + 5 * pooled + 16 * 32
         + 4 * (2 * 32 + 27 * 32 + 27 + 27 * 27),
-        2 * BATCH * Y_NET * Y_NET * 27 * 27 + 2 * pooled * 27, "bf16")
+        2 * BATCH * net * net * 27 * 27 + 2 * pooled * 27, "bf16")
     for name in ("phase_train_fwdstats", "phase_train_apply",
                  "phase_train_bwdg"):
-        errs[name] = pair_errs[Y_NET][name[len("phase_train_"):]]
+        errs[name] = e[name[len("phase_train_"):]]
         log(f"bound {tag} {name}: {bounds[name][0]} ms by {bounds[name][1]}"
             f"; kernel {times[name][0] / bounds[name][0]:.2f}x [{gpu}]")
     log(f"time {tag} library F.conv2d bf16 (cuDNN, the conv alone) 3->32 "
         f"B={BATCH}: {library['phase_train_fwdstats']} ms [{gpu}]")
     del case, x0, w0, dp0, z0, am0
     torch.cuda.empty_cache()
-    # F2, B1 and B2 at the four fused-stem pairs' conv outputs, B=128,
-    # channels-last as the conv writes them; the plain versions 16 or 32
-    # images at a time for the check, the whole batch for the time
     stem_errs = {"f2": 0.0, "b1": 0.0, "b2": 0.0}
     # per kernel: kernel ms, plain ms, bound ms summed over the pairs, and
     # the largest pair's (bound, bound_by)
     fs = {n: [0.0, 0.0, 0.0, (0.0, "bytes")] for n in ("f2", "b1", "b2")}
-    # the fused-stem pairs (layer, H, C): layers 0, 2, 6 and 10
-    for li, h, c in ((0, Y_NET, 32), (2, Y_NET // 2, 64),
-                     (6, Y_NET // 4, 128), (10, Y_NET // 8, 256)):
-        scase = stem_case(2600 + li, BATCH, h, c, dev)
+    for li, h, c in stem_layers:
+        scase = stem_case(seed * 100 + li, BATCH, h, c, dev)
         paths0 = dict(FS.paths)
         y2 = scase["y"]
         past = images_past_2g(y2)
-        e = check_fused_stem_kernels(FS, scase, chunk=Y2_CHUNK if h == Y_NET
-                                     else 2 * Y2_CHUNK)
+        e = check_fused_stem_kernels(FS, scase, chunk=chunk if h == net
+                                     else 2 * chunk)
         stem_errs = {n: max(stem_errs[n], e[n]) for n in e}
         # the check's launches: F2 once, B1 twice, B2 once, row kernels
         assert {k: FS.paths[k] - paths0[k] for k in FS.paths} == {
@@ -1800,6 +1812,60 @@ def yolov2_608_train(gpu, dev, reset_counts, counts):
         times[name] = (k_ms, p_ms)
         bounds[name] = (b_ms, b_by)
         errs[name] = stem_errs[n]
+    return times, bounds, errs, library
+
+
+def yolov2_608_train(gpu, dev, reset_counts, counts):
+    """Phases 26-28 (the module docstring): yolov2-608 training. Returns
+    the kernels line's entries for the pair's and the fused stem's
+    kernels at yolov2-608's training shapes."""
+    from sr_object_detection_tpu_torch.graph.spec import parse_network_cfg
+    from sr_object_detection_tpu_torch.infer.engine import analytic_flops
+    from sr_object_detection_tpu_torch.io.weights import (
+        init_params, load_weights)
+    from sr_object_detection_tpu_torch.kernels import fused_stem as FS
+    from sr_object_detection_tpu_torch.kernels import phase_train as PT
+    from sr_object_detection_tpu_torch.models.zoo import yolov2
+    from sr_object_detection_tpu_torch.ops import conv as C
+    from sr_object_detection_tpu_torch.ops import pooling as P
+    from sr_object_detection_tpu_torch.train.trainer import Trainer
+    tag = f"yolov2-{Y_NET}"
+    bf16 = torch.bfloat16
+    GiB = 2 ** 30
+
+    # ---------------------------------------------------------- phase 26
+    # the pair (3 -> 32) at 608 and at 152 (W2 = 76, partial 8x8 pooled
+    # tiles), B=128, and F2/B1/B2 at the four fused-stem pairs, against
+    # their plain versions; each time from a CUDA graph in turns with
+    # its plain version, beside its bound
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    conv0, tc0 = dict(PT.conv_kernels["fwdstats"]), dict(PT.bwdg_kernels)
+    h = Y_NET // 4
+    e = check_train_kernels(PT, train_case(26 + h, BATCH, h, 3, 32, dev))
+    assert PT.conv_kernels["fwdstats"]["tensor_core_fold"] - conv0[
+        "tensor_core_fold"] == 1 and PT.conv_kernels["fwdstats"][
+        "fp32_core"] == conv0["fp32_core"], PT.conv_kernels
+    assert PT.bwdg_kernels == {"tensor_core": tc0["tensor_core"] + 1,
+                               "fp32_core": tc0["fp32_core"]}
+    log(f"  pair 3->32 @{h} B={BATCH}: fwdstats, apply, bwdg == plain "
+        f"(max |err| {e}; W2 = {h // 2}: partial 8x8 pooled tiles) "
+        f"({time.perf_counter() - T0:.1f} s)")
+    # the fused-stem pairs (layer, H, C): layers 0, 2, 6 and 10
+    times, bounds, errs, library = train_kernels_at(
+        tag, Y_NET, ((0, Y_NET, 32), (2, Y_NET // 2, 64),
+                     (6, Y_NET // 4, 128), (10, Y_NET // 8, 256)),
+        Y2_CHUNK, 26, gpu, dev)
+    # the pair's gradient against a float64 evaluation of the unfused
+    # chain's formulas: at 608 on 16 images (the float64 evaluation holds
+    # several 1.5 GB copies of the conv output), at 152 on all 128
+    grads = {}
+    for h, b in ((Y_NET, 16), (Y_NET // 4, BATCH)):
+        grads[h] = check_pair_gradient(
+            PT, C, P, pair_spec(h, 3, 32),
+            train_case(260 + h, b, h, 3, 32, dev, flat=False))
+        torch.cuda.empty_cache()
+    stem_errs = {n: errs[f"fused_stem_{n}"] for n in ("f2", "b1", "b2")}
     torch.cuda.synchronize()
     log(f"phase 26 ok: {tag} training kernels == plain: the pair 3->32 at "
         f"{Y_NET} and {Y_NET // 4} (W2 = {Y_NET // 8}) B={BATCH}, fwdstats "
@@ -2005,6 +2071,353 @@ def yolov2_608_train(gpu, dev, reset_counts, counts):
         "fused_stem_b2": "sr_object_detection_tpu/kernels/fused_stem.py:187"}
     shapes = {"phase_train": f"3->32 @{Y_NET} B={BATCH}",
               "fused_stem": f"layers 0, 2, 6, 10 B={BATCH}"}
+    return [{"name": f"{name} ({tag} training: "
+                     f"{shapes[name.rsplit('_', 1)[0]]})", "route": "cuda",
+             "source": "sr_object_detection_tpu_torch/csrc/"
+                       + ("phase_train.cu" if name.startswith("phase")
+                          else "fused_stem.cu"),
+             "replaces": replaces[name], "launches": launches_k[name],
+             "max_abs_err": errs[name], "ms": times[name][0],
+             "plain_ms": times[name][1], "bound_ms": bounds[name][0],
+             "bound_by": bounds[name][1],
+             "library_ms": library.get(name)}
+            for name in replaces]
+
+N9_LOSS_BATCH = 8  # the tree loss's card-against-CPU batch (phase 32)
+N9_AUG = dict(jitter=0.2, hue=0.1, saturation=1.5, exposure=1.5)  # the cfg's
+
+
+def tree_truth(rng, b, n_map, n_nodes):
+    """(b, 30, 5) truths for the WordTree loss: 1-4 boxes an item with
+    mapped class ids (< n_map), two on one cell in item 0, a zero row
+    before a truth the loss never reads in item 6, and classification-
+    only truths (x, y > 100000, a raw node id past the map) in items 2
+    and 5."""
+    t = np.zeros((b, 30, 5), np.float32)
+    for i in range(b):
+        for k in range(1 + i % 4):
+            t[i, k] = [rng.uniform(.05, .95), rng.uniform(.05, .95),
+                       rng.uniform(.05, .5), rng.uniform(.05, .5),
+                       rng.integers(0, n_map)]
+    t[0, 1, :2] = t[0, 0, :2] + 0.001
+    t[6, 4] = [0.5, 0.5, 0.2, 0.2, 7]
+    t[2, 1] = [999999] * 4 + [rng.integers(n_map, n_nodes)]
+    t[5, 0] = [999999] * 4 + [rng.integers(n_map, n_nodes)]
+    return t
+
+
+def yolo9000_416_train(gpu, dev, reset_counts, counts):
+    """Phases 32-35 (the module docstring): yolo9000-416 training from
+    disk. Returns the kernels line's entries for the pair's and the
+    fused stem's kernels at yolo9000-416's training shapes."""
+    from sr_object_detection_tpu_torch.config import read_map
+    from sr_object_detection_tpu_torch.data import augment as A
+    from sr_object_detection_tpu_torch.data import device_aug as DA
+    from sr_object_detection_tpu_torch.data.loader import DetectionLoader
+    from sr_object_detection_tpu_torch.data.packed import (
+        PackedDetectionLoader, pack_detection_dataset)
+    from sr_object_detection_tpu_torch.graph.compiler import resolve_trees
+    from sr_object_detection_tpu_torch.graph.spec import parse_network_cfg
+    from sr_object_detection_tpu_torch.infer.engine import analytic_flops
+    from sr_object_detection_tpu_torch.io.weights import (
+        init_params, load_weights)
+    from sr_object_detection_tpu_torch.kernels import fused_stem as FS
+    from sr_object_detection_tpu_torch.kernels import phase_train as PT
+    from sr_object_detection_tpu_torch.ops.image import resize_image_np
+    from sr_object_detection_tpu_torch.train import region_loss as RL
+    from sr_object_detection_tpu_torch.train.trainer import Trainer
+    tag = f"yolo9000-{N9}"
+    bf16 = torch.bfloat16
+    GiB = 2 ** 30
+    d, cfg, cmap, spec = yolo9000_files()
+    region = spec.layers[-1]
+    tree = RL.TreeInfo(resolve_trees(spec)[len(spec.layers) - 1])
+    class_map = read_map(str(cmap))
+
+    # ---------------------------------------------------------- phase 32
+    # the tree region loss on the card against the same loss on the CPU
+    # at full width, B=8, on a seeded head output
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(32)
+    f = region.coords + 1 + region.classes
+    g = torch.Generator().manual_seed(32)
+    raw = 2.0 * torch.randn((N9_LOSS_BATCH, region.h * region.w * region.n
+                             * f), generator=g)
+    truth = torch.from_numpy(tree_truth(rng, N9_LOSS_BATCH, len(class_map),
+                                        region.classes))
+    sent = [(i, int(truth[i, k, 4])) for i in range(N9_LOSS_BATCH)
+            for k in range(30) if truth[i, k, 0] > 100000]
+    loss_errs = {}
+    for classfix, thresh, seen in ((0, 0.6, 0), (2, 0.05, 20000)):
+        rspec = dataclasses.replace(region, classfix=classfix, thresh=thresh)
+        ca, cd, cs = RL.region_delta(raw, truth, seen, rspec, tree=tree,
+                                     class_map=class_map)
+        # the classification-only cell is a first maximum of objectness x
+        # path prob: the card may take it only if it is no near tie
+        acts = ca.reshape(N9_LOSS_BATCH, -1, f)
+        gaps = []
+        for i, c in sent:
+            path = torch.from_numpy(tree.chain[c][tree.chain_valid[c]])
+            score = acts[i, :, 4] * acts[i, :, 5:][:, path].prod(-1)
+            top = score.topk(2).values
+            gaps.append(float((top[0] - top[1]) / top[0]))
+        assert min(gaps) > 1e-5, gaps
+        torch.cuda.reset_peak_memory_stats()
+        ga, gd, gs = RL.region_delta(raw.to(dev), truth.to(dev), seen, rspec,
+                                     tree=tree, class_map=class_map)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / GiB
+        scale = cd.abs().max().item()
+        err = (gd.cpu() - cd).abs().max().item()
+        assert err <= 1e-5 * scale, (classfix, err, scale)
+        for k in cs:
+            a, b = float(gs[k]), float(cs[k])
+            assert abs(a - b) <= 1e-5 * max(1.0, abs(b)), (k, a, b)
+        d1 = gd.cpu().reshape(N9_LOSS_BATCH, -1, f)
+        for i, _ in sent:
+            assert not d1[i, :, :5].any()
+            assert int((d1[i, :, 5:].abs().sum(1) > 0).sum()) == 1
+        loss_errs[classfix] = err / scale
+        log(f"  {tag} tree region_delta classfix={classfix} B="
+            f"{N9_LOSS_BATCH}: card against CPU max |err| {err} "
+            f"({err / scale} of max |delta| {scale}); stats "
+            f"{ {k: round(float(v), 6) for k, v in gs.items()} }; "
+            f"classification-only items {sent}, top-2 score gaps "
+            f"{[f'{v:.3g}' for v in gaps]}; peak device memory "
+            f"{peak:.2f} GiB ({time.perf_counter() - T0:.1f} s)")
+        del ca, cd, ga, gd, acts, d1
+    golden_err = {name: check_train_golden(name, dev)
+                  for name in sorted(TREE_TRAIN_GOLDENS)}
+    log(f"phase 32 ok: {tag} tree region loss on the card within "
+        f"{loss_errs} of max |delta| of the CPU's (gate 1e-5), stats within "
+        f"1e-5; the float32 Trainer on CUDA reproduces "
+        f"{sorted(TREE_TRAIN_GOLDENS)} (weights 2e-4, max relative cost "
+        f"error {golden_err}) [{gpu}]")
+
+    # ---------------------------------------------------------- phase 33
+    # Trainer on yolo9000-416 at B=128 as one micro-batch (phase 27's
+    # rule), 3 steps a path, each path's launches, peak device memory,
+    # images/s and a profiled step with the loss's ranges
+    yspec = dataclasses.replace(spec, net=dataclasses.replace(
+        spec.net, batch=BATCH, subdivisions=1))
+    yparams = init_params(yspec, seed=0)
+    gx = torch.Generator(device=dev).manual_seed(33)
+    xy = torch.rand((BATCH, N9, N9, 3), generator=gx, device=dev)
+    ty = torch.from_numpy(tree_truth(rng, BATCH, len(class_map),
+                                     region.classes)).to(dev)
+    step_flops = 3 * analytic_flops(yspec)
+    pair1 = dict(phase_train_fwdstats=1, phase_train_apply=1,
+                 phase_train_bwdg=1)
+    paths = {"(d) bf16": ({}, {}),
+             "(a) bf16 + phase_train": (dict(phase_train=True), pair1),
+             "(b) bf16 + phase_train + fused_stem": (
+                 dict(phase_train=True, fused_stem=True),
+                 dict(pair1, fused_stem_f2=4, fused_stem_b1=4,
+                      fused_stem_b2=4))}
+    first, peaks, launches_p = {}, {}, {}
+    for name, (kw, per_step) in paths.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tr = Trainer(yspec, yparams, device=dev, compute_dtype=bf16, **kw)
+        reset_counts()
+        losses = [float(tr.step(xy, ty)["loss"]) for _ in range(3)]
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() / GiB
+        got, want = counts(**{k: 3 * v for k, v in per_step.items()})
+        assert got == want, (name, got)
+        assert FS.paths == {"f2_row": got["fused_stem_f2"],
+                            "b1_row": got["fused_stem_b1"],
+                            "b2_row": got["fused_stem_b2"], "f2": 0,
+                            "b1": 0, "b2": 0}, (name, FS.paths)
+        assert not any(c["fp32_core"] for c in PT.conv_kernels.values())
+        assert PT.bwdg_kernels["fp32_core"] == 0
+        assert all(np.isfinite(losses)), (name, losses)
+        first[name] = losses[0]
+        ref = first["(d) bf16"]
+        assert abs(losses[0] - ref) <= 0.03 * abs(ref) + 0.05, (
+            name, losses[0], ref)
+        launches_p[name] = got
+        log(f"  Trainer {tag} {name} B={BATCH}, 3 steps: losses {losses}; "
+            f"launches {dict((k, v) for k, v in got.items() if v)}; peak "
+            f"device memory {peaks[name]:.2f} GiB "
+            f"({time.perf_counter() - T0:.1f} s)")
+        ips = step_rate(tr, xy, ty, 3)
+        log(f"time Trainer.step {tag} {name} B={BATCH}: {ips} images/s, "
+            f"{ips * step_flops / 1e12} TFLOP/s, MFU "
+            f"{ips * step_flops / PEAK_OPS_S['bf16']} of the bf16 dense "
+            f"peak [{gpu}]")
+        seen = profile(f"Trainer.step {tag} {name} B={BATCH}, per step",
+                       lambda: tr.step(xy, ty), 1, gpu, top=8,
+                       ranges=("region_loss", "grouped_softmax"))
+        if "fused_stem" in name:
+            assert_fused_stem_rows(name, seen)
+        if "phase_train" in name:
+            assert_bwdg_tensor_core(name, seen)
+        del tr
+    del xy, ty
+    torch.cuda.empty_cache()
+    log(f"phase 33 ok: {tag} Trainer B={BATCH} (the tree loss, the map, "
+        f"classification-only truths), paths (d), (a), (b) 3 steps each "
+        f"with their launch counts a step; first losses within "
+        f"0.03*|loss| + 0.05 of (d)'s {first['(d) bf16']}; peak device "
+        f"memory by path { {k: round(v, 2) for k, v in peaks.items()} } "
+        f"GiB [{gpu}]")
+
+    # ---------------------------------------------------------- phase 34
+    # the pair and F2/B1/B2 at yolo9000-416's training shapes: the pair
+    # 3 -> 32 @416, the fused stem at the layers Network.fusable picks
+    stem_layers = ((0, N9, 32), (2, N9 // 2, 64), (6, N9 // 4, 128),
+                   (10, N9 // 8, 256), (16, N9 // 16, 512))
+    times, bounds, errs, library = train_kernels_at(
+        tag, N9, stem_layers, 32, 34, gpu, dev)
+    log(f"phase 34 ok: {tag} training kernels == plain: the pair 3->32 at "
+        f"{N9} B={BATCH} (fwdstats on the taps fold, bwdg on the tensor "
+        f"cores, two launches of each bit-equal), F2, B1, B2 at layers "
+        f"{[l for l, _, _ in stem_layers]} on the row kernels (max |err| "
+        f"{ {k: v for k, v in errs.items()} }) [{gpu}]")
+
+    # ---------------------------------------------------------- phase 35
+    # the data path: device augmentation against the host pipeline, its
+    # rate at B=128 @416 from 500x375 u8 frames; the packed loader's
+    # rates; the CLI from a packed set; the thread and process decoders
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(35)
+    frames = [rng.integers(0, 256, (375, 500, 3), dtype=np.uint8)
+              for _ in range(BATCH)]
+    params = [DA.draw_params(rng, 375, 500, **N9_AUG)[0] for _ in frames]
+    aug = DA.DeviceAugmenter(N9, N9, device=dev)
+    canvas, cols = DA.stack_batch(aug, frames, params)
+    out = aug(canvas, cols).cpu().numpy()
+    aug_err = 0.0
+    for b in range(8):
+        p = params[b]
+        want = resize_image_np(A.crop_image(
+            frames[b].astype(np.float32) / 255.0, p["pleft"], p["ptop"],
+            p["swidth"], p["sheight"]), N9, N9)
+        if p["flip"]:
+            want = A.flip_horizontal(want)
+        if p["do_distort"]:
+            want = A.distort_image(want, p["dhue"], p["dsat"], p["dexp"])
+        aug_err = max(aug_err, float(np.abs(out[b] - want).max()))
+    assert aug_err <= 2e-6, aug_err
+    canvas_d, cols_d = aug.upload(canvas, cols)
+    dev_ms = cuda_ms(lambda: DA.augment_batch(canvas_d, cols_d), 10, 2)
+    bf_ms = cuda_ms(lambda: DA.augment_batch(canvas_d, cols_d,
+                                             out_dtype=bf16), 10, 2)
+    up_ms = cuda_ms(lambda: aug(canvas, cols), 5, 1)
+    log(f"time DeviceAugmenter B={BATCH} {N9}x{N9} from 500x375 u8: "
+        f"{dev_ms} ms on the device ({BATCH / dev_ms * 1e3} images/s; bf16 "
+        f"out {bf_ms} ms, {BATCH / bf_ms * 1e3} images/s); with the "
+        f"canvas's upload from the host {up_ms} ms "
+        f"({BATCH / up_ms * 1e3} images/s) [{gpu}]")
+    del canvas_d, cols_d, out, frames
+    # the packed loader over a packed set written from a seed
+    lst = write_ppm_dataset(WORK / "y9k-synth", 2 * BATCH, classes=80,
+                            seed=35)
+    prefix = str(WORK / "y9k-packed")
+    t0 = time.perf_counter()
+    pack_detection_dataset(lst, prefix, store_w=448, store_h=448, quiet=True)
+    pack_s = time.perf_counter() - t0
+    kw = dict(w=N9, h=N9, batch=BATCH, device=dev, out_dtype=bf16, **N9_AUG)
+    host = PackedDetectionLoader(prefix, **kw)
+    x, t = host.next_batch()
+    torch.cuda.synchronize()
+    assert x.shape == (BATCH, N9, N9, 3) and x.dtype == bf16 and x.is_cuda
+    assert 0 <= float(x.min()) and float(x.max()) <= 1 and (
+        t[:, 0, 2] > 0).any()
+    host._pending.result()          # the prefetch thread idle from here
+    t0 = time.perf_counter()
+    for _ in range(5):
+        host._host_batch_cpu()
+    host_bps = 5 / (time.perf_counter() - t0)
+    host.close()
+    loader = PackedDetectionLoader(prefix, **kw)
+    loader.next_batch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        x, _ = loader.next_batch()
+    torch.cuda.synchronize()
+    card_bps = 5 / (time.perf_counter() - t0)
+    loader.close()
+    del x
+    log(f"time PackedDetectionLoader B={BATCH} {N9}x{N9} from 448x448 "
+        f"records (packed {2 * BATCH} 500x375 PPMs in {pack_s:.2f} s): host "
+        f"side alone (_host_batch_cpu) {host_bps} batches/s "
+        f"({host_bps * BATCH} images/s); to the card, bf16 "
+        f"{card_bps} batches/s ({card_bps * BATCH} images/s) [{gpu}]")
+    # the thread and the process decoders, one batch each on the same
+    # frames and seed: equal batches
+    batches, dec_s = {}, {}
+    for decoder in ("thread", "process"):
+        t0 = time.perf_counter()
+        ld = DetectionLoader(lst, w=N9, h=N9, batch=32, classes=80, seed=35,
+                             workers=4, device_augment=True, decoder=decoder,
+                             device=dev, **N9_AUG)
+        batches[decoder] = ld.next_batch()
+        torch.cuda.synchronize()
+        dec_s[decoder] = time.perf_counter() - t0
+        ld.close()
+    assert torch.equal(batches["thread"][0], batches["process"][0])
+    np.testing.assert_array_equal(batches["thread"][1],
+                                  batches["process"][1])
+    log(f"  DetectionLoader device_augment, 32 frames: the thread and the "
+        f"process decoders give equal batches; first batch "
+        f"{ {k: round(v, 2) for k, v in dec_s.items()} } s (the process "
+        f"pool's start included) [{gpu}]")
+    del batches
+    # `cli detector train -packed -device-aug -bf16` on the yolo9000 cfg
+    # at batch=64, subdivisions=8: 2 iterations from the packed set
+    ycfg = d / "yolo9000-train.cfg"
+    ycfg.write_text(train_cfg_text(cfg.read_text(), batch=64,
+                                   subdivisions=8, max_batches=2))
+    backup = WORK / "backup-yolo9000"
+    data_cfg = WORK / "y9k-synth.data"
+    data_cfg.write_text(f"classes=80\ntrain={lst}\nbackup={backup}\n")
+    final = backup / f"{ycfg.stem}_final.weights"
+    final.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "sr_object_detection_tpu_torch.apps.cli",
+         "detector", "train", str(data_cfg), str(ycfg), "-packed", prefix,
+         "-device-aug", "-bf16"], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    iters = [l for l in res.stdout.splitlines()
+             if l.split(":")[0] in ("1", "2")]
+    assert len(iters) == 2, res.stdout[-2000:]
+    assert all(np.isfinite(float(l.split()[1].rstrip(","))) for l in iters)
+    got_w, seen_w = load_weights(parse_network_cfg(str(ycfg)), str(final))
+    assert seen_w == 2 * 64
+    assert not np.allclose(got_w[0]["rolling_mean"],
+                           yparams[0]["rolling_mean"])
+    log(f"phase 35 ok: DeviceAugmenter on the card within {aug_err} of the "
+        f"host pipeline (gate 2e-6); packed loader, decoders; cli detector "
+        f"train -packed -device-aug -bf16 on {ycfg.name} (batch=64, "
+        f"subdivisions=8) ran 2 iterations in "
+        f"{time.perf_counter() - t0:.1f} s ({' | '.join(iters)}); "
+        f"{final.name} loads, seen {seen_w}, layer 0's rolling statistics "
+        f"moved [{gpu}]")
+
+    launches_k = {
+        **{k: launches_p["(a) bf16 + phase_train"][k]
+           for k in ("phase_train_fwdstats", "phase_train_apply",
+                     "phase_train_bwdg")},
+        **{k: launches_p["(b) bf16 + phase_train + fused_stem"][k]
+           for k in ("fused_stem_f2", "fused_stem_b1", "fused_stem_b2")}}
+    replaces = {
+        "phase_train_fwdstats":
+            "sr_object_detection_tpu/kernels/phase_train.py:209",
+        "phase_train_apply":
+            "sr_object_detection_tpu/kernels/phase_train.py:722",
+        "phase_train_bwdg":
+            "sr_object_detection_tpu/kernels/phase_train.py:209",
+        "fused_stem_f2": "sr_object_detection_tpu/kernels/fused_stem.py:135",
+        "fused_stem_b1": "sr_object_detection_tpu/kernels/fused_stem.py:170",
+        "fused_stem_b2": "sr_object_detection_tpu/kernels/fused_stem.py:187"}
+    shapes = {"phase_train": f"3->32 @{N9} B={BATCH}",
+              "fused_stem": f"layers 0, 2, 6, 10, 16 B={BATCH}"}
     return [{"name": f"{name} ({tag} training: "
                      f"{shapes[name.rsplit('_', 1)[0]]})", "route": "cuda",
              "source": "sr_object_detection_tpu_torch/csrc/"
@@ -3189,6 +3602,13 @@ def main() -> int:
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
     yolo9000_kernels = yolo9000_416(gpu, dev, reset_counts, counts)
 
+    # --------------------------------------------------- phases 32-35
+    torch.cuda.empty_cache()
+    log(f"  device memory before yolo9000-416 training: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    yolo9000_train_kernels = yolo9000_416_train(gpu, dev, reset_counts,
+                                                counts)
+
     replaces = {
         "nms_per_class": "sr_object_detection_tpu/kernels/nms_pallas.py:29",
         "stem_pair": "sr_object_detection_tpu/kernels/b1_stem.py:82",
@@ -3253,7 +3673,7 @@ def main() -> int:
          # backward, the recomputing BN-backward passes or the fused
          # BN/leaky/pool passes
          "library_ms": library.get(name)}
-        for name in replaces] + yolo_train_kernels
+        for name in replaces] + yolo_train_kernels + yolo9000_train_kernels
     log(json.dumps({"yolov2_608_kernels": yolo_kernels}))
     log(json.dumps({"yolo9000_416_kernels": yolo9000_kernels}))
     log(gpu)

@@ -10,7 +10,8 @@ cmd_speed, cmd_ops; src_yolo2/darknet.c:98-131,366-499 surface):
       [-batch N] [-int8 [-phase-stem] [-qhead]] [-cpu]
   python -m sr_object_detection_tpu_torch.apps.cli ops <cfg>
   python -m sr_object_detection_tpu_torch.apps.cli detector train <data>
-      <cfg> [weights] [-bf16] [-clear] [-resume ckpt] [-cpu]
+      <cfg> [weights] [-bf16] [-clear] [-resume ckpt] [-packed prefix]
+      [-device-aug] [-decoder thread|process] [-cpu]
 
 `detect`, `speed` and `detector` run on CUDA unless -cpu is given. The other
 subcommands come with ROADMAP queue 1, item 9. Flag parsing follows the

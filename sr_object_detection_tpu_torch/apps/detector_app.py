@@ -5,15 +5,22 @@ Counterpart of ``train_detector`` in
 src_yolo2/detector.c:25-168):
 
   detector train <data> <cfg> [weights] [-bf16] [-clear] [-resume ckpt]
+      [-packed prefix] [-device-aug] [-decoder thread|process]
 
 ``-bf16`` is the production training mode: bf16 compute with the fused
 leading pair (``kernels/phase_train.py``) where the layer fits. Training
 resizes every 10 batches (from batch 1) to one of 320..608 when the
 region layer has ``random=1``, and writes ``<base>_<N>.weights`` plus
 ``<base>.state.npz`` on the reference's cadence and
-``<base>_final.weights`` at the end. ``valid``/``recall``/``demo`` and
-``-packed``/``-device-aug``/``-decoder`` come with ROADMAP queue 1,
-items 8 and 9.
+``<base>_final.weights`` at the end.
+
+The input: ``-packed <prefix>`` trains from a packed record file
+(``data/packed.py``: a memory-map gather, augmentation on the device);
+otherwise the data cfg's image list is decoded, with ``-device-aug`` on
+the device's batched augmentation (``data/device_aug.py``) and with
+``-decoder process`` in spawned processes. Augmented batches on the
+device come in the trainer's compute dtype. ``valid``/``recall``/
+``demo`` come with ROADMAP queue 1, item 9.
 """
 
 from __future__ import annotations
@@ -38,13 +45,9 @@ def train_detector(data_cfg: str, cfg: str, weights: str | None,
     """train_detector (detector.c:25-168): prefetching loader,
     multi-scale every 10 batches when region.random, checkpoints."""
     from ..data.loader import DetectionLoader
+    from ..data.packed import PackedDetectionLoader
     from ..train.trainer import Trainer
 
-    for flag in ("-packed", "-device-aug", "-decoder"):
-        if flag in argv:
-            raise NotImplementedError(
-                f"detector train {flag} is not ported yet (ROADMAP queue 1, "
-                "item 8)")
     options = read_data_cfg(data_cfg)
     train_list = options.get("train", "data/train.list")
     backup_dir = options.get("backup", "backup")
@@ -60,9 +63,9 @@ def train_detector(data_cfg: str, cfg: str, weights: str | None,
     if weights:
         params, seen = load_weights(spec, weights)
     bf16 = find_arg(argv, "-bf16")
+    dtype = torch.bfloat16 if bf16 else None
     trainer = Trainer(spec, params=params, device=device,
-                      compute_dtype=torch.bfloat16 if bf16 else None,
-                      phase_train=bf16)
+                      compute_dtype=dtype, phase_train=bf16)
     clear = find_arg(argv, "-clear")
     if weights and not clear:
         trainer.state.seen = torch.tensor(int(seen), dtype=torch.int64)
@@ -72,10 +75,19 @@ def train_detector(data_cfg: str, cfg: str, weights: str | None,
 
     max_batches = spec.net.max_batches or 10000
     outer = trainer.outer_batch
-    loader = DetectionLoader(
-        train_list, w=spec.net.w, h=spec.net.h, batch=outer,
-        classes=classes, jitter=region.jitter, hue=spec.net.hue,
-        saturation=spec.net.saturation, exposure=spec.net.exposure)
+    device_aug = find_arg(argv, "-device-aug")
+    packed = find_value(argv, "-packed", None)
+    decoder = find_value(argv, "-decoder", "thread")
+    aug = dict(w=spec.net.w, h=spec.net.h, batch=outer, jitter=region.jitter,
+               hue=spec.net.hue, saturation=spec.net.saturation,
+               exposure=spec.net.exposure)
+    if packed:
+        loader = PackedDetectionLoader(packed, device=device,
+                                       out_dtype=dtype, **aug)
+    else:
+        loader = DetectionLoader(
+            train_list, classes=classes, device_augment=device_aug,
+            decoder=decoder, device=device, out_dtype=dtype, **aug)
     avg_loss = None
     rng = np.random.default_rng(7)
     try:

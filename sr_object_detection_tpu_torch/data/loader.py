@@ -1,20 +1,29 @@
-"""Host-side detection input pipeline.
+"""Detection input pipeline.
 
-Counterpart of the host path of ``sr_object_detection_tpu/data/loader.py``
-(the async analog of the reference's producer-thread loader,
-src_yolo2/data.c:664-798): a thread pool decodes and augments the next
-batch while the device trains on the current one. Images go through the
-port's numpy helpers (``ops/image.py``) and the verbatim copy of
+Counterpart of ``sr_object_detection_tpu/data/loader.py``'s detection
+loader (the async analog of the reference's producer-thread loader,
+src_yolo2/data.c:664-798): a pool decodes and augments the next batch
+while the device trains on the current one. Images go through the port's
+numpy helpers (``ops/image.py``) and the verbatim copy of
 ``data/augment.py``, so for the same seed the batches equal the JAX
 loader's.
+
+``device_augment=True``: the pool only decodes (uint8 frames and their
+labels); the loader draws each image's parameters on the host and the
+batch is augmented on the device (``data/device_aug.py``).
+``decoder="process"``: the pool is spawned worker processes, so the
+decode is not held by the interpreter lock; they run the module-level
+``_decode_sample`` or ``load_detection_sample`` and never touch CUDA.
+``process_index`` / ``process_count`` give this process's slice of the
+image list (get_data_part, data.c:1128); they default to one process.
 
 Truth layout matches the reference: (B, 30, 5) [x, y, w, h, id] relative
 (data.c:295-332); label paths derive from image paths via the
 find_replace chain (data.c:295-305).
 
-Not ported yet: ``device_augment=True`` and the packed loader (ROADMAP
-queue 1, item 8), the process-pool decoder (item 8), the per-process
-dataset sharding (item 11) and ``ClassificationLoader`` (item 10).
+Not ported yet: reading the process coordinates from
+``torch.distributed`` (ROADMAP queue 1, item 11) and
+``ClassificationLoader`` (item 10).
 """
 
 from __future__ import annotations
@@ -26,7 +35,7 @@ from typing import Iterator, Optional
 
 import numpy as np
 
-from ..ops.image import load_image_rgb, resize_image_np
+from ..ops.image import load_image_rgb, load_image_u8, resize_image_np
 from . import augment as A
 
 
@@ -104,29 +113,46 @@ def load_detection_sample(path: str, rng: np.random.Generator, *,
     return sized, truth
 
 
+def _decode_sample(p: str):
+    """Decode one frame to uint8 and read its labels (module-level, so it
+    pickles into the spawned decoder processes)."""
+    return load_image_u8(p), read_boxes(label_path_for(p))
+
+
+def shard(items, process_index: int, process_count: int):
+    """get_data_part's row arithmetic (data.c:1128): process p of n owns
+    items [N*p/n, N*(p+1)/n)."""
+    if process_count <= 1:
+        return items
+    n = len(items)
+    return items[n * process_index // process_count:
+                 n * (process_index + 1) // process_count]
+
+
 class DetectionLoader:
     """Prefetching detection batch loader (analog of load_data +
-    load_threads double-buffering, data.c:717-798 + detector.c:86-113)."""
+    load_threads double-buffering, data.c:717-798 + detector.c:86-113).
+
+    With ``device_augment`` the batches are tensors on ``device`` in
+    ``out_dtype`` (float32 by default; the trainer's compute dtype);
+    otherwise numpy float32 arrays."""
 
     def __init__(self, list_file_or_paths, *, w: int, h: int,
                  batch: int, classes: int, boxes: int = 30,
                  jitter: float = 0.2, hue: float = 0.1,
                  saturation: float = 1.5, exposure: float = 1.5,
                  augment: bool = True, seed: int = 0, workers: int = 8,
-                 device_augment: bool = False, decoder: str = "thread"):
-        if device_augment:
-            raise NotImplementedError(
-                "device augmentation is not ported yet (ROADMAP queue 1, "
-                "item 8)")
-        if decoder != "thread":
-            raise NotImplementedError(
-                f"decoder={decoder!r}: only the thread decoder is ported "
-                "(ROADMAP queue 1, item 8)")
+                 device_augment: bool = False, decoder: str = "thread",
+                 process_index: int = 0, process_count: int = 1,
+                 device="cuda", out_dtype=None):
+        if decoder not in ("thread", "process"):
+            raise ValueError(f"decoder={decoder!r}: 'thread' or 'process'")
         if isinstance(list_file_or_paths, (str, pathlib.Path)):
             with open(list_file_or_paths) as f:
                 self.paths = [l.strip() for l in f if l.strip()]
         else:
             self.paths = list(list_file_or_paths)
+        self.paths = shard(self.paths, process_index, process_count)
         if not self.paths:
             raise ValueError("empty image list")
         self.w, self.h = w, h
@@ -136,7 +162,18 @@ class DetectionLoader:
         self.aug = dict(jitter=jitter, hue=hue, saturation=saturation,
                         exposure=exposure, augment=augment)
         self.rng = np.random.default_rng(seed)
-        self.pool = cf.ThreadPoolExecutor(max_workers=workers)
+        if decoder == "process":
+            # spawn, not fork: the parent has threads (and maybe CUDA),
+            # and a forked child of such a process can deadlock
+            import multiprocessing
+            self.pool: cf.Executor = cf.ProcessPoolExecutor(
+                max_workers=min(workers, os.cpu_count() or 1),
+                mp_context=multiprocessing.get_context("spawn"))
+        else:
+            self.pool = cf.ThreadPoolExecutor(max_workers=workers)
+        self.device_augment = device_augment
+        self.device, self.out_dtype = device, out_dtype
+        self._augmenters: dict = {}
         self._pending: Optional[list] = None
         self._submit()
 
@@ -148,6 +185,10 @@ class DetectionLoader:
     def _submit(self):
         picks = [self.paths[self.rng.integers(0, len(self.paths))]
                  for _ in range(self.batch)]
+        if self.device_augment:
+            self._pending = [self.pool.submit(_decode_sample, p)
+                             for p in picks]
+            return
         seeds = self.rng.integers(0, 2**63, size=self.batch)
         w, h = self.w, self.h
         self._pending = [
@@ -157,12 +198,33 @@ class DetectionLoader:
             for p, s in zip(picks, seeds)]
 
     def next_batch(self):
-        """Returns (x NHWC float32, truth (B,30,5)); prefetches the next."""
+        """Returns (x NHWC, truth (B,30,5)); prefetches the next."""
         results = [f.result() for f in self._pending]
         self._submit()
+        if self.device_augment:
+            return self._device_batch(results)
         x = np.stack([r[0] for r in results])
         t = np.stack([r[1] for r in results])
         return x, t
+
+    def _device_batch(self, results):
+        """The decoded frames' parameters drawn on the host (each image's
+        draw, then its labels' shuffle, as the JAX loader draws them),
+        the batch augmented on the device."""
+        from . import device_aug as DA
+        key = (self.w, self.h)
+        if key not in self._augmenters:
+            self._augmenters[key] = DA.DeviceAugmenter(
+                self.w, self.h, device=self.device, out_dtype=self.out_dtype)
+        aug = self._augmenters[key]
+        params, truth = [], []
+        for im, labels in results:
+            p, xform = DA.draw_params(self.rng, *im.shape[:2], **self.aug)
+            params.append(p)
+            truth.append(DA.correct_truth(labels, self.rng, xform,
+                                          self.boxes))
+        canvas, cols = DA.stack_batch(aug, [r[0] for r in results], params)
+        return aug(canvas, cols), np.stack(truth)
 
     def close(self):
         self.pool.shutdown(wait=True, cancel_futures=True)
@@ -173,4 +235,4 @@ class DetectionLoader:
 
 
 __all__ = ["DetectionLoader", "load_detection_sample", "read_boxes",
-           "label_path_for"]
+           "label_path_for", "shard"]

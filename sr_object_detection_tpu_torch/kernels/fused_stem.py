@@ -104,12 +104,20 @@ def _dz(a, pos, dp):
                        0.0)
 
 
+def _like(t, y):
+    """t in y's memory format, as the kernels write their outputs: the
+    next layer's conv then sums in the order it would on the unfused
+    chain's tensors (the CPU library picks its order by memory format)."""
+    return t.contiguous(memory_format=(
+        torch.channels_last if _channels_last(y) else torch.contiguous_format))
+
+
 def f2_plain(y, mean, inv, scales, biases):
     """Plain version of F2: y (B,C,H,W) bf16 (H, W even) and four (C,)
-    float32 constants -> the pooled activation (B,C,H/2,W/2) bf16, max over
-    each window of bf16 leaky(bf16(bf16((y - mean) * inv * scale) +
-    bf16(bias)))."""
-    return _windows(y, mean, inv, scales, biases)[2].amax(-1)
+    float32 constants -> the pooled activation (B,C,H/2,W/2) bf16 in y's
+    memory format, max over each window of bf16 leaky(bf16(bf16((y -
+    mean) * inv * scale) + bf16(bias)))."""
+    return _like(_windows(y, mean, inv, scales, biases)[2].amax(-1), y)
 
 
 def b1_plain(y, dp, mean, inv, scales, biases):
@@ -124,13 +132,14 @@ def b1_plain(y, dp, mean, inv, scales, biases):
 
 def b2_plain(y, dp, mean, inv, scales, biases, c1, c2, c3):
     """Plain version of B2: the routing of :func:`b1_plain`, then the
-    cotangent of y, bf16(dz*c1 + (y - mean)*c2 + c3) (B,C,H,W) bf16."""
+    cotangent of y, bf16(dz*c1 + (y - mean)*c2 + c3) (B,C,H,W) bf16 in
+    y's memory format."""
     xm, _, a, pos = _windows(y, mean, inv, scales, biases)
     t = (_dz(a, pos, dp) * _ch(c1) + xm * _ch(c2) + _ch(c3)).to(
         torch.bfloat16)
     b, c, h, w = y.shape
-    return t.reshape(b, c, h // 2, w // 2, 2, 2).permute(
-        0, 1, 2, 4, 3, 5).reshape(b, c, h, w)
+    return _like(t.reshape(b, c, h // 2, w // 2, 2, 2).permute(
+        0, 1, 2, 4, 3, 5).reshape(b, c, h, w), y)
 
 
 # ------------------------------------------------------------ kernels

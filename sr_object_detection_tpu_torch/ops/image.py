@@ -2,7 +2,8 @@
 
 Counterpart of ``sr_object_detection_tpu/ops/image.py``. The numpy halves
 (``_resize_coeffs``, ``resize_image_np``, ``letterbox_image_np``,
-``_load_pnm``, ``load_image_rgb``) are copied as they are; ``resize_image``
+``_load_pnm``, ``load_image_rgb``, ``load_image_u8``) are copied as they
+are; ``resize_image``
 is the torch version the batch-1 engine runs on the device, with the tap
 tables computed on the host in numpy so that its indices match the host
 path exactly.
@@ -115,6 +116,19 @@ def load_image_rgb(path: str) -> np.ndarray:
         return _load_pnm(path)
 
 
+def load_image_u8(path: str) -> np.ndarray:
+    """Decode to HWC uint8 RGB (no /255) — the device-augmentation
+    canvas format (data/device_aug.py): the /255 happens on device so
+    the host->device copy moves 1 byte/px."""
+    try:
+        from PIL import Image  # type: ignore
+        with Image.open(path) as img:
+            return np.asarray(img.convert("RGB"), dtype=np.uint8)
+    except ImportError:
+        return (np.clip(_load_pnm(path), 0, 1) * 255 + 0.5).astype(
+            np.uint8)
+
+
 def _load_pnm(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         data = f.read()
@@ -145,5 +159,5 @@ def _load_pnm(path: str) -> np.ndarray:
 
 __all__ = [
     "resize_image_np", "resize_image", "letterbox_image_np",
-    "letterbox_dims", "load_image_rgb",
+    "letterbox_dims", "load_image_rgb", "load_image_u8",
 ]

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ..graph import spec as S
-from ..graph.compiler import Network, remat_divisor
+from ..graph.compiler import Network, remat_divisor, resolve_trees
 from ..io.convert import params_to_torch
 from ..io.weights import init_params
 from .region_loss import make_region_loss
@@ -101,7 +101,8 @@ def make_train_step(spec: S.NetworkSpec, *, mesh=None, compute_dtype=None,
     head_idx = _find_head(spec)
     head = spec.layers[head_idx]
     _, loss_with_stats = make_region_loss(
-        head, class_map=_class_map(spec, head))
+        head, tree=resolve_trees(spec).get(head_idx),
+        class_map=_class_map(spec, head))
     micro, subdivs = net.batch, net.subdivisions
     holder = {}
 

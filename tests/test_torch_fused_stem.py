@@ -252,8 +252,9 @@ def test_fused_stem_in_network_train_forward():
     for i in (9, 13):
         np.testing.assert_array_equal(af["outputs"][i].float().numpy(),
                                       ap["outputs"][i].float().numpy())
-    # the same statistics code; the fused zone's conv inputs sit in
-    # another memory format, so its float32 sums run in another order
+    # the same statistics code on the same conv outputs: the plain F2
+    # writes y's memory format, as the kernel does, so every conv of the
+    # fused network sums in the unfused network's order
     for k in ("rolling_mean", "rolling_variance"):
         for i in (0, 2, 8):
             np.testing.assert_allclose(af["bn"][i][k].numpy(),

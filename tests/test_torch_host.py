@@ -32,11 +32,35 @@ COPIES = ["config.py", "graph/spec.py", "io/weights.py", "models/zoo.py",
           "eval/voc.py", "data/augment.py", "io/tree.py"]
 
 
+# functions copied as they are into modules that also hold torch code
+FUNCTION_COPIES = [
+    ("ops/image.py", n) for n in ("_resize_coeffs", "resize_image_np",
+                                  "letterbox_dims", "letterbox_image_np",
+                                  "load_image_u8", "_load_pnm")] + [
+    ("data/loader.py", "label_path_for")]
+
+
 @pytest.mark.parametrize("rel", COPIES)
 def test_copy_is_verbatim(rel):
     orig = (REPO / "sr_object_detection_tpu" / rel).read_bytes()
     copy = (REPO / "sr_object_detection_tpu_torch" / rel).read_bytes()
     assert copy == orig, f"{rel} drifted from the JAX package's original"
+
+
+def _function_source(path, name):
+    import ast
+    text = path.read_text()
+    node = next(n for n in ast.parse(text).body
+                if isinstance(n, ast.FunctionDef) and n.name == name)
+    return ast.get_source_segment(text, node)
+
+
+@pytest.mark.parametrize("rel,name", FUNCTION_COPIES)
+def test_function_copy_is_verbatim(rel, name):
+    orig = _function_source(REPO / "sr_object_detection_tpu" / rel, name)
+    copy = _function_source(REPO / "sr_object_detection_tpu_torch" / rel,
+                            name)
+    assert copy == orig, f"{rel}:{name} drifted from the JAX original"
 
 
 def _spec_fields(spec):

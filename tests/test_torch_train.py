@@ -105,9 +105,21 @@ def test_region_padding_rows_cannot_clobber_cell0():
 
 
 def test_region_loss_rejects_tree_head():
-    _, ts, _, _ = _region_case(0)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        TRL.make_region_loss(ts, tree=object())
+    """A tree whose node count is not the head's class count is refused;
+    one that matches builds the tree loss (tests/test_torch_tree_train.py
+    holds it to JAX's)."""
+    import types
+    _, ts, raw, truth = _region_case(0)
+    tree = types.SimpleNamespace(parent=np.array([-1, -1, 0, 0, 1]),
+                                 group=np.array([0, 0, 1, 1, 2]))
+    with pytest.raises(ValueError, match="5 nodes"):
+        TRL.make_region_loss(ts, tree=tree)
+    tree.parent, tree.group = tree.parent[:4], tree.group[:4]
+    _, loss_ws = TRL.make_region_loss(ts, tree=tree)
+    cost, _ = loss_ws(torch.from_numpy(raw), torch.from_numpy(truth), 0)
+    flat, _ = TRL.make_region_loss(ts)[1](torch.from_numpy(raw),
+                                          torch.from_numpy(truth), 0)
+    assert torch.isfinite(cost) and float(cost) != float(flat)
 
 
 def test_sgd_update_matches_jax():

@@ -109,8 +109,18 @@ def test_detection_loader_matches_jax(tmp_path, augment):
     finally:
         tl.close()
         jl.pool.shutdown(wait=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        DetectionLoader(lst, device_augment=True, **kw)
+    # the device-augmenting loader draws from the same stream: the same
+    # truths as the JAX one's (tests/test_torch_data.py holds its frames)
+    tl = DetectionLoader(lst, device_augment=True, device="cpu", **kw)
+    jl = JLoader(lst, device_augment=True, **kw)
+    try:
+        xt, tt = tl.next_batch()
+        _, tj = jl.next_batch()
+        assert isinstance(xt, torch.Tensor) and xt.shape == (4, 32, 32, 3)
+        np.testing.assert_array_equal(tt, tj)
+    finally:
+        tl.close()
+        jl.pool.shutdown(wait=True)
 
 
 def test_cli_detector_train_on_cpu(tmp_path, capsys):
@@ -135,6 +145,7 @@ def test_cli_detector_train_on_cpu(tmp_path, capsys):
     assert seen == 4
     init = init_params(spec, seed=0)
     assert not np.allclose(params[0]["weights"], init[0]["weights"])
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # -packed reads <prefix>.json (tests/test_torch_data.py trains on one)
+    with pytest.raises(FileNotFoundError, match="missing.json"):
         TCLI.main(["detector", "train", str(data), str(cfg), "-cpu",
-                   "-packed", "x"])
+                   "-packed", str(tmp_path / "missing")])

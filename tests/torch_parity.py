@@ -689,12 +689,18 @@ def check_fused_op(FS, C, P, case):
 TRAIN_GOLDENS = {"train_region_nobn": 1e-4, "train_region_bn": 2e-4,
                  "train_region_classfix2": 1e-4,
                  "train_region_bn_subdiv": 2e-4}
+# the WordTree region loss's goldens (tests/test_train_parity.py's tolerance)
+TREE_TRAIN_GOLDENS = {"train_tree_region": 2e-4,
+                      "train_tree_region_classfix2": 2e-4}
 
 
 def check_train_golden(name, device):
     """The port's float32 Trainer against a C-oracle training golden on
     ``device``: the weights after N SGD steps at the golden's tolerance,
-    the cost trajectory at 1e-3. Returns the max relative cost error."""
+    the cost trajectory at 1e-3. A tree golden's ``tree`` bytes are
+    written to a temporary file that its cfg's ``{TREE}`` names, as
+    tests/test_train_parity.py does. Returns the max relative cost
+    error."""
     import pathlib
     import tempfile
     from sr_object_detection_tpu_torch.config import parse_cfg_text
@@ -703,15 +709,21 @@ def check_train_golden(name, device):
     from sr_object_detection_tpu_torch.io.weights import (init_params,
                                                           load_weights)
     from sr_object_detection_tpu_torch.train.trainer import Trainer
-    wtol = TRAIN_GOLDENS[name]
+    wtol = {**TRAIN_GOLDENS, **TREE_TRAIN_GOLDENS}[name]
     g = np.load(pathlib.Path(__file__).parent / "golden" / f"{name}.npz")
-    net = S.build_network_spec(parse_cfg_text(bytes(g["cfg"]).decode()))
     steps = int(g["steps"])
     x = np.transpose(g["x_chw"], (0, 2, 3, 1)).copy()
     truth = g["truth"].astype(np.float32)
-    trainer = Trainer(net, params=init_params(net, seed=int(g["seed"])),
-                      device=device)
-    costs = [float(trainer.step(x, truth)["loss"]) for _ in range(steps)]
+    with tempfile.TemporaryDirectory() as td:
+        cfg_text = bytes(g["cfg"]).decode()
+        if "tree" in g.files:
+            tree_path = pathlib.Path(td) / "golden.tree"
+            tree_path.write_bytes(bytes(g["tree"]))
+            cfg_text = cfg_text.replace("{TREE}", str(tree_path))
+        net = S.build_network_spec(parse_cfg_text(cfg_text))
+        trainer = Trainer(net, params=init_params(net, seed=int(g["seed"])),
+                          device=device)
+        costs = [float(trainer.step(x, truth)["loss"]) for _ in range(steps)]
     with tempfile.NamedTemporaryFile(suffix=".weights") as f:
         f.write(bytes(g["weights_after"]))
         f.flush()
