@@ -7,9 +7,10 @@ batch-128 serving in bf16 and int8, bf16 training at batch 128 with
 the fused pair, the two-pair chain and the fused stem, yolov2-608
 serving (route, reorg), yolov2-608 training at batch 128,
 yolo9000-416 serving (the WordTree head, the aligned and pre-split
-heads) and yolo9000-416 training from disk (the WordTree loss, device
-augmentation, the packed loader) — through the entry points a user
-calls, builds
+heads), yolo9000-416 training from disk (the WordTree loss, device
+augmentation, the packed loader), `detector valid` with exact NMS, the
+robot frame loop and the streaming demo — through the entry points a
+user calls, builds
 the hand-written CUDA kernels from ``sr_object_detection_tpu_torch/csrc``
 and holds each against its plain PyTorch version. Phases, in order; any failure ends the run with a
 non-zero status and no result line:
@@ -287,7 +288,30 @@ non-zero status and no result line:
      alone (_host_batch_cpu) and to the card (bf16); the thread and the
      process decoders' batches equal; `cli detector train -packed
      -device-aug -bf16` on the yolo9000 cfg at batch=64, subdivisions=8:
-     two iterations, a _final.weights that loads, seen 128.
+     two iterations, a _final.weights that loads, seen 128;
+ 36. the NMS kernel at exact NMS's widths (k = N, detector valid):
+     (C, k) = (20, 845), (80, 1805) and (9418, 507) on the candidates of
+     a valid frame at thresh .005 from tiny-yolo-voc-416's, yolov2-608's
+     and yolo9000-416's seeded weights, and with every rank live:
+     torch.equal to the plain version (live classes in chunks), two launches
+     bit-equal; each frame case's time from a CUDA graph in turns with
+     the plain version, beside its bound and the launch floor;
+ 37. `detector valid` through cli.main: the map_ab model over its seeded
+     PPMs on the card and with -cpu, the comp4 lines matched det for det
+     (match_dets' margins), the port's reval_voc mAP from the card's
+     files within 1e-3 of that from the -cpu run's files (two device
+     paths) and of voc_map in the same run (reval_voc reads its files
+     back; both run the same mean_ap); the three nets over
+     8, 2 and 2 seeded PPMs, counted: one NMS launch an image;
+ 38. the robot loop: `cli robot run` at tiny-yolo-voc-416 (seeded
+     weights) on 30 synthetic 512x424 RGB-D frames, -detect-every 2,
+     -ipc, -faces, with the native library built (its build time):
+     15 NMS launches, every frame's sentence, faces and class ids equal
+     to the -cpu run's, detections matched; the loop's per-frame wall
+     time (median, p99) and one torch.profiler window (idle share);
+ 39. `detector demo -frames` over 10 seeded 640x480 PPMs with -outdir on
+     the card and with -cpu: detections matched, 10 NMS launches, the
+     CLI's FPS lines.
 
 The last lines are one JSON object with the four kernels at yolov2-608's
 shapes (the keys of the kernels line; their launches counted in phase
@@ -299,7 +323,10 @@ the pair's and the fused stem's kernels at yolov2-608's training shapes
 launches counted in phase 27's paths (a) and (c)), and under names that
 end in "(yolo9000-416 training: ...)" the same kernels at yolo9000-416's
 training shapes (phase 34's times, the fused stem's summed over its five
-pairs; launches from phase 33's paths (a) and (b)) (time, plain time,
+pairs; launches from phase 33's paths (a) and (b)), under names that
+begin "nms_per_class (detector valid, exact NMS: ...)" the NMS kernel at
+the three exact widths (phase 36's times; launches from phase 37's
+counted valid runs) (time, plain time,
 bound, launches and library call of each;
 ``stem_pair`` is the batch-1 stem on the tensor-core conv tile of
 csrc/phase_train.cu (``stem_fold_kernel`` at pair 1, ``stem_tc_kernel``
@@ -321,7 +348,9 @@ too), and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import pathlib
 import re
@@ -2431,6 +2460,332 @@ def yolo9000_416_train(gpu, dev, reset_counts, counts):
             for name in replaces]
 
 
+APPS_NMS = 0.45     # detector valid's NMS threshold (detector.c:246)
+APPS_THRESH = 0.005  # detector valid's prob threshold (detector.c:245)
+
+
+def seeded_net(name):
+    """(cfg, weights, spec) of one of the three nets with the seeded
+    weights the serving phases use (phases 3, 22 and 29: random weights
+    from seed 0, BN statistics and biases randomized, the head scaled),
+    written under WORK where a phase has not written them already."""
+    from sr_object_detection_tpu_torch.graph.spec import parse_network_cfg
+    from sr_object_detection_tpu_torch.io.weights import (
+        init_params, save_weights)
+    WORK.mkdir(parents=True, exist_ok=True)
+    if name == "yolo9000":
+        d, cfg, _, spec = yolo9000_files()
+        weights, gain = d / "yolo9000.weights", N9_HEAD_GAIN
+    else:
+        text = {"tiny": GOLDEN / "detect_tiny_yolo.npz",
+                "yolov2": GOLDEN / "yolo_coco_416.npz"}[name]
+        text = bytes(np.load(text)["cfg"]).decode()
+        size = NET if name == "tiny" else Y_NET
+        cfg = WORK / ("tiny-yolo-voc.cfg" if name == "tiny"
+                      else f"yolo-{size}.cfg")
+        cfg.write_text(text.replace("width=416", f"width={size}")
+                       .replace("height=416", f"height={size}"))
+        spec = parse_network_cfg(str(cfg))
+        weights = WORK / ("random.weights" if name == "tiny"
+                          else f"yolo-{size}.weights")
+        gain = 8.0 if name == "tiny" else 16.0
+    if not weights.exists():
+        save_weights(spec, random_bn(init_params(spec, seed=0), 1,
+                                     head_gain=gain), str(weights))
+    return str(cfg), str(weights), spec
+
+
+def quiet(fn, *args):
+    """fn(*args) with its standard output kept: (result, the text)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = fn(*args)
+    return res, buf.getvalue()
+
+
+def comp4_dets(outdir):
+    """comp4 files -> [((image id, class file), prob, corners)]."""
+    out = []
+    for f in sorted(pathlib.Path(outdir).glob("comp4_det_test_*.txt")):
+        for line in f.read_text().splitlines():
+            p = line.split()
+            out.append(((p[0], f.name), float(p[1]),
+                        np.asarray(p[2:6], np.float64)))
+    return out
+
+
+def detector_apps(gpu, dev, reset_counts, counts):
+    """Phases 36-39 (the module docstring): exact NMS at k = N, `detector
+    valid`, the robot loop and `detector demo`. Returns the kernels line's
+    entries of the NMS kernel at the exact widths."""
+    import resource
+    from sr_object_detection_tpu_torch.apps import cli
+    from sr_object_detection_tpu_torch.eval import reval_voc
+    from sr_object_detection_tpu_torch.infer.detector import Detector
+    from sr_object_detection_tpu_torch.kernels import nms as NMS
+    from sr_object_detection_tpu_torch.ops import boxes as B
+    from sr_object_detection_tpu_torch.robot import native
+    from sr_object_detection_tpu_torch.robot.frame_source import (
+        SyntheticRGBDSource)
+    from sr_object_detection_tpu_torch.robot.pipeline import RobotPerception
+    from tools.synth_dataset import N_CLASSES, make_dataset
+
+    # ---------------------------------------------------------- phase 36
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(36)
+    nets = {"tiny": f"tiny-yolo-voc-{NET}", "yolov2": f"yolov2-{Y_NET}",
+            "yolo9000": f"yolo9000-{N9}"}
+    files = {name: seeded_net(name) for name in nets}
+    valid_dir = WORK / "valid-frames"
+    valid_list = write_ppm_dataset(valid_dir, 8, seed=36)
+    valid_paths = open(valid_list).read().split()
+    from sr_object_detection_tpu_torch.ops.image import load_image_rgb
+    frame = load_image_rgb(valid_paths[0])
+    times, bounds, errs, shapes = {}, {}, {}, {}
+    for name, tag in nets.items():
+        cfg, weights, spec = files[name]
+        det = Detector(cfg, weights, device=dev)
+        fb, fp = det.predict_batch(det.preprocess(frame)[None],
+                                   thresh=APPS_THRESH)
+        n, c = fp.shape[1:]
+        tb, tp, _ = B.topk_candidates(fb[0], fp[0], n)
+        gen = torch.Generator(device=dev).manual_seed(36)
+        live = torch.sort(torch.rand((c, n), generator=gen, device=dev)
+                          + 0.01, dim=1, descending=True).values
+        for case, p in (("a valid frame's candidates", tp),
+                        ("every rank live", live)):
+            got = NMS.nms_per_class(tb, p, APPS_NMS)
+            again = NMS.nms_per_class(tb, p, APPS_NMS)
+            ref = B.nms_per_class_plain(tb, p, APPS_NMS)
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), (
+                tag, case)
+            assert torch.equal(got.view(torch.int32),
+                               again.view(torch.int32)), (tag, case)
+            if p is tp:
+                errs[name] = (got - ref).abs().max().item()
+            log(f"  {tag} C={c} k={n}, {case}: {int((p > 0).sum())} live "
+                f"candidates in {int((p[:, 0] > 0).sum())} classes, "
+                f"{int((got > 0).sum())} kept; kernel torch.equal to the "
+                f"plain version, two launches bit-equal")
+        live_ms = graph_ms(lambda: NMS.nms_per_class(tb, live, APPS_NMS), 5)
+        log(f"time nms_per_class exact {tag} C={c} k={n}, every rank live, "
+            f"from a CUDA graph: {live_ms} ms; bound "
+            f"{nms_bound(tb, live)[0]} ms by {nms_bound(tb, live)[1]} "
+            f"[{gpu}]")
+        shapes[name] = (c, n)
+        # times: the kernel from a CUDA graph, in turns with the plain
+        # version (CUDA events; it reads the live classes back, so no
+        # graph), beside the bound and the launch floor
+        p1 = cuda_ms(lambda: B.nms_per_class_plain(tb, tp, APPS_NMS), 3, 1)
+        k1 = graph_ms(lambda: NMS.nms_per_class(tb, tp, APPS_NMS), 20)
+        k2 = graph_ms(lambda: NMS.nms_per_class(tb, tp, APPS_NMS), 20)
+        p2 = cuda_ms(lambda: B.nms_per_class_plain(tb, tp, APPS_NMS), 3, 1)
+        floor = graph_ms(lambda: NMS.empty_launch(c, n, dev), 20)
+        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        bounds[name] = nms_bound(tb, tp)
+        log(f"time nms_per_class exact {tag} C={c} k={n} (a valid frame's "
+            f"candidates): kernel from a CUDA graph {times[name][0]} ms "
+            f"({k1}, {k2}), plain {times[name][1]} ms ({p1}, {p2}); bound "
+            f"{bounds[name][0]} ms by {bounds[name][1]}; launch floor "
+            f"{floor} ms [{gpu}]")
+        del det, fb, fp, tb, tp, live
+        torch.cuda.empty_cache()
+    log(f"phase 36 ok: the NMS kernel at k = N torch.equal to the plain "
+        f"version at (C, k) = {list(shapes.values())} on valid "
+        f"frames' candidates and with every rank live [{gpu}]")
+
+    # ---------------------------------------------------------- phase 37
+    # the map_ab model over its seeded frames: comp4 files from the card
+    # and from the CPU, re-scored by the port's reval_voc against voc_map
+    g = np.load(GOLDEN / "map_ab.npz")
+    ab_list, gt = make_dataset(str(WORK / "map_ab"), int(g["n_images"]),
+                               int(g["seed"]))
+    ab_dir = pathlib.Path(ab_list).parent
+    (WORK / "map_ab.cfg").write_text(bytes(g["cfg"]).decode())
+    (WORK / "map_ab.weights").write_bytes(bytes(g["weights"]))
+    names = WORK / "map_ab.names"
+    names.write_text("".join(f"{c}\n" for c in range(N_CLASSES)))
+    ab_data = WORK / "map_ab.data"
+    ab_data.write_text(f"classes = {N_CLASSES}\nvalid = {ab_list}\n"
+                       f"names = {names}\n")
+    ab_thresh, ab_nms = float(g["thresh"]), float(g["nms"])
+    out = {}
+    for where, extra in (("card", []), ("cpu", ["-cpu"])):
+        out[where] = WORK / f"valid-map_ab-{where}"
+        t0 = time.perf_counter()
+        assert quiet(cli.main, ["detector", "valid", str(ab_data),
+                                str(WORK / "map_ab.cfg"),
+                                str(WORK / "map_ab.weights"), "-outdir",
+                                str(out[where]), "-thresh", str(ab_thresh),
+                                "-nms", str(ab_nms)] + extra)[0] == 0
+        log(f"  detector valid on map_ab ({where}): "
+            f"{time.perf_counter() - t0:.2f} s for "
+            f"{int(g['n_images'])} images")
+    got, want = comp4_dets(out["card"]), comp4_dets(out["cpu"])
+    n_lines = match_dets(got, want, ab_thresh, 1e-4)
+    m_reval = {}
+    for where in out:
+        m_reval[where], text = quiet(reval_voc.main, [
+            str(out[where]), "--classes", str(names), "--labels",
+            str(ab_dir), "--image-list", ab_list])
+        assert "Mean AP" in text
+    m_card, m_cpu = m_reval["card"], m_reval["cpu"]
+    m_ref = voc_map(Detector(str(WORK / "map_ab.cfg"),
+                             str(WORK / "map_ab.weights"), device=dev),
+                    open(ab_list).read().split(), gt, ab_thresh, ab_nms)
+    # card against CPU compares two device paths; card against voc_map
+    # runs the same mean_ap and NMS kernel, so it only shows that
+    # reval_voc reads its files back
+    assert m_card > 0.2 and abs(m_card - m_cpu) <= 1e-3, (m_card, m_cpu)
+    assert abs(m_card - m_ref) <= 1e-3, (m_card, m_ref)
+    log(f"  map_ab: {len(got)} comp4 lines from the card, {len(want)} from "
+        f"the CPU, {n_lines} matched det for det; reval_voc mAP from the "
+        f"card's files {m_card}, from the CPU's {m_cpu} (the device "
+        f"check); voc_map on the card {m_ref} (reval_voc reads its files)")
+    # the three nets over 8 (tiny) and 2 frames, counted: one NMS launch
+    # an image (yolo9000's 9,418 comp4 files need as many descriptors)
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if soft < N9_CLASSES + 256:
+        resource.setrlimit(resource.RLIMIT_NOFILE,
+                           (min(hard, 4 * N9_CLASSES), hard))
+    launches_valid = {}
+    for name, tag in nets.items():
+        cfg, weights, _ = files[name]
+        n_img = 8 if name == "tiny" else 2
+        lst = WORK / f"valid-{name}.list"
+        lst.write_text("\n".join(valid_paths[:n_img]) + "\n")
+        data = WORK / f"valid-{name}.data"
+        data.write_text(f"valid = {lst}\n")
+        reset_counts()
+        t0 = time.perf_counter()
+        assert quiet(cli.main, ["detector", "valid", str(data), cfg, weights,
+                                "-outdir", str(WORK / f"valid-{name}")])[
+            0] == 0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, want_l = counts(nms_per_class=n_img)
+        assert launches == want_l, (tag, launches)
+        launches_valid[name] = launches["nms_per_class"]
+        lines = sum(len(f.read_text().splitlines()) for f in
+                    (WORK / f"valid-{name}").glob("comp4_det_test_*.txt"))
+        log(f"  detector valid {tag}: {n_img} images, {lines} comp4 lines, "
+            f"NMS launches {launches['nms_per_class']}, "
+            f"{wall:.2f} s wall (Detector load included) [{gpu}]")
+    log(f"phase 37 ok: detector valid through cli.main; map_ab's card and "
+        f"CPU comp4 lines matched, the card's reval_voc mAP within 1e-3 of "
+        f"the CPU run's and of voc_map; "
+        f"one exact-NMS launch an image at the three nets [{gpu}]")
+
+    # ---------------------------------------------------------- phase 38
+    cfg, weights, _ = files["tiny"]
+    built = native._LIB_PATH.exists()
+    t0 = time.perf_counter()
+    native.lib()
+    log(f"  native library {native._LIB_PATH.relative_to(ROOT)}: "
+        f"{'found' if built else 'built'} and loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
+    runs = {}
+    for where, extra in (("card", []), ("cpu", ["-cpu"])):
+        ipc = WORK / f"robot-{where}.jsonl"
+        ipc.unlink(missing_ok=True)
+        reset_counts()
+        runs[where], text = quiet(cli.COMMANDS["robot"], [
+            "run", cfg, weights, "-frames", "30", "-detect-every", "2",
+            "-ipc", str(ipc), "-faces",
+            "-nl", str(WORK / f"robot-{where}.txt")] + extra)
+        torch.cuda.synchronize()
+        assert text.count("frame ") == 30, text[-2000:]
+        if where == "card":
+            launches, want_l = counts(nms_per_class=15)
+            assert launches == want_l, launches
+    n_dets = 0
+    for a, b in zip(runs["card"], runs["cpu"]):
+        assert a["sentence"] == b["sentence"], (a["sentence"], b["sentence"])
+        assert a["faces"] == b["faces"]
+        assert [d["class_id"] for d in a["detections"]] == [
+            d["class_id"] for d in b["detections"]]
+        n_dets += match_dets(*([(d["class_id"], d["prob"],
+                                 np.asarray(d["box"])) for d in r[
+                                     "detections"]] for r in (a, b)),
+                             0.24, 1e-4, require=False)
+    assert len(runs["card"]) == len(runs["cpu"]) == 30
+    # per-frame wall time of the loop on the card, then one profile
+    pipe = RobotPerception(Detector(cfg, weights, device=dev),
+                           detect_every=2, nl_path=str(WORK / "robot.txt"))
+    frames = list(SyntheticRGBDSource(n_frames=40))
+    walls = []
+    for f in frames[:30]:
+        t0 = time.perf_counter()
+        pipe.process(f)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    detect_walls = walls[::2]
+    it = iter(frames[30:] * 2)
+    profile("robot loop per frame (tiny-yolo-voc-416, detect every 2nd "
+            "frame)", lambda: pipe.process(next(it)), 10, gpu)
+    log(f"time robot loop tiny-yolo-voc-{NET} per frame (512x424 RGB-D, "
+        f"detect every 2nd frame, 30 frames): median "
+        f"{np.median(walls)} ms, p99 {np.percentile(walls, 99)} ms; detect "
+        f"frames median {np.median(detect_walls)} ms [{gpu}]")
+    log(f"phase 38 ok: cli robot run, 30 frames, NMS launches 15, sentences "
+        f"{runs['card'][-1]['sentence']!r} ...; every frame's sentence and "
+        f"faces equal to the CPU run's, {n_dets} detections matched [{gpu}]")
+
+    # ---------------------------------------------------------- phase 39
+    demo_dir = WORK / "demo-frames"
+    demo_dir.mkdir(parents=True, exist_ok=True)
+    drng = np.random.default_rng(39)
+    for i in range(10):
+        img = drng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
+        (demo_dir / f"{i:03d}.ppm").write_bytes(
+            b"P6\n640 480\n255\n" + img.tobytes())
+    det_cpu = Detector(cfg, weights, device="cpu")
+    _, p0 = det_cpu.predict_batch(det_cpu.preprocess(load_image_rgb(
+        str(demo_dir / "000.ppm")))[None])
+    thresh = float(np.sort(p0[0].max(-1).values.numpy())[::-1][10])
+    demos = {}
+    for where, extra in (("card", []), ("cpu", ["-cpu"])):
+        outdir = WORK / f"demo-{where}"
+        outdir.mkdir(exist_ok=True)
+        reset_counts()
+        demos[where], text = quiet(cli.COMMANDS["detector"], [
+            "demo", "unused.data", cfg, weights, "-frames",
+            str(demo_dir / "*.ppm"), "-thresh", str(thresh), "-outdir",
+            str(outdir)] + extra)
+        torch.cuda.synchronize()
+        fps_lines = [l for l in text.splitlines() if l.startswith("FPS:")]
+        assert len(fps_lines) == 10, text[-2000:]
+        log(f"  detector demo ({where}), the CLI's last line: "
+            f"{fps_lines[-1][:120]}")
+        if where == "card":
+            launches, want_l = counts(nms_per_class=10)
+            assert launches == want_l, launches
+        assert len(list(outdir.glob("demo_*.ppm"))) == 10
+    n_demo = 0
+    for a, b in zip(demos["card"], demos["cpu"]):
+        n_demo += match_dets(*([(d.class_id, d.prob, np.asarray(d.box))
+                                for d in r["detections"]] for r in (a, b)),
+                             thresh, 1e-4, require=False)
+    assert n_demo > 0 and len(demos["card"]) == 10
+    log(f"phase 39 ok: detector demo -frames over 10 seeded 640x480 PPMs "
+        f"with -outdir: {n_demo} detections matched the CPU demo's, NMS "
+        f"launches 10; FPS {demos['card'][-1]['fps']} (card), "
+        f"{demos['cpu'][-1]['fps']} (CPU) [{gpu}]")
+
+    return [{"name": f"nms_per_class (detector valid, exact NMS: "
+                     f"{nets[name]} C={shapes[name][0]} "
+                     f"k={shapes[name][1]})",
+             "route": "cuda", "source": "sr_object_detection_tpu_torch/csrc/"
+                                        "nms.cu",
+             "replaces": "sr_object_detection_tpu/kernels/nms_pallas.py:29",
+             "launches": launches_valid[name], "max_abs_err": errs[name],
+             "ms": times[name][0], "plain_ms": times[name][1],
+             "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+             "library_ms": None}
+            for name in nets]
+
+
 def main() -> int:
     # ---------------------------------------------------------- phase 0
     if not torch.cuda.is_available():
@@ -3609,6 +3964,10 @@ def main() -> int:
     yolo9000_train_kernels = yolo9000_416_train(gpu, dev, reset_counts,
                                                 counts)
 
+    # --------------------------------------------------- phases 36-39
+    torch.cuda.empty_cache()
+    apps_kernels = detector_apps(gpu, dev, reset_counts, counts)
+
     replaces = {
         "nms_per_class": "sr_object_detection_tpu/kernels/nms_pallas.py:29",
         "stem_pair": "sr_object_detection_tpu/kernels/b1_stem.py:82",
@@ -3673,7 +4032,8 @@ def main() -> int:
          # backward, the recomputing BN-backward passes or the fused
          # BN/leaky/pool passes
          "library_ms": library.get(name)}
-        for name in replaces] + yolo_train_kernels + yolo9000_train_kernels
+        for name in replaces] + yolo_train_kernels + yolo9000_train_kernels \
+        + apps_kernels
     log(json.dumps({"yolov2_608_kernels": yolo_kernels}))
     log(json.dumps({"yolo9000_416_kernels": yolo9000_kernels}))
     log(gpu)

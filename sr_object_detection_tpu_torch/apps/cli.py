@@ -1,22 +1,29 @@
-"""darknet-compatible CLI: the `detect`, `speed`, `ops` and `detector`
-subcommands.
+"""darknet-compatible CLI.
 
-Counterpart of ``sr_object_detection_tpu/apps/cli.py`` (cmd_detect,
-cmd_speed, cmd_ops; src_yolo2/darknet.c:98-131,366-499 surface):
+Counterpart of ``sr_object_detection_tpu/apps/cli.py``
+(src_yolo2/darknet.c:98-499 surface), run as
+``python -m sr_object_detection_tpu_torch.apps.cli <command> ...``:
 
-  python -m sr_object_detection_tpu_torch.apps.cli detect <cfg> <weights>
-      <image> [-thresh T] [-names FILE] [-int8 [-qhead]] [-cpu]
-  python -m sr_object_detection_tpu_torch.apps.cli speed <cfg> [tics]
-      [-batch N] [-int8 [-phase-stem] [-qhead]] [-cpu]
-  python -m sr_object_detection_tpu_torch.apps.cli ops <cfg>
-  python -m sr_object_detection_tpu_torch.apps.cli detector train <data>
-      <cfg> [weights] [-bf16] [-clear] [-resume ckpt] [-packed prefix]
-      [-device-aug] [-decoder thread|process] [-cpu]
+  detect <cfg> <weights> <image> [-thresh T] [-names FILE] [-out out.ppm]
+      [-int8 [-qhead]] [-presplit] [-cpu]
+  detector train|valid|recall <data> <cfg> [weights] ... [-cpu]
+  detector test <data> <cfg> <weights> <image> ...   (= detect)
+  detector demo <data> <cfg> <weights> [-frames glob|-video f|-cam i] [-cpu]
+  robot run <cfg> <weights> [-source synthetic|<glob>] ... [-cpu]
+  speed <cfg> [tics] [-batch N] [-int8 [-phase-stem] [-qhead]] [-cpu]
+  ops <cfg>
+  partial <cfg> <weights> <out> <n>
+  average <cfg> <out> <w1> <w2> ...
+  oneoff <src cfg> <weights> <dst cfg> <out>
+  rescale|reset|rgbgr|denormalize|normalize <cfg> <weights> <out>
+  statistics <cfg> <weights>
+  visualize <cfg> [weights]
 
-`detect`, `speed` and `detector` run on CUDA unless -cpu is given. The other
-subcommands come with ROADMAP queue 1, item 9. Flag parsing follows the
-reference's argv-splicing helpers (utils.c:62-118): '-key value' pairs
-are plucked from anywhere.
+`detect`, `detector`, `robot` and `speed` run on CUDA unless -cpu is
+given; the weight-surgery and inspection commands run on the host in
+numpy. The other reference commands are listed in ROADMAP queue 1, items
+10-12. Flag parsing follows the reference's argv-splicing helpers
+(utils.c:62-118): '-key value' pairs are plucked from anywhere.
 """
 
 from __future__ import annotations
@@ -41,8 +48,20 @@ def find_value(argv, key, default=None, cast=str):
     return default
 
 
+def _load_net(cfg, weights):
+    from ..graph.spec import parse_network_cfg
+    from ..io.weights import load_weights, init_params
+    spec = parse_network_cfg(cfg)
+    if weights:
+        params, seen = load_weights(spec, weights)
+    else:
+        params, seen = init_params(spec), 0
+    return spec, params, seen
+
+
 def cmd_detect(argv):
     thresh = find_value(argv, "-thresh", 0.24, float)
+    out_path = find_value(argv, "-out", None)
     names_file = find_value(argv, "-names", None)
     use_int8 = find_arg(argv, "-int8")
     use_presplit = find_arg(argv, "-presplit")
@@ -71,6 +90,13 @@ def cmd_detect(argv):
     for d in dets:
         label = d.name or str(d.class_id)
         print(f"{label}: {100*d.prob:.0f}%  box={d.box}")
+    if out_path:
+        # draw_detections + save_image analog (image.c:741,1397)
+        from ..ops.draw import draw_detections
+        from .nightmare_app import _save_ppm
+        _save_ppm(out_path, draw_detections(
+            img, dets, classes=det.region.classes))
+        print(f"wrote {out_path}")
     return dets
 
 
@@ -125,15 +151,115 @@ def cmd_ops(argv):
     print(f"Floating Point Operations: {ops/1e9:.2f} Bn")
 
 
+def cmd_partial(argv):
+    cfg, weights, out, n = argv[0], argv[1], argv[2], int(argv[3])
+    from ..io import surgery
+    spec, params, _ = _load_net(cfg, weights)
+    surgery.partial(spec, params, out, n)
+    print(f"Saved first {n} layers to {out}")
+
+
+def cmd_average(argv):
+    cfg, out = argv[0], argv[1]
+    from ..graph.spec import parse_network_cfg
+    from ..io import surgery
+    spec = parse_network_cfg(cfg)
+    surgery.average(spec, argv[2:], out)
+    print(f"Averaged {len(argv)-2} checkpoints -> {out}")
+
+
+def _surgery_cmd(fn_name):
+    def run(argv):
+        cfg, weights, out = argv[0], argv[1], argv[2]
+        from ..io import surgery
+        from ..io.weights import save_weights
+        spec, params, seen = _load_net(cfg, weights)
+        fn = getattr(surgery, fn_name)
+        res = fn(params, spec)
+        if isinstance(res, tuple):
+            params, spec = res
+        else:
+            params = res
+        save_weights(spec, params, out, seen=seen)
+        print(f"{fn_name} -> {out}")
+    return run
+
+
+def cmd_statistics(argv):
+    cfg, weights = argv[0], argv[1]
+    from ..io import surgery
+    spec, params, _ = _load_net(cfg, weights)
+    for row in surgery.statistics(params, spec):
+        print(f"layer {row['layer']:3d} {row['kind']:<12} "
+              f"shape={row['shape']} mean={row['mean']:+.4f} "
+              f"std={row['std']:.4f}")
+
+
+def cmd_visualize(argv):
+    """Text rendering of the network graph (parser-table analog,
+    parser.c:611 layer table)."""
+    cfg = argv[0]
+    from ..graph.spec import parse_network_cfg
+    spec = parse_network_cfg(cfg)
+    print("layer     type              input                output")
+    for l in spec.layers:
+        print(f"{l.index:5d} {l.kind:<16} {l.w:4d} x{l.h:4d} x{l.c:4d}"
+              f"   ->  {l.out_w:4d} x{l.out_h:4d} x{l.out_c:4d}")
+    from ..infer.engine import analytic_flops
+    print(f"total FLOPs/forward: {analytic_flops(spec)/1e9:.2f} Bn")
+
+
+def cmd_oneoff(argv):
+    """oneoff (darknet.c:133-156): transfer shape-matching weights from
+    one checkpoint into another architecture."""
+    cfg_src, weights, cfg_dst, out = argv[0], argv[1], argv[2], argv[3]
+    from ..graph.spec import parse_network_cfg
+    from ..io import surgery
+    from ..io.weights import load_weights, init_params, save_weights
+    src_spec = parse_network_cfg(cfg_src)
+    src_params, _ = load_weights(src_spec, weights)
+    dst_spec = parse_network_cfg(cfg_dst)
+    dst_params = init_params(dst_spec)
+    merged, copied = surgery.transfer(src_params, src_spec, dst_spec,
+                                      dst_params)
+    save_weights(dst_spec, merged, out, seen=0)
+    print(f"transferred {copied} layers -> {out}")
+
+
 def cmd_detector(argv):
-    """run_detector (detector.c:600-651): `train` (apps/detector_app.py)."""
+    """run_detector (detector.c:600-651): train / valid / recall / demo
+    (apps/detector_app.py); `test` is `detect` on <cfg> <weights>
+    <image>."""
+    if argv[0] == "test":
+        return cmd_detect(argv[2:3] + argv[3:])
     use_cpu = find_arg(argv, "-cpu")
     from .detector_app import run_detector
     return run_detector(argv, device="cpu" if use_cpu else "cuda")
 
 
-COMMANDS = {"detect": cmd_detect, "speed": cmd_speed, "ops": cmd_ops,
-            "detector": cmd_detector}
+def cmd_robot(argv):
+    use_cpu = find_arg(argv, "-cpu")
+    from .robot_app import run_robot
+    return run_robot(argv, device="cpu" if use_cpu else "cuda")
+
+
+COMMANDS = {
+    "detect": cmd_detect,
+    "detector": cmd_detector,
+    "robot": cmd_robot,
+    "speed": cmd_speed,
+    "ops": cmd_ops,
+    "partial": cmd_partial,
+    "average": cmd_average,
+    "rescale": _surgery_cmd("rescale_net"),
+    "reset": _surgery_cmd("reset_normalize_net"),
+    "oneoff": cmd_oneoff,
+    "rgbgr": _surgery_cmd("rgbgr_net"),
+    "denormalize": _surgery_cmd("denormalize_net"),
+    "normalize": _surgery_cmd("normalize_net"),
+    "statistics": cmd_statistics,
+    "visualize": cmd_visualize,
+}
 
 
 def main(argv=None):

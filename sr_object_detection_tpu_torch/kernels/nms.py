@@ -5,6 +5,7 @@ Counterpart of ``sr_object_detection_tpu/kernels/nms_pallas.py``
 design and bound are described in the source. Its plain PyTorch version,
 ``nms_per_class_plain``, lives in ``ops/boxes.py`` (the port's
 ``ops.boxes.nms_sort_topk`` runs it too) and is re-exported here.
+Exact NMS is :func:`nms_sort_topk` at k = N on either device.
 
 Dispatch is by device only: a CPU tensor takes the plain version, a CUDA
 tensor launches the kernel or raises. ``launches`` counts kernel

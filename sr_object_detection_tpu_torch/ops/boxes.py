@@ -11,9 +11,10 @@ Boxes are (x, y, w, h) CENTER format, like the reference
 module's band matmuls (contiguous ids), padded buckets and segment
 scatter were TPU lowerings of the same function (ROADMAP "Not ported").
 
-``nms_sort_topk`` here is the PLAIN version of the NMS kernel: the CUDA
-kernel in ``kernels/nms.py`` computes the same per-class recurrence and
-shares this module's candidate selection and scatter.
+``nms_sort_topk`` and ``nms_sort_exact`` here are the PLAIN versions of
+the NMS kernel: the CUDA kernel in ``kernels/nms.py`` computes the same
+per-class recurrence and shares this module's candidate selection and
+scatter.
 """
 
 from __future__ import annotations
@@ -38,6 +39,11 @@ def box_iou(a, b):
     inter = torch.where((iw < 0) | (ih < 0), torch.zeros_like(iw), iw * ih)
     union = a[..., 2] * a[..., 3] + b[..., 2] * b[..., 3] - inter
     return inter / union
+
+
+def iou_matrix(boxes):
+    """All-pairs IoU for (N, 4) center boxes -> (N, N)."""
+    return box_iou(boxes[:, None, :], boxes[None, :, :])
 
 
 def _class_softmax(cls, softmax: bool, tree_groups):
@@ -280,14 +286,12 @@ def scatter_kept(probs, top_i, kept):
     return out
 
 
-def nms_per_class_plain(top_boxes, top_p, iou_thresh: float):
-    """Greedy NMS over rank-sorted candidates, all classes at once.
+# The plain NMS suppresses at most this many bytes of (classes, k, k)
+# float32 IoUs at once; tests lower it to exercise the class chunks.
+NMS_PLAIN_CHUNK_BYTES = 1 << 28
 
-    top_boxes (C, k, 4), top_p (C, k). Rank r survives if its prob > 0
-    and no surviving higher rank overlapped it with IoU > thresh
-    (strict); a survivor kills every lower rank above the threshold.
-    Ranks past the last positive prob can never survive, so the loop
-    stops there (same result as running all k)."""
+
+def _nms_rows(top_boxes, top_p, iou_thresh: float):
     c, k = top_p.shape
     iou = box_iou(top_boxes[:, :, None, :], top_boxes[:, None, :, :])
     sup = torch.zeros((c, k), dtype=torch.bool, device=top_p.device)
@@ -300,20 +304,57 @@ def nms_per_class_plain(top_boxes, top_p, iou_thresh: float):
     return torch.where(sup, torch.zeros_like(top_p), top_p)
 
 
+def nms_per_class_plain(top_boxes, top_p, iou_thresh: float):
+    """Greedy NMS over rank-sorted candidates, all classes at once.
+
+    top_boxes (C, k, 4), top_p (C, k). Rank r survives if its prob > 0
+    and no surviving higher rank overlapped it with IoU > thresh
+    (strict); a survivor kills every lower rank above the threshold.
+    Ranks past the last positive prob can never survive, so the loop
+    stops there (same result as running all k). A class with no
+    positive prob passes through as it is; the others are suppressed in
+    chunks of at most ``NMS_PLAIN_CHUNK_BYTES`` of IoUs, so memory stays
+    O(k^2 + k*C) for any class count (one (C, k, k) tensor would take
+    9.7 GB at yolo9000's 9,418 classes and k = 507)."""
+    c, k = top_p.shape
+    out = top_p.clone()
+    live = (top_p > 0).any(dim=1).nonzero().flatten()
+    step = max(1, NMS_PLAIN_CHUNK_BYTES // max(1, 4 * k * k))
+    for s in range(0, len(live), step):
+        rows = live[s:s + step]
+        out[rows] = _nms_rows(top_boxes[rows], top_p[rows], iou_thresh)
+    return out
+
+
 def nms_sort_topk(boxes, probs, iou_thresh: float, k: int = 128):
     """NMS over the top-k candidates per class (the production path of
     do_nms_sort, box.c:249-277). boxes (N, 4), probs (N, C) -> new probs
-    (N, C)."""
+    (N, C). At k = N it is the exact do_nms_sort: each class's
+    candidates in rank order, ties by box index as a stable argsort of
+    -p ranks them."""
     top_boxes, top_p, top_i = topk_candidates(boxes, probs, k)
     kept = nms_per_class_plain(top_boxes, top_p, iou_thresh)
     return scatter_kept(probs, top_i, kept)
 
 
+def nms_sort_exact(boxes, probs, iou_thresh: float):
+    """Exact do_nms_sort over every rank: :func:`nms_sort_topk` at
+    k = N."""
+    return nms_sort_topk(boxes, probs, iou_thresh, k=probs.shape[0])
+
+
+def nms_sort(boxes, probs, iou_thresh: float):
+    """Per-class greedy NMS over all N ranks: the same function as
+    :func:`nms_sort_exact`."""
+    return nms_sort_exact(boxes, probs, iou_thresh)
+
+
 __all__ = [
-    "box_iou", "region_activate", "region_activate_aligned",
+    "box_iou", "iou_matrix", "region_activate", "region_activate_aligned",
     "region_activate_split", "region_activate_split_flat",
     "flat_head_gids", "grouped_softmax", "GroupIds",
     "hierarchy_chain", "hierarchy_multiply", "decode_region_boxes",
     "region_class_probs", "topk_candidates", "scatter_kept",
-    "nms_per_class_plain", "nms_sort_topk",
+    "NMS_PLAIN_CHUNK_BYTES", "nms_per_class_plain", "nms_sort_topk",
+    "nms_sort_exact", "nms_sort",
 ]

@@ -1178,3 +1178,104 @@ def test_yolov2_stems_on_cuda(cuda, yolov2_params):
         assert_bf16_close(got.float().cpu().numpy(),
                           TBS.stem_pair_plain(v, w, b).float().cpu().numpy())
         v = got
+
+
+# ------------------------------------------- exact NMS, the robot, the demo
+
+def _exact_case(n, c, seed, density):
+    """Seeded boxes and probs at the exact path's widths (k = N): a
+    ``density`` share of positive probs, duplicate boxes, equal probs."""
+    rng = np.random.default_rng(seed)
+    boxes = np.stack([rng.uniform(0, 1, n), rng.uniform(0, 1, n),
+                      rng.uniform(.02, .4, n), rng.uniform(.02, .4, n)],
+                     axis=1).astype(np.float32)
+    boxes[n // 2:n // 2 + 6] = boxes[n // 2 - 1]
+    probs = rng.uniform(0, 1, (n, c)).astype(np.float32)
+    probs[probs > density] = 0
+    probs[::9, 0] = 0.125
+    return boxes, probs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,density", [(845, 20, 0.3), (1805, 80, 0.1),
+                                         (507, 2000, 0.02)])
+def test_nms_exact_kernel_matches_plain(cuda, n, c, density):
+    """Exact NMS on the card (one kernel launch at k = N) against the
+    plain form on the card and on the CPU: equal bit for bit."""
+    boxes, probs = _exact_case(n, c, n + c, density)
+    tb, tp = torch.from_numpy(boxes), torch.from_numpy(probs)
+    before = TN.launches
+    got = TN.nms_sort_topk(tb.to(cuda), tp.to(cuda), 0.45, k=n)
+    torch.cuda.synchronize()
+    assert TN.launches == before + 1
+    ref = TB.nms_sort_exact(tb.to(cuda), tp.to(cuda), 0.45)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    cpu = TN.nms_sort_topk(tb, tp, 0.45, k=n)
+    assert torch.equal(got.cpu().view(torch.int32), cpu.view(torch.int32))
+    assert ((tp > 0) & (cpu == 0)).any()
+    top_boxes, top_p, _ = TB.topk_candidates(tb.to(cuda), tp.to(cuda), n)
+    assert torch.equal(TN.nms_per_class(top_boxes, top_p, 0.45),
+                       TB.nms_per_class_plain(top_boxes, top_p, 0.45))
+
+
+def _map_ab(tmp_path):
+    import pathlib
+    g = np.load(pathlib.Path(__file__).parent / "golden" / "map_ab.npz")
+    (tmp_path / "net.cfg").write_text(bytes(g["cfg"]).decode())
+    (tmp_path / "w.weights").write_bytes(bytes(g["weights"]))
+    return str(tmp_path / "net.cfg"), str(tmp_path / "w.weights")
+
+
+@pytest.mark.cuda
+def test_robot_perception_on_cuda(cuda, tmp_path):
+    """The robot loop with a CUDA Detector: one NMS launch a detect
+    frame; sentences and class ids those of a CPU Detector's loop."""
+    from sr_object_detection_tpu_torch.infer.detector import Detector
+    from sr_object_detection_tpu_torch.robot.frame_source import (
+        SyntheticRGBDSource)
+    from sr_object_detection_tpu_torch.robot.pipeline import RobotPerception
+    cfg, weights = _map_ab(tmp_path)
+    runs = {}
+    for dev in (cuda, "cpu"):
+        pipe = RobotPerception(Detector(cfg, weights, device=dev),
+                               names=["red", "green", "blue"],
+                               detect_every=2, thresh=0.02, nms=0.1)
+        before = TN.launches
+        runs[str(dev)] = pipe.run(SyntheticRGBDSource(n_frames=6))
+        if dev == cuda:
+            assert TN.launches == before + 3
+    for g, w in zip(runs[str(cuda)], runs["cpu"]):
+        assert g["sentence"] == w["sentence"]
+        assert [d["class_id"] for d in g["detections"]] == [
+            d["class_id"] for d in w["detections"]]
+
+
+@pytest.mark.cuda
+def test_streaming_demo_on_cuda(cuda, tmp_path):
+    """StreamingDemo with a CUDA Detector: one NMS launch a frame; the
+    detections a CPU Detector's demo gives, within float32 rounding."""
+    from tools.synth_dataset import make_dataset
+    from sr_object_detection_tpu_torch.apps.demo_app import StreamingDemo
+    from sr_object_detection_tpu_torch.infer.detector import Detector
+    from sr_object_detection_tpu_torch.robot.frame_source import (
+        ImageDirectorySource)
+    cfg, weights = _map_ab(tmp_path)
+    list_path, _ = make_dataset(str(tmp_path / "frames"), 5, 3)
+    pattern = str(tmp_path / "frames" / "*.ppm")
+    runs = {}
+    for dev in (cuda, "cpu"):
+        before = TN.launches
+        runs[str(dev)] = StreamingDemo(Detector(cfg, weights, device=dev),
+                                       ImageDirectorySource(pattern),
+                                       thresh=0.1).run()
+        if dev == cuda:
+            assert TN.launches == before + 5
+    n = 0
+    for g, w in zip(runs[str(cuda)], runs["cpu"]):
+        assert [d.class_id for d in g["detections"]] == [
+            d.class_id for d in w["detections"]]
+        for a, b in zip(g["detections"], w["detections"]):
+            assert abs(a.prob - b.prob) <= 1e-5
+            np.testing.assert_allclose(a.box, b.box, rtol=1e-5, atol=1e-5)
+            n += 1
+    assert n > 0

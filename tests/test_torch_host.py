@@ -29,7 +29,10 @@ from sr_object_detection_tpu_torch.io.convert import params_to_torch
 REPO = pathlib.Path(__file__).resolve().parent.parent
 GOLDEN = REPO / "tests" / "golden"
 COPIES = ["config.py", "graph/spec.py", "io/weights.py", "models/zoo.py",
-          "eval/voc.py", "data/augment.py", "io/tree.py"]
+          "eval/voc.py", "data/augment.py", "io/tree.py", "ops/draw.py"] + [
+    f"robot/{m}.py" for m in ("registration", "body_viz", "action",
+                              "interaction", "native", "frame_source",
+                              "file_protocol", "pipeline")]
 
 
 # functions copied as they are into modules that also hold torch code
@@ -37,7 +40,20 @@ FUNCTION_COPIES = [
     ("ops/image.py", n) for n in ("_resize_coeffs", "resize_image_np",
                                   "letterbox_dims", "letterbox_image_np",
                                   "load_image_u8", "_load_pnm")] + [
-    ("data/loader.py", "label_path_for")]
+    ("data/loader.py", "label_path_for")] + [
+    ("io/surgery.py", n) for n in ("partial", "average", "_tree_add",
+                                   "_tree_scale", "rescale_net", "rescale",
+                                   "rgbgr_net", "normalize_net",
+                                   "statistics", "transfer",
+                                   "reset_normalize_net")] + [
+    ("apps/nightmare_app.py", "_save_ppm")] + [
+    ("apps/cli.py", n) for n in ("find_arg", "find_value", "_load_net",
+                                 "cmd_partial", "cmd_average",
+                                 "_surgery_cmd", "cmd_statistics",
+                                 "cmd_visualize", "cmd_oneoff")] + [
+    ("eval/reval_voc.py", n) for n in ("read_det_file", "gt_from_xml")]
+# a copy whose original lies outside the JAX package
+ORIGINALS = {"eval/reval_voc.py": REPO / "tools" / "reval_voc.py"}
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -57,10 +73,30 @@ def _function_source(path, name):
 
 @pytest.mark.parametrize("rel,name", FUNCTION_COPIES)
 def test_function_copy_is_verbatim(rel, name):
-    orig = _function_source(REPO / "sr_object_detection_tpu" / rel, name)
+    orig = _function_source(
+        ORIGINALS.get(rel, REPO / "sr_object_detection_tpu" / rel), name)
     copy = _function_source(REPO / "sr_object_detection_tpu_torch" / rel,
                             name)
     assert copy == orig, f"{rel}:{name} drifted from the JAX original"
+
+
+def test_reval_voc_differs_only_in_its_imports():
+    """eval/reval_voc.py is tools/reval_voc.py with the port's mean_ap and
+    load_image_u8, without the sys.path entry the tool needs to find the
+    JAX package; the code after the module docstring is otherwise the
+    same."""
+    def body(path):
+        text = path.read_text()
+        return text[text.index('"""', text.index('"""') + 3) + 3:]
+    orig = body(REPO / "tools" / "reval_voc.py")
+    copy = body(REPO / "sr_object_detection_tpu_torch" / "eval"
+                / "reval_voc.py")
+    orig = (orig.replace("import sys\n", "")
+            .replace("sys.path.insert(0, os.path.dirname(os.path.dirname(\n"
+                     "    os.path.abspath(__file__))))\n\n\n", "\n")
+            .replace("from sr_object_detection_tpu.",
+                     "from sr_object_detection_tpu_torch."))
+    assert copy == orig
 
 
 def _spec_fields(spec):

@@ -385,7 +385,9 @@ def test_port_sources_never_import_jax():
             "eval/voc.py", "apps/cli.py", "kernels/phase_train.py",
             "train/trainer.py", "train/region_loss.py", "train/sgd.py",
             "io/checkpoint.py", "data/loader.py", "data/augment.py",
-            "apps/detector_app.py"} <= names
+            "apps/detector_app.py", "robot/pipeline.py",
+            "apps/demo_app.py", "apps/robot_app.py", "io/surgery.py",
+            "eval/reval_voc.py"} <= names
     files += [REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py",
               REPO / "tests" / "torch_parity.py"]
     for f in files:
