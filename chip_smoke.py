@@ -9,8 +9,9 @@ serving (route, reorg), yolov2-608 training at batch 128,
 yolo9000-416 serving (the WordTree head, the aligned and pre-split
 heads), yolo9000-416 training from disk (the WordTree loss, device
 augmentation, the packed loader), `detector valid` with exact NMS, the
-robot frame loop and the streaming demo — through the entry points a
-user calls, builds
+robot frame loop and the streaming demo, darknet19-224 classification
+(the classifier family's layer kinds, the int8 float tail, the
+classifier apps) — through the entry points a user calls, builds
 the hand-written CUDA kernels from ``sr_object_detection_tpu_torch/csrc``
 and holds each against its plain PyTorch version. Phases, in order; any failure ends the run with a
 non-zero status and no result line:
@@ -311,7 +312,45 @@ non-zero status and no result line:
      time (median, p99) and one torch.profiler window (idle share);
  39. `detector demo -frames` over 10 seeded 640x480 PPMs with -outdir on
      the card and with -cpu: detections matched, 10 NMS launches, the
-     CLI's FPS lines.
+     CLI's FPS lines;
+ 40. the remaining layer kinds on the card, TF32 off: the seven C-oracle
+     goldens mini_{connected,lrn,crop,local,deconv,xnor,tree_cls}.npz
+     (connected with dropout and softmax, lrn, crop, local, deconv, an
+     XNOR conv, avgpool, the tree softmax), output and dumped layers at
+     2e-5; darknet19-224 (cfg/darknet19.cfg from models/zoo.py, 1000
+     classes; random weights from seed 0 with randomized BN and biases,
+     the head scaled by 32, written as a .weights file): the float32
+     Classifier on CUDA against the same on the CPU over three frames,
+     probs within rtol 1e-4 (D19_RTOL), the top-5 ranks equal wherever a
+     prob's neighbours lie more than twice that apart;
+ 41. darknet19-224's three stems against their plain versions along the
+     engines' chains (check_serving_kernels: kernel 4's fwd at B=128 on
+     the fold and the tile, torch.equal to fwdstats + apply; the int8
+     stem from u8 frames, taps and chunks folds, torch.equal; the batch-1
+     stem on the conv tile within a bf16 ulp); the main path, counted
+     (every count reset just before and read just after): the float32
+     Classifier, the two LatencyEngines on u8 frames (a region-free net
+     returns its output) and the four batch-128 engines, launches
+     stem_pair 6, phase_stem_pair 2, phase_train_fwd 2; the bf16 phase
+     stem link by link within assert_stem_link_close of the plain
+     engine's layers, the int8 trunks with and without the stem
+     torch.equal and the float tail's outputs equal; batch 1 fused
+     against plain within 2^-5;
+ 42. darknet19-224 times: the three kernels and their chains from a CUDA
+     graph in turns with their plain versions beside their bounds;
+     images/s of the four batch-128 engines in turns; torch.profiler over
+     a batch of each (the bf16 stem on fwd_fold_kernel and fwd_tc_kernel,
+     the int8 stem on phase_pair_tc_kernel); the two LatencyEngines' frames
+     in turns on the host clock (median, p99), their device time and a
+     profile each;
+ 43. the CLI on the card and with -cpu over 4 seeded PPMs named after
+     the class `classifier predict -cpu` ranks first: `classifier
+     predict` on each (top-5 matched within 2e-4), `classifier valid`
+     (the CPU's line top1 1.0000, and the card's the same), `classify
+     -int8` (matched within 2^-6 of the top prob, D19_INT8_RTOL: the two
+     devices calibrate bits apart); `speed -batch 128 -int8 -phase-stem` on the card (its
+     images/s; with -cpu at this size it would take minutes and prints
+     only times).
 
 The last lines are one JSON object with the four kernels at yolov2-608's
 shapes (the keys of the kernels line; their launches counted in phase
@@ -326,7 +365,9 @@ training shapes (phase 34's times, the fused stem's summed over its five
 pairs; launches from phase 33's paths (a) and (b)), under names that
 begin "nms_per_class (detector valid, exact NMS: ...)" the NMS kernel at
 the three exact widths (phase 36's times; launches from phase 37's
-counted valid runs) (time, plain time,
+counted valid runs), and under names that end in "(darknet19-224
+serving: ...)" the three stems at darknet19-224's shapes (phase 42's
+times; launches from phase 41's counted main path) (time, plain time,
 bound, launches and library call of each;
 ``stem_pair`` is the batch-1 stem on the tensor-core conv tile of
 csrc/phase_train.cu (``stem_fold_kernel`` at pair 1, ``stem_tc_kernel``
@@ -354,6 +395,7 @@ import io
 import json
 import pathlib
 import re
+import shutil
 import struct
 import subprocess
 import sys
@@ -373,7 +415,7 @@ from torch_parity import (  # noqa: E402  (JAX-free helpers)
     check_fwdstats, check_pair_gradient, check_train_golden,
     check_train_kernels, check_y_consistency, images_past_2g, pair_spec,
     random_bn, phase_pair_case, stem_case, train_case, train_cfg_text,
-    write_ppm_dataset)
+    write_ppm_dataset, zoo_cfg_text)
 
 NET = 416          # tiny-yolo-voc's published width and height
 BATCH = 128        # the batch serving engines' batch
@@ -826,8 +868,8 @@ def time_serving_kernels(tag, sk, bf_stem_fn, b1_stem_fn, frames_u8, x1,
     ``sk`` :func:`check_serving_kernels`' links, ``bf_stem_fn`` /
     ``b1_stem_fn`` the engines' stems, ``nms_cases`` [(label, top boxes,
     top probs)] of NMS candidates, the first one the kernels line's, each
-    beside its launch floor. Returns (times, bounds, errs) under the
-    kernels line's names."""
+    beside its launch floor (none on a path without NMS: a classifier's).
+    Returns (times, bounds, errs) under the kernels line's names."""
     from sr_object_detection_tpu_torch.kernels import b1_stem as BS
     from sr_object_detection_tpu_torch.kernels import nms as NMS
     from sr_object_detection_tpu_torch.kernels import phase_stem as PS
@@ -927,18 +969,18 @@ def time_serving_kernels(tag, sk, bf_stem_fn, b1_stem_fn, frames_u8, x1,
             f"the floor; bound {b[0]} ms by {b[1]} [{gpu}]")
         if i == 0:
             times["nms_per_class"], bounds["nms_per_class"] = t, b
-    errs["nms_per_class"] = nms_err
-    for name in ("phase_train_fwd", "phase_stem_pair", "stem_pair",
-                 "nms_per_class"):
+            errs["nms_per_class"] = nms_err
+    for name in times:
         log(f"bound {tag} {name}: {bounds[name][0]} ms by {bounds[name][1]};"
             f" kernel {times[name][0] / bounds[name][0]:.2f}x [{gpu}]")
     return times, bounds, errs
 
 
 def serving_entries(times, bounds, errs, launches):
-    """The kernels line's entries of the four serving kernels on a model's
-    serving path: times, bounds and errors from that path's run,
-    ``launches`` its counted main path."""
+    """The kernels line's entries of the serving kernels on a model's
+    serving path (the four, or the three stems where it has no NMS):
+    times, bounds and errors from that path's run, ``launches`` its
+    counted main path."""
     replaces = {
         "nms_per_class": "sr_object_detection_tpu/kernels/nms_pallas.py:29",
         "stem_pair": "sr_object_detection_tpu/kernels/b1_stem.py:82",
@@ -955,7 +997,7 @@ def serving_entries(times, bounds, errs, launches):
              "max_abs_err": errs[name], "ms": times[name][0],
              "plain_ms": times[name][1], "bound_ms": bounds[name][0],
              "bound_by": bounds[name][1], "library_ms": None}
-            for name in replaces]
+            for name in replaces if name in times]
 
 
 def yolov2_608(gpu, dev, reset_counts, counts):
@@ -2786,6 +2828,362 @@ def detector_apps(gpu, dev, reset_counts, counts):
             for name in nets]
 
 
+D19 = 224          # darknet19's published width and height (cfg/darknet19.cfg)
+D19_PAIRS = [(0, 1), (2, 3)]  # its stem pairs: 3 -> 32 @224, 32 -> 64 @112
+D19_HEAD_GAIN = 32.0  # the 1x1 head's scale: the 1000 probs spread
+D19_MINI = ["mini_connected", "mini_lrn", "mini_crop", "mini_local",
+            "mini_deconv", "mini_xnor", "mini_tree_cls"]
+D19_RTOL = 1e-4    # float32 probs, card against CPU (sums in other orders)
+D19_INT8_RTOL = 2.0 ** -6  # int8 probs, card against CPU, of the top prob
+
+
+def top_lines(text):
+    """`name: prob` lines of the classifier CLI -> [(name, prob)]."""
+    out = []
+    for line in text.splitlines():
+        name, _, p = line.rpartition(": ")
+        if name:
+            out.append((name, float(p)))
+    return out
+
+
+def match_top(a, b, band):
+    """Two top-k lists [(name, prob)] alike: every entry of either list
+    whose prob lies more than ``band`` above the list's lowest has one of
+    the same name in the other list within ``band`` (entries within the
+    band of the cut may fall either side of it). Returns how many were
+    matched (at least one) and the largest |diff| among them."""
+    n, diff = 0, 0.0
+    for x, y in ((a, b), (b, a)):
+        low = min(p for _, p in x)
+        for name, p in x:
+            if p > low + band:
+                n += 1
+                d = min((abs(p2 - p) for n2, p2 in y if n2 == name),
+                        default=np.inf)
+                assert d <= band, (name, p, y)
+                diff = max(diff, d)
+    assert n > 0
+    return n, diff
+
+
+def darknet19_224(gpu, dev, reset_counts, counts):
+    """Phases 40-43 (the module docstring): darknet19-224 serving, the
+    classifier family. Returns the kernels line's entries for the three
+    stems on this path, at darknet19-224's shapes."""
+    from sr_object_detection_tpu_torch.apps import cli
+    from sr_object_detection_tpu_torch.config import parse_cfg_text
+    from sr_object_detection_tpu_torch.graph import spec as S
+    from sr_object_detection_tpu_torch.graph.compiler import Network
+    from sr_object_detection_tpu_torch.infer.classifier import Classifier
+    from sr_object_detection_tpu_torch.infer.engine import (
+        LatencyEngine, ThroughputEngine)
+    from sr_object_detection_tpu_torch.infer.quant import (
+        QuantizedThroughputEngine, _supported_prefix)
+    from sr_object_detection_tpu_torch.io.convert import params_to_torch
+    from sr_object_detection_tpu_torch.io.weights import (
+        init_params, save_weights)
+    from sr_object_detection_tpu_torch.kernels import b1_stem as BS
+    from sr_object_detection_tpu_torch.kernels import phase_stem as PS
+    from sr_object_detection_tpu_torch.kernels import phase_train as PT
+    from sr_object_detection_tpu_torch.models.zoo import darknet19
+    from sr_object_detection_tpu_torch.ops.layout import nhwc_to_flat
+    from tools.synth_dataset import write_ppm
+
+    # ---------------------------------------------------------- phase 40
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(40)
+    bf16 = torch.bfloat16
+    tag = f"darknet19-{D19}"
+    WORK.mkdir(parents=True, exist_ok=True)
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    # the remaining layer kinds: the C-oracle goldens on the card
+    golden_err = {}
+    for name in D19_MINI:
+        g = np.load(GOLDEN / f"{name}.npz")
+        text = bytes(g["cfg"]).decode()
+        if "tree" in g.files:
+            tree = WORK / "mini.tree"
+            tree.write_text(bytes(g["tree"]).decode())
+            text = text.replace("{TREE}", str(tree))
+        gspec = S.build_network_spec(parse_cfg_text(text))
+        params = init_params(gspec, seed=int(g["seed"]))
+        if "bias_seed" in g.files and int(g["bias_seed"]) >= 0:
+            brng = np.random.default_rng(int(g["bias_seed"]))
+            for p in params:
+                if p and "biases" in p:
+                    p["biases"] = brng.normal(
+                        0, 0.5, np.shape(p["biases"])).astype(np.float32)
+        net = Network(gspec, params_to_torch(gspec, params, dev))
+        x = torch.from_numpy(np.transpose(g["input_chw"], (1, 2, 0))[None]
+                             .copy()).to(dev)
+        with torch.no_grad():
+            out, aux = net(x, keep_all=True)
+        got = [("output", out)] + [
+            (f"layer_{i}", aux["outputs"][i])
+            for i in range(len(gspec.layers)) if f"layer_{i}" in g.files]
+        err = 0.0
+        for key, t in got:
+            t = t.float().cpu()
+            t = (nhwc_to_flat(t) if t.ndim == 4 else t)[0].numpy()
+            assert np.allclose(t, g[key], rtol=2e-5, atol=2e-5), (name, key)
+            err = max(err, float(np.abs(t - g[key]).max()))
+        golden_err[name] = err
+    # darknet19-224 (cfg/darknet19.cfg from models/zoo.py, 1000 classes;
+    # random weights from seed 0 with randomized BN and biases, the head
+    # scaled so that the probs spread, written as a .weights file): the
+    # float32 Classifier on the card against the same on the CPU
+    cfg = WORK / "darknet19.cfg"
+    cfg.write_text(zoo_cfg_text(darknet19, width=D19, height=D19))
+    spec = S.parse_network_cfg(str(cfg))
+    assert spec.layers == darknet19(width=D19, height=D19).layers
+    params_np = random_bn(init_params(spec, seed=0), 1,
+                          head_gain=D19_HEAD_GAIN)
+    weights = WORK / "darknet19.weights"
+    save_weights(spec, params_np, str(weights))
+    clf = Classifier(str(cfg), str(weights), device=dev)
+    clf_cpu = Classifier(str(cfg), str(weights), device="cpu")
+    frames = [rng.uniform(0, 1, (h, w, 3)).astype(np.float32)
+              for h, w in ((224, 224), (375, 500), (480, 360))]
+    cls_err, n_top, p_max = 0.0, 0, 0.0
+    for f in frames:
+        p, q = clf.predict(f), clf_cpu.predict(f)
+        assert p.shape == (1000,) and np.isfinite(p).all()
+        assert abs(float(p.sum()) - 1.0) < 1e-4
+        assert np.allclose(p, q, rtol=D19_RTOL, atol=1e-7)
+        cls_err = max(cls_err, float(np.abs(p - q).max()))
+        p_max = max(p_max, float(q.max()))
+        # top-5 in the same order wherever a prob's neighbours lie more
+        # than the tolerance away
+        sq = np.sort(q)[::-1][:6]
+        tol = 2 * D19_RTOL * sq[0] + 2e-7
+        for k, (i, j) in enumerate(zip(np.argsort(-p)[:5],
+                                       np.argsort(-q)[:5])):
+            if (k == 0 or sq[k - 1] - sq[k] > tol) and sq[k] - sq[k + 1] > tol:
+                assert i == j, (k, i, j)
+                n_top += 1
+    assert n_top > 0
+    log(f"phase 40 ok: the remaining layer kinds on CUDA (TF32 off): the "
+        f"seven mini goldens at 2e-5 (max |err| {golden_err}); {tag} "
+        f"Classifier float32 on CUDA against the CPU over {len(frames)} "
+        f"frames: probs within rtol {D19_RTOL} (max |diff| {cls_err}, top "
+        f"prob {p_max}), {n_top} top-5 ranks equal where not tied [{gpu}]")
+
+    # ---------------------------------------------------------- phase 41
+    bf = ThroughputEngine(spec, params_np, batch=BATCH, device=dev)
+    bf_stem = ThroughputEngine(spec, params_np, batch=BATCH, device=dev,
+                               phase_stem=True)
+    calib = rng.uniform(0, 1, (4, D19, D19, 3)).astype(np.float32)
+    q_stem = QuantizedThroughputEngine(spec, params_np, batch=BATCH,
+                                       device=dev, calib_x=calib,
+                                       phase_stem=True)
+    q_plain = QuantizedThroughputEngine(spec, params_np, batch=BATCH,
+                                        device=dev, calib_x=calib)
+    assert bf_stem.phase_stem
+    assert PS.plan_pairs(q_stem.qnet.spec) == D19_PAIRS
+    assert BS.plan_pairs(bf_stem.spec) == D19_PAIRS
+    split = _supported_prefix(q_stem.qnet.spec.layers)
+    assert [l.kind for l in spec.layers[split:]] == ["avgpool", "softmax",
+                                                     "cost"]
+    lat_f = LatencyEngine(spec, params_np, device=dev, fused_stem=True)
+    lat_p = LatencyEngine(spec, params_np, device=dev)
+    assert lat_f.fused_stem and not lat_p.fused_stem
+    assert lat_f.region is None and lat_p.region is None
+    frames_u8 = torch.from_numpy(rng.integers(
+        0, 256, (BATCH, D19, D19, 3), dtype=np.uint8)).to(dev)
+    x_b = frames_u8.float() / 255.0
+    x1 = torch.from_numpy(rng.uniform(0, 1, (1, D19, D19, 3)).astype(
+        np.float32)).to(dev, bf16)
+    sk = check_serving_kernels(spec, D19_PAIRS, bf_stem, q_stem, lat_f,
+                               frames_u8, x1, {"taps": 1, "tap_pairs": 0,
+                                               "chunks": 1})
+    # the main path, counted: the Classifier, the two LatencyEngines on
+    # u8 frames and the four batch-128 engines
+    u8 = [rng.integers(0, 256, (D19, D19, 3), dtype=np.uint8)
+          for _ in range(3)]
+    reset_counts()
+    probs = [clf.predict(f) for f in frames]
+    lat_out = [(lat_f(f), lat_p(f)) for f in u8]
+    out_bf = bf(x_b)
+    out_bfs = bf_stem(x_b)
+    out_s = q_stem(frames_u8)
+    out_p = q_plain(frames_u8)
+    torch.cuda.synchronize()
+    launches_d, want = counts(stem_pair=6, phase_stem_pair=2,
+                              phase_train_fwd=2)
+    log(f"  {tag} main path: launches {launches_d} "
+        f"({time.perf_counter() - T0:.1f} s)")
+    assert launches_d == want, launches_d
+    assert all(np.isfinite(p).all() for p in probs)
+    for o, dt in ((out_bf, bf16), (out_bfs, bf16), (out_s, torch.float32),
+                  (out_p, torch.float32)):
+        assert o.shape == (BATCH, 1000) and o.dtype == dt, (o.shape, o.dtype)
+        assert torch.isfinite(o.float()).all()
+        assert (o.float().sum(dim=1) - 1).abs().max().item() < 2e-2
+    # the bf16 batch: the phase stem link by link within
+    # assert_stem_link_close of the plain engine's conv + pool layers
+    stem_link_err = 0.0
+    for l, xi, w_hwio, bias in sk["fwd_links"]:
+        got = PT.fwd_pair(xi, w_hwio, bias)
+        with torch.no_grad():
+            ref = bf._net.layers[l.index + 1](bf._net.layers[l.index](
+                xi.permute(0, 3, 1, 2))).permute(0, 2, 3, 1)
+        zero = torch.zeros(bias.shape[0], device=dev)
+        z, _, _ = PT.fwdstats(xi, w_hwio, zero, torch.ones_like(zero))
+        stem_link_err = max(stem_link_err, assert_stem_link_close(
+            got.float().cpu().numpy(), ref.float().cpu().numpy(),
+            z.float().cpu().numpy()))
+        del got, ref, z
+        torch.cuda.empty_cache()
+    bfs_diff = (out_bfs.float() - out_bf.float()).abs().max().item()
+    # the int8 trunk with and without the phase stem, and the float tail
+    # (the bf16 1x1 head conv, avgpool, softmax) on it
+    assert torch.equal(q_stem.qnet.forward(frames_u8, stop=split - 1),
+                       q_plain.qnet.forward(frames_u8, stop=split - 1))
+    assert torch.equal(out_s, out_p)
+    q_diff = (out_s - out_bf.float()).abs().max().item()
+    # batch 1: the fused stem's probs against the plain engine's; each
+    # engine's output a distribution
+    lat_diff = 0.0
+    for of, op in lat_out:
+        assert of[1] is None and op[1] is None
+        assert of[0].shape == op[0].shape == (1, 1000)
+        lat_diff = max(lat_diff, (of[0].float() - op[0].float()).abs()
+                       .max().item())
+    assert lat_diff <= 2 ** -5, lat_diff
+    del out_bf, out_bfs, out_s, out_p
+    torch.cuda.empty_cache()
+    log(f"phase 41 ok: {tag} B={BATCH}: the three stems == their plain "
+        f"versions (fwd on the fold and the tile, max |err| against "
+        f"fwd_pair_plain {sk['fwd_err']}; the int8 stem from u8 frames "
+        f"torch.equal; the batch-1 stem max |err| {sk['b1_err']}); the "
+        f"bf16 phase stem within the link bounds of the plain engine's "
+        f"layers (max |err| {stem_link_err}; whole outputs max |diff| "
+        f"{bfs_diff}); int8 trunks equal with and without the phase stem, "
+        f"the float tail's outputs equal (int8 against bf16 max |diff| "
+        f"{q_diff}); batch 1 fused against plain max |diff| {lat_diff} "
+        f"[{gpu}]")
+
+    # ---------------------------------------------------------- phase 42
+    times, bounds, errs = time_serving_kernels(
+        tag, sk, bf_stem._stem, lat_f._stem, frames_u8, x1, [], 0.0, gpu)
+    for kind, pair in (("bf16", (bf, bf_stem)), ("int8 u8", (q_plain,
+                                                             q_stem))):
+        kw = {"input_dtype": torch.uint8} if kind == "int8 u8" else {}
+        for name, eng in zip(("plain", "phase stem", "phase stem", "plain"),
+                             (*pair, *reversed(pair))):
+            r = eng.benchmark(iters=10, warmup=2, **kw)
+            log(f"time {tag} {kind} engine B={BATCH}, {name}: "
+                f"{r['images_per_sec']} images/s ({r['sec_per_batch']} "
+                f"s/batch) [{gpu}]")
+    for label, fn in (("bf16 plain", lambda: bf(x_b)),
+                      ("bf16 + phase stem", lambda: bf_stem(x_b)),
+                      ("int8 u8 plain", lambda: q_plain(frames_u8)),
+                      ("int8 u8 + phase stem", lambda: q_stem(frames_u8))):
+        name = f"{tag} {label} B={BATCH}, per batch"
+        seen = profile(name, fn, 3, gpu)
+        if label == "bf16 + phase stem":
+            assert_conv_tensor_core(name, seen, 3, {
+                "fwd_tc_kernel": 1, "fwd_fold_kernel": 1,
+                "fwdstats_tc_kernel": 0, "fwdstats_fold_kernel": 0,
+                "fwdstats_kernel": 0})
+        if label == "int8 u8 + phase stem":
+            assert any("phase_pair_tc_kernel" in k for k in seen), seen
+    # batch 1: frames through each LatencyEngine (u8 upload, forward, the
+    # output read back), in turns, host clock; and the device time a frame
+    walls = {"fused stem": [], "plain": []}
+    for name, eng in (("fused stem", lat_f), ("plain", lat_p),
+                      ("plain", lat_p), ("fused stem", lat_f)):
+        for k in range(50):
+            t0 = time.perf_counter()
+            eng(u8[k % 3])[0].float().cpu()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    for name, eng in (("fused stem", lat_f), ("plain", lat_p)):
+        w = np.asarray(walls[name])
+        dev_ms = eng.device_benchmark(reps=30)["device_ms_per_frame"]
+        log(f"time {tag} LatencyEngine {name} per frame (100 frames, host "
+            f"clock): median {np.median(w)} ms, p99 {np.percentile(w, 99)} "
+            f"ms; device time {dev_ms} ms (CUDA events, 30 queued frames) "
+            f"[{gpu}]")
+        seen = profile(f"{tag} LatencyEngine {name}, per frame",
+                       lambda: eng(u8[0]), 10, gpu)
+    log(f"phase 42 ok: {tag} times, bounds and profiles; peak device "
+        f"memory since phase 40 "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{gpu}]")
+
+    # ---------------------------------------------------------- phase 43
+    # the CLI on the card and with -cpu over seeded PPMs, each named after
+    # the class that `classifier predict -cpu` ranks first for it (names
+    # n00000 ... n00999), so that the CPU's `classifier valid` reads top1
+    # 1.0000 and the card's must too; `classifier predict` on the card
+    # matches the CPU's top-5 on every image
+    names = [f"n{c:05d}" for c in range(1000)]
+    labels = WORK / "darknet19.names"
+    labels.write_text("\n".join(names) + "\n")
+    data = WORK / "darknet19.data"
+    data.write_text(f"valid={WORK / 'darknet19-valid.list'}\n"
+                    f"names={labels}\nlabels={labels}\ntop=5\n")
+    vdir = WORK / "darknet19-valid"
+    shutil.rmtree(vdir, ignore_errors=True)
+    vdir.mkdir()
+
+    def predict(path, flag):
+        return top_lines(quiet(cli.main, [
+            "classifier", "predict", str(data), str(cfg), str(weights),
+            str(path)] + flag)[1])
+    paths, cpu_top, margins, draws = [], [], [], 0
+    while len(paths) < 4:
+        k, draws = len(paths), draws + 1
+        assert draws <= 12, "ties at the top of most draws"
+        p = vdir / f"image_{k}.ppm"
+        write_ppm(str(p), rng.integers(0, 256, (300 + 40 * k, 400, 3),
+                                       dtype=np.uint8))
+        top = predict(p, ["-cpu"])
+        (c1, p1), (_, p2) = top[0], top[1]
+        if p1 - p2 <= 2 * D19_RTOL * p1 + 2e-6:
+            continue  # a tie at the top: either device may rank it first
+        paths.append(str(p.rename(vdir / f"{c1}_{k}.ppm")))
+        cpu_top.append(top)
+        margins.append(p1 - p2)
+    (WORK / "darknet19-valid.list").write_text("\n".join(paths) + "\n")
+    pred_n = sum(match_top(predict(p, []), top, D19_RTOL * 2)[0]
+                 for p, top in zip(paths, cpu_top))
+    outs = {}
+    for where in ("card", "cpu"):
+        flag = [] if where == "card" else ["-cpu"]
+        outs[where] = [quiet(cli.main, argv + flag)[1] for argv in (
+            ["classifier", "valid", str(data), str(cfg), str(weights)],
+            ["classify", str(cfg), str(weights), paths[1], "-int8",
+             "-names", str(labels)])]
+    assert outs["cpu"][0] == "top1: 1.0000, top5: 1.0000\n", outs["cpu"][0]
+    assert outs["card"][0] == outs["cpu"][0], (outs["card"][0],
+                                               outs["cpu"][0])
+    int8_cpu = top_lines(outs["cpu"][1])
+    int8_top = max(p for _, p in int8_cpu)
+    int8_n, int8_diff = match_top(top_lines(outs["card"][1]), int8_cpu,
+                                  D19_INT8_RTOL * int8_top)
+    _, speed = quiet(cli.main, ["speed", str(cfg), "3", "-batch", "128",
+                                "-int8", "-phase-stem"])
+    rate = float(re.search(r"Speed: ([\d.]+) images/sec \(batch 128\)",
+                           speed).group(1))
+    assert rate > 0
+    log(f"phase 43 ok: the CLI on CUDA and with -cpu: classifier predict "
+        f"on {len(paths)} PPMs ({pred_n} top-5 entries matched within "
+        f"{2 * D19_RTOL}), classifier valid over them, each named after "
+        f"the CPU's top-1 ({[pathlib.Path(p).stem for p in paths]}, top-1 "
+        f"margins {margins}; the same line: "
+        f"{outs['card'][0].strip()!r}), classify -int8 ({int8_n} matched "
+        f"within {D19_INT8_RTOL} of the top prob {int8_top}, max |diff| "
+        f"{int8_diff}); speed -batch 128 -int8 -phase-stem on CUDA: "
+        f"{rate} images/s [{gpu}]")
+
+    shapes = f"3->32 @{D19}, 32->64 @{D19 // 2}"
+    return [dict(e, name=f"{e['name']} ({tag} serving: {shapes})")
+            for e in serving_entries(times, bounds, errs, launches_d)]
+
+
 def main() -> int:
     # ---------------------------------------------------------- phase 0
     if not torch.cuda.is_available():
@@ -3968,6 +4366,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     apps_kernels = detector_apps(gpu, dev, reset_counts, counts)
 
+    # --------------------------------------------------- phases 40-43
+    torch.cuda.empty_cache()
+    d19_kernels = darknet19_224(gpu, dev, reset_counts, counts)
+
     replaces = {
         "nms_per_class": "sr_object_detection_tpu/kernels/nms_pallas.py:29",
         "stem_pair": "sr_object_detection_tpu/kernels/b1_stem.py:82",
@@ -4033,7 +4435,7 @@ def main() -> int:
          # BN/leaky/pool passes
          "library_ms": library.get(name)}
         for name in replaces] + yolo_train_kernels + yolo9000_train_kernels \
-        + apps_kernels
+        + apps_kernels + d19_kernels
     log(json.dumps({"yolov2_608_kernels": yolo_kernels}))
     log(json.dumps({"yolo9000_416_kernels": yolo9000_kernels}))
     log(gpu)

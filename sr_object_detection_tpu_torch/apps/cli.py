@@ -6,6 +6,9 @@ Counterpart of ``sr_object_detection_tpu/apps/cli.py``
 
   detect <cfg> <weights> <image> [-thresh T] [-names FILE] [-out out.ppm]
       [-int8 [-qhead]] [-presplit] [-cpu]
+  classify <cfg> <weights> <image> [-int8] [-names FILE] [-cpu]
+  classifier predict|try|valid|valid_multi|valid_crop|valid_full|valid_10|
+      test|label|demo|threat|gun <data> <cfg> [weights] ... [-cpu]
   detector train|valid|recall <data> <cfg> [weights] ... [-cpu]
   detector test <data> <cfg> <weights> <image> ...   (= detect)
   detector demo <data> <cfg> <weights> [-frames glob|-video f|-cam i] [-cpu]
@@ -19,8 +22,8 @@ Counterpart of ``sr_object_detection_tpu/apps/cli.py``
   statistics <cfg> <weights>
   visualize <cfg> [weights]
 
-`detect`, `detector`, `robot` and `speed` run on CUDA unless -cpu is
-given; the weight-surgery and inspection commands run on the host in
+`detect`, `detector`, `classify`, `classifier`, `robot` and `speed` run
+on CUDA unless -cpu is given; the weight-surgery and inspection commands run on the host in
 numpy. The other reference commands are listed in ROADMAP queue 1, items
 10-12. Flag parsing follows the reference's argv-splicing helpers
 (utils.c:62-118): '-key value' pairs are plucked from anywhere.
@@ -98,6 +101,27 @@ def cmd_detect(argv):
             img, dets, classes=det.region.classes))
         print(f"wrote {out_path}")
     return dets
+
+
+def cmd_classify(argv):
+    use_int8 = find_arg(argv, "-int8")
+    names_file = find_value(argv, "-names", None)
+    use_cpu = find_arg(argv, "-cpu")
+    cfg, weights, image = argv[0], argv[1], argv[2]
+    from ..config import read_names
+    from ..infer.classifier import Classifier
+    from ..ops.image import load_image_rgb
+    names = read_names(names_file) if names_file else None
+    img = load_image_rgb(image)
+    clf = Classifier(cfg, weights, names=names,
+                     device="cpu" if use_cpu else "cuda")
+    if use_int8:
+        # int8 serving mode: calibrate on the letterboxed input image
+        clf.quantize(clf.preprocess(img)[None])
+    top = clf.predict_topk(img, k=5)
+    for idx, p, name in top:
+        print(f"{name or idx}: {p:.6f}")
+    return top
 
 
 def cmd_speed(argv):
@@ -237,6 +261,13 @@ def cmd_detector(argv):
     return run_detector(argv, device="cpu" if use_cpu else "cuda")
 
 
+def cmd_classifier(argv):
+    """run_classifier (classifier.c:1124-1178): apps/classifier_app.py."""
+    use_cpu = find_arg(argv, "-cpu")
+    from .classifier_app import run_classifier
+    return run_classifier(argv, device="cpu" if use_cpu else "cuda")
+
+
 def cmd_robot(argv):
     use_cpu = find_arg(argv, "-cpu")
     from .robot_app import run_robot
@@ -246,6 +277,8 @@ def cmd_robot(argv):
 COMMANDS = {
     "detect": cmd_detect,
     "detector": cmd_detector,
+    "classify": cmd_classify,
+    "classifier": cmd_classifier,
     "robot": cmd_robot,
     "speed": cmd_speed,
     "ops": cmd_ops,

@@ -16,9 +16,20 @@ and yolov2's route, reorg and
 shortcut, for inference and for training (``Network.forward(x,
 train=True)``, with the bf16 training kernels of ``phase_train`` and
 ``fused_stem``, and the trainer's ``remat``); autograd gives route,
-reorg and shortcut their backwards. Any other kind raises
-``NotImplementedError`` when the network is built, naming the ROADMAP
-queue item that ports it.
+reorg and shortcut their backwards.
+
+The classifier family's kinds run for inference: connected (with its
+BN), avgpool, lrn, dropout (the identity), crop (its centre path),
+batchnorm, activation, softmax (``groups``, ``temperature``, a ``tree=``
+through ``ops.boxes.grouped_softmax``), cost (a pass-through), local,
+deconv, XNOR convs and a route of flat outputs. Flat (B, N) tensors are
+darknet's CHW raster, which is NCHW's own order, so a flat layer after a
+spatial one reshapes, and a spatial layer after a flat one reshapes back
+to its input geometry (the JAX compiler's ``_as_flat`` / ``_as_nhwc``).
+Their training forward comes with the next slice: ``forward(train=True)``
+over any of them raises ``NotImplementedError``. The remaining kinds
+(detection, rnn, gru, crnn) raise when the network is built, naming the
+ROADMAP queue item that ports them.
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ import os
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
@@ -39,20 +51,20 @@ from ..ops import conv as C
 from ..ops import layout as L
 from ..ops import pooling as P
 
-# kinds that come with the apps slice (ROADMAP queue 1, item 10); every
-# other kind not built here comes with the graph builder (item 3)
+# kinds that come with the apps slice (ROADMAP queue 1, item 10)
 _APPS_KINDS = (S.DetectionSpec, S.RNNSpec, S.GRUSpec, S.CRNNSpec)
+# what a layer without a training forward names
+TRAIN_ITEM = "ROADMAP queue 1, item 19: training the classifier family"
 
 
 class ConvLayer(nn.Module):
-    """conv [+BN] + bias + activation; buffers hold OIHW weights."""
+    """conv [+BN] + bias + activation; buffers hold OIHW weights. An XNOR
+    conv binarizes its weights and input (``ops.conv.conv_block``) and
+    has no training forward yet."""
 
     def __init__(self, spec: S.ConvSpec, params: dict, compute_dtype=None):
         super().__init__()
-        if spec.xnor or spec.binary:
-            raise NotImplementedError(
-                f"layer {spec.index}: XNOR/binary convs are not ported yet "
-                "(ROADMAP queue 1, item 2)")
+        self.trainable = not spec.xnor
         self.spec = spec
         self.compute_dtype = compute_dtype
         self.act = A.get_activation(spec.activation)
@@ -157,18 +169,21 @@ class RegionLayer(nn.Module):
 
 
 class RouteLayer(nn.Module):
-    """Channel concat of earlier NCHW outputs (``forward(outputs)``)."""
+    """Channel concat of earlier NCHW outputs (``forward(outputs)``), or,
+    where the route's output is flat (out_c 0), the concat of its
+    sources' flat rasters (the JAX compiler's compiler.py:337-339; no
+    training forward yet)."""
 
     def __init__(self, spec: S.RouteSpec):
         super().__init__()
-        if spec.out_c <= 0:
-            raise NotImplementedError(
-                f"layer {spec.index}: a route of flat outputs is not "
-                "ported yet (ROADMAP queue 1, item 3)")
         self.spec = spec
+        self.trainable = spec.out_c > 0
 
     def forward(self, outputs):
-        return L.route([outputs[j] for j in self.spec.layers], dim=1)
+        srcs = [outputs[j] for j in self.spec.layers]
+        if self.spec.out_c > 0:
+            return L.route(srcs, dim=1)
+        return torch.cat([L.nchw_to_flat(t) for t in srcs], dim=1)
 
 
 class ReorgLayer(nn.Module):
@@ -195,6 +210,157 @@ class ShortcutLayer(nn.Module):
         return L.shortcut_nchw(x, outputs[self.spec.from_index], self.act)
 
 
+class _InferenceLayer(nn.Module):
+    """A layer with an inference forward only; ``params`` become
+    buffers."""
+
+    trainable = False
+
+    def __init__(self, spec, params=None):
+        super().__init__()
+        self.spec = spec
+        for k, v in (params or {}).items():
+            self.register_buffer(k, v)
+
+
+class ConnectedLayer(_InferenceLayer):
+    """Fully connected [+BN] + bias + activation on the flat raster;
+    float32 output (``ops.conv.connected``)."""
+
+    def forward(self, x):
+        l = self.spec
+        p = dict(self.named_buffers())
+        return C.connected(L.nchw_to_flat(x), p,
+                           A.get_activation(l.activation),
+                           batch_normalize=l.batch_normalize)
+
+
+class AvgPoolLayer(_InferenceLayer):
+    def forward(self, x):
+        return P.avgpool_global(x)
+
+
+class DropoutLayer(_InferenceLayer):
+    def forward(self, x):
+        return L.dropout(x)
+
+
+class CropLayer(_InferenceLayer):
+    """The centre crop of crop_layer.c:67-110's CPU path, then 2x - 1
+    unless ``noadjust`` (the JAX compiler's ``_crop_forward`` at
+    inference)."""
+
+    def forward(self, x):
+        l = self.spec
+        scale, trans = (1.0, 0.0) if l.noadjust else (2.0, -1.0)
+        dh = (x.shape[2] - l.crop_h) // 2
+        dw = (x.shape[3] - l.crop_w) // 2
+        out = x[:, :, dh:dh + l.crop_h, dw:dw + l.crop_w]
+        return out * scale + trans
+
+
+class BatchNormLayer(_InferenceLayer):
+    """The standalone [batchnorm] layer with its rolling statistics."""
+
+    def forward(self, x):
+        return C.batchnorm_inference(x, self.scales, self.rolling_mean,
+                                     self.rolling_variance)
+
+
+class LRNLayer(_InferenceLayer):
+    def forward(self, x):
+        l = self.spec
+        return P.lrn(x, size=l.size, alpha=l.alpha, beta=l.beta,
+                     kappa=l.kappa)
+
+
+class ActivationLayer(_InferenceLayer):
+    """The activation alone, in its input's dtype (the bf16 leaky slope on
+    bf16), on any layout."""
+
+    def forward(self, x):
+        return A.get_activation(self.spec.activation, x.dtype)(x)
+
+
+class SoftmaxLayer(_InferenceLayer):
+    """softmax_layer.c:49-61 on the flat raster: ``groups`` fold into the
+    batch, the logits are divided by ``temperature``, and a ``tree=``
+    runs the WordTree's grouped softmax (its group ids built once on
+    ``device``). The plain softmax rounds where jax.nn.softmax does:
+    x - max, exp and the sum in the input's dtype, then the quotient."""
+
+    def __init__(self, spec: S.SoftmaxSpec, tree: Optional[WordTree] = None,
+                 device="cpu"):
+        super().__init__(spec)
+        if spec.tree_file is not None and tree is None:
+            raise ValueError(f"layer {spec.index}: tree={spec.tree_file} "
+                             "but no WordTree was given")
+        self.gids = None if tree is None else B.GroupIds(tree.group, device)
+
+    def forward(self, x):
+        l = self.spec
+        x = L.nchw_to_flat(x)
+        b = x.shape[0]
+        v = x.reshape(b * l.groups, l.inputs // l.groups) / l.temperature
+        if self.gids is not None:
+            out = B.grouped_softmax(v, self.gids)
+        else:
+            e = torch.exp(v - v.max(dim=-1, keepdim=True).values)
+            out = e / e.sum(dim=-1, keepdim=True)
+        return out.reshape(b, l.inputs)
+
+
+class CostLayer(_InferenceLayer):
+    """The cost layer copies its input at inference; its loss comes with
+    the training slice."""
+
+    def forward(self, x):
+        return x
+
+
+class LocalLayer(_InferenceLayer):
+    """Locally connected layer (local_layer.c): per-location weights
+    ``(locations, n, c*size*size)`` over darknet's im2col columns (channel
+    major, as ``F.unfold`` orders them), biases ``[n][locations]``,
+    float32 sums and output (the JAX compiler's ``_local_forward``)."""
+
+    def forward(self, x):
+        l = self.spec
+        pad = l.size // 2 if l.pad else 0
+        cols = F.unfold(x.float(), l.size, padding=pad, stride=l.stride)
+        y = torch.einsum("bkl,lnk->bnl", cols, self.weights.float())
+        y = y + self.biases.reshape(l.filters, -1)
+        y = y.reshape(x.shape[0], l.filters, l.out_h, l.out_w)
+        return A.get_activation(l.activation)(y)
+
+
+class DeconvLayer(_InferenceLayer):
+    """Transposed conv (deconvolutional_layer.c), out = s*(in-1) + size.
+    The reference's col2im scatter indexes the kernel unflipped, which is
+    ``F.conv_transpose2d``'s own sum over (Cin, Cout, kh, kw) weights;
+    the JAX compiler flips the kernel because ``lax.conv_transpose`` runs
+    a forward conv (``io.convert`` lays the weights out)."""
+
+    def forward(self, x):
+        l = self.spec
+        y = F.conv_transpose2d(x, self.weights.to(x.dtype), stride=l.stride)
+        y = y + self.biases.to(y.dtype).reshape(1, -1, 1, 1)
+        return A.get_activation(l.activation, y.dtype)(y)
+
+
+_INFERENCE_KINDS = {S.ConnectedSpec: ConnectedLayer, S.AvgPoolSpec:
+                    AvgPoolLayer, S.DropoutSpec: DropoutLayer,
+                    S.CropSpec: CropLayer, S.BatchNormSpec: BatchNormLayer,
+                    S.LRNSpec: LRNLayer, S.ActivationSpec: ActivationLayer,
+                    S.CostSpec: CostLayer, S.LocalSpec: LocalLayer,
+                    S.DeconvSpec: DeconvLayer}
+# layers that read an NCHW input: a flat one is reshaped to their input
+# geometry first
+_SPATIAL = (ConvLayer, MaxPoolLayer, RegionLayer, ReorgLayer, ShortcutLayer,
+            AvgPoolLayer, CropLayer, BatchNormLayer, LRNLayer, LocalLayer,
+            DeconvLayer)
+
+
 def build_layer(l: S.LayerSpec, params: dict, compute_dtype=None, *,
                 tree: Optional[WordTree] = None, device="cpu"):
     if isinstance(l, S.ConvSpec):
@@ -209,10 +375,17 @@ def build_layer(l: S.LayerSpec, params: dict, compute_dtype=None, *,
         return ReorgLayer(l)
     if isinstance(l, S.ShortcutSpec):
         return ShortcutLayer(l)
-    item = 10 if isinstance(l, _APPS_KINDS) else 3
+    if isinstance(l, S.SoftmaxSpec):
+        return SoftmaxLayer(l, tree, device)
+    if type(l) in _INFERENCE_KINDS:
+        return _INFERENCE_KINDS[type(l)](l, params)
+    if isinstance(l, _APPS_KINDS):
+        raise NotImplementedError(
+            f"layer {l.index} ({l.kind}) is not ported yet (ROADMAP queue "
+            "1, item 10)")
     raise NotImplementedError(
-        f"layer {l.index} ({l.kind}) is not ported yet (ROADMAP queue 1, "
-        f"item {item})")
+        f"layer {l.index} ({l.kind}): the JAX package's polyphase rewrite "
+        "is not ported (ROADMAP, 'Not ported')")
 
 
 def _to_public(t):
@@ -355,10 +528,12 @@ class Network(nn.Module):
             for i, layer in enumerate(self.layers):
                 if isinstance(layer, RouteLayer):
                     cur = layer(kept)
-                elif isinstance(layer, ShortcutLayer):
-                    cur = layer(cur, kept)
                 else:
-                    cur = layer(cur)
+                    if cur.ndim == 2 and isinstance(layer, _SPATIAL):
+                        l = layer.spec
+                        cur = L.flat_to_nchw(cur, l.h, l.w, l.c)
+                    cur = (layer(cur, kept) if isinstance(layer, ShortcutLayer)
+                           else layer(cur))
                 if i in self.live:
                     kept[i] = cur
                 if keep_all or i == self.out_idx:
@@ -449,6 +624,13 @@ class Network(nn.Module):
         return layer(cur), {}
 
     def _forward_train(self, x, keep_all, params, want, remat):
+        untrained = [f"{i} ({layer.spec.kind})"
+                     for i, layer in enumerate(self.layers)
+                     if not getattr(layer, "trainable", True)]
+        if untrained:
+            raise NotImplementedError(
+                f"layers {', '.join(untrained)} have no training forward "
+                f"yet ({TRAIN_ITEM})")
         if params is None:
             params = [dict(layer.named_buffers()) for layer in self.layers]
         want = {self.out_idx} if want is None else set(want)
@@ -500,5 +682,8 @@ class Network(nn.Module):
 
 
 __all__ = ["Network", "ConvLayer", "MaxPoolLayer", "RegionLayer",
-           "RouteLayer", "ReorgLayer", "ShortcutLayer", "build_layer",
+           "RouteLayer", "ReorgLayer", "ShortcutLayer", "ConnectedLayer",
+           "AvgPoolLayer", "DropoutLayer", "CropLayer", "BatchNormLayer",
+           "LRNLayer", "ActivationLayer", "SoftmaxLayer", "CostLayer",
+           "LocalLayer", "DeconvLayer", "build_layer", "TRAIN_ITEM",
            "live_set", "remat_divisor", "remat_saved", "resolve_trees"]

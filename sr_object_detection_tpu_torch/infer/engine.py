@@ -15,7 +15,8 @@ src_yolo2/KinectUtil.cpp:379-487).
   checksum that depends on every output element, one ``.item()`` at the
   end. The int8 sibling is ``infer.quant.QuantizedThroughputEngine``.
 * :class:`LatencyEngine` runs u8 frame -> normalize (+ resize) ->
-  forward -> region decode -> top-k candidates on the engine's device,
+  forward -> region decode -> top-k candidates on the engine's device
+  (a net without a region head, a classifier, returns its output),
   in bf16 (BN folded) or, with ``int8_calib``, through the int8 program
   of ``infer/quant.py``. With ``fused_stem=True`` the bf16 engine's
   leading conv+pool pairs run through the batch-1 stem kernel
@@ -264,9 +265,7 @@ class LatencyEngine:
                  frame_hw: Optional[tuple[int, int]] = None,
                  int8_calib=None, fused_stem: bool = False):
         region = spec.layers[-1]
-        if not isinstance(region, S.RegionSpec):
-            raise ValueError("LatencyEngine requires a [region] final layer")
-        self.region = region
+        self.region = region if isinstance(region, S.RegionSpec) else None
         self.device = torch.device(device)
         self._stem = None
         if int8_calib is not None:
@@ -298,7 +297,7 @@ class LatencyEngine:
         self.frame_hw = frame_hw
         h, w = frame_hw if frame_hw else (net.h, net.w)
         self.frame_shape = (h, w, net.c)
-        self._anchors = torch.tensor(
+        self._anchors = None if self.region is None else torch.tensor(
             np.asarray(region.anchors, np.float32).reshape(region.n, 2),
             device=self.device)
 
@@ -312,7 +311,9 @@ class LatencyEngine:
     @torch.no_grad()
     def __call__(self, frame_u8):
         """One HWC uint8 frame -> (boxes (64, 4), probs (64, classes))
-        float32 on the engine's device."""
+        float32 on the engine's device; on a net without a [region] head
+        (a classifier), (the network's output, None), as the JAX engine
+        returns it."""
         frame = torch.as_tensor(frame_u8)
         if frame.ndim != 3:
             raise ValueError(
@@ -322,6 +323,8 @@ class LatencyEngine:
         if self.frame_hw is not None and self.frame_hw != self.net_hw:
             x = I.resize_image(x, self.net_hw[1], self.net_hw[0])
         out, _ = self.forward(x[None].to(self.dtype))
+        if self.region is None:
+            return out, None
         r = self.region
         acts = out.reshape(1, r.h, r.w, r.n, r.coords + r.classes + 1).float()
         boxes = B.decode_region_boxes(acts, self._anchors, img_w=1.0,

@@ -32,14 +32,22 @@ once on the device) and, with ``presplit``, the aligned head's (fields,
 cls) pair (``infer.engine.align_region_head``; ``"flat"`` keeps the
 class tensor in the head conv's layout).
 
-Activations are NHWC throughout, like the JAX module. Not ported yet:
-the float tail after an int8 trunk (ROADMAP queue 1, item 3) and a
-``mesh`` (item 11); each raises ``NotImplementedError`` naming its
-item.
+A spec the int8 dataflow covers only in part (a classifier: darknet19's
+avgpool + softmax + cost) runs its int8 trunk up to the first layer it
+does not cover and the rest as a float tail, a ``graph.compiler.Network``
+over the re-indexed layers in ``HEAD_DTYPE``; the last trunk conv, which
+feeds the tail, stays in ``HEAD_DTYPE`` like a head conv, so the logits
+take no int8 step. A route in the tail, or a shortcut from the trunk
+into it, raises ``NotImplementedError``, as in the JAX module.
+
+Activations are NHWC throughout, like the JAX module. Not ported yet: a
+``mesh`` (ROADMAP queue 1, item 11), which raises
+``NotImplementedError`` naming its item.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from typing import Any
 
@@ -198,15 +206,15 @@ def quantize_for_inference(spec: S.NetworkSpec, params, calib_x, *,
         raise NotImplementedError(
             "no int8-quantizable prefix (first layers unsupported); "
             "use the bf16 ThroughputEngine")
-    if split < len(fspec.layers):
-        # the JAX module runs the rest (a classifier's avgpool + softmax)
-        # as a float tail; none of those layer kinds is ported yet
-        l = fspec.layers[split]
-        raise NotImplementedError(
-            f"layer {l.index} ({l.kind}) after the int8 trunk is not "
-            "ported yet (ROADMAP queue 1, item 3)")
-    if isinstance(fspec.layers[-1], S.RegionSpec) \
+    for l in fspec.layers[split:]:
+        if isinstance(l, S.RouteSpec):
+            raise NotImplementedError("route in the float tail")
+        if isinstance(l, S.ShortcutSpec) and l.from_index < split:
+            raise NotImplementedError("shortcut crossing the int8 trunk")
+    if split == len(fspec.layers) \
+            and isinstance(fspec.layers[-1], S.RegionSpec) \
             and not isinstance(fspec.layers[-2], S.ConvSpec):
+        # a region inside the float tail is fine: the tail runs in float
         raise NotImplementedError(
             "int8 path: [region] must be fed by a conv layer")
 
@@ -215,6 +223,24 @@ def quantize_for_inference(spec: S.NetworkSpec, params, calib_x, *,
     # full-brightness uint8 frame never saturates the input requant
     in_amax = max(in_amax, 1.0)
     heads = _head_conv_indices(fspec)
+    if split < len(fspec.layers) and isinstance(fspec.layers[split - 1],
+                                                S.ConvSpec):
+        # the last trunk conv feeds the float tail (darknet19's 1000-class
+        # 1x1 conv before avgpool + softmax): kept in HEAD_DTYPE so that
+        # the logits take no int8 step
+        heads.add(split - 1)
+    tail = None
+    if split < len(fspec.layers):
+        # the float tail: the remaining layers re-indexed from 0 (a
+        # shortcut inside it shifted with them), in HEAD_DTYPE
+        tail_spec = S.NetworkSpec(
+            net=fspec.net, layers=tuple(
+                dataclasses.replace(l, from_index=l.from_index - split)
+                if isinstance(l, S.ShortcutSpec) else l
+                for l in fspec.layers[split:]), cfg_path=fspec.cfg_path)
+        tail = Network(tail_spec, [
+            {k: v.to(device, HEAD_DTYPE) for k, v in p.items()}
+            for p in params_f[split:]], compute_dtype=HEAD_DTYPE)
 
     # ---- static per-layer scale propagation and parameter quantization
     # (numpy, the JAX module's expressions) ----------------------------
@@ -224,7 +250,7 @@ def quantize_for_inference(spec: S.NetworkSpec, params, calib_x, *,
     def dev(a, dtype=None):
         return torch.as_tensor(np.ascontiguousarray(a)).to(device, dtype)
 
-    layers = fspec.layers
+    layers = fspec.layers[:split]
     s_out: dict[int, float] = {}       # int8 scale of each layer output
     qparams: list[dict[str, Any]] = []
     in_scale = scale_of(in_amax)
@@ -291,10 +317,14 @@ def quantize_for_inference(spec: S.NetworkSpec, params, calib_x, *,
     @torch.no_grad()
     def forward(x, stop=None):
         """x: NHWC batch on the device. ``stop``: return the activation
-        after layer ``stop - 1`` instead (int8 inside the trunk)."""
+        after layer ``stop - 1`` of the int8 trunk instead (int8 inside
+        it, before the float tail)."""
         if stop is not None and stop < n_stem:
             raise ValueError(f"stop={stop} falls inside the fused stem "
                              f"(layers 0..{n_stem - 1})")
+        if stop is not None and stop > split:
+            raise ValueError(f"stop={stop} falls inside the float tail "
+                             f"(layers {split}..)")
         x = torch.as_tensor(x).to(device)
         if x.dtype not in (torch.uint8, torch.float32):
             x = x.float()
@@ -354,19 +384,26 @@ def quantize_for_inference(spec: S.NetworkSpec, params, calib_x, *,
                 cur = regions[i].activate(cur.to(rdt))
             if i in live:
                 saved[i] = cur
-        if stop is None and not isinstance(cur, tuple) \
-                and cur.dtype == torch.int8:
+        if stop is not None:
+            return cur
+        if tail is not None:
+            if cur.dtype == torch.int8:     # the trunk ended on int8
+                cur = cur.to(HEAD_DTYPE) * torch.tensor(
+                    s_out[split - 1], dtype=HEAD_DTYPE, device=device)
+            return tail(cur)[0]
+        if not isinstance(cur, tuple) and cur.dtype == torch.int8:
             # a net ending on a non-head int8 layer: dequantize so the
             # contract — float outputs — holds
-            cur = cur.float() * float(np.float32(s_out[len(layers) - 1]))
+            cur = cur.float() * float(np.float32(s_out[split - 1]))
         return cur
 
     return QuantizedNetwork(fspec, qparams, forward, act_scales, in_scale)
 
 
 class QuantizedForwardShim:
-    """Drop-in replacement for the ``net`` attribute of ``Detector``:
-    the same ``shim(x) -> (out, aux)`` call, running the int8 program."""
+    """Drop-in replacement for the ``net`` attribute of ``Detector`` and
+    ``Classifier``: the same ``shim(x) -> (out, aux)`` call, running the
+    int8 program."""
 
     def __init__(self, spec: S.NetworkSpec, params, calib_x, *, device,
                  quantize_head: bool = False, region_dtype=None):

@@ -3,7 +3,13 @@
 ``io/weights.py`` (a verbatim copy of the JAX package's reader) returns
 one dict per layer with conv weights in HWIO. The port runs its convs
 through ``F.conv2d``, which wants OIHW, so conv weights are transposed
-here once, at load.
+here once, at load. A deconv's HWIO (size, size, c, filters) weights
+become the (c, filters, size, size) that ``F.conv_transpose2d`` reads,
+unflipped (``graph.compiler.DeconvLayer``), and a local layer's flat
+weights the (locations, filters, c*size*size) of darknet's
+``[locations][n][c*size*size]`` order. Connected weights keep darknet's
+(outputs, inputs), and BN parameters their (C,). Each conversion is a
+reshape or a transpose, so the round trip is exact.
 
 Every array is cast to float32 FIRST: ``init_params`` returns float64
 conv weights (a float64 numpy scale times a float32 draw), and the JAX
@@ -24,8 +30,10 @@ def params_to_torch(spec: S.NetworkSpec, params_np, device,
     """Convert a per-layer list of numpy param dicts to torch tensors.
 
     Conv layers' ``weights`` go from HWIO (3,3,Cin,Cout) to OIHW
-    (Cout,Cin,3,3); every other array keeps its shape. Returns a new
-    list of dicts ({} for parameterless layers)."""
+    (Cout,Cin,3,3), a deconv's to (Cin, Cout, kh, kw) and a local
+    layer's to (locations, filters, c*size*size); every other array
+    keeps its shape. Returns a new list of dicts ({} for parameterless
+    layers)."""
     if not isinstance(spec, S.NetworkSpec):
         # a spec built by the JAX package has other classes, and every
         # isinstance test below would silently fail
@@ -39,6 +47,10 @@ def params_to_torch(spec: S.NetworkSpec, params_np, device,
             a = np.asarray(v, np.float32)
             if k == "weights" and isinstance(l, S.ConvSpec):
                 a = np.transpose(a, (3, 2, 0, 1))
+            elif k == "weights" and isinstance(l, S.DeconvSpec):
+                a = np.transpose(a, (2, 3, 0, 1))
+            elif k == "weights" and isinstance(l, S.LocalSpec):
+                a = a.reshape(l.out_h * l.out_w, l.filters, -1)
             q[k] = torch.from_numpy(np.ascontiguousarray(a)).to(
                 device=device, dtype=dtype)
         out.append(q)
@@ -47,8 +59,8 @@ def params_to_torch(spec: S.NetworkSpec, params_np, device,
 
 def params_to_numpy(spec: S.NetworkSpec, params) -> list[dict]:
     """The inverse of :func:`params_to_torch`: torch tensors (any device
-    and float dtype) -> float32 numpy arrays, conv ``weights`` from OIHW
-    back to HWIO."""
+    and float dtype) -> float32 numpy arrays, conv and deconv ``weights``
+    back to HWIO, a local layer's flat again."""
     if not isinstance(spec, S.NetworkSpec):
         raise TypeError(f"want this package's NetworkSpec, got "
                         f"{type(spec).__module__}.{type(spec).__name__}")
@@ -59,6 +71,10 @@ def params_to_numpy(spec: S.NetworkSpec, params) -> list[dict]:
             a = v.detach().to("cpu", torch.float32).numpy()
             if k == "weights" and isinstance(l, S.ConvSpec):
                 a = np.transpose(a, (2, 3, 1, 0))
+            elif k == "weights" and isinstance(l, S.DeconvSpec):
+                a = np.transpose(a, (2, 3, 0, 1))
+            elif k == "weights" and isinstance(l, S.LocalSpec):
+                a = a.reshape(-1)
             q[k] = np.ascontiguousarray(a)
         out.append(q)
     return out

@@ -3,7 +3,9 @@
 Counterpart of ``sr_object_detection_tpu/ops/conv.py`` (``conv2d``,
 ``batchnorm_inference``, ``batchnorm_train`` with both hand-written
 backwards, ``bias_add`` with its float32 bias gradient, ``conv_block``
-for inference and training, ``fold_batchnorm``). The JAX package runs NHWC/HWIO;
+for inference (with the XNOR branch) and training, ``connected`` and
+``binarize_weights`` / ``binarize_input`` for inference,
+``fold_batchnorm``). The JAX package runs NHWC/HWIO;
 here the tensors handed between layers are NCHW with OIHW weights, the
 layout ``F.conv2d`` takes natively. ``graph/compiler.py`` converts at
 the network's boundary, so public layouts stay NHWC.
@@ -104,11 +106,17 @@ def _sqrt_rn(v):
     return torch.sqrt(v.double()).to(v.dtype)
 
 
+def _axis1(v, x):
+    """(C,) v broadcast over axis 1 of x: NCHW, or flat (B, N)."""
+    return v.reshape(1, -1, *([1] * (x.ndim - 2)))
+
+
 def batchnorm_inference(x, scales, rolling_mean, rolling_var):
-    """(x - mean) / (sqrt(var) + eps) * scale, per channel of NCHW x,
-    folded to one multiply-add exactly as the JAX version computes it."""
+    """(x - mean) / (sqrt(var) + eps) * scale, per channel of NCHW x (or
+    per feature of flat (B, N) x), folded to one multiply-add exactly as
+    the JAX version computes it."""
     inv = scales / (_sqrt_rn(rolling_var) + BN_EPS)
-    return x * _channel(inv) + _channel(-rolling_mean * inv)
+    return x * _axis1(inv, x) + _axis1(-rolling_mean * inv, x)
 
 
 class _BiasAdd(torch.autograd.Function):
@@ -273,14 +281,32 @@ def conv_block_train(x, params, spec, *, compute_dtype=None):
     return y, bn
 
 
+def binarize_weights(w):
+    """XNOR-net weight binarization (convolutional_layer.c:37-49) of OIHW
+    ``w``: per filter, sign(w) * mean(|w|) (zero maps to -mean)."""
+    mean = w.abs().mean(dim=(1, 2, 3), keepdim=True)
+    return torch.where(w > 0, mean, -mean)
+
+
+def binarize_input(x):
+    """binarize_cpu (convolutional_layer.c:52-58): the sign in {+1, -1},
+    zero mapping to -1, in x's dtype."""
+    return torch.where(x > 0, 1.0, -1.0).to(x.dtype)
+
+
 def conv_block(x, params, spec, activation_fn, *, compute_dtype=None):
     """Inference darknet conv layer: conv [+BN] + bias + activation.
 
     ``params``: 'weights' (OIHW), 'biases' (C,) and, with
-    batch_normalize, 'scales', 'rolling_mean', 'rolling_variance'.
-    XNOR convs are rejected where the network is built
-    (``graph.compiler.ConvLayer``)."""
-    y = conv2d(x, params["weights"], stride=spec.stride, pad=spec.pad,
+    batch_normalize, 'scales', 'rolling_mean', 'rolling_variance'. An
+    XNOR conv binarizes its weights and its input first
+    (forward_convolutional_layer:443-448, the JAX module's XNOR branch);
+    ``binary`` alone changes nothing at inference, as there."""
+    w = params["weights"]
+    if getattr(spec, "xnor", False):
+        w = binarize_weights(w)
+        x = binarize_input(x)
+    y = conv2d(x, w, stride=spec.stride, pad=spec.pad,
                compute_dtype=compute_dtype)
     if spec.batch_normalize:
         y = batchnorm_inference(y, params["scales"], params["rolling_mean"],
@@ -290,6 +316,19 @@ def conv_block(x, params, spec, activation_fn, *, compute_dtype=None):
     if compute_dtype is not None:
         y = y.to(compute_dtype)
     return y
+
+
+def connected(x, params, activation_fn, *, batch_normalize: bool = False):
+    """Inference fully-connected layer (connected_layer.c forward) on flat
+    x (B, inputs): y = x @ W^T, W in darknet's (outputs, inputs) layout,
+    then [BN], + bias, activation. The product runs in float32, as the
+    JAX module's ``preferred_element_type=float32``: narrower operands
+    widen exactly, and the output is float32 whatever x's dtype."""
+    y = F.linear(x.float(), params["weights"].float())
+    if batch_normalize:
+        y = batchnorm_inference(y, params["scales"], params["rolling_mean"],
+                                params["rolling_variance"])
+    return activation_fn(y + params["biases"])
 
 
 def fold_batchnorm(params):
@@ -304,6 +343,7 @@ def fold_batchnorm(params):
 
 
 __all__ = ["conv2d", "conv2d_i8", "conv_block", "conv_block_train",
+           "connected", "binarize_weights", "binarize_input",
            "batchnorm_inference", "batchnorm_train", "shifted_moments",
            "bias_add",
            "fold_batchnorm", "BN_EPS", "EPS_B"]

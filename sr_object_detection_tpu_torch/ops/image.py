@@ -1,9 +1,9 @@
 """Image preprocessing with darknet-exact numerics.
 
 Counterpart of ``sr_object_detection_tpu/ops/image.py``. The numpy halves
-(``_resize_coeffs``, ``resize_image_np``, ``letterbox_image_np``,
-``_load_pnm``, ``load_image_rgb``, ``load_image_u8``) are copied as they
-are; ``resize_image``
+(``_resize_coeffs``, ``resize_image_np``, ``resize_min_np``,
+``crop_image_np``, ``letterbox_image_np``, ``_load_pnm``,
+``load_image_rgb``, ``load_image_u8``) are copied as they are; ``resize_image``
 is the torch version the batch-1 engine runs on the device, with the tap
 tables computed on the host in numpy so that its indices match the host
 path exactly.
@@ -79,6 +79,29 @@ def resize_image(im, w: int, h: int):
     y0, y1, wy0, wy1 = tables(ih, h, False)
     return (wy0[:, None, None] * part.index_select(-3, y0)
             + wy1[:, None, None] * part.index_select(-3, y1))
+
+
+def resize_min_np(im: np.ndarray, m: int) -> np.ndarray:
+    """Short side -> m keeping aspect, integer scaling
+    (image.c:1662-1676); returns the input when dims already match."""
+    ih, iw = im.shape[:2]
+    if iw < ih:
+        w, h = m, (ih * m) // iw
+    else:
+        w, h = (iw * m) // ih, m
+    if (w, h) == (iw, ih):
+        return im.astype(np.float32)
+    return resize_image_np(im, w, h)
+
+
+def crop_image_np(im: np.ndarray, dx: int, dy: int, w: int, h: int
+                  ) -> np.ndarray:
+    """Fixed-size crop with edge-replication for out-of-bounds coords
+    (image.c:1512-1532: constrain_int clamps source row/col)."""
+    ih, iw = im.shape[:2]
+    rows = np.clip(np.arange(h) + dy, 0, ih - 1)
+    cols = np.clip(np.arange(w) + dx, 0, iw - 1)
+    return im[rows[:, None], cols[None, :], :].astype(np.float32)
 
 
 def letterbox_dims(iw: int, ih: int, w: int, h: int) -> tuple[int, int]:
@@ -158,6 +181,7 @@ def _load_pnm(path: str) -> np.ndarray:
 
 
 __all__ = [
-    "resize_image_np", "resize_image", "letterbox_image_np",
-    "letterbox_dims", "load_image_rgb", "load_image_u8",
+    "resize_image_np", "resize_image", "resize_min_np", "crop_image_np",
+    "letterbox_image_np", "letterbox_dims", "load_image_rgb",
+    "load_image_u8",
 ]

@@ -4,8 +4,10 @@ Counterpart of ``sr_object_detection_tpu/ops/layout.py``. There every
 tensor is NHWC. Here ``graph/compiler.Network`` passes NCHW between its
 layers and the int8 program (``infer/quant.py``) passes NHWC, so reorg
 is defined once on NCHW, the reference's own CHW memory order, and its
-NHWC forms permute around that one definition. ``dropout`` comes with
-the rest of ROADMAP queue 1, item 3.
+NHWC forms permute around that one definition. The flat (B, N) tensors
+of connected/softmax/cost layers are darknet's CHW raster, which is an
+NCHW tensor's own order (:func:`nchw_to_flat`, :func:`flat_to_nchw`).
+``dropout`` is the inference identity.
 """
 
 from __future__ import annotations
@@ -93,6 +95,24 @@ def shortcut_nchw(x, from_x, activation_fn):
     return activation_fn(y)
 
 
+def dropout(x):
+    """Darknet dropout (dropout_layer.c) at inference: the identity (the
+    parser even aliases its output to the previous layer's buffer,
+    parser.c:660-665). Its training mask, scaled by 1/(1-p), comes with
+    the classifier's training slice."""
+    return x
+
+
+def nchw_to_flat(x):
+    """Flatten NCHW -> (B, C*H*W): darknet's CHW raster is NCHW's order."""
+    return x.reshape(x.shape[0], -1)
+
+
+def flat_to_nchw(x, h: int, w: int, c: int):
+    """Inverse of :func:`nchw_to_flat`."""
+    return x.reshape(x.shape[0], c, h, w)
+
+
 def nhwc_to_flat(x):
     """Flatten NHWC -> (B, C*H*W) in darknet CHW raster order."""
     return x.permute(0, 3, 1, 2).reshape(x.shape[0], -1)
@@ -105,4 +125,5 @@ def flat_to_nhwc(x, h: int, w: int, c: int):
 
 __all__ = ["reorg_darknet_nchw", "reorg_reverse_darknet_nchw",
            "reorg_darknet", "reorg_reverse_darknet", "route",
-           "shortcut_nchw", "nhwc_to_flat", "flat_to_nhwc"]
+           "shortcut_nchw", "dropout", "nchw_to_flat", "flat_to_nchw",
+           "nhwc_to_flat", "flat_to_nhwc"]

@@ -5,10 +5,12 @@ Counterpart of ``sr_object_detection_tpu/ops/pooling.py:maxpool``
 at -pad, every out-of-bounds tap reading -FLT_MAX. The right/bottom
 overhang is padded with -inf explicitly: tiny-yolo's layer 11 (size 2,
 stride 1, pad 0 on 13x13) has a last window that overhangs by one, which
-``F.max_pool2d``'s symmetric padding cannot express. avgpool and lrn come
-with the classifier and lrn slices (ROADMAP queue 1, item 2). The JAX
+``F.max_pool2d``'s symmetric padding cannot express. The JAX
 package's ``train_mode="amax"`` (a first-max-rank residual, measured a
 loss there) is not ported.
+
+:func:`avgpool_global` and :func:`lrn` are the classifier layers' pools
+(the JAX module's functions of the same names), on NCHW.
 
 :func:`maxpool_i8` is the int8 serving path's pool (the JAX package's
 ``infer.quant._maxpool_q``) on NHWC int8.
@@ -53,4 +55,35 @@ def maxpool_i8(x_q, *, size: int, stride: int, pad: int):
     return y.to(torch.int8).permute(0, 2, 3, 1).contiguous()
 
 
-__all__ = ["maxpool", "maxpool_i8"]
+def avgpool_global(x):
+    """Global average pool of NCHW x -> (B, C, 1, 1)."""
+    return x.mean(dim=(2, 3), keepdim=True)
+
+
+def lrn(x, *, size: int, alpha: float, beta: float, kappa: float):
+    """Local response normalization across the channels of NCHW x, with
+    darknet's running-sum quirk (normalization_layer.c:66-96, derived in
+    the JAX module's docstring): its init loop adds channels [0, size//2),
+    one short, while the removal step still subtracts channel size//2, so
+
+        norms[k] = kappa + alpha * (sum_{j=max(0,k-(size-1)//2)}
+                                        ^{min(c-1,k+size//2)} x[j]^2
+                                    - x[size//2]^2)
+
+    a clipped window sum minus the square of the fixed channel size//2.
+    Returns x * norms^-beta."""
+    c = x.shape[1]
+    sq = x * x
+    h1 = (size - 1) // 2   # taps behind
+    h2 = size // 2         # taps ahead
+    sq_p = F.pad(sq, (0, 0, 0, 0, h1, h2))
+    sums = sq_p[:, 0:c]
+    for t in range(1, size):
+        sums = sums + sq_p[:, t:t + c]
+    if h2 < c:
+        sums = sums - sq[:, h2:h2 + 1]
+    norms = kappa + alpha * sums
+    return x * torch.pow(norms, -beta)
+
+
+__all__ = ["maxpool", "maxpool_i8", "avgpool_global", "lrn"]

@@ -205,11 +205,26 @@ def test_unported_options_raise(net):
         TQ.QuantizedThroughputEngine(spec_t, params, device="cpu",
                                      calib_x=calib, batch=4,
                                      phase_stem=True)
-    # route and reorg run in int8 (tests/test_torch_yolov2.py); the float
-    # tail after an int8 trunk (darknet19's avgpool) is still item 3
+    # route and reorg run in int8 (tests/test_torch_yolov2.py), and the
+    # float tail after an int8 trunk since darknet19 (tests/
+    # test_torch_classifier.py); a route inside the tail still raises, as
+    # in the JAX package
+    from sr_object_detection_tpu_torch.config import parse_cfg_text
+    from sr_object_detection_tpu_torch.graph.spec import build_network_spec
+    from sr_object_detection_tpu_torch.io.weights import \
+        init_params as t_init_params
     d19 = TZ.darknet19(width=64, height=64, classes=10)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        TQ.quantize_for_inference(d19, init_params(d19, seed=0), calib,
-                                  device="cpu")
+    assert TQ.quantize_for_inference(d19, t_init_params(d19, seed=0), calib,
+                                     device="cpu").forward(
+        calib).shape == (2, 10)
+    routed = build_network_spec(parse_cfg_text(
+        "[net]\nheight=16\nwidth=16\nchannels=3\n\n[convolutional]\n"
+        "filters=8\nsize=3\nstride=1\npad=1\nactivation=leaky\n\n"
+        "[maxpool]\nsize=2\nstride=2\n\n[convolutional]\nfilters=4\n"
+        "size=1\nstride=1\nactivation=linear\n\n[avgpool]\n\n"
+        "[route]\nlayers=-1\n\n[softmax]\n"))
+    with pytest.raises(NotImplementedError, match="route in the float tail"):
+        TQ.quantize_for_inference(routed, t_init_params(routed, seed=0),
+                                  calib[:, :16, :16], device="cpu")
 
 

@@ -39,7 +39,8 @@ COPIES = ["config.py", "graph/spec.py", "io/weights.py", "models/zoo.py",
 FUNCTION_COPIES = [
     ("ops/image.py", n) for n in ("_resize_coeffs", "resize_image_np",
                                   "letterbox_dims", "letterbox_image_np",
-                                  "load_image_u8", "_load_pnm")] + [
+                                  "load_image_u8", "_load_pnm",
+                                  "crop_image_np", "resize_min_np")] + [
     ("data/loader.py", "label_path_for")] + [
     ("io/surgery.py", n) for n in ("partial", "average", "_tree_add",
                                    "_tree_scale", "rescale_net", "rescale",

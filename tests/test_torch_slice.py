@@ -176,11 +176,19 @@ def test_network_layers_match_jax():
 
 
 def test_unported_layer_kinds_raise_at_build():
-    """route and reorg are built since yolov2 (tests/test_torch_yolov2.py);
-    darknet19's avgpool is still item 3."""
+    """route and reorg are built since yolov2 (tests/test_torch_yolov2.py)
+    and the classifier family's kinds since darknet19 (tests/
+    test_torch_layers.py); a [detection] head is still item 10."""
     spec = TZ.darknet19(width=64, height=64, classes=10)
+    Network(spec, params_to_torch(spec, init_params(spec, seed=0), "cpu"))
+    from sr_object_detection_tpu_torch.config import parse_cfg_text
+    from sr_object_detection_tpu_torch.graph.spec import build_network_spec
+    spec = build_network_spec(parse_cfg_text(
+        "[net]\nheight=14\nwidth=14\nchannels=3\n\n[convolutional]\n"
+        "filters=10\nsize=3\nstride=2\npad=1\nactivation=leaky\n\n"
+        "[detection]\nclasses=5\ncoords=4\nnum=1\nside=7\n"))
     params = params_to_torch(spec, init_params(spec, seed=0), "cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
         Network(spec, params)
 
 
