@@ -11,7 +11,9 @@ heads), yolo9000-416 training from disk (the WordTree loss, device
 augmentation, the packed loader), `detector valid` with exact NMS, the
 robot frame loop and the streaming demo, darknet19-224 classification
 (the classifier family's layer kinds, the int8 float tail, the
-classifier apps) — through the entry points a user calls, builds
+classifier apps), darknet19-224 training (the cost head, every
+classifier kind's training forward, `classifier train`, `cifar`) —
+through the entry points a user calls, builds
 the hand-written CUDA kernels from ``sr_object_detection_tpu_torch/csrc``
 and holds each against its plain PyTorch version. Phases, in order; any failure ends the run with a
 non-zero status and no result line:
@@ -350,7 +352,33 @@ non-zero status and no result line:
      -int8` (matched within 2^-6 of the top prob, D19_INT8_RTOL: the two
      devices calibrate bits apart); `speed -batch 128 -int8 -phase-stem` on the card (its
      images/s; with -cpu at this size it would take minutes and prints
-     only times).
+     only times);
+ 44. the classifier family's training on the card, TF32 off: the float32
+     Trainer reproduces train_classifier.npz (torch_parity.
+     check_train_golden, weights 1e-4, the cost doubled); a seeded net of
+     every trainable classifier kind (conv + BN, XNOR conv, batchnorm,
+     lrn, activation, crop 10x10 with flips, maxpool, local, deconv,
+     avgpool, dropout .3, connected + BN, connected, flat route, softmax,
+     cost) trains 3 steps at subdivisions 2 on the CPU and on CUDA, the
+     card given the CPU run's dropout masks and crops: parameters within
+     1e-4; one more card step draws its own masks on the card;
+ 45. Trainer on darknet19-224 (the cost head, 1000-class one-hot truths)
+     at B=128 as one micro-batch, 3 steps a path, counts reset just
+     before and read just after each: bf16 (d) no kernels, (a)
+     phase_train, (b) phase_train + fused_stem, and float32 (what
+     `classifier train` runs); launches a step (a) the pair once, (b) the
+     pair and F2, B1, B2 four times (layers 2, 6, 10, 16) on the row
+     kernels; each first loss within 0.03*|loss| + 0.05 of (d)'s; each
+     path's peak device memory, images/s, MFU and a torch.profiler step;
+ 46. the pair's kernels at 3 -> 32 @224, B=128, and F2, B1, B2 at the
+     layers Network.fusable picks (0, 2, 6, 10, 16: 224x32 ... 14x512)
+     against their plain versions (train_kernels_at, as phase 34), each
+     time from a CUDA graph in turns with its plain version beside its
+     bound, fwdstats beside cuDNN's conv alone;
+ 47. the CLI on the card and with -cpu: `classifier train` over 16 seeded
+     PPMs and `cifar train` over seeded CIFAR-format binaries, 3
+     iterations each from one seeded .weights, the .weights within 1e-4
+     of the -cpu run's; `cifar test` the same line on both.
 
 The last lines are one JSON object with the four kernels at yolov2-608's
 shapes (the keys of the kernels line; their launches counted in phase
@@ -367,7 +395,10 @@ begin "nms_per_class (detector valid, exact NMS: ...)" the NMS kernel at
 the three exact widths (phase 36's times; launches from phase 37's
 counted valid runs), and under names that end in "(darknet19-224
 serving: ...)" the three stems at darknet19-224's shapes (phase 42's
-times; launches from phase 41's counted main path) (time, plain time,
+times; launches from phase 41's counted main path), and under names
+that end in "(darknet19-224 training: ...)" the pair's and the fused
+stem's kernels at darknet19-224's training shapes (phase 46's times;
+launches from phase 45's paths (a) and (b)) (time, plain time,
 bound, launches and library call of each;
 ``stem_pair`` is the batch-1 stem on the tensor-core conv tile of
 csrc/phase_train.cu (``stem_fold_kernel`` at pair 1, ``stem_tc_kernel``
@@ -409,7 +440,9 @@ GOLDEN = ROOT / "tests" / "golden"
 WORK = ROOT / "build" / "chip_smoke"
 sys.path.insert(0, str(ROOT / "tests"))
 from torch_parity import (  # noqa: E402  (JAX-free helpers)
-    TRAIN_GOLDENS, TREE_TRAIN_GOLDENS, assert_bf16_close, assert_fwd_close,
+    CLASSIFIER_TRAIN_GOLDENS, TRAIN_GOLDENS, TREE_TRAIN_GOLDENS,
+    all_kinds_text, assert_bf16_close, assert_fwd_close, classifier_params,
+    one_hot_groups,
     assert_stem_link_close, chain_case,
     check_chain_kernels, check_fused_op, check_fused_stem_kernels,
     check_fwdstats, check_pair_gradient, check_train_golden,
@@ -1886,6 +1919,35 @@ def train_kernels_at(tag, net, stem_layers, chunk, seed, gpu, dev):
     return times, bounds, errs, library
 
 
+TRAIN_REPLACES = {
+    "phase_train_fwdstats":
+        "sr_object_detection_tpu/kernels/phase_train.py:209",
+    "phase_train_apply": "sr_object_detection_tpu/kernels/phase_train.py:722",
+    "phase_train_bwdg": "sr_object_detection_tpu/kernels/phase_train.py:209",
+    "fused_stem_f2": "sr_object_detection_tpu/kernels/fused_stem.py:135",
+    "fused_stem_b1": "sr_object_detection_tpu/kernels/fused_stem.py:170",
+    "fused_stem_b2": "sr_object_detection_tpu/kernels/fused_stem.py:187"}
+
+
+def train_entries(tag, times, bounds, errs, library, launches, shapes):
+    """The kernels line's entries for the pair's and the fused stem's
+    kernels at one net's training shapes (train_kernels_at's times,
+    bounds, errors and library calls; the launches counted on its
+    Trainer's paths), named "<kernel> (<tag> training: <shapes>)" with
+    ``shapes`` {"phase_train": ..., "fused_stem": ...}."""
+    return [{"name": f"{name} ({tag} training: "
+                     f"{shapes[name.rsplit('_', 1)[0]]})", "route": "cuda",
+             "source": "sr_object_detection_tpu_torch/csrc/"
+                       + ("phase_train.cu" if name.startswith("phase")
+                          else "fused_stem.cu"),
+             "replaces": replaces, "launches": launches[name],
+             "max_abs_err": errs[name], "ms": times[name][0],
+             "plain_ms": times[name][1], "bound_ms": bounds[name][0],
+             "bound_by": bounds[name][1],
+             "library_ms": library.get(name)}
+            for name, replaces in TRAIN_REPLACES.items()]
+
+
 def yolov2_608_train(gpu, dev, reset_counts, counts):
     """Phases 26-28 (the module docstring): yolov2-608 training. Returns
     the kernels line's entries for the pair's and the fused stem's
@@ -2130,29 +2192,9 @@ def yolov2_608_train(gpu, dev, reset_counts, counts):
                      "phase_train_bwdg")},
         **{k: launches_p["(c) bf16 + fused_stem"][k]
            for k in ("fused_stem_f2", "fused_stem_b1", "fused_stem_b2")}}
-    replaces = {
-        "phase_train_fwdstats":
-            "sr_object_detection_tpu/kernels/phase_train.py:209",
-        "phase_train_apply":
-            "sr_object_detection_tpu/kernels/phase_train.py:722",
-        "phase_train_bwdg":
-            "sr_object_detection_tpu/kernels/phase_train.py:209",
-        "fused_stem_f2": "sr_object_detection_tpu/kernels/fused_stem.py:135",
-        "fused_stem_b1": "sr_object_detection_tpu/kernels/fused_stem.py:170",
-        "fused_stem_b2": "sr_object_detection_tpu/kernels/fused_stem.py:187"}
-    shapes = {"phase_train": f"3->32 @{Y_NET} B={BATCH}",
-              "fused_stem": f"layers 0, 2, 6, 10 B={BATCH}"}
-    return [{"name": f"{name} ({tag} training: "
-                     f"{shapes[name.rsplit('_', 1)[0]]})", "route": "cuda",
-             "source": "sr_object_detection_tpu_torch/csrc/"
-                       + ("phase_train.cu" if name.startswith("phase")
-                          else "fused_stem.cu"),
-             "replaces": replaces[name], "launches": launches_k[name],
-             "max_abs_err": errs[name], "ms": times[name][0],
-             "plain_ms": times[name][1], "bound_ms": bounds[name][0],
-             "bound_by": bounds[name][1],
-             "library_ms": library.get(name)}
-            for name in replaces]
+    return train_entries(tag, times, bounds, errs, library, launches_k,
+                         {"phase_train": f"3->32 @{Y_NET} B={BATCH}",
+                          "fused_stem": f"layers 0, 2, 6, 10 B={BATCH}"})
 
 N9_LOSS_BATCH = 8  # the tree loss's card-against-CPU batch (phase 32)
 N9_AUG = dict(jitter=0.2, hue=0.1, saturation=1.5, exposure=1.5)  # the cfg's
@@ -2477,29 +2519,9 @@ def yolo9000_416_train(gpu, dev, reset_counts, counts):
                      "phase_train_bwdg")},
         **{k: launches_p["(b) bf16 + phase_train + fused_stem"][k]
            for k in ("fused_stem_f2", "fused_stem_b1", "fused_stem_b2")}}
-    replaces = {
-        "phase_train_fwdstats":
-            "sr_object_detection_tpu/kernels/phase_train.py:209",
-        "phase_train_apply":
-            "sr_object_detection_tpu/kernels/phase_train.py:722",
-        "phase_train_bwdg":
-            "sr_object_detection_tpu/kernels/phase_train.py:209",
-        "fused_stem_f2": "sr_object_detection_tpu/kernels/fused_stem.py:135",
-        "fused_stem_b1": "sr_object_detection_tpu/kernels/fused_stem.py:170",
-        "fused_stem_b2": "sr_object_detection_tpu/kernels/fused_stem.py:187"}
-    shapes = {"phase_train": f"3->32 @{N9} B={BATCH}",
-              "fused_stem": f"layers 0, 2, 6, 10, 16 B={BATCH}"}
-    return [{"name": f"{name} ({tag} training: "
-                     f"{shapes[name.rsplit('_', 1)[0]]})", "route": "cuda",
-             "source": "sr_object_detection_tpu_torch/csrc/"
-                       + ("phase_train.cu" if name.startswith("phase")
-                          else "fused_stem.cu"),
-             "replaces": replaces[name], "launches": launches_k[name],
-             "max_abs_err": errs[name], "ms": times[name][0],
-             "plain_ms": times[name][1], "bound_ms": bounds[name][0],
-             "bound_by": bounds[name][1],
-             "library_ms": library.get(name)}
-            for name in replaces]
+    return train_entries(tag, times, bounds, errs, library, launches_k,
+                         {"phase_train": f"3->32 @{N9} B={BATCH}",
+                          "fused_stem": f"layers 0, 2, 6, 10, 16 B={BATCH}"})
 
 
 APPS_NMS = 0.45     # detector valid's NMS threshold (detector.c:246)
@@ -3182,6 +3204,327 @@ def darknet19_224(gpu, dev, reset_counts, counts):
     shapes = f"3->32 @{D19}, 32->64 @{D19 // 2}"
     return [dict(e, name=f"{e['name']} ({tag} serving: {shapes})")
             for e in serving_entries(times, bounds, errs, launches_d)]
+
+
+D19_CLI_ITERS = 3  # iterations of phase 47's classifier and cifar training
+
+
+def darknet19_224_train(gpu, dev, reset_counts, counts):
+    """Phases 44-47 (the module docstring): darknet19-224 training, the
+    classifier family. Returns the kernels line's entries for the pair's
+    and the fused stem's kernels at darknet19-224's training shapes."""
+    from sr_object_detection_tpu_torch.apps import cli
+    from sr_object_detection_tpu_torch.config import parse_cfg_text
+    from sr_object_detection_tpu_torch.graph import spec as S
+    from sr_object_detection_tpu_torch.infer.engine import analytic_flops
+    from sr_object_detection_tpu_torch.io.convert import params_to_numpy
+    from sr_object_detection_tpu_torch.io.weights import (
+        init_params, load_weights, save_weights)
+    from sr_object_detection_tpu_torch.kernels import fused_stem as FS
+    from sr_object_detection_tpu_torch.kernels import phase_train as PT
+    from sr_object_detection_tpu_torch.models.zoo import darknet19
+    from sr_object_detection_tpu_torch.train.trainer import Trainer
+    from tools.synth_dataset import write_ppm
+    tag = f"darknet19-{D19}"
+    bf16 = torch.bfloat16
+    GiB = 2 ** 30
+    WORK.mkdir(parents=True, exist_ok=True)
+
+    # ---------------------------------------------------------- phase 44
+    # the cost head's C-oracle golden and every trainable classifier kind
+    # on the card, TF32 off: the all-kinds net with dropout .3 and a 10x10
+    # crop with flips, 3 steps at subdivisions 2 on the CPU and on CUDA,
+    # the card given the CPU run's draws (its own dropout stream differs)
+    torch.cuda.empty_cache()
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    golden_err = {name: check_train_golden(name, dev)
+                  for name in sorted(CLASSIFIER_TRAIN_GOLDENS)}
+    kspec = S.build_network_spec(parse_cfg_text(all_kinds_text(
+        8, 2, crop=10, flip=1, probability=0.3)))
+    kparams = classifier_params(kspec, 44)
+    rng = np.random.default_rng(44)
+    batches = [(rng.uniform(0, 1, (8, 12, 12, 3)).astype(np.float32),
+                one_hot_groups(rng, 8, 112, 4)) for _ in range(3)]
+    runs, drawn = {}, [[] for _ in batches]
+    for where in ("cpu", dev):
+        tr = Trainer(kspec, params=kparams, device=where, seed=44)
+        losses = []
+        for (x, t), d in zip(batches, drawn):
+            if where != "cpu":
+                d = [{i: v.to(dev) if torch.is_tensor(v) else v
+                      for i, v in m.items()} for m in d]
+            losses.append(float(tr.step(x, t, draws=d)["loss"]))
+        runs[str(where)] = (losses, params_to_numpy(kspec, tr.state.params))
+    assert all(len(d) == 2 and all(len(m) == 2 for m in d) for d in drawn)
+    (lc, pc), (lg, pg) = runs["cpu"], runs[str(dev)]
+    own = []
+    own_loss = float(tr.step(*batches[0], draws=own)["loss"])
+    keeps = [v for m in own for v in m.values() if torch.is_tensor(v)]
+    assert np.isfinite(own_loss) and len(keeps) == 2 and all(
+        k.device.type == torch.device(dev).type and k.dtype == torch.bool
+        for k in keeps), own
+    kinds_err = 0.0
+    for i, l in enumerate(kspec.layers):
+        for k, want in pc[i].items():
+            assert np.allclose(pg[i][k], want, rtol=1e-4, atol=1e-4), (
+                i, l.kind, k)
+            kinds_err = max(kinds_err, float(np.abs(pg[i][k] - want).max()))
+    assert np.allclose(lg, lc, rtol=1e-4), (lg, lc)
+    moved = max(float(np.abs(pc[i][k] - kparams[i][k]).max())
+                for i in range(len(kparams)) for k in kparams[i])
+    log(f"phase 44 ok: the float32 Trainer on CUDA reproduces "
+        f"{sorted(CLASSIFIER_TRAIN_GOLDENS)} (weights 1e-4, max relative "
+        f"cost error {golden_err}); the all-kinds net ({len(kspec.layers)} "
+        f"layers: {', '.join(l.kind for l in kspec.layers)}; dropout .3, "
+        f"crop 10x10 with flips) 3 steps at subdivisions 2, card against "
+        f"CPU with the CPU's draws: losses {lg} vs {lc}, parameters "
+        f"within {kinds_err} (gate 1e-4; they moved up to {moved}); a "
+        f"step on the card's own draws: loss {own_loss}, keep fraction "
+        f"{[float(k.float().mean()) for k in keeps]} (p = .3) [{gpu}]")
+
+    # ---------------------------------------------------------- phase 45
+    # Trainer on darknet19-224 (cfg/darknet19.cfg, 1000 classes) at B=128
+    # as one micro-batch, seeded weights and one-hot truths: bf16 paths
+    # (d), (a), (b) and float32, 3 steps a path, each path's launches,
+    # peak device memory, images/s, MFU and a profiled step
+    dspec = darknet19()
+    dspec = dataclasses.replace(dspec, net=dataclasses.replace(
+        dspec.net, batch=BATCH, subdivisions=1))
+    dparams = init_params(dspec, seed=0)
+    gx = torch.Generator(device=dev).manual_seed(45)
+    xd = torch.rand((BATCH, D19, D19, 3), generator=gx, device=dev)
+    td = torch.from_numpy(one_hot_groups(rng, BATCH, 1000, 1)).to(dev)
+    step_flops = 3 * analytic_flops(dspec)
+    pair1 = dict(phase_train_fwdstats=1, phase_train_apply=1,
+                 phase_train_bwdg=1)
+    paths = {"(d) bf16": (dict(compute_dtype=bf16), {}),
+             "(a) bf16 + phase_train": (
+                 dict(compute_dtype=bf16, phase_train=True), pair1),
+             "(b) bf16 + phase_train + fused_stem": (
+                 dict(compute_dtype=bf16, phase_train=True,
+                      fused_stem=True),
+                 dict(pair1, fused_stem_f2=4, fused_stem_b1=4,
+                      fused_stem_b2=4)),
+             "float32": ({}, {})}
+    first, peaks, rates, launches_p = {}, {}, {}, {}
+    for name, (kw, per_step) in paths.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tr = Trainer(dspec, dparams, device=dev, **kw)
+        reset_counts()
+        losses = [float(tr.step(xd, td)["loss"]) for _ in range(3)]
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() / GiB
+        got, want = counts(**{k: 3 * v for k, v in per_step.items()})
+        assert got == want, (name, got)
+        assert FS.paths == {"f2_row": got["fused_stem_f2"],
+                            "b1_row": got["fused_stem_b1"],
+                            "b2_row": got["fused_stem_b2"], "f2": 0,
+                            "b1": 0, "b2": 0}, (name, FS.paths)
+        assert not any(c["fp32_core"] for c in PT.conv_kernels.values())
+        assert PT.bwdg_kernels["fp32_core"] == 0
+        assert all(np.isfinite(losses)), (name, losses)
+        first[name] = losses[0]
+        ref = first["(d) bf16"]
+        assert abs(losses[0] - ref) <= 0.03 * abs(ref) + 0.05, (
+            name, losses[0], ref)
+        launches_p[name] = got
+        log(f"  Trainer {tag} {name} B={BATCH}, 3 steps: losses {losses}; "
+            f"launches {dict((k, v) for k, v in got.items() if v)}; peak "
+            f"device memory {peaks[name]:.2f} GiB "
+            f"({time.perf_counter() - T0:.1f} s)")
+        ips = step_rate(tr, xd, td, 3)
+        peak_ops = PEAK_OPS_S["f32" if name == "float32" else "bf16"]
+        rates[name] = ips
+        log(f"time Trainer.step {tag} {name} B={BATCH}: {ips} images/s, "
+            f"{ips * step_flops / 1e12} TFLOP/s, MFU "
+            f"{ips * step_flops / peak_ops} of the "
+            f"{'float32 (TF32 off)' if name == 'float32' else 'bf16'} "
+            f"dense peak [{gpu}]")
+        seen = profile(f"Trainer.step {tag} {name} B={BATCH}, per step",
+                       lambda: tr.step(xd, td), 1, gpu, top=8)
+        if "fused_stem" in name:
+            assert_fused_stem_rows(name, seen)
+        if "phase_train" in name:
+            assert_bwdg_tensor_core(name, seen)
+        del tr
+    del xd, td
+    torch.cuda.empty_cache()
+    log(f"phase 45 ok: {tag} Trainer B={BATCH} (the cost head, 1000-class "
+        f"one-hot truths), paths (d), (a), (b) and float32 3 steps each "
+        f"with their launch counts a step; first losses within "
+        f"0.03*|loss| + 0.05 of (d)'s {first['(d) bf16']}; images/s "
+        f"{ {k: round(v, 1) for k, v in rates.items()} }; peak device "
+        f"memory by path { {k: round(v, 2) for k, v in peaks.items()} } "
+        f"GiB [{gpu}]")
+
+    # ---------------------------------------------------------- phase 46
+    # the pair and F2/B1/B2 at darknet19-224's training shapes: the pair
+    # 3 -> 32 @224, the fused stem at the layers Network.fusable picks
+    stem_layers = ((0, D19, 32), (2, D19 // 2, 64), (6, D19 // 4, 128),
+                   (10, D19 // 8, 256), (16, D19 // 16, 512))
+    times, bounds, errs, library = train_kernels_at(
+        tag, D19, stem_layers, 64, 46, gpu, dev)
+    log(f"phase 46 ok: {tag} training kernels == plain: the pair 3->32 at "
+        f"{D19} B={BATCH} (fwdstats on the taps fold, bwdg on the tensor "
+        f"cores, two launches of each bit-equal), F2, B1, B2 at layers "
+        f"{[l for l, _, _ in stem_layers]} on the row kernels (max |err| "
+        f"{ {k: v for k, v in errs.items()} }) [{gpu}]")
+
+    # ---------------------------------------------------------- phase 47
+    # the CLI on the card and with -cpu: `classifier train` over 16 seeded
+    # PPMs (two classes by brightness) with a small cfg, and `cifar train`
+    # and `cifar test` over seeded CIFAR-format binaries, each from one
+    # seeded .weights; the .weights each writes on the card within 1e-4 of
+    # the -cpu run's
+    t0 = time.perf_counter()
+    cdir = WORK / "classifier-train"
+    shutil.rmtree(cdir, ignore_errors=True)
+    cdir.mkdir()
+    paths_ppm = []
+    for i in range(16):
+        h, w = (int(v) for v in rng.integers(40, 81, 2))
+        img = np.clip((i % 2 + 1) / 3 + rng.normal(0, .1, (h, w, 3)), 0, 1)
+        p = cdir / f"{('dark', 'lite')[i % 2]}_{i}.ppm"
+        write_ppm(str(p), (img * 255).astype(np.uint8))
+        paths_ppm.append(str(p))
+    (cdir / "train.list").write_text("\n".join(paths_ppm) + "\n")
+    (cdir / "labels.list").write_text("dark\nlite\n")
+    ccfg = cdir / "small.cfg"
+    ccfg.write_text(D19_TRAIN_CFG.format(size=32, batch=16, classes=2,
+                                         iters=D19_CLI_ITERS))
+    cspec = S.build_network_spec(parse_cfg_text(ccfg.read_text()))
+    w0 = cdir / "init.weights"
+    save_weights(cspec, init_params(cspec, seed=47), str(w0))
+    wdiff = {}
+    for where in ("card", "cpu"):
+        data = cdir / f"{where}.data"
+        data.write_text(f"train={cdir / 'train.list'}\nlabels="
+                        f"{cdir / 'labels.list'}\nbackup={cdir / where}\n")
+        _, out = quiet(cli.main, ["classifier", "train", str(data),
+                                  str(ccfg), str(w0)]
+                       + ([] if where == "card" else ["-cpu"]))
+        assert len(out.splitlines()) == D19_CLI_ITERS, out
+    trained = {w: load_weights(cspec, str(cdir / w / "small.weights"))
+               for w in ("card", "cpu")}
+    assert trained["card"][1] == trained["cpu"][1] == 16 * D19_CLI_ITERS
+    wdiff["classifier train"] = weights_diff(trained["card"][0],
+                                             trained["cpu"][0], w0, cspec)
+    # cifar: 64 training and 32 test records of a label byte and 3072 CHW
+    # bytes
+    fdir = WORK / "cifar"
+    shutil.rmtree(fdir, ignore_errors=True)
+    (fdir / "data").mkdir(parents=True)
+    for name, n in (("data_batch_1.bin", 64), ("test_batch.bin", 32)):
+        rec = np.concatenate([rng.integers(0, 10, (n, 1)),
+                              rng.integers(0, 256, (n, 3072))], 1)
+        rec.astype(np.uint8).tofile(fdir / "data" / name)
+    fcfg = fdir / "cifar_small.cfg"
+    fcfg.write_text(D19_TRAIN_CFG.format(size=32, batch=16, classes=10,
+                                         iters=D19_CLI_ITERS))
+    fspec = S.build_network_spec(parse_cfg_text(fcfg.read_text()))
+    f0 = fdir / "init.weights"
+    save_weights(fspec, init_params(fspec, seed=47), str(f0))
+    tests = {}
+    for where in ("card", "cpu"):
+        flag = [] if where == "card" else ["-cpu"]
+        quiet(cli.main, ["cifar", "train", str(fcfg), str(f0), "-data",
+                         str(fdir / "data"), "-backup", str(fdir / where)]
+              + flag)
+        tests[where] = quiet(cli.main, [
+            "cifar", "test", str(fcfg), str(fdir / "card" /
+                                            "cifar_small.weights"),
+            "-data", str(fdir / "data")] + flag)[1]
+    ftrained = {w: load_weights(fspec, str(fdir / w / "cifar_small.weights"))
+                for w in ("card", "cpu")}
+    wdiff["cifar train"] = weights_diff(ftrained["card"][0],
+                                        ftrained["cpu"][0], f0, fspec)
+    assert tests["card"] == tests["cpu"], tests
+    assert tests["card"].startswith("top-1 accuracy: "), tests
+    log(f"phase 47 ok: the CLI on CUDA and with -cpu: classifier train "
+        f"({D19_CLI_ITERS} iterations of 16 images) and cifar train "
+        f"({D19_CLI_ITERS} iterations of 16 from 64 records) write "
+        f".weights within {wdiff} (max |card - cpu|, max |moved|; gate "
+        f"1e-4); cifar test over 32 records, the same line on both: "
+        f"{tests['card'].strip()!r} ({time.perf_counter() - t0:.1f} s) "
+        f"[{gpu}]")
+
+    launches_k = {
+        **{k: launches_p["(a) bf16 + phase_train"][k]
+           for k in ("phase_train_fwdstats", "phase_train_apply",
+                     "phase_train_bwdg")},
+        **{k: launches_p["(b) bf16 + phase_train + fused_stem"][k]
+           for k in ("fused_stem_f2", "fused_stem_b1", "fused_stem_b2")}}
+    return train_entries(tag, times, bounds, errs, library, launches_k,
+                         {"phase_train": f"3->32 @{D19} B={BATCH}",
+                          "fused_stem": f"layers 0, 2, 6, 10, 16 "
+                                        f"B={BATCH}"})
+
+
+# phase 47's small classifier: a 3x3 conv + BN, maxpool, the 1x1 logits
+# conv, avgpool, softmax, sse cost, as darknet19's tail
+D19_TRAIN_CFG = """\
+[net]
+batch={batch}
+subdivisions=2
+height={size}
+width={size}
+channels=3
+momentum=0.9
+decay=0.0005
+learning_rate=0.1
+max_batches={iters}
+policy=constant
+min_crop={size}
+max_crop=64
+hue=.1
+saturation=1.5
+exposure=1.5
+
+[convolutional]
+filters=16
+size=3
+stride=1
+pad=1
+batch_normalize=1
+activation=leaky
+
+[maxpool]
+size=2
+stride=2
+
+[convolutional]
+filters={classes}
+size=1
+stride=1
+pad=1
+activation=linear
+
+[avgpool]
+
+[softmax]
+groups=1
+
+[cost]
+type=sse
+"""
+
+
+def weights_diff(a, b, w0, spec):
+    """(max |a - b|, max |a - w0|) over two loaded .weights' params and
+    the initial .weights they trained from; asserts the first within
+    1e-4 (relative above 1) and that training moved them."""
+    from sr_object_detection_tpu_torch.io.weights import load_weights
+    init = load_weights(spec, str(w0))[0]
+    diff = moved = 0.0
+    for i, (p, q) in enumerate(zip(a, b)):
+        for k in p:
+            assert np.allclose(p[k], q[k], rtol=1e-4, atol=1e-4), (i, k)
+            diff = max(diff, float(np.abs(p[k] - q[k]).max()))
+            moved = max(moved, float(np.abs(p[k] - init[i][k]).max()))
+    assert moved > 0
+    return diff, moved
 
 
 def main() -> int:
@@ -4370,6 +4713,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     d19_kernels = darknet19_224(gpu, dev, reset_counts, counts)
 
+    # --------------------------------------------------- phases 44-47
+    torch.cuda.empty_cache()
+    d19_train_kernels = darknet19_224_train(gpu, dev, reset_counts, counts)
+
     replaces = {
         "nms_per_class": "sr_object_detection_tpu/kernels/nms_pallas.py:29",
         "stem_pair": "sr_object_detection_tpu/kernels/b1_stem.py:82",
@@ -4435,7 +4782,7 @@ def main() -> int:
          # BN/leaky/pool passes
          "library_ms": library.get(name)}
         for name in replaces] + yolo_train_kernels + yolo9000_train_kernels \
-        + apps_kernels + d19_kernels
+        + apps_kernels + d19_kernels + d19_train_kernels
     log(json.dumps({"yolov2_608_kernels": yolo_kernels}))
     log(json.dumps({"yolo9000_416_kernels": yolo9000_kernels}))
     log(gpu)

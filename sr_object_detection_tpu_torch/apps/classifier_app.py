@@ -1,8 +1,9 @@
-"""Classifier application: valid / predict and the other modes.
+"""Classifier application: train / valid / predict and the other modes.
 
 Counterpart of ``sr_object_detection_tpu/apps/classifier_app.py``
 (run_classifier, src_yolo2/classifier.c:1124-1178):
 
+  classifier train <data> <cfg> [weights] [-clear]
   classifier predict <data> <cfg> <weights> <image>
   classifier try <data> <cfg> <weights> <image> [layer]
   classifier valid|valid_multi|valid_crop|valid_full|valid_10 <data> <cfg>
@@ -14,7 +15,8 @@ Every mode runs on ``device`` (CUDA unless the CLI's -cpu), in float32.
 The modes that go through ``Classifier`` letterbox and take the
 hierarchy's path products; ``valid_crop``, ``valid_full``, ``test`` and
 ``try`` run the network's raw output, as in the JAX module. ``train``
-comes with the classifier's training slice (ROADMAP queue 1, item 19).
+runs the float32 ``Trainer`` on the cost head over a
+``ClassificationLoader``.
 """
 
 from __future__ import annotations
@@ -26,11 +28,12 @@ import numpy as np
 import torch
 
 from ..config import read_data_cfg, read_names
-from ..graph.compiler import TRAIN_ITEM, Network
+from ..graph.compiler import Network
 from ..graph.spec import parse_network_cfg
+from ..io import checkpoint as ckpt
 from ..io.convert import params_to_torch
 from ..io.weights import init_params, load_weights
-from .cli import find_value
+from .cli import find_arg, find_value
 
 
 def _labels(options):
@@ -62,9 +65,62 @@ def _forward(net, x, device):
 
 def train_classifier(data_cfg: str, cfg: str, weights: str | None,
                      argv: list[str], *, device="cuda"):
-    """train_classifier (classifier.c:38-150): not ported yet."""
-    raise NotImplementedError(
-        f"classifier train is not ported yet ({TRAIN_ITEM})")
+    """train_classifier (classifier.c:38-150): the float32 Trainer over
+    the classification loader, ``<cfg>.backup`` every 100 iterations
+    (classifier.c:135-145) and ``<cfg>.weights`` at the end, both in the
+    data cfg's backup directory. ``-clear`` starts the seen counter of
+    the given weights at 0."""
+    from ..data.loader import ClassificationLoader
+    from ..infer.detector import disable_tf32
+    from ..train.trainer import Trainer
+
+    options = read_data_cfg(data_cfg)
+    train_list = options.get("train", "data/train.list")
+    backup_dir = options.get("backup", "backup")
+    labels = _labels(options)
+    os.makedirs(backup_dir, exist_ok=True)
+    base = os.path.splitext(os.path.basename(cfg))[0]
+    if torch.device(device).type == "cuda":
+        disable_tf32()
+
+    spec = parse_network_cfg(cfg)
+    params = None
+    seen = 0
+    if weights:
+        params, seen = load_weights(spec, weights)
+    trainer = Trainer(spec, params=params, device=device)
+    if weights and not find_arg(argv, "-clear"):
+        trainer.state.seen = torch.tensor(int(seen), dtype=torch.int64)
+
+    outer = trainer.outer_batch
+    n = spec.net
+    loader = ClassificationLoader(
+        train_list, labels, w=n.w, h=n.h, batch=outer, min_crop=n.min_crop,
+        max_crop=n.max_crop, angle=n.angle, aspect=n.aspect, hue=n.hue,
+        saturation=n.saturation, exposure=n.exposure, device=device)
+    max_batches = n.max_batches or 10000
+    avg_loss = None
+    try:
+        while True:
+            i = int(trainer.state.seen) // outer + 1
+            if i > max_batches:
+                break
+            x, y = loader.next_batch()
+            t0 = time.time()
+            m = trainer.step(x, y)
+            loss = float(m["loss"]) / outer
+            avg_loss = loss if avg_loss is None else \
+                avg_loss * .9 + loss * .1
+            print(f"{i}: {loss:.6f}, {avg_loss:.6f} avg, "
+                  f"{float(m['lr']):.6f} rate, {time.time()-t0:.3f} s")
+            if i % 100 == 0:
+                ckpt.export_weights(
+                    os.path.join(backup_dir, f"{base}.backup"), spec,
+                    trainer.state)
+    finally:
+        loader.close()
+    ckpt.export_weights(os.path.join(backup_dir, f"{base}.weights"), spec,
+                        trainer.state)
 
 
 def validate_classifier(data_cfg: str, cfg: str, weights: str,

@@ -7,8 +7,11 @@ Counterpart of ``sr_object_detection_tpu/apps/cli.py``
   detect <cfg> <weights> <image> [-thresh T] [-names FILE] [-out out.ppm]
       [-int8 [-qhead]] [-presplit] [-cpu]
   classify <cfg> <weights> <image> [-int8] [-names FILE] [-cpu]
-  classifier predict|try|valid|valid_multi|valid_crop|valid_full|valid_10|
-      test|label|demo|threat|gun <data> <cfg> [weights] ... [-cpu]
+  classifier train|predict|try|valid|valid_multi|valid_crop|valid_full|
+      valid_10|test|label|demo|threat|gun <data> <cfg> [weights] ... [-cpu]
+  cifar train|distill|test|multi|csv|csvtrain <cfg> [weights] -data <dir>
+      ... [-cpu]
+  cifar eval|extract -data <dir> ...
   detector train|valid|recall <data> <cfg> [weights] ... [-cpu]
   detector test <data> <cfg> <weights> <image> ...   (= detect)
   detector demo <data> <cfg> <weights> [-frames glob|-video f|-cam i] [-cpu]
@@ -22,10 +25,10 @@ Counterpart of ``sr_object_detection_tpu/apps/cli.py``
   statistics <cfg> <weights>
   visualize <cfg> [weights]
 
-`detect`, `detector`, `classify`, `classifier`, `robot` and `speed` run
-on CUDA unless -cpu is given; the weight-surgery and inspection commands run on the host in
-numpy. The other reference commands are listed in ROADMAP queue 1, items
-10-12. Flag parsing follows the reference's argv-splicing helpers
+`detect`, `detector`, `classify`, `classifier`, `cifar`, `robot` and
+`speed` run on CUDA unless -cpu is given; the weight-surgery and
+inspection commands run on the host in numpy. The other reference
+commands are listed in ROADMAP queue 1, items 10-12. Flag parsing follows the reference's argv-splicing helpers
 (utils.c:62-118): '-key value' pairs are plucked from anywhere.
 """
 
@@ -268,6 +271,13 @@ def cmd_classifier(argv):
     return run_classifier(argv, device="cpu" if use_cpu else "cuda")
 
 
+def cmd_cifar(argv):
+    """cifar.c's run_cifar: apps/cifar_app.py."""
+    use_cpu = find_arg(argv, "-cpu")
+    from .cifar_app import run_cifar
+    return run_cifar(argv, device="cpu" if use_cpu else "cuda")
+
+
 def cmd_robot(argv):
     use_cpu = find_arg(argv, "-cpu")
     from .robot_app import run_robot
@@ -279,6 +289,7 @@ COMMANDS = {
     "detector": cmd_detector,
     "classify": cmd_classify,
     "classifier": cmd_classifier,
+    "cifar": cmd_cifar,
     "robot": cmd_robot,
     "speed": cmd_speed,
     "ops": cmd_ops,

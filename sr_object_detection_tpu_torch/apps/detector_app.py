@@ -78,7 +78,7 @@ def train_detector(data_cfg: str, cfg: str, weights: str | None,
         trainer.state.seen = torch.tensor(int(seen), dtype=torch.int64)
     resume = find_value(argv, "-resume", None)
     if resume:
-        trainer.state = ckpt.load_train_state(resume, trainer.state)
+        trainer.state = ckpt.load_train_state(resume, trainer.state, spec)
 
     max_batches = spec.net.max_batches or 10000
     outer = trainer.outer_batch
@@ -123,7 +123,7 @@ def train_detector(data_cfg: str, cfg: str, weights: str | None,
                                     spec, trainer.state)
                 ckpt.save_train_state(
                     os.path.join(backup_dir, f"{base}.state.npz"),
-                    trainer.state)
+                    trainer.state, spec)
     finally:
         loader.close()
     final = ckpt.checkpoint_name(backup_dir, base, 0, final=True)

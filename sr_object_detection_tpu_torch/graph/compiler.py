@@ -18,18 +18,22 @@ train=True)``, with the bf16 training kernels of ``phase_train`` and
 ``fused_stem``, and the trainer's ``remat``); autograd gives route,
 reorg and shortcut their backwards.
 
-The classifier family's kinds run for inference: connected (with its
-BN), avgpool, lrn, dropout (the identity), crop (its centre path),
-batchnorm, activation, softmax (``groups``, ``temperature``, a ``tree=``
-through ``ops.boxes.grouped_softmax``), cost (a pass-through), local,
-deconv, XNOR convs and a route of flat outputs. Flat (B, N) tensors are
-darknet's CHW raster, which is NCHW's own order, so a flat layer after a
-spatial one reshapes, and a spatial layer after a flat one reshapes back
-to its input geometry (the JAX compiler's ``_as_flat`` / ``_as_nhwc``).
-Their training forward comes with the next slice: ``forward(train=True)``
-over any of them raises ``NotImplementedError``. The remaining kinds
-(detection, rnn, gru, crnn) raise when the network is built, naming the
-ROADMAP queue item that ports them.
+The classifier family's kinds run for inference and for training:
+connected (with its BN), avgpool, lrn, dropout, crop, batchnorm,
+activation, softmax (``groups``, ``temperature``, a ``tree=`` through
+``ops.boxes.grouped_softmax``), cost, local, deconv, XNOR convs and a
+route of flat outputs. In training, dropout keeps each element with
+probability 1-p and crop takes a random offset and flip, both drawn from
+a ``torch.Generator`` (the JAX compiler draws from ``jax.random``, whose
+stream the port does not reproduce); the plain softmax has darknet's
+straight-through backward; the cost layers' loss comes back as
+aux['cost']; autograd gives lrn, local, deconv, avgpool and the
+activations their backwards. Flat (B, N) tensors are darknet's CHW
+raster, which is NCHW's own order, so a flat layer after a spatial one
+reshapes, and a spatial layer after a flat one reshapes back to its
+input geometry (the JAX compiler's ``_as_flat`` / ``_as_nhwc``). The
+remaining kinds (detection, rnn, gru, crnn) raise when the network is
+built, naming the ROADMAP queue item that ports them.
 """
 
 from __future__ import annotations
@@ -53,18 +57,16 @@ from ..ops import pooling as P
 
 # kinds that come with the apps slice (ROADMAP queue 1, item 10)
 _APPS_KINDS = (S.DetectionSpec, S.RNNSpec, S.GRUSpec, S.CRNNSpec)
-# what a layer without a training forward names
-TRAIN_ITEM = "ROADMAP queue 1, item 19: training the classifier family"
 
 
 class ConvLayer(nn.Module):
     """conv [+BN] + bias + activation; buffers hold OIHW weights. An XNOR
-    conv binarizes its weights and input (``ops.conv.conv_block``) and
-    has no training forward yet."""
+    conv binarizes its weights and input at inference
+    (``ops.conv.conv_block``) and trains on the real ones
+    (``ops.conv.conv_block_train``)."""
 
     def __init__(self, spec: S.ConvSpec, params: dict, compute_dtype=None):
         super().__init__()
-        self.trainable = not spec.xnor
         self.spec = spec
         self.compute_dtype = compute_dtype
         self.act = A.get_activation(spec.activation)
@@ -171,13 +173,11 @@ class RegionLayer(nn.Module):
 class RouteLayer(nn.Module):
     """Channel concat of earlier NCHW outputs (``forward(outputs)``), or,
     where the route's output is flat (out_c 0), the concat of its
-    sources' flat rasters (the JAX compiler's compiler.py:337-339; no
-    training forward yet)."""
+    sources' flat rasters (the JAX compiler's compiler.py:337-339)."""
 
     def __init__(self, spec: S.RouteSpec):
         super().__init__()
         self.spec = spec
-        self.trainable = spec.out_c > 0
 
     def forward(self, outputs):
         srcs = [outputs[j] for j in self.spec.layers]
@@ -210,11 +210,8 @@ class ShortcutLayer(nn.Module):
         return L.shortcut_nchw(x, outputs[self.spec.from_index], self.act)
 
 
-class _InferenceLayer(nn.Module):
-    """A layer with an inference forward only; ``params`` become
-    buffers."""
-
-    trainable = False
+class _Layer(nn.Module):
+    """A layer whose ``params`` become buffers."""
 
     def __init__(self, spec, params=None):
         super().__init__()
@@ -223,9 +220,10 @@ class _InferenceLayer(nn.Module):
             self.register_buffer(k, v)
 
 
-class ConnectedLayer(_InferenceLayer):
+class ConnectedLayer(_Layer):
     """Fully connected [+BN] + bias + activation on the flat raster;
-    float32 output (``ops.conv.connected``)."""
+    float32 output (``ops.conv.connected``). ``forward_train`` runs the
+    batch-statistics BN and returns (y, bn update or None)."""
 
     def forward(self, x):
         l = self.spec
@@ -234,47 +232,96 @@ class ConnectedLayer(_InferenceLayer):
                            A.get_activation(l.activation),
                            batch_normalize=l.batch_normalize)
 
+    def forward_train(self, x, p):
+        l = self.spec
+        return C.connected(L.nchw_to_flat(x), p,
+                           A.get_activation(l.activation),
+                           batch_normalize=l.batch_normalize, train=True)
 
-class AvgPoolLayer(_InferenceLayer):
+
+class AvgPoolLayer(_Layer):
     def forward(self, x):
         return P.avgpool_global(x)
 
 
-class DropoutLayer(_InferenceLayer):
+class DropoutLayer(_Layer):
+    """The identity at inference. In training the keep mask is a draw
+    (:meth:`draw`), passed in, so that a checkpoint's recompute and a
+    test supplying the JAX package's mask use the same one."""
+
     def forward(self, x):
         return L.dropout(x)
 
+    def draw(self, x, generator):
+        """The keep mask of x's shape (``ops.layout.dropout_keep``; None
+        at probability 0)."""
+        p = self.spec.probability
+        return None if p == 0.0 else L.dropout_keep(x, p, generator)
 
-class CropLayer(_InferenceLayer):
-    """The centre crop of crop_layer.c:67-110's CPU path, then 2x - 1
-    unless ``noadjust`` (the JAX compiler's ``_crop_forward`` at
-    inference)."""
+    def forward_train(self, x, keep):
+        if keep is None:
+            return x
+        return L.dropout_masked(x, keep, self.spec.probability)
+
+
+class CropLayer(_Layer):
+    """crop_layer.c:67-110's CPU path, then 2x - 1 unless ``noadjust``
+    (the JAX compiler's ``_crop_forward``): the centre crop at inference;
+    in training the offsets and flip of :meth:`draw`."""
 
     def forward(self, x):
         l = self.spec
+        return self._crop(x, (x.shape[2] - l.crop_h) // 2,
+                          (x.shape[3] - l.crop_w) // 2, False)
+
+    def draw(self, x, generator):
+        """(dh, dw, flip): offsets uniform in [0, h - crop_h] and
+        [0, w - crop_w], a flip with probability 1/2 where ``flip`` is
+        set."""
+        l = self.spec
+        dh = int(torch.randint(0, x.shape[2] - l.crop_h + 1, (),
+                               generator=generator))
+        dw = int(torch.randint(0, x.shape[3] - l.crop_w + 1, (),
+                               generator=generator))
+        flip = bool(l.flip) and bool(torch.rand((), generator=generator)
+                                     < 0.5)
+        return dh, dw, flip
+
+    def forward_train(self, x, draw):
+        return self._crop(x, *draw)
+
+    def _crop(self, x, dh, dw, flip):
+        l = self.spec
         scale, trans = (1.0, 0.0) if l.noadjust else (2.0, -1.0)
-        dh = (x.shape[2] - l.crop_h) // 2
-        dw = (x.shape[3] - l.crop_w) // 2
         out = x[:, :, dh:dh + l.crop_h, dw:dw + l.crop_w]
+        if flip:
+            out = out.flip(3)
         return out * scale + trans
 
 
-class BatchNormLayer(_InferenceLayer):
-    """The standalone [batchnorm] layer with its rolling statistics."""
+class BatchNormLayer(_Layer):
+    """The standalone [batchnorm] layer with its rolling statistics; in
+    training the batch statistics (``ops.conv.batchnorm_train``)."""
 
     def forward(self, x):
         return C.batchnorm_inference(x, self.scales, self.rolling_mean,
                                      self.rolling_variance)
 
+    def forward_train(self, x, p):
+        y, rm, rv, _, _ = C.batchnorm_train(x, p["scales"],
+                                            p["rolling_mean"],
+                                            p["rolling_variance"])
+        return y, {"rolling_mean": rm, "rolling_variance": rv}
 
-class LRNLayer(_InferenceLayer):
+
+class LRNLayer(_Layer):
     def forward(self, x):
         l = self.spec
         return P.lrn(x, size=l.size, alpha=l.alpha, beta=l.beta,
                      kappa=l.kappa)
 
 
-class ActivationLayer(_InferenceLayer):
+class ActivationLayer(_Layer):
     """The activation alone, in its input's dtype (the bf16 leaky slope on
     bf16), on any layout."""
 
@@ -282,12 +329,16 @@ class ActivationLayer(_InferenceLayer):
         return A.get_activation(self.spec.activation, x.dtype)(x)
 
 
-class SoftmaxLayer(_InferenceLayer):
+class SoftmaxLayer(_Layer):
     """softmax_layer.c:49-61 on the flat raster: ``groups`` fold into the
     batch, the logits are divided by ``temperature``, and a ``tree=``
     runs the WordTree's grouped softmax (its group ids built once on
     ``device``). The plain softmax rounds where jax.nn.softmax does:
-    x - max, exp and the sum in the input's dtype, then the quotient."""
+    x - max, exp and the sum in the input's dtype, then the quotient.
+    In training the plain softmax's backward is the identity
+    (backward_softmax_layer, softmax_layer.c:62-68: darknet adds the
+    output's delta straight into the input's); a ``tree=`` softmax keeps
+    its full Jacobian, as the JAX compiler's does."""
 
     def __init__(self, spec: S.SoftmaxSpec, tree: Optional[WordTree] = None,
                  device="cpu"):
@@ -297,44 +348,82 @@ class SoftmaxLayer(_InferenceLayer):
                              "but no WordTree was given")
         self.gids = None if tree is None else B.GroupIds(tree.group, device)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         l = self.spec
         x = L.nchw_to_flat(x)
         b = x.shape[0]
         v = x.reshape(b * l.groups, l.inputs // l.groups) / l.temperature
         if self.gids is not None:
             out = B.grouped_softmax(v, self.gids)
+        elif train:
+            out = _SoftmaxStraightThrough.apply(v)
         else:
-            e = torch.exp(v - v.max(dim=-1, keepdim=True).values)
-            out = e / e.sum(dim=-1, keepdim=True)
+            out = _softmax(v)
         return out.reshape(b, l.inputs)
 
 
-class CostLayer(_InferenceLayer):
-    """The cost layer copies its input at inference; its loss comes with
-    the training slice."""
+def _softmax(v):
+    e = torch.exp(v - v.max(dim=-1, keepdim=True).values)
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+class _SoftmaxStraightThrough(torch.autograd.Function):
+    """Softmax forward, identity backward (the JAX compiler's
+    ``_softmax_straight_through``)."""
+
+    @staticmethod
+    def forward(ctx, v):
+        return _softmax(v)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class CostLayer(_Layer):
+    """The cost layer copies its input; in training :func:`cost` is its
+    loss against the truth."""
 
     def forward(self, x):
         return x
 
 
-class LocalLayer(_InferenceLayer):
+def cost(pred, truth, l: S.CostSpec):
+    """cost_layer.c:73-110 (the JAX compiler's ``_cost_forward``): the sum
+    of squared differences (``sse``), with the truths that hold
+    SECRET_NUM skipped (``masked``), or the smooth-L1 sum (``smooth``),
+    times ``scale``; float32 whatever the prediction's dtype, as JAX's
+    promotion of a bf16 prediction against float32 truth gives."""
+    truth = truth.float()
+    diff = truth - L.nchw_to_flat(pred).float()
+    if l.cost_type == "masked":
+        diff = torch.where(truth == L.SECRET_NUM, 0.0, diff)
+    if l.cost_type == "smooth":
+        a = diff.abs()
+        return torch.where(a < 1, diff * diff, 2 * a - 1).sum() * l.scale
+    return (diff * diff).sum() * l.scale
+
+
+class LocalLayer(_Layer):
     """Locally connected layer (local_layer.c): per-location weights
     ``(locations, n, c*size*size)`` over darknet's im2col columns (channel
     major, as ``F.unfold`` orders them), biases ``[n][locations]``,
     float32 sums and output (the JAX compiler's ``_local_forward``)."""
 
     def forward(self, x):
+        return self.forward_train(x, dict(self.named_buffers()))
+
+    def forward_train(self, x, p):
         l = self.spec
         pad = l.size // 2 if l.pad else 0
         cols = F.unfold(x.float(), l.size, padding=pad, stride=l.stride)
-        y = torch.einsum("bkl,lnk->bnl", cols, self.weights.float())
-        y = y + self.biases.reshape(l.filters, -1)
+        y = torch.einsum("bkl,lnk->bnl", cols, p["weights"].float())
+        y = y + p["biases"].reshape(l.filters, -1)
         y = y.reshape(x.shape[0], l.filters, l.out_h, l.out_w)
         return A.get_activation(l.activation)(y)
 
 
-class DeconvLayer(_InferenceLayer):
+class DeconvLayer(_Layer):
     """Transposed conv (deconvolutional_layer.c), out = s*(in-1) + size.
     The reference's col2im scatter indexes the kernel unflipped, which is
     ``F.conv_transpose2d``'s own sum over (Cin, Cout, kh, kw) weights;
@@ -342,9 +431,12 @@ class DeconvLayer(_InferenceLayer):
     a forward conv (``io.convert`` lays the weights out)."""
 
     def forward(self, x):
+        return self.forward_train(x, dict(self.named_buffers()))
+
+    def forward_train(self, x, p):
         l = self.spec
-        y = F.conv_transpose2d(x, self.weights.to(x.dtype), stride=l.stride)
-        y = y + self.biases.to(y.dtype).reshape(1, -1, 1, 1)
+        y = F.conv_transpose2d(x, p["weights"].to(x.dtype), stride=l.stride)
+        y = y + p["biases"].to(y.dtype).reshape(1, -1, 1, 1)
         return A.get_activation(l.activation, y.dtype)(y)
 
 
@@ -508,7 +600,8 @@ class Network(nn.Module):
                     self.fusable.add(i)
 
     def forward(self, x, keep_all: bool = False, *, train: bool = False,
-                params=None, want=None, remat=False):
+                params=None, want=None, remat=False, truth=None,
+                generator=None, draws=None):
         """x: NHWC input. Returns (out, aux): out is the output layer's
         tensor in the public layout, aux = {'outputs': {i: tensor}}
         (every layer when ``keep_all``, else only the output layer).
@@ -521,7 +614,14 @@ class Network(nn.Module):
         and keeps the outputs of ``want`` (of every unit with
         ``keep_all``); ``remat`` (the trainer's option, see
         :meth:`remat_segments`) recomputes the checkpointed segments'
-        activations in the backward."""
+        activations in the backward. With ``truth`` it runs on to the
+        last cost layer and adds aux['cost'], the sum of the cost layers'
+        losses. Dropout and crop draw from ``generator`` (a CPU
+        ``torch.Generator``; default one seeded 0, as the JAX forward's
+        default key is 0; dropout draws its mask on x's device from a
+        seed it takes there) in layer order, unless ``draws`` holds their
+        draw ({layer: keep mask in the port's layout, or (dh, dw,
+        flip)}); the draws made are added to ``draws``."""
         if not train:
             cur = x.permute(0, 3, 1, 2)
             saved, kept = {}, {}    # public outputs; NCHW ones read later
@@ -539,7 +639,12 @@ class Network(nn.Module):
                 if keep_all or i == self.out_idx:
                     saved[i] = _to_public(cur)
             return saved[self.out_idx], {"outputs": saved}
-        return self._forward_train(x, keep_all, params, want, remat)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        return self._forward_train(
+            x, keep_all, params, want, remat,
+            dict(truth=truth, generator=generator,
+                 draws={} if draws is None else draws))
 
     def train_units(self, h: int, w: int):
         """The training forward's units at input height h and width w,
@@ -589,10 +694,15 @@ class Network(nn.Module):
         return [list(run) for kept, run in itertools.groupby(
             units, key=lambda u: u[1] in saved) if not kept]
 
-    def _run_unit(self, unit, cur, kept, params):
-        """One unit on NCHW ``cur`` -> (its NCHW output, {i: bn update})."""
+    def _run_unit(self, unit, cur, kept, params, rt):
+        """One unit on NCHW or flat ``cur`` -> (its output, {i: bn
+        update}, [costs]). ``rt``: the forward's truth, generator and
+        draws."""
         i, j, kind = unit
         layers = self.spec.layers
+        if cur.ndim == 2 and isinstance(self.layers[i], _SPATIAL):
+            l = layers[i]
+            cur = L.flat_to_nchw(cur, l.h, l.w, l.c)
         if kind == "chain":
             # the leading two pairs (compiler.py:219-236 of the JAX
             # package); pair 0's pooled output is not kept
@@ -600,41 +710,53 @@ class Network(nn.Module):
             pooled, bn0, bn2 = phase_train_chain2(
                 cur.permute(0, 2, 3, 1), params[0], layers[0], params[2],
                 layers[2])
-            return pooled.permute(0, 3, 1, 2), {0: bn0, 2: bn2}
+            return pooled.permute(0, 3, 1, 2), {0: bn0, 2: bn2}, []
         if kind == "pair":
             from ..kernels.phase_train import phase_train_block
             pooled, bn = phase_train_block(cur.permute(0, 2, 3, 1),
                                            params[0], layers[0])
-            return pooled.permute(0, 3, 1, 2), {0: bn}
+            return pooled.permute(0, 3, 1, 2), {0: bn}, []
         if kind == "fused":
             # conv + fused BN/leaky/pool (compiler.py:255-285 of the JAX
             # package): the conv output is never kept
             from ..kernels.fused_stem import fused_stem_block
             pooled, bn = fused_stem_block(cur, params[i], layers[i])
-            return pooled, {i: bn}
+            return pooled, {i: bn}, []
         l, layer = layers[i], self.layers[i]
+        bn = None
         if isinstance(l, S.ConvSpec):
             cur, bn = C.conv_block_train(cur, params[i], l,
                                          compute_dtype=self.compute_dtype)
-            return cur, ({} if bn is None else {i: bn})
-        if isinstance(layer, RouteLayer):
-            return layer(kept), {}
-        if isinstance(layer, ShortcutLayer):
-            return layer(cur, kept), {}
-        return layer(cur), {}
+        elif isinstance(layer, (ConnectedLayer, BatchNormLayer)):
+            cur, bn = layer.forward_train(cur, params[i])
+        elif isinstance(layer, (DropoutLayer, CropLayer)):
+            draws = rt["draws"]
+            if i not in draws:
+                draws[i] = layer.draw(cur, rt["generator"])
+            cur = layer.forward_train(cur, draws[i])
+        elif isinstance(layer, SoftmaxLayer):
+            cur = layer(cur, train=True)
+        elif isinstance(layer, CostLayer):
+            if rt["truth"] is not None:
+                return cur, {}, [cost(cur, rt["truth"], l)]
+        elif isinstance(layer, RouteLayer):
+            cur = layer(kept)
+        elif isinstance(layer, ShortcutLayer):
+            cur = layer(cur, kept)
+        elif isinstance(layer, (LocalLayer, DeconvLayer)):
+            cur = layer.forward_train(cur, params[i])
+        else:
+            cur = layer(cur)
+        return cur, ({} if bn is None else {i: bn}), []
 
-    def _forward_train(self, x, keep_all, params, want, remat):
-        untrained = [f"{i} ({layer.spec.kind})"
-                     for i, layer in enumerate(self.layers)
-                     if not getattr(layer, "trainable", True)]
-        if untrained:
-            raise NotImplementedError(
-                f"layers {', '.join(untrained)} have no training forward "
-                f"yet ({TRAIN_ITEM})")
+    def _forward_train(self, x, keep_all, params, want, remat, rt):
         if params is None:
             params = [dict(layer.named_buffers()) for layer in self.layers]
         want = {self.out_idx} if want is None else set(want)
-        last = max(want)
+        out_i = last = max(want)
+        if rt["truth"] is not None:
+            last = max([last] + [i for i, l in enumerate(self.spec.layers)
+                                 if isinstance(l, S.CostSpec)])
         units = [u for u in self.train_units(x.shape[1], x.shape[2])
                  if u[0] <= last]
         inner = [i for i in want if any(u[0] <= i < u[1] for u in units)]
@@ -655,35 +777,43 @@ class Network(nn.Module):
 
         def run(group, cur, kept):
             """A group's units -> (last output, live outputs, outputs
-            asked for, bn updates): a pure function of its arguments and
-            the params, so a checkpoint's recompute gives the same
-            tensors and its rolling updates are dropped."""
-            live, outs, bn = {}, {}, {}
+            asked for, bn updates, costs): a pure function of its
+            arguments, the params and the draws (made on the first run),
+            so a checkpoint's recompute gives the same tensors and its
+            rolling updates are dropped."""
+            live, outs, bn, costs = {}, {}, {}, []
             for u in group:
-                cur, upd = self._run_unit(u, cur, {**kept, **live}, params)
+                cur, upd, c = self._run_unit(u, cur, {**kept, **live},
+                                             params, rt)
                 bn.update(upd)
+                costs += c
                 if u[1] in self.live:
                     live[u[1]] = cur
                 if keep_all or u[1] in want:
                     outs[u[1]] = cur
-            return cur, live, outs, bn
+            return cur, live, outs, bn, costs
 
         cur, kept, saved, bn_updates = x.permute(0, 3, 1, 2), {}, {}, {}
+        costs = []
         for group, n in groups:
             if n is None:
-                cur, live, outs, bn = run(group, cur, kept)
+                cur, live, outs, bn, c = run(group, cur, kept)
             else:
-                cur, live, outs, bn = torch.utils.checkpoint.checkpoint(
+                cur, live, outs, bn, c = torch.utils.checkpoint.checkpoint(
                     run, group, cur, kept, use_reentrant=False)
             kept.update(live)
             saved.update({i: _to_public(t) for i, t in outs.items()})
             bn_updates.update(bn)
-        return saved[last], {"outputs": saved, "bn": bn_updates}
+            costs += c
+        aux = {"outputs": saved, "bn": bn_updates}
+        if costs:
+            aux["cost"] = sum(costs)
+        return saved[out_i], aux
 
 
 __all__ = ["Network", "ConvLayer", "MaxPoolLayer", "RegionLayer",
            "RouteLayer", "ReorgLayer", "ShortcutLayer", "ConnectedLayer",
            "AvgPoolLayer", "DropoutLayer", "CropLayer", "BatchNormLayer",
            "LRNLayer", "ActivationLayer", "SoftmaxLayer", "CostLayer",
-           "LocalLayer", "DeconvLayer", "build_layer", "TRAIN_ITEM",
+           "LocalLayer", "DeconvLayer", "build_layer", "cost",
            "live_set", "remat_divisor", "remat_saved", "resolve_trees"]

@@ -9,9 +9,10 @@ two formats (SURVEY §5.4):
     ``v/<layer>/<name>``, ``seen``; conv weights HWIO), so a state saved
     by either package loads in the other.
 
-The port's params hold conv weights OIHW; they are its only 4-D
-``weights`` (connected weights are 2-D), which is how the conversion
-below finds them.
+The port's params hold conv weights OIHW, deconv weights (Cin, Cout, k,
+k) and local weights (locations, n, c*k*k), so the train-state
+checkpoints take the network's spec and convert every layer as
+``io.convert`` does.
 """
 
 from __future__ import annotations
@@ -23,25 +24,19 @@ import numpy as np
 import torch
 
 from ..graph import spec as S
-from .convert import params_to_numpy
+from .convert import params_to_numpy, params_to_torch
 from .weights import save_weights
 
 
-def _hwio(k, t):
-    a = t.detach().to("cpu", torch.float32).numpy()
-    if k == "weights" and a.ndim == 4:
-        a = np.transpose(a, (2, 3, 1, 0))          # OIHW -> HWIO
-    return np.ascontiguousarray(a)
-
-
-def save_train_state(path: str, state):
-    """state: train.trainer.TrainState. Written to a temporary file and
-    renamed, so a crash never leaves a half-written checkpoint."""
+def save_train_state(path: str, state, spec: S.NetworkSpec):
+    """state: train.trainer.TrainState of a network of ``spec``. Written
+    to a temporary file and renamed, so a crash never leaves a
+    half-written checkpoint."""
     arrays = {}
     for tag, tree in (("p", state.params), ("v", state.velocity)):
-        for i, p in enumerate(tree):
+        for i, p in enumerate(params_to_numpy(spec, tree)):
             for k, v in p.items():
-                arrays[f"{tag}/{i}/{k}"] = _hwio(k, v)
+                arrays[f"{tag}/{i}/{k}"] = v
     arrays["seen"] = np.asarray(int(state.seen), np.int64)
     d = os.path.dirname(os.path.abspath(path)) or "."
     fd, tmp = tempfile.mkstemp(dir=d, suffix=".npz")
@@ -50,23 +45,18 @@ def save_train_state(path: str, state):
     os.replace(tmp, path)
 
 
-def load_train_state(path: str, template_state):
-    """Restore into the structure, device and dtypes of template_state."""
+def load_train_state(path: str, template_state, spec: S.NetworkSpec):
+    """Restore into the structure, device and dtypes of template_state,
+    a state of a network of ``spec``."""
     from ..train.trainer import TrainState
     z = np.load(path)
 
     def rebuild(tag, tree):
-        out = []
-        for i, p in enumerate(tree):
-            q = {}
-            for k, t in p.items():
-                a = np.asarray(z[f"{tag}/{i}/{k}"], np.float32)
-                if k == "weights" and a.ndim == 4:
-                    a = np.transpose(a, (3, 2, 0, 1))   # HWIO -> OIHW
-                q[k] = torch.from_numpy(np.ascontiguousarray(a)).to(
-                    device=t.device, dtype=t.dtype)
-            out.append(q)
-        return out
+        arrays = [{k: z[f"{tag}/{i}/{k}"] for k in p}
+                  for i, p in enumerate(tree)]
+        dev = next((t.device for p in tree for t in p.values()), "cpu")
+        return [{k: v.to(dtype=p[k].dtype) for k, v in q.items()}
+                for p, q in zip(tree, params_to_torch(spec, arrays, dev))]
 
     return TrainState(params=rebuild("p", template_state.params),
                       velocity=rebuild("v", template_state.velocity),

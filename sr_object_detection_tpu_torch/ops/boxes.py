@@ -187,19 +187,26 @@ def grouped_softmax(logits, group_ids):
     float32 e and that reciprocal rounded to the dtype. Gapped or
     non-contiguous ids stay finite: an empty group's sum is 0, but no
     class gathers it. A profiler range of the same name shows its device
-    time in a trace."""
+    time in a trace. Logits that require a gradient (a training forward)
+    take the exp and the product out of place, so that autograd gives
+    the full Jacobian."""
     gid = group_ids.ids
+    grad = logits.requires_grad
     with torch.profiler.record_function("grouped_softmax"):
         dt = logits.dtype
         vmax = logits.max(dim=-1, keepdim=True).values
-        e32 = (logits - vmax).float().clamp_(min=-80.0).exp_()
+        e32 = (logits - vmax).float()
+        # autograd keeps exp's output for its backward: nothing after it
+        # may overwrite it
+        e32 = e32.clamp(min=-80.0).exp() if grad else \
+            e32.clamp_(min=-80.0).exp_()
         e = e32.to(dt)
         gsum = torch.zeros((*logits.shape[:-1], group_ids.n_groups),
                            dtype=torch.float32, device=logits.device)
         gsum.index_add_(-1, gid, e.float())
         del e
-        inv = gsum.reciprocal_().to(dt)
-        return e32.mul_(inv.index_select(-1, gid).float()).to(dt)
+        inv = gsum.reciprocal_().to(dt).index_select(-1, gid).float()
+        return (e32 * inv if grad else e32.mul_(inv)).to(dt)
 
 
 def hierarchy_chain(parents, device=None):

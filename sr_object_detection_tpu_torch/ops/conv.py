@@ -2,9 +2,11 @@
 
 Counterpart of ``sr_object_detection_tpu/ops/conv.py`` (``conv2d``,
 ``batchnorm_inference``, ``batchnorm_train`` with both hand-written
-backwards, ``bias_add`` with its float32 bias gradient, ``conv_block``
-for inference (with the XNOR branch) and training, ``connected`` and
-``binarize_weights`` / ``binarize_input`` for inference,
+backwards (per channel of NCHW, or per feature of a flat tensor),
+``bias_add`` with its float32 bias gradient, ``conv_block`` for
+inference (with the XNOR branch) and training (which, as the JAX
+module's, trains an XNOR conv on its real weights and input),
+``connected`` for both, ``binarize_weights`` / ``binarize_input``,
 ``fold_batchnorm``). The JAX package runs NHWC/HWIO;
 here the tensors handed between layers are NCHW with OIHW weights, the
 layout ``F.conv2d`` takes natively. ``graph/compiler.py`` converts at
@@ -235,12 +237,17 @@ class _BNCoreFast(torch.autograd.Function):
 
 
 def batchnorm_train(x, scales, rolling_mean, rolling_var):
-    """Train-mode batchnorm over NCHW x. Returns (normalized * scale,
-    new_rolling_mean, new_rolling_var, batch_mean, batch_var): the
-    1/(N-1) variance (blas.c:101), eps outside the sqrt (blas.c:122),
-    the 0.9/0.1 rolling update (batchnorm_layer.c:133-136). A bf16 x
-    takes the shifted single-pass core, float32 the two-pass one; both
-    backwards are darknet's hand-written gradient."""
+    """Train-mode batchnorm over NCHW x, or over the features of flat
+    (B, N) x (a connected layer's, viewed as (B, N, 1, 1)). Returns
+    (normalized * scale, new_rolling_mean, new_rolling_var, batch_mean,
+    batch_var): the 1/(N-1) variance (blas.c:101), eps outside the sqrt
+    (blas.c:122), the 0.9/0.1 rolling update (batchnorm_layer.c:133-136).
+    A bf16 x takes the shifted single-pass core, float32 the two-pass
+    one; both backwards are darknet's hand-written gradient."""
+    if x.ndim == 2:
+        y, rm, rv, mean, var = batchnorm_train(x[:, :, None, None], scales,
+                                               rolling_mean, rolling_var)
+        return y.reshape(x.shape), rm, rv, mean, var
     if x.dtype == torch.bfloat16:
         y, mean, var = _BNCoreFast.apply(x, scales, rolling_mean.detach())
     else:
@@ -258,7 +265,9 @@ def conv_block_train(x, params, spec, *, compute_dtype=None):
     True)``): with a compute dtype the conv output is that dtype, BN
     runs on it and returns it, the bias is added in it and the
     activation runs on it (leaky with the bf16 slope); a conv without BN
-    adds its bias in float32 and is rounded after the activation."""
+    adds its bias in float32 and is rounded after the activation. An
+    XNOR conv trains on its real weights and input, unbinarized, as the
+    JAX module's ``conv_block(train=True)`` does."""
     w = params["weights"]
     if compute_dtype is not None:
         y = F.conv2d(x.to(compute_dtype), w.to(compute_dtype),
@@ -318,17 +327,28 @@ def conv_block(x, params, spec, activation_fn, *, compute_dtype=None):
     return y
 
 
-def connected(x, params, activation_fn, *, batch_normalize: bool = False):
-    """Inference fully-connected layer (connected_layer.c forward) on flat
-    x (B, inputs): y = x @ W^T, W in darknet's (outputs, inputs) layout,
+def connected(x, params, activation_fn, *, batch_normalize: bool = False,
+              train: bool = False):
+    """Fully-connected layer (connected_layer.c forward) on flat x
+    (B, inputs): y = x @ W^T, W in darknet's (outputs, inputs) layout,
     then [BN], + bias, activation. The product runs in float32, as the
     JAX module's ``preferred_element_type=float32``: narrower operands
-    widen exactly, and the output is float32 whatever x's dtype."""
+    widen exactly, and the output is float32 whatever x's dtype.
+
+    ``train=True`` runs the batch-statistics BN over the batch and
+    returns (y, bn_updates or None)."""
     y = F.linear(x.float(), params["weights"].float())
-    if batch_normalize:
+    bn = None
+    if batch_normalize and train:
+        y, new_rm, new_rv, _, _ = batchnorm_train(
+            y, params["scales"], params["rolling_mean"],
+            params["rolling_variance"])
+        bn = {"rolling_mean": new_rm, "rolling_variance": new_rv}
+    elif batch_normalize:
         y = batchnorm_inference(y, params["scales"], params["rolling_mean"],
                                 params["rolling_variance"])
-    return activation_fn(y + params["biases"])
+    y = activation_fn(y + params["biases"])
+    return (y, bn) if train else y
 
 
 def fold_batchnorm(params):

@@ -7,12 +7,17 @@ is defined once on NCHW, the reference's own CHW memory order, and its
 NHWC forms permute around that one definition. The flat (B, N) tensors
 of connected/softmax/cost layers are darknet's CHW raster, which is an
 NCHW tensor's own order (:func:`nchw_to_flat`, :func:`flat_to_nchw`).
-``dropout`` is the inference identity.
+``dropout`` is the identity at inference; in training
+:func:`dropout_keep` draws which elements stay (probability 1-p) and
+:func:`dropout_masked` scales them by 1/(1-p). ``SECRET_NUM`` is the
+truth value that the masked cost skips.
 """
 
 from __future__ import annotations
 
 import torch
+
+SECRET_NUM = -1234.0   # darknet's masked-truth sentinel (cost_layer.c)
 
 
 def reorg_darknet_nchw(x, *, stride: int):
@@ -98,9 +103,27 @@ def shortcut_nchw(x, from_x, activation_fn):
 def dropout(x):
     """Darknet dropout (dropout_layer.c) at inference: the identity (the
     parser even aliases its output to the previous layer's buffer,
-    parser.c:660-665). Its training mask, scaled by 1/(1-p), comes with
-    the classifier's training slice."""
+    parser.c:660-665). Training draws :func:`dropout_keep` and applies
+    :func:`dropout_masked`."""
     return x
+
+
+def dropout_keep(x, rate: float, generator):
+    """The training dropout's keep mask of x's shape: each element kept
+    with probability 1 - rate, drawn on x's device from a generator seeded
+    by one draw from ``generator`` (a CPU ``torch.Generator``), so no mask
+    crosses from the host. The card's stream is not the CPU's, and the
+    JAX package draws from ``jax.random``, a stream the port does not
+    reproduce; a caller that needs one mask on both passes it in."""
+    seed = int(torch.randint(0, 2 ** 62, (), generator=generator))
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    return torch.rand(x.shape, generator=g, device=x.device) >= rate
+
+
+def dropout_masked(x, keep, rate: float):
+    """The training dropout's arithmetic on a boolean ``keep`` mask (the
+    JAX module's ``jnp.where(keep, x / (1 - rate), 0)``)."""
+    return torch.where(keep, x / (1.0 - rate), x.new_zeros(()))
 
 
 def nchw_to_flat(x):
@@ -125,5 +148,6 @@ def flat_to_nhwc(x, h: int, w: int, c: int):
 
 __all__ = ["reorg_darknet_nchw", "reorg_reverse_darknet_nchw",
            "reorg_darknet", "reorg_reverse_darknet", "route",
-           "shortcut_nchw", "dropout", "nchw_to_flat", "flat_to_nchw",
-           "nhwc_to_flat", "flat_to_nhwc"]
+           "shortcut_nchw", "dropout", "dropout_keep", "dropout_masked",
+           "SECRET_NUM",
+           "nchw_to_flat", "flat_to_nchw", "nhwc_to_flat", "flat_to_nhwc"]

@@ -18,8 +18,16 @@ conv + maxpool pair); ``graph/compiler.Network`` says how they combine.
 modes) recomputes activations in the backward through
 ``torch.utils.checkpoint``; ``Network.remat_segments`` says which.
 
-Not ported here: ``mesh`` (ROADMAP queue 1, item 11), the detection and
-cost heads (queue 1, item 10) and ``make_multi_step`` (a scan-dispatch
+Two heads train: the region layer (the region loss) and, where the
+network has none, its last ``[cost]`` layer (the classifier family: the
+loss is 0.5 x the cost layers' sum, the gradient of darknet's delta =
+scale * (truth - pred), and the truth is (B, outputs)). Dropout and crop
+draw from a ``torch.Generator`` that :class:`Trainer` owns, seeded from
+``seed``: each micro-batch takes one seed from it for its own generator,
+and dropout's masks are drawn on the state's device.
+
+Not ported here: ``mesh`` (ROADMAP queue 1, item 11), the detection
+head (queue 1, item 10) and ``make_multi_step`` (a scan-dispatch
 experiment that lost in the JAX package; ROADMAP "Not ported").
 """
 
@@ -53,13 +61,20 @@ class TrainState:
 
 
 def _find_head(spec: S.NetworkSpec):
+    """("region", index) of the first region layer, else the detection
+    head (not ported: it raises), else ("cost", index) of the last cost
+    layer (the JAX trainer's ``_find_head``)."""
     for i, l in enumerate(spec.layers):
         if isinstance(l, S.RegionSpec):
-            return i
-        if isinstance(l, (S.DetectionSpec, S.CostSpec)):
+            return "region", i
+        if isinstance(l, S.DetectionSpec):
             raise NotImplementedError(
                 f"training a {l.kind} head is not ported yet (ROADMAP queue "
                 "1, item 10)")
+    cost_idx = [i for i, l in enumerate(spec.layers)
+                if isinstance(l, S.CostSpec)]
+    if cost_idx:
+        return "cost", cost_idx[-1]
     raise ValueError("no trainable head (region/detection/cost) in network")
 
 
@@ -81,11 +96,24 @@ def _class_map(spec: S.NetworkSpec, head):
 def make_train_step(spec: S.NetworkSpec, *, mesh=None, compute_dtype=None,
                     remat=False, fused_stem: bool = False,
                     phase_train=False):
-    """Returns train_step(state, x, truth) -> (state, metrics).
+    """Returns train_step(state, x, truth, generator=None, draws=None) ->
+    (state, metrics).
 
     x: (B, H, W, C) float32 or bf16 NHWC on the state's device, where
-    B = net.batch * net.subdivisions; truth: (B, 30, 5). The metrics are
-    0-d tensors on the device (reading one waits for the step).
+    B = net.batch * net.subdivisions; truth: (B, 30, 5) for a region
+    head, (B, outputs) for a cost head. The metrics are 0-d tensors on
+    the device (reading one waits for the step); a cost head's carry no
+    region statistics. ``generator``: the CPU ``torch.Generator`` that
+    dropout and crop draw from; each micro-batch takes one seed from it
+    (default: a generator seeded 0). ``draws``: a list of the micro-batches'
+    draw dicts (``Network.forward``'s ``draws``): micro-batch m uses
+    ``draws[m]`` where the list holds it and appends the draws it makes
+    otherwise, so that a run on another device can be given the same
+    dropout masks and crops.
+
+    The leaves of the layers past the head have no path to the loss and
+    get zero gradients; any other leaf without one is an error, as
+    ``torch.autograd.grad`` raises it.
 
     ``remat``: False, True (every layer's internals recomputed in the
     backward, only layer outputs saved) or "selective[:k]" (the leading
@@ -98,11 +126,12 @@ def make_train_step(spec: S.NetworkSpec, *, mesh=None, compute_dtype=None,
             "mesh training is not ported yet (ROADMAP queue 1, item 11)")
     remat_divisor(remat)
     net = spec.net
-    head_idx = _find_head(spec)
+    head_kind, head_idx = _find_head(spec)
     head = spec.layers[head_idx]
-    _, loss_with_stats = make_region_loss(
-        head, tree=resolve_trees(spec).get(head_idx),
-        class_map=_class_map(spec, head))
+    if head_kind == "region":
+        _, loss_with_stats = make_region_loss(
+            head, tree=resolve_trees(spec).get(head_idx),
+            class_map=_class_map(spec, head))
     micro, subdivs = net.batch, net.subdivisions
     holder = {}
 
@@ -115,8 +144,27 @@ def make_train_step(spec: S.NetworkSpec, *, mesh=None, compute_dtype=None,
                                     fused_stem=fused_stem)
         return holder["net"]
 
-    def train_step(state: TrainState, x, truth):
+    def micro_loss(network, params, x, truth, seen, generator, draws):
+        """(loss, stats, bn updates) of one micro-batch."""
+        if head_kind == "cost":
+            # the SSE gradient contract (cost_layer.c + l2_cpu): delta =
+            # scale * (truth - pred) at the head's input is the gradient
+            # of 0.5 * scale * ||t - p||^2; the cost shown is the sum
+            _, aux = network(x, train=True, params=params, want=(head_idx,),
+                             remat=remat, truth=truth, generator=generator,
+                             draws=draws)
+            return 0.5 * aux["cost"], {}, aux["bn"]
+        raw, aux = network(x, train=True, params=params,
+                           want=(head_idx - 1,), remat=remat,
+                           generator=generator, draws=draws)
+        raw = raw.reshape(raw.shape[0], -1).float()
+        cost, stats = loss_with_stats(raw, truth, seen)
+        return cost, stats, aux["bn"]
+
+    def train_step(state: TrainState, x, truth, generator=None, draws=None):
         network = _network(state.params)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
         xs = x.reshape(subdivs, micro, *x.shape[1:])
         ts = truth.reshape(subdivs, micro, *truth.shape[1:])
         seen = int(state.seen)
@@ -135,11 +183,18 @@ def make_train_step(spec: S.NetworkSpec, *, mesh=None, compute_dtype=None,
                         q[k] = v.detach().requires_grad_(True)
                         leaves.append((i, k, q[k]))
                 params.append(q)
-            raw, aux = network(xs[m], train=True, params=params,
-                               want=(head_idx - 1,), remat=remat)
-            raw = raw.reshape(raw.shape[0], -1).float()
-            cost, stats = loss_with_stats(raw, ts[m], seen)
-            grads = torch.autograd.grad(cost, [t for _, _, t in leaves])
+            micro_gen = torch.Generator().manual_seed(int(torch.randint(
+                0, 2 ** 62, (), generator=generator)))
+            if draws is not None and len(draws) == m:
+                draws.append({})
+            cost, stats, bn = micro_loss(network, params, xs[m], ts[m], seen,
+                                         micro_gen,
+                                         None if draws is None else draws[m])
+            # the layers past the head never run: zero gradients
+            got = iter(torch.autograd.grad(
+                cost, [t for i, _, t in leaves if i <= head_idx]))
+            grads = [next(got) if i <= head_idx else torch.zeros_like(t)
+                     for i, _, t in leaves]
             if grads_acc is None:
                 grads_acc = [dict() for _ in state.params]
                 for (i, k, _), g in zip(leaves, grads):
@@ -147,7 +202,7 @@ def make_train_step(spec: S.NetworkSpec, *, mesh=None, compute_dtype=None,
             else:
                 for (i, k, _), g in zip(leaves, grads):
                     grads_acc[i][k] = grads_acc[i][k] + g
-            bn_carry = aux["bn"]
+            bn_carry = bn
             seen += micro
             costs.append(cost.detach())
             stats_all.append(stats)
@@ -164,8 +219,9 @@ def make_train_step(spec: S.NetworkSpec, *, mesh=None, compute_dtype=None,
         metrics = {"loss": torch.stack(costs).sum(), "lr": lr,
                    "batch_num": batch_num}
         for k in ("avg_iou", "recall", "avg_obj", "avg_anyobj", "count"):
-            metrics[k] = torch.stack(
-                [s[k].float() for s in stats_all]).mean()
+            if k in stats_all[0]:
+                metrics[k] = torch.stack(
+                    [s[k].float() for s in stats_all]).mean()
         return (TrainState(new_params, new_vel,
                            torch.tensor(seen, dtype=torch.int64)), metrics)
 
@@ -173,13 +229,15 @@ def make_train_step(spec: S.NetworkSpec, *, mesh=None, compute_dtype=None,
 
 
 class Trainer:
-    """High-level loop: the analog of train_detector's step
-    (src_yolo2/detector.c:25-168), single device.
+    """High-level loop: the analog of train_detector's and
+    train_classifier's step (src_yolo2/detector.c:25-168,
+    classifier.c:38-150), single device.
 
     ``params``: numpy params in the JAX package's layout (HWIO), as
     ``io.weights.load_weights`` / ``init_params`` return them (default:
     ``init_params(spec, seed)``). ``device`` defaults to CUDA; the tests
-    pass "cpu"."""
+    pass "cpu". ``generator``, a CPU ``torch.Generator`` seeded from
+    ``seed``, feeds dropout and crop."""
 
     def __init__(self, spec: S.NetworkSpec, params=None, *, device="cuda",
                  mesh=None, seed: int = 0, compute_dtype=None,
@@ -192,6 +250,7 @@ class Trainer:
         tparams = params_to_torch(spec, params, self.device)
         self.state = TrainState(tparams, init_velocity(tparams),
                                 torch.tensor(0, dtype=torch.int64))
+        self.generator = torch.Generator().manual_seed(seed)
         self._kw = dict(mesh=mesh, compute_dtype=compute_dtype, remat=remat,
                         fused_stem=fused_stem, phase_train=phase_train)
         self._steps: dict = {}
@@ -207,13 +266,15 @@ class Trainer:
                                                **self._kw)
         return self._steps[key]
 
-    def step(self, x, truth):
+    def step(self, x, truth, draws=None):
         """x: (B, H, W, C) float32 or bf16 NHWC (numpy or tensor); truth
-        (B, 30, 5). Returns the step's metrics."""
+        (B, 30, 5), or (B, outputs) for a cost head; ``draws`` as
+        :func:`make_train_step`'s. Returns the step's metrics."""
         x = torch.as_tensor(x).to(self.device)
         truth = torch.as_tensor(truth, dtype=torch.float32).to(self.device)
         step = self._step_for(x.shape[1], x.shape[2])
-        self.state, metrics = step(self.state, x, truth)
+        self.state, metrics = step(self.state, x, truth, self.generator,
+                                   draws)
         return metrics
 
     @property
@@ -225,8 +286,8 @@ def nan_guarded(step_fn):
     """Wrap a train step: keep the old state when the loss is not finite
     (keeps long runs alive through rare numeric blowups — a recovery the
     reference lacks, SURVEY §5.3). The check reads the loss on the host."""
-    def guarded(state, x, truth):
-        new_state, metrics = step_fn(state, x, truth)
+    def guarded(state, x, truth, generator=None):
+        new_state, metrics = step_fn(state, x, truth, generator)
         ok = bool(torch.isfinite(metrics["loss"]))
         metrics["skipped_nonfinite"] = not ok
         return (new_state if ok else state), metrics

@@ -229,8 +229,8 @@ def test_cli_matches_jax(toy, tmp_path, monkeypatch, capsys):
     """`classifier predict`, `classifier valid`, `classify` and `classify
     -int8` (a darknet19-like trunk and float tail; both packages
     calibrated to the JAX amax) through each package's CLI, the same
-    lines; `classifier train` names the next slice; `speed` on the
-    classifier cfg runs with -cpu."""
+    lines; without -cpu they and `classifier train` need CUDA; `speed` on
+    the classifier cfg runs with -cpu."""
     data, cfg, weights, paths = toy
     for argv in (["classifier", "predict", data, cfg, weights, paths[0]],
                  ["classifier", "valid", data, cfg, weights],
@@ -258,13 +258,16 @@ def test_cli_matches_jax(toy, tmp_path, monkeypatch, capsys):
     assert [l.split(":")[0] for l in got.splitlines()] == \
         [l.split(":")[0] for l in ref.splitlines()]
     np.testing.assert_allclose(g, r, rtol=2 ** -6)   # the bf16 logits
-    with pytest.raises(NotImplementedError, match="item 19"):
-        TCLI.main(["classifier", "train", data, cfg, "-cpu"])
-    # without -cpu the commands run on CUDA, which this machine lacks
+    # `classifier train` runs (tests/test_torch_classifier_train_apps.py
+    # holds it to the JAX package's); without -cpu the commands run on
+    # CUDA, which this machine lacks
+    tdata = tmp_path / "t.data"
+    tdata.write_text(open(data).read().replace("valid=", "train=", 1)
+                     + f"backup={tmp_path / 'backup'}\n")
     if not torch.cuda.is_available():
         for argv in (["classify", cfg, weights, paths[0]],
                      ["classifier", "predict", data, cfg, weights,
-                      paths[0]]):
+                      paths[0]], ["classifier", "train", str(tdata), cfg]):
             with pytest.raises((AssertionError, RuntimeError),
                                match="CUDA"):
                 TCLI.main(argv)

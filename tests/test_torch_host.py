@@ -41,7 +41,10 @@ FUNCTION_COPIES = [
                                   "letterbox_dims", "letterbox_image_np",
                                   "load_image_u8", "_load_pnm",
                                   "crop_image_np", "resize_min_np")] + [
-    ("data/loader.py", "label_path_for")] + [
+    ("data/loader.py", n) for n in ("label_path_for",
+                                    "load_classification_sample",
+                                    "load_cifar10_batch",
+                                    "fill_hierarchy")] + [
     ("io/surgery.py", n) for n in ("partial", "average", "_tree_add",
                                    "_tree_scale", "rescale_net", "rescale",
                                    "rgbgr_net", "normalize_net",

@@ -22,7 +22,7 @@ from sr_object_detection_tpu.graph.compiler import (
 from sr_object_detection_tpu.io.weights import init_params as j_init_params
 from sr_object_detection_tpu_torch.config import parse_cfg_text
 from sr_object_detection_tpu_torch.graph import spec as S
-from sr_object_detection_tpu_torch.graph.compiler import TRAIN_ITEM, Network
+from sr_object_detection_tpu_torch.graph.compiler import Network
 from sr_object_detection_tpu_torch.io.convert import (params_to_numpy,
                                                       params_to_torch)
 from sr_object_detection_tpu_torch.io.weights import (init_params,
@@ -274,15 +274,28 @@ def test_spatial_kinds_match_jax(tree, tmp_path):
 
 
 def test_unported_kinds_and_training_raise():
-    """detection/rnn raise when built, naming item 10; the training
-    forward over any of the new kinds raises, naming the training
-    slice."""
+    """A [detection] head still raises when built, naming item 10; the
+    training forward over every kind of the flat path now runs (it raised
+    before the classifier family's training was ported): its output and
+    the cost against a truth are finite, every BN layer (conv, batchnorm,
+    connected) updates its rolling statistics, and dropout and crop made
+    their draws."""
+    det = S.build_network_spec(parse_cfg_text(
+        "[net]\nheight=14\nwidth=14\nchannels=3\n\n[connected]\n"
+        "output=24\n\n[detection]\nclasses=1\ncoords=4\nside=2\n"
+        "num=1\n"))
+    with pytest.raises(NotImplementedError, match="item 10"):
+        Network(det, params_to_torch(det, init_params(det), "cpu"))
     text = FLAT_CFG.format(noadjust=0, temperature=1)
     spec = S.build_network_spec(parse_cfg_text(text))
     net = Network(spec, params_to_torch(spec, init_params(spec), "cpu"))
-    with pytest.raises(NotImplementedError, match="item 19"):
-        net(torch.zeros(2, 12, 12, 3), train=True)
-    assert "item 19" in TRAIN_ITEM
+    draws = {}
+    out, aux = net(torch.rand(2, 12, 12, 3), train=True,
+                   truth=torch.rand(2, 112), draws=draws)
+    assert out.shape == (2, 112) and torch.isfinite(out).all()
+    assert torch.isfinite(aux["cost"]) and float(aux["cost"]) > 0
+    assert sorted(aux["bn"]) == [0, 1, 8]
+    assert sorted(draws) == [4, 7]
 
 
 def test_convert_round_trip_new_kinds(tmp_path):

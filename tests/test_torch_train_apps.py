@@ -57,7 +57,7 @@ def _assert_states_equal(jstate, tstate, spec):
 
 def test_train_state_port_to_jax_and_back(tmp_path):
     tr = _trained_port_state()
-    TCK.save_train_state(str(tmp_path / "t.npz"), tr.state)
+    TCK.save_train_state(str(tmp_path / "t.npz"), tr.state, _spec(TZ))
     jp = jax.tree.map(jnp.asarray, j_init_params(_spec(JZ), seed=0))
     jtemplate = JState(jp, jax.tree.map(jnp.zeros_like, jp), jnp.asarray(0))
     jstate = JCK.load_train_state(str(tmp_path / "t.npz"), jtemplate)
@@ -65,7 +65,8 @@ def test_train_state_port_to_jax_and_back(tmp_path):
     # and back: the JAX package's file loads into the port
     JCK.save_train_state(str(tmp_path / "j.npz"), jstate)
     back = TCK.load_train_state(str(tmp_path / "j.npz"),
-                                Trainer(_spec(TZ), device="cpu").state)
+                                Trainer(_spec(TZ), device="cpu").state,
+                                _spec(TZ))
     _assert_states_equal(jstate, back, _spec(TZ))
     assert back.seen.dtype == torch.int64
 

@@ -692,6 +692,145 @@ TRAIN_GOLDENS = {"train_region_nobn": 1e-4, "train_region_bn": 2e-4,
 # the WordTree region loss's goldens (tests/test_train_parity.py's tolerance)
 TREE_TRAIN_GOLDENS = {"train_tree_region": 2e-4,
                       "train_tree_region_classfix2": 2e-4}
+# the cost head's golden (conv, conv, avgpool, softmax, sse cost at
+# subdivisions 2; tests/test_train_parity.py's tolerance)
+CLASSIFIER_TRAIN_GOLDENS = {"train_classifier": 1e-4}
+
+
+CLASSIFIER_NET = """
+[net]
+batch={batch}
+subdivisions={subdivisions}
+height=12
+width=12
+channels=3
+momentum=0.9
+decay=0.0005
+learning_rate=0.05
+max_batches=100
+policy=constant
+"""
+
+# every trainable classifier kind at 12x12: conv + BN, an XNOR conv
+# (trained on its real weights), batchnorm, lrn, activation, crop,
+# maxpool, local, deconv, avgpool, dropout, connected + BN, connected, a
+# flat route (the last connected's 12 values and the local layer's
+# output), softmax with groups and a temperature, the cost
+ALL_KINDS = CLASSIFIER_NET + """
+[convolutional]
+filters=8
+size=3
+stride=1
+pad=1
+batch_normalize=1
+activation=leaky
+
+[convolutional]
+xnor=1
+filters=8
+size=3
+stride=1
+pad=1
+batch_normalize=1
+activation=leaky
+
+[batchnorm]
+
+[lrn]
+size=3
+alpha=.01
+beta=.75
+kappa=2
+
+[activation]
+activation=ramp
+
+[crop]
+crop_width={crop}
+crop_height={crop}
+flip={flip}
+
+[maxpool]
+size=2
+stride=2
+
+[local]
+filters=4
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[deconvolutional]
+filters=6
+size=2
+stride=2
+activation=leaky
+
+[avgpool]
+
+[dropout]
+probability={probability}
+
+[connected]
+output=24
+batch_normalize=1
+activation=leaky
+
+[connected]
+output=12
+activation=linear
+
+[route]
+layers=-1,-6
+
+[softmax]
+groups=4
+temperature=1.5
+
+[cost]
+type={cost}
+scale={scale}
+"""
+
+
+def all_kinds_text(batch, subdivisions, *, crop=12, flip=0, probability=0,
+                   cost="sse", scale=1):
+    """The ALL_KINDS cfg's text; its route has 12 + (crop/2)^2 * 4
+    values."""
+    return ALL_KINDS.format(batch=batch, subdivisions=subdivisions,
+                            crop=crop, flip=flip, probability=probability,
+                            cost=cost, scale=scale)
+
+
+def classifier_params(spec, seed):
+    """init_params of a port spec with random BN statistics and biases
+    (random_bn; the [batchnorm] layer's too) and local weights that are
+    not zero, as numpy arrays in the JAX package's layout."""
+    from sr_object_detection_tpu_torch.graph import spec as S
+    from sr_object_detection_tpu_torch.io.weights import init_params
+    params = random_bn(init_params(spec, seed=seed), seed)
+    rng = np.random.default_rng(seed + 1)
+    for l, p in zip(spec.layers, params):
+        if isinstance(l, S.BatchNormSpec):
+            n = p["scales"].shape[0]
+            p.update(scales=rng.uniform(.6, 1.4, n).astype(np.float32),
+                     rolling_mean=rng.normal(0, .1, n).astype(np.float32),
+                     rolling_variance=rng.uniform(.6, 1.6, n).astype(
+                         np.float32))
+        if isinstance(l, S.LocalSpec):
+            p["weights"] = rng.normal(0, .2, p["weights"].shape).astype(
+                np.float32)
+    return params
+
+
+def one_hot_groups(rng, b, n, groups):
+    """(b, n) truths with one 1 in each of ``groups`` equal groups."""
+    t = np.zeros((b, groups, n // groups), np.float32)
+    for i in range(b):
+        for g in range(groups):
+            t[i, g, rng.integers(0, n // groups)] = 1
+    return t.reshape(b, n)
 
 
 def check_train_golden(name, device):
@@ -699,8 +838,10 @@ def check_train_golden(name, device):
     ``device``: the weights after N SGD steps at the golden's tolerance,
     the cost trajectory at 1e-3. A tree golden's ``tree`` bytes are
     written to a temporary file that its cfg's ``{TREE}`` names, as
-    tests/test_train_parity.py does. Returns the max relative cost
-    error."""
+    tests/test_train_parity.py does. A classifier's truth, (B, outputs),
+    doubles the trainer's cost: it is the gradient-consistent
+    0.5 * scale * ||t - p||^2, and the reference shows sum((t - p)^2).
+    Returns the max relative cost error."""
     import pathlib
     import tempfile
     from sr_object_detection_tpu_torch.config import parse_cfg_text
@@ -709,7 +850,8 @@ def check_train_golden(name, device):
     from sr_object_detection_tpu_torch.io.weights import (init_params,
                                                           load_weights)
     from sr_object_detection_tpu_torch.train.trainer import Trainer
-    wtol = {**TRAIN_GOLDENS, **TREE_TRAIN_GOLDENS}[name]
+    wtol = {**TRAIN_GOLDENS, **TREE_TRAIN_GOLDENS,
+            **CLASSIFIER_TRAIN_GOLDENS}[name]
     g = np.load(pathlib.Path(__file__).parent / "golden" / f"{name}.npz")
     steps = int(g["steps"])
     x = np.transpose(g["x_chw"], (0, 2, 3, 1)).copy()
@@ -724,6 +866,8 @@ def check_train_golden(name, device):
         trainer = Trainer(net, params=init_params(net, seed=int(g["seed"])),
                           device=device)
         costs = [float(trainer.step(x, truth)["loss"]) for _ in range(steps)]
+    if truth.ndim == 2:
+        costs = [2 * c for c in costs]
     with tempfile.NamedTemporaryFile(suffix=".weights") as f:
         f.write(bytes(g["weights_after"]))
         f.flush()
