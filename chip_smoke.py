@@ -12,7 +12,10 @@ augmentation, the packed loader), `detector valid` with exact NMS, the
 robot frame loop and the streaming demo, darknet19-224 classification
 (the classifier family's layer kinds, the int8 float tail, the
 classifier apps), darknet19-224 training (the cost head, every
-classifier kind's training forward, `classifier train`, `cifar`) —
+classifier kind's training forward, `classifier train`, `cifar`), the
+recurrent kinds and char_rnn-1024 (`rnn train/generate/valid/vec`),
+YOLOv1 at 448 (`yolo train/test/valid/recall`, `coco`, `swag`), and
+`nightmare` and `super` —
 through the entry points a user calls, builds
 the hand-written CUDA kernels from ``sr_object_detection_tpu_torch/csrc``
 and holds each against its plain PyTorch version. Phases, in order; any failure ends the run with a
@@ -378,7 +381,48 @@ non-zero status and no result line:
  47. the CLI on the card and with -cpu: `classifier train` over 16 seeded
      PPMs and `cifar train` over seeded CIFAR-format binaries, 3
      iterations each from one seeded .weights, the .weights within 1e-4
-     of the -cpu run's; `cifar test` the same line on both.
+     of the -cpu run's; `cifar test` the same line on both;
+ 48. the recurrent kinds on the card, TF32 off: the C-oracle goldens
+     mini_rnn, mini_gru (one step from zero state) and mini_crnn at 2e-5;
+     char_rnn-1024 (models/zoo.py: vocab 256, three BN rnn layers of 1024,
+     connected 256, softmax, sse cost; seeded weights, BN statistics and
+     biases randomized) forward over 32 steps of 32 streams, and a 2-crnn
+     net (8 steps x 4 streams, 32x32, 16 filters), card against CPU
+     within 1e-4 of the largest |value|;
+ 49. `rnn train` through the CLI, 3 iterations of 32 x 32 characters of
+     a seeded text at learning rate 1e-4 (RNN_LR), on the card and with
+     -cpu from one .weights: parameters within 1e-4 of each tensor's
+     largest value; Trainer.step's characters/s on the card; the CPU
+     sampler generates 200 characters, `rnn generate` through the CLI on
+     the card, the card sampler fed the CPU's characters within 1e-4 of
+     the CPU's probs at every step, its time a character and a
+     torch.profiler window (idle share); `rnn valid` and `rnn vec` (lines
+     on standard input) card against -cpu;
+ 50. YOLOv1: train_yolov1.npz on CUDA (weights 1e-4, costs 1e-3);
+     tinyyolo-v1-448 (v1_cfg_text: six conv + BN + leaky / maxpool pairs
+     16 ... 512, conv 1024, conv 256, connected 1,470, [detection] side 7,
+     num 2, sqrt, rescore, softmax 0) `yolo train` through the CLI, 2
+     iterations of B=2 on 4 seeded PPMs at learning rate 1e-5 (V1_LR),
+     card against -cpu: parameters within 1e-4 of each tensor's largest
+     value, each tensor's update (after - before) within 1e-2 of its
+     norm in norm (V1_UPDATE_TOL; a second -cpu run on 1 thread must
+     itself stay under it), every tensor moved, the first loss 1e-5
+     relative;
+     Trainer.step float32 at B=64 (images/s, peak memory, a profile);
+     `yolo valid` (comp4 lines matched, 8 NMS launches counted), `yolo
+     recall` (counts equal), `yolo test` (detections matched) over 8
+     seeded PPMs and `swag test` on the card and with -cpu; `coco valid` on
+     an 80-class v1 net (2 images: records matched, 2 launches); the NMS
+     kernel at the v1 head (k = N = 98) on a valid frame's candidates at
+     C = 20 and 80: torch.equal to the plain version, two launches
+     bit-equal, its time from a CUDA graph in turns with the plain
+     version beside its bound and the launch floor;
+ 51. `nightmare` (1 octave, 2 iterations) and `super` on a seeded
+     super-resolution net (conv, conv, deconv x2) at 320x240 through the
+     CLI, card against -cpu within 1e-4; tinyyolo-v1-448's first dream
+     step at layer 10 (six max-pools down), the input gradient card
+     against CPU within 1e-2 of its norm in norm (V1_DREAM_TOL), and
+     `nightmare` through those pools on the card.
 
 The last lines are one JSON object with the four kernels at yolov2-608's
 shapes (the keys of the kernels line; their launches counted in phase
@@ -398,7 +442,9 @@ serving: ...)" the three stems at darknet19-224's shapes (phase 42's
 times; launches from phase 41's counted main path), and under names
 that end in "(darknet19-224 training: ...)" the pair's and the fused
 stem's kernels at darknet19-224's training shapes (phase 46's times;
-launches from phase 45's paths (a) and (b)) (time, plain time,
+launches from phase 45's paths (a) and (b)), and under names that begin
+"nms_per_class (YOLOv1 head, exact NMS: ...)" the NMS kernel at the v1
+head (phase 50's times and counted launches) (time, plain time,
 bound, launches and library call of each;
 ``stem_pair`` is the batch-1 stem on the tensor-core conv tile of
 csrc/phase_train.cu (``stem_fold_kernel`` at pair 1, ``stem_tc_kernel``
@@ -440,7 +486,9 @@ GOLDEN = ROOT / "tests" / "golden"
 WORK = ROOT / "build" / "chip_smoke"
 sys.path.insert(0, str(ROOT / "tests"))
 from torch_parity import (  # noqa: E402  (JAX-free helpers)
-    CLASSIFIER_TRAIN_GOLDENS, TRAIN_GOLDENS, TREE_TRAIN_GOLDENS,
+    CLASSIFIER_TRAIN_GOLDENS, RECURRENT_GOLDENS, TRAIN_GOLDENS,
+    TREE_TRAIN_GOLDENS, check_detection_golden, check_recurrent_golden,
+    random_bn_nested,
     all_kinds_text, assert_bf16_close, assert_fwd_close, classifier_params,
     one_hot_groups,
     assert_stem_link_close, chain_case,
@@ -3527,6 +3575,580 @@ def weights_diff(a, b, w0, spec):
     return diff, moved
 
 
+RNN_HIDDEN = 1024  # char_rnn's published width (cfg/rnn.cfg, models/zoo.py)
+RNN_STEPS = 32     # time steps and streams of phases 48-49's batches
+RNN_STREAMS = 32
+RNN_GEN = 200      # characters `rnn generate` writes in phase 49
+RNN_TOL = 1e-4     # card against CPU, of the largest |value| (TF32 off)
+# `rnn train`'s learning rate in phase 49, not the zoo's 0.1: after three
+# steps at 0.1, float32 rounding alone (the CPU on 8 threads against 1)
+# puts two runs 0.72 of a tensor's largest value apart, at 0.001 4.6e-4,
+# at 0.0001 2.2e-5 (tools/rnn_train_noise.py)
+RNN_LR = 0.0001
+V1 = 448           # tiny-yolo v1's input (darknet cfg/yolov1/tiny-yolo.cfg)
+V1_SIDE, V1_NUM = 7, 2
+V1_BATCH = 64      # images a step of phase 50's throughput run
+V1_HEAD_GAIN = 4.0  # the connected head's scale: objectness and classes spread
+# `yolo train`'s learning rate in phase 50, on weights with the head
+# unscaled, and its gate: each tensor's update on the card against the
+# CPU's, the norm of the difference over the update's norm. At 1e-5 the
+# card measured 1.1e-3 (3.3e-3 on tools/v1_train_noise.py's data) and the
+# CPU on 1 thread against 8 5.5e-4-6.1e-4; at 1e-4 the card reached
+# 9.4e-3 (tools/v1_train_noise.py)
+V1_LR = 1e-5
+V1_UPDATE_TOL = 1e-2
+# tinyyolo-v1's first dream step at layer 10 in phase 51, card against
+# CPU, the norm of the gradients' difference over the CPU gradient's
+# norm: the CPU alone moves it 4.6e-3 with its input scaled by 1 + 1e-7
+# and 8.5e-3 by 1 + 1e-6 (max-pool routes flip at near-ties), the card
+# measured 1.5e-3-2.1e-3 (tools/nightmare_sensitivity.py)
+V1_DREAM_TOL = 1e-2
+
+
+def v1_cfg_text(classes, batch, max_batches=2, learning_rate=0.001):
+    """tinyyolo-v1-448 after darknet's public cfg/yolov1/tiny-yolo.cfg,
+    written from its published shape (the file is not in the repository):
+    six conv3x3 + BN + leaky / maxpool 2/2 pairs at 16 ... 512 filters,
+    conv 1024, conv 256, connected side^2 * (classes + 5 * num) linear and
+    [detection] side 7, num 2, sqrt, rescore, softmax 0, coord / noobject /
+    object / class scales 5 / .5 / 1 / 1."""
+    from sr_object_detection_tpu_torch.models.zoo import CfgBuilder
+    b = CfgBuilder()
+    b.net(batch=batch, subdivisions=1, width=V1, height=V1, channels=3,
+          momentum=0.9, decay=0.0005, learning_rate=learning_rate,
+          policy="constant",
+          max_batches=max_batches, hue=.1, saturation=1.5, exposure=1.5)
+    for f in (16, 32, 64, 128, 256, 512):
+        b.conv(f, size=3, stride=1)
+        b.maxpool()
+    b.conv(1024, size=3, stride=1)
+    b.conv(256, size=3, stride=1)
+    b.section("connected", output=V1_SIDE ** 2 * (classes + 5 * V1_NUM),
+              activation="linear")
+    b.section("detection", classes=classes, coords=4, side=V1_SIDE,
+              num=V1_NUM, softmax=0, sqrt=1, rescore=1, jitter=.2,
+              coord_scale=5, noobject_scale=.5, object_scale=1,
+              class_scale=1)
+    return b.text()
+
+
+SUPER_CFG = """\
+[net]
+batch=1
+height=240
+width=320
+channels=3
+
+[convolutional]
+filters=32
+size=3
+stride=1
+pad=1
+batch_normalize=1
+activation=leaky
+
+[convolutional]
+filters=32
+size=3
+stride=1
+pad=1
+batch_normalize=1
+activation=leaky
+
+[deconvolutional]
+filters=3
+size=2
+stride=2
+activation=logistic
+"""
+
+
+def param_diff(a, b, tol):
+    """max over two params lists (the port's dicts of tensors) of |a - b|
+    over each tensor's largest |b|; asserts each within ``tol``."""
+    worst = 0.0
+    for i, (p, q) in enumerate(zip(a, b)):
+        for k, want in q.items():
+            d = float((p[k].cpu() - want.cpu()).abs().max()
+                      / want.abs().max().clamp_min(1e-30))
+            assert d <= tol, (i, k, d)
+            worst = max(worst, d)
+    return worst
+
+
+@contextlib.contextmanager
+def stdin_bytes(data: bytes):
+    """Standard input reading ``data`` (the `rnn vec` command's lines)."""
+    old = sys.stdin
+    sys.stdin = io.TextIOWrapper(io.BytesIO(data))
+    try:
+        yield
+    finally:
+        sys.stdin = old
+
+
+def nms_at(tag, tb, tp, thr, gpu, dev):
+    """The NMS kernel on one frame's candidates: torch.equal to the plain
+    version (int32 views: -0.0 too), two launches bit-equal; its time from
+    a CUDA graph in turns with the plain version, beside its bound and the
+    launch floor. Returns (max abs error, (ms, plain ms), bound)."""
+    from sr_object_detection_tpu_torch.kernels import nms as NMS
+    from sr_object_detection_tpu_torch.ops import boxes as B
+    got = NMS.nms_per_class(tb, tp, thr)
+    again = NMS.nms_per_class(tb, tp, thr)
+    ref = B.nms_per_class_plain(tb, tp, thr)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), tag
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32)), tag
+    c, k = tp.shape
+    p1 = cuda_ms(lambda: B.nms_per_class_plain(tb, tp, thr), 5, 1)
+    k1 = graph_ms(lambda: NMS.nms_per_class(tb, tp, thr), 20)
+    k2 = graph_ms(lambda: NMS.nms_per_class(tb, tp, thr), 20)
+    p2 = cuda_ms(lambda: B.nms_per_class_plain(tb, tp, thr), 5, 1)
+    floor = graph_ms(lambda: NMS.empty_launch(c, k, dev), 20)
+    bnd = nms_bound(tb, tp)
+    log(f"time nms_per_class {tag} C={c} k={k} ({int((tp > 0).sum())} live "
+        f"candidates, {int((got > 0).sum())} kept): kernel from a CUDA graph "
+        f"{(k1 + k2) / 2} ms ({k1}, {k2}), plain {(p1 + p2) / 2} ms ({p1}, "
+        f"{p2}); bound {bnd[0]} ms by {bnd[1]}; launch floor {floor} ms "
+        f"[{gpu}]")
+    return (got - ref).abs().max().item(), ((k1 + k2) / 2, (p1 + p2) / 2), bnd
+
+
+def last_kinds(gpu, dev, reset_counts, counts):
+    """Phases 48-51 (the module docstring): the recurrent kinds and
+    char_rnn-1024, YOLOv1 at 448, nightmare and super. Returns the kernels
+    line's entries of the NMS kernel at the v1 head."""
+    from sr_object_detection_tpu_torch.apps import cli
+    from sr_object_detection_tpu_torch.apps import rnn_app as RA
+    from sr_object_detection_tpu_torch.apps.misc_apps import (
+        fill_truth_region_np)
+    from sr_object_detection_tpu_torch.apps.nightmare_app import (
+        make_dream_step)
+    from sr_object_detection_tpu_torch.apps.yolo_v1_app import V1Detector
+    from sr_object_detection_tpu_torch.config import parse_cfg_text
+    from sr_object_detection_tpu_torch.graph import spec as S
+    from sr_object_detection_tpu_torch.graph.compiler import Network
+    from sr_object_detection_tpu_torch.io.convert import params_to_torch
+    from sr_object_detection_tpu_torch.io.weights import (
+        init_params, load_weights, save_weights)
+    from sr_object_detection_tpu_torch.models.zoo import char_rnn
+    from sr_object_detection_tpu_torch.ops import boxes as B
+    from sr_object_detection_tpu_torch.ops.image import (load_image_rgb,
+                                                         resize_image)
+    from sr_object_detection_tpu_torch.train.trainer import Trainer
+    from tools.synth_dataset import write_ppm
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    WORK.mkdir(parents=True, exist_ok=True)
+    t_phase = time.perf_counter()
+
+    # ---------------------------------------------------------- phase 48
+    golden_err = {name: check_recurrent_golden(name, dev)
+                  for name in sorted(RECURRENT_GOLDENS)}
+    rdir = WORK / "char_rnn"
+    shutil.rmtree(rdir, ignore_errors=True)
+    rdir.mkdir()
+    rcfg = rdir / "rnn.cfg"
+    # phase 49 trains 3 iterations at RNN_LR (see there)
+    rcfg.write_text(zoo_cfg_text(char_rnn, hidden=RNN_HIDDEN,
+                                 batch=RNN_STREAMS, time_steps=RNN_STEPS)
+                    .replace("max_batches=2000", "max_batches=3")
+                    .replace("learning_rate=0.1", f"learning_rate={RNN_LR}"))
+    rspec = S.parse_network_cfg(str(rcfg))
+    assert rspec.net.batch == RNN_STEPS * RNN_STREAMS
+    assert [l.kind for l in rspec.layers] == ["rnn"] * 3 + [
+        "connected", "softmax", "cost"]
+    rparams = random_bn_nested(init_params(rspec, seed=48), 48)
+    rweights = rdir / "rnn.weights"
+    save_weights(rspec, rparams, str(rweights))
+    rng = np.random.default_rng(48)
+    words = [bytes(rng.integers(97, 123, int(n))) for n in
+             rng.integers(2, 9, 4000)]
+    text = b" ".join(words)
+    rtext = rdir / "text.txt"
+    rtext.write_bytes(text)
+    stream = RA.CharStream(text, RNN_STREAMS, RNN_STEPS, seed=48)
+    xr, yr = stream.next_batch()
+    outs = {}
+    for where in ("cpu", dev):
+        net = Network(rspec, params_to_torch(rspec, rparams, where))
+        with torch.no_grad():
+            outs[str(where)] = net(torch.from_numpy(xr).to(where))[0].cpu()
+    rnn_err = (outs[str(dev)] - outs["cpu"]).abs().max().item() / \
+        outs["cpu"].abs().max().item()
+    assert rnn_err <= RNN_TOL, rnn_err
+    # a CRNN net: 8 steps of 4 streams at 32x32, 3 -> 16 hidden -> 16
+    ctext = ("[net]\nbatch=4\ntime_steps=8\nsubdivisions=1\nheight=32\n"
+             "width=32\nchannels=3\n\n[crnn]\nbatch_normalize=1\n"
+             "output_filters=16\nhidden_filters=16\nactivation=leaky\n\n"
+             "[crnn]\nbatch_normalize=1\noutput_filters=16\n"
+             "hidden_filters=16\nactivation=leaky\n")
+    cspec = S.build_network_spec(parse_cfg_text(ctext))
+    cparams = random_bn_nested(init_params(cspec, seed=49), 49)
+    xc = rng.uniform(0, 1, (32, 32, 32, 3)).astype(np.float32)
+    for where in ("cpu", dev):
+        net = Network(cspec, params_to_torch(cspec, cparams, where))
+        with torch.no_grad():
+            outs[f"crnn {where}"] = net(torch.from_numpy(xc).to(where))[0]\
+                .cpu()
+    crnn_err = (outs[f"crnn {dev}"] - outs["crnn cpu"]).abs().max().item() \
+        / outs["crnn cpu"].abs().max().item()
+    assert crnn_err <= RNN_TOL, crnn_err
+    log(f"phase 48 ok: the recurrent goldens on CUDA, max abs error "
+        f"{golden_err} (gate 2e-5); char_rnn-{RNN_HIDDEN} (3 BN rnn layers, "
+        f"connected 256, softmax) over {RNN_STEPS} steps of {RNN_STREAMS} "
+        f"streams, card against CPU {rnn_err} of the largest |value|; a "
+        f"2-crnn net (8 steps x 4 streams, 32x32x16) {crnn_err} (gate "
+        f"{RNN_TOL}) [{gpu}]")
+
+    # ---------------------------------------------------------- phase 49
+    trained = {}
+    for where, flag in (("card", []), ("cpu", ["-cpu"])):
+        t0 = time.perf_counter()
+        tr, _ = quiet(cli.COMMANDS["rnn"], ["train", str(rcfg), str(rtext),
+                                            str(rweights), "-backup",
+                                            str(rdir / where)] + flag)
+        assert int(tr.state.seen) == 3 * rspec.net.batch
+        trained[where] = tr.state.params
+        log(f"  rnn train ({where}): 3 iterations of {rspec.net.batch} "
+            f"characters in {time.perf_counter() - t0:.2f} s")
+    train_err = param_diff(trained["card"], trained["cpu"], RNN_TOL)
+    moved = param_diff(trained["card"],
+                       params_to_torch(rspec, rparams, "cpu"), 1e9)
+    assert moved > 0
+    card_tr = Trainer(rspec, params=rparams, device=dev)
+    xd, yd = torch.from_numpy(xr).to(dev), torch.from_numpy(yr).to(dev)
+    chars_s = step_rate(card_tr, xd, yd, 5)
+    profile(f"char_rnn-{RNN_HIDDEN} Trainer.step float32 ({rspec.net.batch} "
+            f"characters)", lambda: float(card_tr.step(xd, yd)["loss"]), 1,
+            gpu, top=4)
+    del card_tr
+    log(f"  rnn train and its steps/s: {time.perf_counter() - t_phase:.1f} s "
+        f"into phases 48-51")
+    # rnn generate: the CPU sampler's text and probs at every step, the
+    # card's `rnn generate` through the CLI, then the card sampler fed the
+    # CPU's characters
+    cpu_s = RA.CharRNNSampler(rspec, rparams, device="cpu")
+    cpu_probs, step = [], cpu_s._step
+
+    def recording(*a):
+        p, s_ = step(*a)
+        cpu_probs.append(p)
+        return p, s_
+    cpu_s._step = recording
+    gen_cpu = cpu_s.generate(b"the ", RNN_GEN)
+    t0 = time.perf_counter()
+    gen_cli, _ = quiet(cli.COMMANDS["rnn"], [
+        "generate", str(rcfg), str(rweights), "-len", str(RNN_GEN),
+        "-seed", "the "])
+    cli_s = time.perf_counter() - t0
+    card_s = RA.CharRNNSampler(rspec, rparams, device=dev)
+    st = card_s.init_state()
+    gen_err = 0.0
+    # generate feeds the seed, its last character again, then each
+    # character it drew but the last
+    fed = b"the " + b" " + gen_cpu[4:-1]
+    assert len(fed) == len(cpu_probs) == RNN_GEN + 4
+    for ch, p_cpu in zip(fed, cpu_probs):
+        p, st = card_s._step(card_s.params, card_s.one_hot(ch), st)
+        gen_err = max(gen_err, (p.cpu() - p_cpu).abs().max().item()
+                      / p_cpu.abs().max().item())
+    assert gen_err <= RNN_TOL, gen_err
+    assert gen_cli == gen_cpu, (gen_cli, gen_cpu)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen_card = card_s.generate(b"the ", RNN_GEN)
+    per_char = (time.perf_counter() - t0) / RNN_GEN * 1e3
+    st = {"s": card_s.init_state()}
+
+    def one_char():
+        p, st["s"] = card_s._step(card_s.params, card_s.one_hot(101),
+                                  st["s"])
+        p[0].cpu()
+    profile(f"rnn generate, one character (char_rnn-{RNN_HIDDEN})",
+            one_char, 50, gpu, top=4)
+    log(f"  rnn generate and the samplers: {time.perf_counter() - t_phase:.1f}"
+        f" s into phases 48-51")
+    # valid and vec, card against CPU, through the CLI
+    vals = {}
+    for where, flag in (("card", []), ("cpu", ["-cpu"])):
+        vals[where], _ = quiet(cli.COMMANDS["rnn"], [
+            "valid", str(rcfg), str(rweights), str(rtext), "-len", "100"]
+            + flag)
+        with stdin_bytes(b"abc de\nfgh\nabc de\n"):
+            vals[f"vec {where}"], _ = quiet(cli.COMMANDS["rnn"], [
+                "vec", str(rcfg), str(rweights), "-seed", "x"] + flag)
+    assert abs(vals["card"] - vals["cpu"]) <= RNN_TOL * abs(vals["cpu"])
+    vec_err = max(float(np.abs(a - b).max() / np.abs(b).max())
+                  for a, b in zip(vals["vec card"], vals["vec cpu"]))
+    assert vec_err <= RNN_TOL and len(vals["vec card"]) == 3
+    log(f"time char_rnn-{RNN_HIDDEN} Trainer.step (float32, "
+        f"{rspec.net.batch} characters a step): {chars_s} characters/s, "
+        f"{chars_s / rspec.net.batch} steps/s; rnn generate {per_char} ms a "
+        f"character on the card [{gpu}]")
+    log(f"phase 49 ok: `rnn train` 3 iterations on the card and with -cpu "
+        f"from one .weights, parameters within {train_err} of each tensor's "
+        f"largest value (gate {RNN_TOL}; moved {moved}); the card sampler "
+        f"fed the CPU's {RNN_GEN} generated characters, probs within "
+        f"{gen_err}; the card's text {gen_card[:24]!r}... (the CLI's on the "
+        f"card equal to the CPU's; {cli_s:.2f} s with the "
+        f"weights' load); `rnn valid` log-loss "
+        f"{vals['card']} (card) {vals['cpu']} (CPU); `rnn vec` rows within "
+        f"{vec_err} [{gpu}]")
+
+    # ---------------------------------------------------------- phase 50
+    torch.cuda.empty_cache()
+    det_err = check_detection_golden("train_yolov1", dev)
+    vdir = WORK / "yolov1"
+    shutil.rmtree(vdir, ignore_errors=True)
+    vdir.mkdir()
+    vcfg = vdir / "tiny-yolo-v1.cfg"
+    vcfg.write_text(v1_cfg_text(20, 2))
+    vspec = S.parse_network_cfg(str(vcfg))
+    assert (vspec.layers[-2].inputs, vspec.layers[-2].outputs) == (
+        7 * 7 * 256, 1470)
+    vweights = vdir / "tiny-yolo-v1.weights"
+    save_weights(vspec, random_bn(init_params(vspec, seed=50), 50,
+                                  head_gain=V1_HEAD_GAIN), str(vweights))
+    train_list = write_ppm_dataset(vdir / "train", 4, seed=50)
+    vdata = vdir / "v1.data"
+    vdata.write_text(f"train={train_list}\nbackup={vdir / 'backup'}\n")
+    tcfg = vdir / "tiny-yolo-v1-train.cfg"
+    tcfg.write_text(v1_cfg_text(20, 2, learning_rate=V1_LR))
+    tweights = vdir / "tiny-yolo-v1-train.weights"
+    save_weights(vspec, random_bn(init_params(vspec, seed=50), 50),
+                 str(tweights))
+    vtrained, first_loss = {}, {}
+    threads = torch.get_num_threads()
+    for where, flag, n in (("card", [], threads), ("cpu", ["-cpu"], threads),
+                           ("cpu 1 thread", ["-cpu"], 1)):
+        torch.set_num_threads(n)
+        tr, out = quiet(cli.COMMANDS["yolo"], ["train", str(vdata),
+                                               str(tcfg), str(tweights)]
+                        + flag)
+        torch.set_num_threads(threads)
+        assert int(tr.state.seen) == 4 and len(out.splitlines()) == 2, out
+        first_loss[where] = float(out.split()[1])
+        vtrained[where] = [{k: v.cpu() for k, v in p.items()}
+                           for p in tr.state.params]
+    del tr
+    assert abs(first_loss["card"] - first_loss["cpu"]) <= \
+        1e-5 * abs(first_loss["cpu"]), first_loss
+    v1_train_err = param_diff(vtrained["card"], vtrained["cpu"], RNN_TOL)
+    # each tensor's update (after - before) on the card against the
+    # CPU's, the norm of their difference over the update's norm, so a
+    # wrong or missing update fails however small the step is beside the
+    # weights; the CPU on 1 thread against its default threads must itself
+    # stay under the gate, or the gate would sit in float32's noise
+    v1_init = params_to_torch(vspec, load_weights(vspec, str(tweights))[0],
+                              "cpu")
+    norm = torch.linalg.vector_norm
+    v1_upd_err, v1_floor, v1_moved = 0.0, 0.0, {}
+    for i, p in enumerate(vtrained["cpu"]):
+        for k, want in p.items():
+            step = float(norm(want - v1_init[i][k]))
+            assert step > 0, (i, k)
+            v1_moved[i, k] = float((want - v1_init[i][k]).abs().max()
+                                   / want.abs().max())
+            floor = float(norm(vtrained["cpu 1 thread"][i][k] - want)) / step
+            d = float(norm(vtrained["card"][i][k] - want)) / step
+            assert floor <= V1_UPDATE_TOL, ("CPU floor", i, k, floor)
+            assert d <= V1_UPDATE_TOL, (i, k, d)
+            v1_upd_err, v1_floor = max(v1_upd_err, d), max(v1_floor, floor)
+    v1_least = min(v1_moved, key=v1_moved.get)
+    # throughput at B=64, card only
+    spec64 = S.build_network_spec(parse_cfg_text(v1_cfg_text(20, V1_BATCH)))
+    tr64 = Trainer(spec64, params=load_weights(vspec, str(vweights))[0],
+                   device=dev)
+    # the batch on the card, as a device loader hands it over
+    x64 = torch.from_numpy(rng.uniform(0, 1, (V1_BATCH, V1, V1, 3)).astype(
+        np.float32)).to(dev)
+    t64 = torch.from_numpy(np.stack([fill_truth_region_np(np.asarray(
+        [[c, *rng.uniform(.2, .8, 2), *rng.uniform(.1, .4, 2)]
+         for c in rng.integers(0, 20, 3)]), V1_SIDE, 20)
+        for _ in range(V1_BATCH)])).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    v1_rate = step_rate(tr64, x64, t64, 5)
+    v1_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    profile(f"tinyyolo-v1-{V1} Trainer.step B={V1_BATCH} float32",
+            lambda: float(tr64.step(x64, t64)["loss"]), 2, gpu, top=4)
+    del tr64
+    torch.cuda.empty_cache()
+    log(f"time tinyyolo-v1-{V1} Trainer.step float32 B={V1_BATCH}: "
+        f"{v1_rate} images/s, peak device memory {v1_peak} GiB [{gpu}]")
+    # test / valid / recall on 8 seeded images, card against CPU
+    valid_list = write_ppm_dataset(vdir / "valid", 8, seed=51)
+    valid_paths = open(valid_list).read().split()
+    res = {}
+    for where, flag in (("card", []), ("cpu", ["-cpu"])):
+        out_dir = vdir / f"valid-{where}"
+        reset_counts()
+        quiet(cli.main, ["yolo", "valid", str(vcfg), str(vweights), "-list",
+                         valid_list, "-out", str(out_dir)] + flag)
+        torch.cuda.synchronize()
+        if where == "card":
+            launches_v1, want_l = counts(nms_per_class=8)
+            assert launches_v1 == want_l, launches_v1
+        res[f"valid {where}"] = comp4_dets(out_dir)
+        res[f"recall {where}"], _ = quiet(cli.COMMANDS["yolo"], [
+            "recall", str(vcfg), str(vweights), "-list", valid_list] + flag)
+        res[f"test {where}"], _ = quiet(cli.COMMANDS["yolo"], [
+            "test", str(vcfg), str(vweights), valid_paths[0], "-out",
+            str(vdir / f"test-{where}.ppm")] + flag)
+    n_valid = match_dets(res["valid card"], res["valid cpu"], 0.001, 1e-4)
+    rc, rp = res["recall card"], res["recall cpu"]
+    assert (rc["proposals"], rc["correct"], rc["total"]) == \
+        (rp["proposals"], rp["correct"], rp["total"]), (rc, rp)
+    assert abs(rc["avg_iou"] - rp["avg_iou"]) <= 1e-4
+    n_test = match_dets(*([(d.class_id, d.prob, np.asarray(d.box))
+                           for d in res[f"test {w}"]] for w in ("card", "cpu")),
+                        0.2, 1e-4, require=False)
+    swag = {}
+    for where, flag in (("card", []), ("cpu", ["-cpu"])):
+        swag[where], _ = quiet(cli.COMMANDS["swag"], [
+            "test", str(vcfg), str(vweights), valid_paths[1], "-out",
+            str(vdir / f"swag-{where}.ppm")] + flag)
+    n_swag = match_dets(*([(d.class_id, d.prob, np.asarray(d.box))
+                           for d in swag[w]] for w in ("card", "cpu")),
+                        0.2, 1e-4, require=False)
+    # the NMS kernel at the v1 head: a valid frame's candidates at C = 20
+    # and, from the 80-class net, at C = 80; k = N = 98
+    det = V1Detector(str(vcfg), str(vweights), device=dev)
+    frame = load_image_rgb(valid_paths[0])
+    v_err, v_times, v_bounds, v_shapes = {}, {}, {}, {}
+    fb, fp = det.predict_batch(det.preprocess(frame)[None])
+    fp = np.where(fp[0] > 0.001, fp[0], 0.0).astype(np.float32)
+    tb, tp, _ = B.topk_candidates(torch.from_numpy(fb[0]).float().to(dev),
+                                  torch.from_numpy(fp).to(dev), fp.shape[0])
+    v_err[20], v_times[20], v_bounds[20] = nms_at(
+        f"tinyyolo-v1-{V1} (yolo valid)", tb, tp, 0.5, gpu, dev)
+    v_shapes[20] = tuple(tp.shape)
+    del det
+    ccfg = vdir / "tiny-coco-v1.cfg"
+    ccfg.write_text(v1_cfg_text(80, 1))
+    cspec80 = S.parse_network_cfg(str(ccfg))
+    cweights = vdir / "tiny-coco-v1.weights"
+    save_weights(cspec80, random_bn(init_params(cspec80, seed=52), 52,
+                                    head_gain=V1_HEAD_GAIN), str(cweights))
+    clist = vdir / "coco.list"
+    clist.write_text("\n".join(valid_paths[:2]) + "\n")
+    coco = {}
+    for where, flag in (("card", []), ("cpu", ["-cpu"])):
+        reset_counts()
+        quiet(cli.main, ["coco", "valid", str(ccfg), str(cweights), "-list",
+                         str(clist), "-out", str(vdir / f"coco-{where}")]
+              + flag)
+        torch.cuda.synchronize()
+        if where == "card":
+            launches_coco, want_l = counts(nms_per_class=2)
+            assert launches_coco == want_l, launches_coco
+        coco[where] = [((r["image_id"], r["category_id"]), r["score"],
+                        np.asarray(r["bbox"])) for r in json.loads(
+            (vdir / f"coco-{where}" / "coco_results.json").read_text())]
+    n_coco = match_dets(coco["card"], coco["cpu"], 0.001, 1e-4)
+    det = V1Detector(str(ccfg), str(cweights), device=dev)
+    fb, fp = det.predict_batch(det.preprocess(frame)[None])
+    fp = np.where(fp[0] > 0.001, fp[0], 0.0).astype(np.float32)
+    tb, tp, _ = B.topk_candidates(torch.from_numpy(fb[0]).float().to(dev),
+                                  torch.from_numpy(fp).to(dev), fp.shape[0])
+    v_err[80], v_times[80], v_bounds[80] = nms_at(
+        f"tiny-coco-v1-{V1} (coco valid)", tb, tp, 0.5, gpu, dev)
+    v_shapes[80] = tuple(tp.shape)
+    del det
+    log(f"phase 50 ok: train_yolov1.npz on CUDA (cost error {det_err}, gate "
+        f"1e-3); `yolo train` at {V1} B=2, 2 iterations at learning rate "
+        f"{V1_LR}, card against -cpu: parameters within {v1_train_err} of "
+        f"each tensor's largest value (gate {RNN_TOL}), each tensor's update "
+        f"within {v1_upd_err} of its norm (gate {V1_UPDATE_TOL}; "
+        f"the CPU on 1 thread against {threads} {v1_floor}); training moved "
+        f"each tensor {v1_moved[v1_least]} ({v1_least}) to "
+        f"{max(v1_moved.values())} of its largest value; the first loss "
+        f"{first_loss['card']} "
+        f"(card) {first_loss['cpu']} (CPU); `yolo valid` over 8 seeded PPMs {n_valid} comp4 lines "
+        f"matched, NMS launches 8; `yolo recall` {rc}; `yolo test` {n_test} "
+        f"detections matched; `swag test` {n_swag} detections matched; `coco "
+        f"valid` (80 classes, 2 images) {n_coco} records matched, NMS "
+        f"launches 2; the NMS kernel at (C, k) = {list(v_shapes.values())} "
+        f"torch.equal to the plain version [{gpu}]")
+
+    # ---------------------------------------------------------- phase 51
+    # nightmare on the super-resolution net (convs and a deconv): through
+    # tinyyolo-v1's six max-pools a float32 rounding of the input flips
+    # argmaxes at near-ties and two steps move a fifth of the values beyond
+    # 1e-4 on the CPU alone (tools/nightmare_sensitivity.py), so only a
+    # net without pools makes a value-by-value comparison
+    ndir = WORK / "nightmare"
+    shutil.rmtree(ndir, ignore_errors=True)
+    ndir.mkdir()
+    scfg = ndir / "super.cfg"
+    scfg.write_text(SUPER_CFG)
+    sspec = S.parse_network_cfg(str(scfg))
+    sweights = ndir / "super.weights"
+    save_weights(sspec, random_bn(init_params(sspec, seed=51), 51),
+                 str(sweights))
+    simg = ndir / "frame.ppm"
+    write_ppm(str(simg), rng.integers(0, 256, (240, 320, 3), dtype=np.uint8))
+    dreams, ups = {}, {}
+    for where, flag in (("card", []), ("cpu", ["-cpu"])):
+        (ndir / where).mkdir()
+        dreams[where], _ = quiet(cli.COMMANDS["nightmare"], [
+            str(scfg), str(sweights), str(simg), "1", "-iters", "2",
+            "-octaves", "1", "-out", str(ndir / where)] + flag)
+        ups[where], _ = quiet(cli.COMMANDS["super"], [
+            "test", str(scfg), str(sweights), str(simg), "-out",
+            str(ndir / f"super-{where}.ppm")] + flag)
+    dream_err = float(np.abs(dreams["card"] - dreams["cpu"]).max())
+    assert dream_err <= RNN_TOL, dream_err
+    assert float(np.abs(dreams["cpu"] - load_image_rgb(str(simg))).max()) \
+        > 0.01
+    super_err = float(np.abs(ups["card"] - ups["cpu"]).max())
+    assert ups["card"].shape == (480, 640, 3) and super_err <= RNN_TOL
+    # nightmare through max-pools, its real use: tinyyolo-v1's first dream
+    # step (the input gradient of layer 10, six pools down) card against
+    # CPU, where near-ties flip the pools' routes, at a limit set from the
+    # CPU's own step-1 reading (tools/nightmare_sensitivity.py); then the
+    # command through the pools on the card
+    x_v1 = resize_image(torch.from_numpy(load_image_rgb(str(simg))), V1,
+                        V1)[None]
+    v1_np = load_weights(vspec, str(vweights))[0]
+    dream_g = {where: make_dream_step(vspec, 10)(
+        params_to_torch(vspec, v1_np, where), x_v1.to(where)).cpu()
+        for where in ("cpu", str(dev))}
+    g_cpu = dream_g["cpu"]
+    v1_dream_err = float(torch.linalg.vector_norm(dream_g[str(dev)] - g_cpu)
+                         / torch.linalg.vector_norm(g_cpu))
+    assert g_cpu.abs().max() > 0 and v1_dream_err <= V1_DREAM_TOL, \
+        v1_dream_err
+    (ndir / "v1").mkdir()
+    v1_dream, _ = quiet(cli.COMMANDS["nightmare"], [
+        str(vcfg), str(vweights), str(simg), "10", "-iters", "2",
+        "-octaves", "1", "-out", str(ndir / "v1")])
+    assert v1_dream.shape == (240, 320, 3) and np.isfinite(v1_dream).all()
+    assert float(np.abs(v1_dream - load_image_rgb(str(simg))).max()) > 0.01
+    log(f"phase 51 ok: `nightmare` on the super-resolution net (320x240, "
+        f"layer 1), 1 octave, 2 iterations, card against -cpu {dream_err}; "
+        f"`super` 320x240 -> 640x480 {super_err} (gate {RNN_TOL}); "
+        f"tinyyolo-v1-{V1}'s first dream step at layer 10, card against CPU "
+        f"{v1_dream_err} of the gradient's norm (gate {V1_DREAM_TOL}), and "
+        f"`nightmare` through its pools on the card; phases "
+        f"48-51 took {time.perf_counter() - t_phase:.1f} s [{gpu}]")
+
+    launches_k = {20: launches_v1["nms_per_class"],
+                  80: launches_coco["nms_per_class"]}
+    return [{"name": f"nms_per_class (YOLOv1 head, exact NMS: "
+                     f"{'tinyyolo-v1' if c == 20 else 'tiny-coco-v1'}-{V1} "
+                     f"C={v_shapes[c][0]} k={v_shapes[c][1]})",
+             "route": "cuda", "source": "sr_object_detection_tpu_torch/csrc/"
+                                        "nms.cu",
+             "replaces": "sr_object_detection_tpu/kernels/nms_pallas.py:29",
+             "launches": launches_k[c], "max_abs_err": v_err[c],
+             "ms": v_times[c][0], "plain_ms": v_times[c][1],
+             "bound_ms": v_bounds[c][0], "bound_by": v_bounds[c][1],
+             "library_ms": None}
+            for c in (20, 80)]
+
+
 def main() -> int:
     # ---------------------------------------------------------- phase 0
     if not torch.cuda.is_available():
@@ -4717,6 +5339,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     d19_train_kernels = darknet19_224_train(gpu, dev, reset_counts, counts)
 
+    # --------------------------------------------------- phases 48-51
+    torch.cuda.empty_cache()
+    v1_kernels = last_kinds(gpu, dev, reset_counts, counts)
+
     replaces = {
         "nms_per_class": "sr_object_detection_tpu/kernels/nms_pallas.py:29",
         "stem_pair": "sr_object_detection_tpu/kernels/b1_stem.py:82",
@@ -4782,7 +5408,7 @@ def main() -> int:
          # BN/leaky/pool passes
          "library_ms": library.get(name)}
         for name in replaces] + yolo_train_kernels + yolo9000_train_kernels \
-        + apps_kernels + d19_kernels + d19_train_kernels
+        + apps_kernels + d19_kernels + d19_train_kernels + v1_kernels
     log(json.dumps({"yolov2_608_kernels": yolo_kernels}))
     log(json.dumps({"yolo9000_416_kernels": yolo9000_kernels}))
     log(gpu)

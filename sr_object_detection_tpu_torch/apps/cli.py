@@ -16,6 +16,11 @@ Counterpart of ``sr_object_detection_tpu/apps/cli.py``
   detector test <data> <cfg> <weights> <image> ...   (= detect)
   detector demo <data> <cfg> <weights> [-frames glob|-video f|-cam i] [-cpu]
   robot run <cfg> <weights> [-source synthetic|<glob>] ... [-cpu]
+  rnn train|generate|generatetactic|valid|validtactic|vec <cfg> ... [-cpu]
+  yolo|coco|swag train <data> <cfg> [weights] [-cpu]
+  yolo|coco|swag test|valid|recall|demo <cfg> [weights] ... [-cpu]
+  nightmare <cfg> <weights> <image> <layer> [-iters n] ... [-cpu]
+  super [test] <cfg> <weights> <image> [-out path] [-cpu]
   speed <cfg> [tics] [-batch N] [-int8 [-phase-stem] [-qhead]] [-cpu]
   ops <cfg>
   partial <cfg> <weights> <out> <n>
@@ -25,11 +30,13 @@ Counterpart of ``sr_object_detection_tpu/apps/cli.py``
   statistics <cfg> <weights>
   visualize <cfg> [weights]
 
-`detect`, `detector`, `classify`, `classifier`, `cifar`, `robot` and
-`speed` run on CUDA unless -cpu is given; the weight-surgery and
-inspection commands run on the host in numpy. The other reference
-commands are listed in ROADMAP queue 1, items 10-12. Flag parsing follows the reference's argv-splicing helpers
-(utils.c:62-118): '-key value' pairs are plucked from anywhere.
+`detect`, `detector`, `classify`, `classifier`, `cifar`, `robot`,
+`rnn`, `yolo`, `coco`, `swag`, `nightmare`, `super` and `speed` run on
+CUDA unless -cpu is given; the weight-surgery and inspection commands
+run on the host in numpy. The other reference commands (and `super
+train`) are listed in ROADMAP queue 1, items 10-12. Flag parsing follows
+the reference's argv-splicing helpers (utils.c:62-118): '-key value'
+pairs are plucked from anywhere.
 """
 
 from __future__ import annotations
@@ -284,6 +291,75 @@ def cmd_robot(argv):
     return run_robot(argv, device="cpu" if use_cpu else "cuda")
 
 
+def cmd_rnn(argv):
+    use_cpu = find_arg(argv, "-cpu")
+    from .rnn_app import run_char_rnn
+    return run_char_rnn(argv, device="cpu" if use_cpu else "cuda")
+
+
+def _cmd_yolo_v1(argv, *, coco: bool):
+    """run_yolo (yolo.c:341-361) / run_coco (coco.c:368-389) /
+    run_swag (swag.c:90): v1 train/test/valid/recall/demo."""
+    device = "cpu" if find_arg(argv, "-cpu") else "cuda"
+    sub = argv.pop(0)
+    from .misc_apps import run_yolo_v1
+    if sub == "train":
+        data_cfg, cfg = argv[0], argv[1]
+        weights = argv[2] if len(argv) > 2 and not argv[2].startswith("-") \
+            else None
+        return run_yolo_v1(data_cfg, cfg, weights, argv[3:], device=device)
+    from . import yolo_v1_app as V1
+    names = None
+    if coco:
+        from ..config import read_names
+        nf = find_value(argv, "-names", None)
+        names = read_names(nf) if nf else [str(i) for i in range(80)]
+    cfg = argv.pop(0)
+    if sub == "test":
+        # two positionals after cfg = (weights, image); one = image
+        pos = [a for a in argv[:2] if not a.startswith("-")]
+        weights = argv.pop(0) if len(pos) == 2 else None
+        return V1.test_yolo_v1(cfg, weights, argv.pop(0), argv,
+                               names=names, device=device)
+    weights = argv.pop(0) if argv and not argv[0].startswith("-") \
+        else None
+    if sub == "valid":
+        return V1.validate_yolo_v1(cfg, weights, argv, names=names,
+                                   coco=coco, device=device)
+    if sub == "recall":
+        return V1.validate_yolo_v1_recall(cfg, weights, argv, device=device)
+    if sub == "demo":
+        return V1.demo_yolo_v1(cfg, weights, argv, names=names,
+                               device=device)
+    raise SystemExit(f"yolo/coco: unknown subcommand {sub}")
+
+
+def cmd_yolo(argv):
+    return _cmd_yolo_v1(argv, coco=False)
+
+
+def cmd_coco(argv):
+    return _cmd_yolo_v1(argv, coco=True)
+
+
+def cmd_nightmare(argv):
+    use_cpu = find_arg(argv, "-cpu")
+    from .nightmare_app import run_nightmare
+    return run_nightmare(argv, device="cpu" if use_cpu else "cuda")
+
+
+def cmd_super(argv):
+    if argv and argv[0] == "train":
+        raise NotImplementedError(
+            "super train (train_super, super.c:10) is not ported yet "
+            "(ROADMAP queue 1, item 10)")
+    if argv and argv[0] == "test":
+        argv = argv[1:]
+    use_cpu = find_arg(argv, "-cpu")
+    from .super_app import run_super
+    return run_super(argv, device="cpu" if use_cpu else "cuda")
+
+
 COMMANDS = {
     "detect": cmd_detect,
     "detector": cmd_detector,
@@ -291,6 +367,12 @@ COMMANDS = {
     "classifier": cmd_classifier,
     "cifar": cmd_cifar,
     "robot": cmd_robot,
+    "rnn": cmd_rnn,
+    "nightmare": cmd_nightmare,
+    "super": cmd_super,
+    "yolo": cmd_yolo,
+    "coco": cmd_coco,
+    "swag": cmd_yolo,
     "speed": cmd_speed,
     "ops": cmd_ops,
     "partial": cmd_partial,

@@ -31,9 +31,15 @@ aux['cost']; autograd gives lrn, local, deconv, avgpool and the
 activations their backwards. Flat (B, N) tensors are darknet's CHW
 raster, which is NCHW's own order, so a flat layer after a spatial one
 reshapes, and a spatial layer after a flat one reshapes back to its
-input geometry (the JAX compiler's ``_as_flat`` / ``_as_nhwc``). The
-remaining kinds (detection, rnn, gru, crnn) raise when the network is
-built, naming the ROADMAP queue item that ports them.
+input geometry (the JAX compiler's ``_as_flat`` / ``_as_nhwc``).
+
+The last four kinds: rnn, gru and crnn (``ops/rnn.py``: the step-major
+recurrence over ``net.time_steps``, parameters keyed
+``<sublayer>.<name>``, a crnn on NCHW) and YOLOv1's detection layer (the class softmax where
+``softmax`` is set, straight through in training as the JAX compiler's
+``_softmax_straight_through``; its loss is ``train/detection_loss.py``).
+A network whose input is flat, as a char-rnn's (B, inputs), takes it as
+it is.
 """
 
 from __future__ import annotations
@@ -54,9 +60,7 @@ from ..ops import boxes as B
 from ..ops import conv as C
 from ..ops import layout as L
 from ..ops import pooling as P
-
-# kinds that come with the apps slice (ROADMAP queue 1, item 10)
-_APPS_KINDS = (S.DetectionSpec, S.RNNSpec, S.GRUSpec, S.CRNNSpec)
+from ..ops import rnn as R
 
 
 class ConvLayer(nn.Module):
@@ -404,6 +408,67 @@ def cost(pred, truth, l: S.CostSpec):
     return (diff * diff).sum() * l.scale
 
 
+class DetectionLayer(_Layer):
+    """YOLOv1's [detection] layer (detection_layer.c:49-73) on the flat
+    raster [side^2 * classes | side^2 * n objectness | boxes]: the
+    class block softmaxed per cell where ``softmax`` is set (in training
+    with the identity backward, darknet's delta copied straight through),
+    the rest passed as it is (the JAX compiler's detection branch)."""
+
+    def forward(self, x, train: bool = False):
+        l = self.spec
+        x = L.nchw_to_flat(x)
+        if not l.softmax:
+            return x
+        b, loc = x.shape[0], l.side * l.side
+        cls = x[:, :loc * l.classes].reshape(b * loc, l.classes)
+        cls = _SoftmaxStraightThrough.apply(cls) if train else _softmax(cls)
+        return torch.cat([cls.reshape(b, -1), x[:, loc * l.classes:]], 1)
+
+
+class _Params(nn.Module):
+    """One sublayer's tensors as buffers."""
+
+    def __init__(self, params: dict):
+        super().__init__()
+        for k, v in params.items():
+            self.register_buffer(k, v)
+
+
+class _RecurrentLayer(nn.Module):
+    """rnn / gru / crnn: one ``_Params`` a sublayer, so that
+    ``named_buffers()`` gives the port's flat ``<sublayer>.<name>``
+    keys, and the recurrence of ``ops/rnn.py`` over ``time_steps``."""
+
+    def __init__(self, spec, params: dict, time_steps: int):
+        super().__init__()
+        self.spec = spec
+        self.time_steps = time_steps
+        for sub, p in R.sublayers(params).items():
+            self.add_module(sub, _Params(p))
+
+    def forward(self, x):
+        return self.forward_train(x, dict(self.named_buffers()),
+                                  train=False)
+
+    def forward_train(self, x, p, train: bool = True):
+        l = self.spec
+        if isinstance(l, S.CRNNSpec):
+            return R.crnn_forward(x, p, l, time_steps=self.time_steps,
+                                  train=train)[0]
+        fn = R.rnn_forward if isinstance(l, S.RNNSpec) else R.gru_forward
+        return fn(L.nchw_to_flat(x), p, l, time_steps=self.time_steps,
+                  train=train)[0]
+
+
+def _spatial(layer: nn.Module) -> bool:
+    """Whether a layer reads an NCHW input (a flat one is reshaped to
+    its input geometry first)."""
+    return isinstance(layer, _SPATIAL) or (
+        isinstance(layer, _RecurrentLayer)
+        and isinstance(layer.spec, S.CRNNSpec))
+
+
 class LocalLayer(_Layer):
     """Locally connected layer (local_layer.c): per-location weights
     ``(locations, n, c*size*size)`` over darknet's im2col columns (channel
@@ -445,16 +510,19 @@ _INFERENCE_KINDS = {S.ConnectedSpec: ConnectedLayer, S.AvgPoolSpec:
                     S.CropSpec: CropLayer, S.BatchNormSpec: BatchNormLayer,
                     S.LRNSpec: LRNLayer, S.ActivationSpec: ActivationLayer,
                     S.CostSpec: CostLayer, S.LocalSpec: LocalLayer,
-                    S.DeconvSpec: DeconvLayer}
+                    S.DeconvSpec: DeconvLayer, S.DetectionSpec:
+                    DetectionLayer}
 # layers that read an NCHW input: a flat one is reshaped to their input
 # geometry first
 _SPATIAL = (ConvLayer, MaxPoolLayer, RegionLayer, ReorgLayer, ShortcutLayer,
             AvgPoolLayer, CropLayer, BatchNormLayer, LRNLayer, LocalLayer,
             DeconvLayer)
+_RECURRENT = (S.RNNSpec, S.GRUSpec, S.CRNNSpec)
 
 
 def build_layer(l: S.LayerSpec, params: dict, compute_dtype=None, *,
-                tree: Optional[WordTree] = None, device="cpu"):
+                tree: Optional[WordTree] = None, device="cpu",
+                time_steps: int = 1):
     if isinstance(l, S.ConvSpec):
         return ConvLayer(l, params, compute_dtype)
     if isinstance(l, S.MaxPoolSpec):
@@ -471,10 +539,8 @@ def build_layer(l: S.LayerSpec, params: dict, compute_dtype=None, *,
         return SoftmaxLayer(l, tree, device)
     if type(l) in _INFERENCE_KINDS:
         return _INFERENCE_KINDS[type(l)](l, params)
-    if isinstance(l, _APPS_KINDS):
-        raise NotImplementedError(
-            f"layer {l.index} ({l.kind}) is not ported yet (ROADMAP queue "
-            "1, item 10)")
+    if isinstance(l, _RECURRENT):
+        return _RecurrentLayer(l, params, time_steps)
     raise NotImplementedError(
         f"layer {l.index} ({l.kind}): the JAX package's polyphase rewrite "
         "is not ported (ROADMAP, 'Not ported')")
@@ -570,7 +636,7 @@ class Network(nn.Module):
                       torch.device("cpu"))
         self.layers = nn.ModuleList(
             build_layer(l, p, compute_dtype, tree=self.trees.get(i),
-                        device=device)
+                        device=device, time_steps=spec.net.time_steps)
             for i, (l, p) in enumerate(zip(spec.layers, params)))
         self.out_idx = spec.output_layer_index()
         self.phase_pair = self.phase_chain = False
@@ -602,7 +668,9 @@ class Network(nn.Module):
     def forward(self, x, keep_all: bool = False, *, train: bool = False,
                 params=None, want=None, remat=False, truth=None,
                 generator=None, draws=None):
-        """x: NHWC input. Returns (out, aux): out is the output layer's
+        """x: NHWC input, or a flat (B, inputs) one for a network whose
+        first layer reads the flat raster (a char-rnn's one-hot rows).
+        Returns (out, aux): out is the output layer's
         tensor in the public layout, aux = {'outputs': {i: tensor}}
         (every layer when ``keep_all``, else only the output layer).
 
@@ -623,13 +691,13 @@ class Network(nn.Module):
         draw ({layer: keep mask in the port's layout, or (dh, dw,
         flip)}); the draws made are added to ``draws``."""
         if not train:
-            cur = x.permute(0, 3, 1, 2)
+            cur = x.permute(0, 3, 1, 2) if x.ndim == 4 else x
             saved, kept = {}, {}    # public outputs; NCHW ones read later
             for i, layer in enumerate(self.layers):
                 if isinstance(layer, RouteLayer):
                     cur = layer(kept)
                 else:
-                    if cur.ndim == 2 and isinstance(layer, _SPATIAL):
+                    if cur.ndim == 2 and _spatial(layer):
                         l = layer.spec
                         cur = L.flat_to_nchw(cur, l.h, l.w, l.c)
                     cur = (layer(cur, kept) if isinstance(layer, ShortcutLayer)
@@ -700,7 +768,7 @@ class Network(nn.Module):
         draws."""
         i, j, kind = unit
         layers = self.spec.layers
-        if cur.ndim == 2 and isinstance(self.layers[i], _SPATIAL):
+        if cur.ndim == 2 and _spatial(self.layers[i]):
             l = layers[i]
             cur = L.flat_to_nchw(cur, l.h, l.w, l.c)
         if kind == "chain":
@@ -734,7 +802,7 @@ class Network(nn.Module):
             if i not in draws:
                 draws[i] = layer.draw(cur, rt["generator"])
             cur = layer.forward_train(cur, draws[i])
-        elif isinstance(layer, SoftmaxLayer):
+        elif isinstance(layer, (SoftmaxLayer, DetectionLayer)):
             cur = layer(cur, train=True)
         elif isinstance(layer, CostLayer):
             if rt["truth"] is not None:
@@ -743,7 +811,7 @@ class Network(nn.Module):
             cur = layer(kept)
         elif isinstance(layer, ShortcutLayer):
             cur = layer(cur, kept)
-        elif isinstance(layer, (LocalLayer, DeconvLayer)):
+        elif isinstance(layer, (LocalLayer, DeconvLayer, _RecurrentLayer)):
             cur = layer.forward_train(cur, params[i])
         else:
             cur = layer(cur)
@@ -757,16 +825,15 @@ class Network(nn.Module):
         if rt["truth"] is not None:
             last = max([last] + [i for i, l in enumerate(self.spec.layers)
                                  if isinstance(l, S.CostSpec)])
-        units = [u for u in self.train_units(x.shape[1], x.shape[2])
-                 if u[0] <= last]
+        h, w = (x.shape[1], x.shape[2]) if x.ndim == 4 else (0, 0)
+        units = [u for u in self.train_units(h, w) if u[0] <= last]
         inner = [i for i in want if any(u[0] <= i < u[1] for u in units)]
         if inner:
             raise ValueError(f"layers {inner} run inside a kernel unit and "
                              "have no output of their own")
         # consecutive units of one segment run as one checkpointed call
         seg_of = {u: n for n, seg in enumerate(
-            self.remat_segments(remat, x.shape[1], x.shape[2]))
-            for u in seg}
+            self.remat_segments(remat, h, w)) for u in seg}
         groups = []
         for u in units:
             n = seg_of.get(u)
@@ -793,7 +860,8 @@ class Network(nn.Module):
                     outs[u[1]] = cur
             return cur, live, outs, bn, costs
 
-        cur, kept, saved, bn_updates = x.permute(0, 3, 1, 2), {}, {}, {}
+        cur = x.permute(0, 3, 1, 2) if x.ndim == 4 else x
+        kept, saved, bn_updates = {}, {}, {}
         costs = []
         for group, n in groups:
             if n is None:
@@ -815,5 +883,6 @@ __all__ = ["Network", "ConvLayer", "MaxPoolLayer", "RegionLayer",
            "RouteLayer", "ReorgLayer", "ShortcutLayer", "ConnectedLayer",
            "AvgPoolLayer", "DropoutLayer", "CropLayer", "BatchNormLayer",
            "LRNLayer", "ActivationLayer", "SoftmaxLayer", "CostLayer",
-           "LocalLayer", "DeconvLayer", "build_layer", "cost",
+           "LocalLayer", "DeconvLayer", "DetectionLayer", "build_layer",
+           "cost",
            "live_set", "remat_divisor", "remat_saved", "resolve_trees"]

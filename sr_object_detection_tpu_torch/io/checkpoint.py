@@ -6,8 +6,9 @@ two formats (SURVEY §5.4):
     + seen counter; the reference's .backup cadence, detector.c:150-157);
   * ``.npz`` train-state checkpoints carrying params + momentum velocity
     + seen, in the JAX package's layout (keys ``p/<layer>/<name>``,
-    ``v/<layer>/<name>``, ``seen``; conv weights HWIO), so a state saved
-    by either package loads in the other.
+    ``v/<layer>/<name>``, a recurrent sublayer's
+    ``p/<layer>/<sublayer>/<name>``, ``seen``; conv weights HWIO), so a
+    state saved by either package loads in the other.
 
 The port's params hold conv weights OIHW, deconv weights (Cin, Cout, k,
 k) and local weights (locations, n, c*k*k), so the train-state
@@ -24,7 +25,7 @@ import numpy as np
 import torch
 
 from ..graph import spec as S
-from .convert import params_to_numpy, params_to_torch
+from .convert import flat, params_to_numpy, params_to_torch
 from .weights import save_weights
 
 
@@ -35,8 +36,8 @@ def save_train_state(path: str, state, spec: S.NetworkSpec):
     arrays = {}
     for tag, tree in (("p", state.params), ("v", state.velocity)):
         for i, p in enumerate(params_to_numpy(spec, tree)):
-            for k, v in p.items():
-                arrays[f"{tag}/{i}/{k}"] = v
+            for k, v in flat(p).items():
+                arrays[_key(tag, i, k)] = v
     arrays["seen"] = np.asarray(int(state.seen), np.int64)
     d = os.path.dirname(os.path.abspath(path)) or "."
     fd, tmp = tempfile.mkstemp(dir=d, suffix=".npz")
@@ -52,7 +53,7 @@ def load_train_state(path: str, template_state, spec: S.NetworkSpec):
     z = np.load(path)
 
     def rebuild(tag, tree):
-        arrays = [{k: z[f"{tag}/{i}/{k}"] for k in p}
+        arrays = [{k: z[_key(tag, i, k)] for k in p}
                   for i, p in enumerate(tree)]
         dev = next((t.device for p in tree for t in p.values()), "cpu")
         return [{k: v.to(dtype=p[k].dtype) for k, v in q.items()}
@@ -61,6 +62,12 @@ def load_train_state(path: str, template_state, spec: S.NetworkSpec):
     return TrainState(params=rebuild("p", template_state.params),
                       velocity=rebuild("v", template_state.velocity),
                       seen=torch.tensor(int(z["seen"]), dtype=torch.int64))
+
+
+def _key(tag: str, i: int, k: str) -> str:
+    """``<tag>/<layer>/<name>``; a sublayer's ``<sublayer>.<name>`` key
+    is ``<tag>/<layer>/<sublayer>/<name>``, as in the JAX package."""
+    return f"{tag}/{i}/{k.replace('.', '/')}"
 
 
 def export_weights(path: str, spec: S.NetworkSpec, state):

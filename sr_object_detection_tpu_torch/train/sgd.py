@@ -9,8 +9,9 @@ connected/local identical), with g = +dL/dw summed over the batch:
     w   <- w + lr/batch * v
 
 LR policies mirror get_current_rate (src_yolo2/network.c:48-79).
-Parameters are per-layer dicts of tensors; the update returns new
-tensors and leaves its inputs as they are.
+Parameters are per-layer dicts of tensors (a recurrent layer's keys are
+``<sublayer>.<name>``, and a sublayer's ``weights`` decay as a layer's
+do); the update returns new tensors and leaves its inputs as they are.
 """
 
 from __future__ import annotations
@@ -21,6 +22,11 @@ import torch
 from ..graph.spec import NetSpec
 
 _ROLLING = ("rolling_mean", "rolling_variance")
+
+
+def name(key: str) -> str:
+    """A parameter key's name, a recurrent sublayer's prefix dropped."""
+    return key.rpartition(".")[2]
 
 
 def init_velocity(params):
@@ -38,12 +44,12 @@ def sgd_update(params, grads, velocity, *, lr, batch_size: int,
     for p, g, v in zip(params, grads, velocity):
         np_, nv = {}, {}
         for k, w in p.items():
-            if k in _ROLLING:
+            if name(k) in _ROLLING:
                 np_[k], nv[k] = w, v[k]
                 continue
             gk = g.get(k)
             new_v = momentum * v[k] if gk is None else momentum * v[k] - gk
-            if k == "weights":
+            if name(k) == "weights":
                 new_v = new_v - (decay * batch_size) * w
             np_[k] = w + step * new_v
             nv[k] = new_v

@@ -18,17 +18,21 @@ conv + maxpool pair); ``graph/compiler.Network`` says how they combine.
 modes) recomputes activations in the backward through
 ``torch.utils.checkpoint``; ``Network.remat_segments`` says which.
 
-Two heads train: the region layer (the region loss) and, where the
-network has none, its last ``[cost]`` layer (the classifier family: the
-loss is 0.5 x the cost layers' sum, the gradient of darknet's delta =
-scale * (truth - pred), and the truth is (B, outputs)). Dropout and crop
-draw from a ``torch.Generator`` that :class:`Trainer` owns, seeded from
-``seed``: each micro-batch takes one seed from it for its own generator,
-and dropout's masks are drawn on the state's device.
+Three heads train: the region layer (the region loss), YOLOv1's
+detection layer (``train/detection_loss.py`` on the float32 flat output,
+no region statistics) and, where the network has neither, its last
+``[cost]`` layer (the classifier family and char-rnn: the loss is 0.5 x
+the cost layers' sum, the gradient of darknet's delta = scale * (truth -
+pred), and the truth is (B, outputs)). A recurrent layer's parameters
+are keyed ``<sublayer>.<name>``; its BN statistics never move (ROADMAP
+queue 3).
+Dropout and crop draw from a ``torch.Generator`` that :class:`Trainer`
+owns, seeded from ``seed``: each micro-batch takes one seed from it for
+its own generator, and dropout's masks are drawn on the state's device.
 
-Not ported here: ``mesh`` (ROADMAP queue 1, item 11), the detection
-head (queue 1, item 10) and ``make_multi_step`` (a scan-dispatch
-experiment that lost in the JAX package; ROADMAP "Not ported").
+Not ported here: ``mesh`` (ROADMAP queue 1, item 11) and
+``make_multi_step`` (a scan-dispatch experiment that lost in the JAX
+package; ROADMAP "Not ported").
 """
 
 from __future__ import annotations
@@ -44,8 +48,9 @@ from ..graph import spec as S
 from ..graph.compiler import Network, remat_divisor, resolve_trees
 from ..io.convert import params_to_torch
 from ..io.weights import init_params
+from .detection_loss import detection_loss
 from .region_loss import make_region_loss
-from .sgd import init_velocity, learning_rate, sgd_update
+from .sgd import init_velocity, learning_rate, name, sgd_update
 
 _ROLLING = ("rolling_mean", "rolling_variance")
 
@@ -61,16 +66,14 @@ class TrainState:
 
 
 def _find_head(spec: S.NetworkSpec):
-    """("region", index) of the first region layer, else the detection
-    head (not ported: it raises), else ("cost", index) of the last cost
-    layer (the JAX trainer's ``_find_head``)."""
+    """("region", index) or ("detection", index) of the first region or
+    detection layer, else ("cost", index) of the last cost layer (the JAX
+    trainer's ``_find_head``)."""
     for i, l in enumerate(spec.layers):
         if isinstance(l, S.RegionSpec):
             return "region", i
         if isinstance(l, S.DetectionSpec):
-            raise NotImplementedError(
-                f"training a {l.kind} head is not ported yet (ROADMAP queue "
-                "1, item 10)")
+            return "detection", i
     cost_idx = [i for i, l in enumerate(spec.layers)
                 if isinstance(l, S.CostSpec)]
     if cost_idx:
@@ -99,8 +102,9 @@ def make_train_step(spec: S.NetworkSpec, *, mesh=None, compute_dtype=None,
     """Returns train_step(state, x, truth, generator=None, draws=None) ->
     (state, metrics).
 
-    x: (B, H, W, C) float32 or bf16 NHWC on the state's device, where
-    B = net.batch * net.subdivisions; truth: (B, 30, 5) for a region
+    x: (B, H, W, C) float32 or bf16 NHWC, or flat (B, inputs), on the
+    state's device, where B = net.batch * net.subdivisions; truth: (B,
+    30, 5) for a region head, (B, side^2, 1+classes+4) for a detection
     head, (B, outputs) for a cost head. The metrics are 0-d tensors on
     the device (reading one waits for the step); a cost head's carry no
     region statistics. ``generator``: the CPU ``torch.Generator`` that
@@ -154,6 +158,13 @@ def make_train_step(spec: S.NetworkSpec, *, mesh=None, compute_dtype=None,
                              remat=remat, truth=truth, generator=generator,
                              draws=draws)
             return 0.5 * aux["cost"], {}, aux["bn"]
+        if head_kind == "detection":
+            # the yolov1 loss on the post-softmax detection output
+            out, aux = network(x, train=True, params=params,
+                               want=(head_idx,), remat=remat,
+                               generator=generator, draws=draws)
+            out = out.reshape(out.shape[0], -1).float()
+            return detection_loss(out, truth, head), {}, aux["bn"]
         raw, aux = network(x, train=True, params=params,
                            want=(head_idx - 1,), remat=remat,
                            generator=generator, draws=draws)
@@ -177,7 +188,9 @@ def make_train_step(spec: S.NetworkSpec, *, mesh=None, compute_dtype=None,
             for i, p in enumerate(state.params):
                 q = {}
                 for k, v in p.items():
-                    if k in _ROLLING:
+                    if name(k) in _ROLLING:
+                        # a recurrent sublayer's statistics never move:
+                        # its layer returns no BN update
                         q[k] = bn_carry.get(i, {}).get(k, v)
                     else:
                         q[k] = v.detach().requires_grad_(True)
@@ -267,12 +280,15 @@ class Trainer:
         return self._steps[key]
 
     def step(self, x, truth, draws=None):
-        """x: (B, H, W, C) float32 or bf16 NHWC (numpy or tensor); truth
-        (B, 30, 5), or (B, outputs) for a cost head; ``draws`` as
+        """x: (B, H, W, C) float32 or bf16 NHWC, or flat (B, inputs)
+        (numpy or tensor); truth (B, 30, 5), (B, side^2, 1+classes+4) for
+        a detection head, or (B, outputs) for a cost head; ``draws`` as
         :func:`make_train_step`'s. Returns the step's metrics."""
         x = torch.as_tensor(x).to(self.device)
         truth = torch.as_tensor(truth, dtype=torch.float32).to(self.device)
-        step = self._step_for(x.shape[1], x.shape[2])
+        net = self.spec.net
+        step = (self._step_for(x.shape[1], x.shape[2]) if x.ndim == 4
+                else self._step_for(net.h, net.w))
         self.state, metrics = step(self.state, x, truth, self.generator,
                                    draws)
         return metrics

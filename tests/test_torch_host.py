@@ -55,7 +55,11 @@ FUNCTION_COPIES = [
                                  "cmd_partial", "cmd_average",
                                  "_surgery_cmd", "cmd_statistics",
                                  "cmd_visualize", "cmd_oneoff")] + [
-    ("eval/reval_voc.py", n) for n in ("read_det_file", "gt_from_xml")]
+    ("eval/reval_voc.py", n) for n in ("read_det_file", "gt_from_xml")] + [
+    ("apps/rnn_app.py", n) for n in ("VOCAB", "CharStream")] + [
+    ("apps/misc_apps.py", n) for n in ("VOC_NAMES", "decode_detection_boxes",
+                                       "fill_truth_region_np")] + [
+    ("apps/yolo_v1_app.py", n) for n in ("COCO_IDS", "_iou_centers")]
 # a copy whose original lies outside the JAX package
 ORIGINALS = {"eval/reval_voc.py": REPO / "tools" / "reval_voc.py"}
 
@@ -68,11 +72,24 @@ def test_copy_is_verbatim(rel):
 
 
 def _function_source(path, name):
+    """The source of a module's top-level function, class or assignment
+    ``name``, its leading comments included."""
     import ast
     text = path.read_text()
-    node = next(n for n in ast.parse(text).body
-                if isinstance(n, ast.FunctionDef) and n.name == name)
-    return ast.get_source_segment(text, node)
+
+    def names(n):
+        if isinstance(n, (ast.FunctionDef, ast.ClassDef)):
+            return [n.name]
+        if isinstance(n, ast.Assign):
+            return [t.id for t in n.targets if isinstance(t, ast.Name)]
+        return []
+    node = next(n for n in ast.parse(text).body if name in names(n))
+    lines = text.splitlines()
+    start = node.lineno - 1
+    while start > 0 and lines[start - 1].startswith("#"):
+        start -= 1
+    return "\n".join(lines[start:node.lineno - 1] + [
+        ast.get_source_segment(text, node)])
 
 
 @pytest.mark.parametrize("rel,name", FUNCTION_COPIES)
@@ -188,3 +205,66 @@ def test_params_to_torch_layout_and_dtype():
     np.testing.assert_array_equal(
         bf[0]["weights"].float().numpy(),
         tp[0]["weights"].to(torch.bfloat16).float().numpy())
+
+
+# a seeded CRNN net (two steps of two streams at 8x8) with a cost head
+CRNN_NET = """
+[net]
+batch=2
+time_steps=2
+subdivisions=1
+height=8
+width=8
+channels=3
+
+[crnn]
+batch_normalize=1
+output_filters=6
+hidden_filters=5
+activation=leaky
+
+[connected]
+output=5
+activation=linear
+
+[cost]
+type=sse
+"""
+
+
+@pytest.mark.parametrize("net", ["char_rnn", "crnn"])
+def test_weights_byte_equal(net, tmp_path):
+    """A seeded char_rnn (vocab 256, hidden 32) and a seeded CRNN net, whose
+    params are one dict a sublayer: the port's ``export_weights`` of a
+    Trainer's state writes the JAX package's ``save_weights`` bytes, the
+    train state's npz keys and arrays are JAX's, and the port reads JAX's
+    npz back."""
+    import sr_object_detection_tpu.io.checkpoint as JCK
+    import sr_object_detection_tpu.train.trainer as JT
+    import sr_object_detection_tpu_torch.io.checkpoint as TCK
+    from sr_object_detection_tpu_torch.train.trainer import Trainer
+    from torch_parity import random_bn_nested
+    if net == "char_rnn":
+        spec, jspec = TZ.char_rnn(hidden=32), JZ.char_rnn(hidden=32)
+    else:
+        spec = TS.build_network_spec(TC.parse_cfg_text(CRNN_NET))
+        jspec = JS.build_network_spec(JC.parse_cfg_text(CRNN_NET))
+    params = random_bn_nested(TW.init_params(spec, seed=21), 22)
+    tt = Trainer(spec, params=params, device="cpu")
+    TCK.export_weights(str(tmp_path / "port.weights"), spec, tt.state)
+    JW.save_weights(jspec, params, str(tmp_path / "jax.weights"), seen=0)
+    assert (tmp_path / "port.weights").read_bytes() == \
+        (tmp_path / "jax.weights").read_bytes()
+    TCK.save_train_state(str(tmp_path / "port.npz"), tt.state, spec)
+    JCK.save_train_state(str(tmp_path / "jax.npz"),
+                         JT.Trainer(jspec, params=params).state)
+    a, b = np.load(tmp_path / "port.npz"), np.load(tmp_path / "jax.npz")
+    assert sorted(a.files) == sorted(b.files)
+    assert any(k.count("/") == 3 for k in b.files)   # p/<layer>/<sub>/<name>
+    for k in b.files:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    back = TCK.load_train_state(str(tmp_path / "jax.npz"), tt.state, spec)
+    for p, q in zip(back.params, tt.state.params):
+        assert p.keys() == q.keys()
+        for k, v in q.items():
+            assert torch.equal(p[k], v), k

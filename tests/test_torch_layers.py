@@ -274,18 +274,25 @@ def test_spatial_kinds_match_jax(tree, tmp_path):
 
 
 def test_unported_kinds_and_training_raise():
-    """A [detection] head still raises when built, naming item 10; the
-    training forward over every kind of the flat path now runs (it raised
-    before the classifier family's training was ported): its output and
-    the cost against a truth are finite, every BN layer (conv, batchnorm,
-    connected) updates its rolling statistics, and dropout and crop made
-    their draws."""
+    """A [detection] head builds since the last kinds were ported (it
+    raised before, naming item 10) and passes its flat input through at
+    softmax 0; the JAX optimizer's polyphase rewrite, the one kind the
+    port does not build, raises naming it. The training forward over
+    every kind of the flat path runs (it raised before the classifier
+    family's training was ported): its output and the cost against a
+    truth are finite, every BN layer (conv, batchnorm, connected) updates
+    its rolling statistics, and dropout and crop made their draws."""
+    from sr_object_detection_tpu_torch.graph.compiler import build_layer
     det = S.build_network_spec(parse_cfg_text(
         "[net]\nheight=14\nwidth=14\nchannels=3\n\n[connected]\n"
         "output=24\n\n[detection]\nclasses=1\ncoords=4\nside=2\n"
         "num=1\n"))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Network(det, params_to_torch(det, init_params(det), "cpu"))
+    dnet = Network(det, params_to_torch(det, init_params(det), "cpu"))
+    with torch.no_grad():
+        out, aux = dnet(torch.rand(2, 14, 14, 3), keep_all=True)
+    assert out.shape == (2, 24) and torch.equal(out, aux["outputs"][0])
+    with pytest.raises(NotImplementedError, match="polyphase"):
+        build_layer(S.FusedConvPoolSpec(index=0, filters=4), {})
     text = FLAT_CFG.format(noadjust=0, temperature=1)
     spec = S.build_network_spec(parse_cfg_text(text))
     net = Network(spec, params_to_torch(spec, init_params(spec), "cpu"))

@@ -176,9 +176,11 @@ def test_network_layers_match_jax():
 
 
 def test_unported_layer_kinds_raise_at_build():
-    """route and reorg are built since yolov2 (tests/test_torch_yolov2.py)
-    and the classifier family's kinds since darknet19 (tests/
-    test_torch_layers.py); a [detection] head is still item 10."""
+    """route and reorg are built since yolov2 (tests/test_torch_yolov2.py),
+    the classifier family's kinds since darknet19 (tests/
+    test_torch_layers.py) and a [detection] head since the last kinds'
+    slice (tests/test_torch_detection.py); only the JAX optimizer's
+    polyphase rewrite, never parsed from a cfg, raises at build."""
     spec = TZ.darknet19(width=64, height=64, classes=10)
     Network(spec, params_to_torch(spec, init_params(spec, seed=0), "cpu"))
     from sr_object_detection_tpu_torch.config import parse_cfg_text
@@ -188,8 +190,12 @@ def test_unported_layer_kinds_raise_at_build():
         "filters=10\nsize=3\nstride=2\npad=1\nactivation=leaky\n\n"
         "[detection]\nclasses=5\ncoords=4\nnum=1\nside=7\n"))
     params = params_to_torch(spec, init_params(spec, seed=0), "cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-        Network(spec, params)
+    with torch.no_grad():
+        out, _ = Network(spec, params)(torch.rand(1, 14, 14, 3))
+    assert out.shape == (1, 7 * 7 * 10)
+    from sr_object_detection_tpu_torch.graph.compiler import build_layer
+    with pytest.raises(NotImplementedError, match="polyphase"):
+        build_layer(S.FusedConvPoolSpec(index=0, filters=4), {})
 
 
 # --------------------------------------------- LatencyEngine vs JAX ---

@@ -695,6 +695,12 @@ TREE_TRAIN_GOLDENS = {"train_tree_region": 2e-4,
 # the cost head's golden (conv, conv, avgpool, softmax, sse cost at
 # subdivisions 2; tests/test_train_parity.py's tolerance)
 CLASSIFIER_TRAIN_GOLDENS = {"train_classifier": 1e-4}
+# YOLOv1's detection head (conv, conv, connected, detection with softmax,
+# sqrt and rescore; tests/test_train_parity.py's tolerance)
+DETECTION_TRAIN_GOLDENS = {"train_yolov1": 1e-4}
+# the recurrent kinds' C-oracle forward goldens and their tolerance
+# (tests/test_parity.py)
+RECURRENT_GOLDENS = {"mini_rnn": 2e-5, "mini_gru": 2e-5, "mini_crnn": 2e-5}
 
 
 CLASSIFIER_NET = """
@@ -851,7 +857,7 @@ def check_train_golden(name, device):
                                                           load_weights)
     from sr_object_detection_tpu_torch.train.trainer import Trainer
     wtol = {**TRAIN_GOLDENS, **TREE_TRAIN_GOLDENS,
-            **CLASSIFIER_TRAIN_GOLDENS}[name]
+            **CLASSIFIER_TRAIN_GOLDENS, **DETECTION_TRAIN_GOLDENS}[name]
     g = np.load(pathlib.Path(__file__).parent / "golden" / f"{name}.npz")
     steps = int(g["steps"])
     x = np.transpose(g["x_chw"], (0, 2, 3, 1)).copy()
@@ -883,6 +889,76 @@ def check_train_golden(name, device):
     want = g["costs"].reshape(steps, -1).sum(1)
     np.testing.assert_allclose(costs, want, rtol=1e-3)
     return float(np.max(np.abs(np.asarray(costs) - want) / np.abs(want)))
+
+
+def check_detection_golden(name, device):
+    """The port's float32 Trainer on a detection head against its C-oracle
+    training golden (``train_yolov1.npz``: 2 steps at 28x28, side 3, 2
+    boxes, 3 classes) on ``device``: :func:`check_train_golden` with the
+    truth a (B, side^2, 1+classes+4) grid, the weights at 1e-4 and the
+    costs at 1e-3 relative, as tests/test_train_parity.py holds the JAX
+    package. Returns the max relative cost error."""
+    assert name in DETECTION_TRAIN_GOLDENS, name
+    return check_train_golden(name, device)
+
+
+def random_bn_nested(params, seed):
+    """:func:`random_bn`'s BN statistics and biases, also inside the
+    recurrent kinds' sublayer dicts; the weights as they are."""
+    rng = np.random.default_rng(seed)
+
+    def one(p):
+        p = {k: one(v) if isinstance(v, dict) else v for k, v in p.items()}
+        if "biases" in p:
+            n = p["biases"].shape[0]
+            p["biases"] = rng.normal(0, 0.2, n).astype(np.float32)
+            if "scales" in p:
+                p["scales"] = rng.uniform(0.6, 1.4, n).astype(np.float32)
+                p["rolling_mean"] = rng.normal(0, 0.1, n).astype(np.float32)
+                p["rolling_variance"] = rng.uniform(
+                    0.6, 1.6, n).astype(np.float32)
+        return p
+
+    return [one(p) for p in params]
+
+
+def check_recurrent_golden(name, device):
+    """The port's float32 Network against a recurrent C-oracle forward
+    golden on ``device``, at RECURRENT_GOLDENS' tolerance:
+    ``mini_rnn`` / ``mini_gru`` as the oracle runs them
+    (set_batch_network(1): one row, one step from zero state,
+    tests/test_parity.py's test_flat_rnn_parity), ``mini_crnn`` on its
+    CHW input with the output flattened to darknet's raster. Returns the
+    max abs error."""
+    import dataclasses
+    import pathlib
+    import torch
+    from sr_object_detection_tpu_torch.config import parse_cfg_text
+    from sr_object_detection_tpu_torch.graph import spec as S
+    from sr_object_detection_tpu_torch.graph.compiler import Network
+    from sr_object_detection_tpu_torch.io.convert import params_to_torch
+    from sr_object_detection_tpu_torch.io.weights import init_params
+    tol = RECURRENT_GOLDENS[name]
+    g = np.load(pathlib.Path(__file__).parent / "golden" / f"{name}.npz")
+    net = S.build_network_spec(parse_cfg_text(bytes(g["cfg"]).decode()))
+    if "input_flat" in g.files:
+        net = S.NetworkSpec(
+            net=dataclasses.replace(net.net, batch=1, time_steps=1),
+            layers=net.layers, cfg_path=None)
+        x = g["input_flat"][None]
+    else:
+        x = np.transpose(g["input_chw"], (1, 2, 0))[None].copy()
+    params = params_to_torch(net, init_params(net, seed=int(g["seed"])),
+                             device)
+    with torch.no_grad():
+        out, _ = Network(net, params)(torch.from_numpy(x).to(device))
+    out = out.float().cpu()
+    if out.ndim == 4:
+        out = out.permute(0, 3, 1, 2)
+    out = out.reshape(-1).numpy()
+    np.testing.assert_allclose(out, g["output"], rtol=tol, atol=tol,
+                               err_msg=name)
+    return float(np.abs(out - g["output"]).max())
 
 
 def assert_stem_link_close(got, ref, z):
