@@ -14,8 +14,10 @@ robot frame loop and the streaming demo, darknet19-224 classification
 classifier apps), darknet19-224 training (the cost head, every
 classifier kind's training forward, `classifier train`, `cifar`), the
 recurrent kinds and char_rnn-1024 (`rnn train/generate/valid/vec`),
-YOLOv1 at 448 (`yolo train/test/valid/recall`, `coco`, `swag`), and
-`nightmare` and `super` —
+YOLOv1 at 448 (`yolo train/test/valid/recall`, `coco`, `swag`),
+`nightmare` and `super`, the go-19 policy net (`go train/valid/engine/
+self`), the small apps (`captcha`, `tag`, `writing`, `compare`, `dice`,
+`super train`, `voxel`, `vid`, `art`, `3d`, `imtest`) and `gemm` —
 through the entry points a user calls, builds
 the hand-written CUDA kernels from ``sr_object_detection_tpu_torch/csrc``
 and holds each against its plain PyTorch version. Phases, in order; any failure ends the run with a
@@ -422,7 +424,37 @@ non-zero status and no result line:
      CLI, card against -cpu within 1e-4; tinyyolo-v1-448's first dream
      step at layer 10 (six max-pools down), the input gradient card
      against CPU within 1e-2 of its norm in norm (V1_DREAM_TOL), and
-     `nightmare` through those pools on the card.
+     `nightmare` through those pools on the card;
+ 52. go-19 (tests/torch_parity.go19_cfg_text: 19x19x1, thirteen 3x3
+     convs of 256 with BN and relu, a 1x1 conv to one plane, softmax,
+     sse cost; seeded weights, BN statistics and biases randomized):
+     the forward on 16 boards and the -multi ensemble (one batch of 8),
+     card against CPU within 1e-4 of the largest |value| (GO_TOL);
+     genmove's and the forward's latency at batch 1 and 8, median and
+     p99 over 50 calls; `go train` through the CLI at B=128 (3
+     iterations, no hand-written kernel launched, counted), then its
+     Trainer.step's boards/s (host clock around 5 queued steps), peak
+     device memory, MFU against 67 TFLOP/s (utils/profiler.mfu) and a
+     profiled step (idle share); `go train` at B=16 and a constant rate,
+     1 and 2 iterations on the card and with -cpu from one .weights:
+     each tensor's update within 1e-2 of its norm in norm after 1 step
+     (GO_UPDATE_TOL; a -cpu run on 1 thread must itself stay under it)
+     and 0.16 after 2 (GO_UPDATE_TOL_2), and against the same steps in
+     float64 on the CPU (torch_parity.train_float64) within twice the
+     CPU's own float32 distance, the first loss 1e-5 relative; `go valid`
+     accuracy equal; a scripted `go engine` GTP session (GO_GTP) single
+     and -multi, the card's transcript equal to the CPU's; one `go self`
+     game (Tromp-Taylor scoring) whose records decode;
+ 53. the small apps through their CLI commands on seeded toy nets and
+     files (tests/torch_parity.APP_*): `captcha`, `tag`, `writing`,
+     `compare`, `dice`, `super`, `voxel` and `vid` train, 3 iterations
+     each on the card and with -cpu, losses within 1e-3 relative
+     (APP_TOL); `compare battle` elos within 1e-6; `dice valid` equal;
+     `vid generate` images within 1e-3; `art`, `3d`, `imtest` and `test`
+     write their outputs;
+ 54. `gemm`: torch.matmul (cuBLAS) GFLOP/s at darknet's six GEMM shapes
+     in bf16 and in float32 with TF32 off, each beside its share of 989 /
+     67 TFLOP/s.
 
 The last lines are one JSON object with the four kernels at yolov2-608's
 shapes (the keys of the kernels line; their launches counted in phase
@@ -4149,6 +4181,458 @@ def last_kinds(gpu, dev, reset_counts, counts):
             for c in (20, 80)]
 
 
+GO_BOARDS = 128     # boards a step of phase 52's `go train` and its rate
+GO_CHECK = 16       # boards a step of the card-against-CPU training run
+GO_TOL = 1e-4       # go-19's forward, card against CPU, of the largest |value|
+# each tensor's update after 1 step of `go train` at a constant rate,
+# card against CPU: the norm of the difference over the update's norm
+# (phase 50's gate); the CPU on 1 thread against its default threads
+# must stay under it too. The BN biases sit near it: their float32
+# gradients cancel, and the CPU in float32 lands 7.6e-3 of their update
+# from a float64 run after one step, as does the card from the CPU
+# (tools/go_train_noise.py)
+GO_UPDATE_TOL = 1e-2
+# the same after 2 steps: the second step's BN statistics amplify that
+# noise, and the card lands 8.0e-2 from the CPU, the CPU 8.1e-2 and the
+# card 2.0e-2 from float64 (tools/go_train_noise.py at lr 0.1); the gate
+# is twice the card's distance from the CPU there
+GO_UPDATE_TOL_2 = 0.16
+GO_LATENCY_CALLS = 50
+APP_ITERS = 3       # iterations of each small app's training run
+APP_TOL = 1e-3      # the small apps' losses, card against CPU, relative
+# the scripted GTP session of phase 52: three stones break the board's
+# symmetry first (on an empty board the dihedral copies of a point tie
+# exactly, and which of a tie the top-5 threshold keeps turns on the
+# last bit of each device's sums)
+GO_GTP = "\n".join([
+    "1 boardsize 19", "2 clear_board", "3 komi 6.5", "4 play black Q16",
+    "5 play white D4", "6 play black C16", "7 genmove white",
+    "8 genmove black", "9 genmove white", "10 genmove black",
+    "11 play white pass", "12 genmove black", "13 quit"]) + "\n"
+
+
+def go_and_apps(gpu, dev, reset_counts, counts):
+    """Phases 52-54 (the module docstring): go-19 at full width, the small
+    apps through their CLI commands, and `gemm`."""
+    import os
+    import statistics
+    from sr_object_detection_tpu_torch.apps import cli
+    from sr_object_detection_tpu_torch.apps import go_app as G
+    from sr_object_detection_tpu_torch.graph import spec as S
+    from sr_object_detection_tpu_torch.io.convert import params_to_torch
+    from sr_object_detection_tpu_torch.io.weights import (
+        init_params, load_weights, save_weights)
+    from sr_object_detection_tpu_torch.utils import profiler as P
+    from torch_parity import (APP_CLS_CFG, APP_EXT_CFG, APP_RNN_CFG,
+                              APP_SUPER_CFG, APP_WRITING_CFG, app_image_set,
+                              go19_cfg_text, train_float64, write_go_moves)
+    from tools.synth_dataset import write_ppm
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    t_phase = time.perf_counter()
+    gdir = WORK / "go19"
+    shutil.rmtree(gdir, ignore_errors=True)
+    gdir.mkdir(parents=True)
+
+    # ---------------------------------------------------------- phase 52
+    cfg = gdir / "go19.cfg"
+    cfg.write_text(go19_cfg_text())
+    spec = S.parse_network_cfg(str(cfg))
+    assert [l.filters for l in spec.layers[:14]] == [256] * 13 + [1]
+    assert [l.kind for l in spec.layers[14:]] == ["softmax", "cost"]
+    weights = gdir / "go19.weights"
+    save_weights(spec, random_bn(init_params(spec, seed=52), 52),
+                 str(weights))
+    moves = write_go_moves(gdir / "go.train", 1024, 52)
+    test_moves = write_go_moves(gdir / "go.test", 32, 53)
+    rng = np.random.default_rng(52)
+    eng = {"card": G.GoEngine(str(cfg), str(weights), device=dev),
+           "cpu": G.GoEngine(str(cfg), str(weights), device="cpu")}
+    boards = G.string_to_board(G.load_go_moves(moves)[:GO_CHECK, 2:])
+    x16 = boards.reshape(GO_CHECK, 19, 19, 1)
+    fwd = {w: e.forward(x16) for w, e in eng.items()}
+    fwd_err = float(np.abs(fwd["card"] - fwd["cpu"]).max()
+                    / np.abs(fwd["cpu"]).max())
+    assert fwd["card"].shape == (GO_CHECK, 361) and fwd_err <= GO_TOL, \
+        fwd_err
+    multi = {w: e.predict_move(boards[0], multi=True)
+             for w, e in eng.items()}
+    multi_err = float(np.abs(multi["card"] - multi["cpu"]).max()
+                      / np.abs(multi["cpu"]).max())
+    assert multi_err <= GO_TOL, multi_err
+    # genmove's latency (the forward plus the host's legality scan over
+    # the 361 points and the draw) and the forward's alone, at batch 1
+    # and at batch 8 (-multi), on a position after three moves
+    board = np.zeros((19, 19), np.float32)
+    for player, (r, c) in ((1, (3, 15)), (-1, (15, 3)), (1, (3, 2))):
+        G.move_go(board, player, r, c)
+    lat = {}
+    for m in (False, True):
+        for what, fn in (
+                ("genmove", lambda: eng["card"].generate_move(
+                    -1, board, multi=m)),
+                ("forward", lambda: eng["card"].predict_move(
+                    -board, multi=m, temperature=0.7))):
+            fn()
+            ts = []
+            for _ in range(GO_LATENCY_CALLS):
+                t0 = time.perf_counter()
+                fn()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            ts.sort()
+            lat[what, m] = (statistics.median(ts),
+                            ts[int(np.ceil(0.99 * len(ts))) - 1])
+            log(f"time go-19 {what} batch {8 if m else 1}: median "
+                f"{lat[what, m][0]} ms, p99 {lat[what, m][1]} ms over "
+                f"{GO_LATENCY_CALLS} calls [{gpu}]")
+        profile(f"go-19 predict_move batch {8 if m else 1}",
+                lambda: eng["card"].predict_move(-board, multi=m,
+                                                 temperature=0.7),
+                5, gpu, top=4)
+    # `go train` at B=GO_BOARDS through the CLI (3 iterations), then the
+    # step's rate, peak memory, MFU and a profiled step on its trainer;
+    # the path runs no hand-written kernel (float32, no max-pool)
+    cfg_b = gdir / "go19-train.cfg"
+    cfg_b.write_text(go19_cfg_text(batch=GO_BOARDS, max_batches=3))
+    reset_counts()
+    (tr, losses), out = quiet(cli.COMMANDS["go"], [
+        "train", str(cfg_b), str(weights), "-moves", moves, "-backup",
+        str(gdir / "backup")])
+    torch.cuda.synchronize()
+    launched, none = counts()
+    assert launched == none, launched
+    assert len(losses) == 3 and np.all(np.isfinite(losses)), out
+    assert int(tr.state.seen) == 3 * GO_BOARDS
+    assert (gdir / "backup" / "go19-train.weights").exists()
+    xb, yb = G.random_go_moves(G.load_go_moves(moves), rng, GO_BOARDS)
+    xb = torch.from_numpy(xb.reshape(GO_BOARDS, 19, 19, 1)).to(dev)
+    yb = torch.from_numpy(yb.reshape(GO_BOARDS, 361)).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    go_rate = step_rate(tr, xb, yb, 5)
+    go_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_flops = P.train_flops(spec) * GO_BOARDS
+    go_mfu = P.mfu(step_flops, GO_BOARDS / go_rate, "float32")
+    profile(f"go-19 Trainer.step B={GO_BOARDS} float32",
+            lambda: float(tr.step(xb, yb)["loss"]), 1, gpu, top=4)
+    del tr, xb, yb
+    torch.cuda.empty_cache()
+    log(f"time go-19 Trainer.step float32 B={GO_BOARDS}: {go_rate} boards/s, "
+        f"{go_rate * step_flops / GO_BOARDS / 1e12} TFLOP/s, MFU {go_mfu} "
+        f"of {P.H100_PEAK_FLOPS['float32'] / 1e12:g} TFLOP/s, peak device "
+        f"memory {go_peak} GiB; `go train` losses {losses} [{gpu}]")
+    # card against CPU: 1 and 2 steps of GO_CHECK boards through the CLI
+    # from one .weights at a constant rate; after 1 step the CPU on 1
+    # thread as the floor
+    trained, first = {}, {}
+    threads = torch.get_num_threads()
+    for steps in (1, 2):
+        cfg_c = gdir / f"go19-check{steps}.cfg"
+        cfg_c.write_text(go19_cfg_text(batch=GO_CHECK, max_batches=steps,
+                                       policy="constant"))
+        spec_c = S.parse_network_cfg(str(cfg_c))
+        assert spec_c.net.policy == "constant"
+        runs = [("card", [], threads), ("cpu", ["-cpu"], threads)]
+        if steps == 1:
+            runs.append(("cpu 1 thread", ["-cpu"], 1))
+        for where, flag, n in runs:
+            torch.set_num_threads(n)
+            (tr, losses), _ = quiet(cli.COMMANDS["go"], [
+                "train", str(cfg_c), str(weights), "-moves", moves,
+                "-backup", str(gdir / f"{where} {steps}")] + flag)
+            torch.set_num_threads(threads)
+            assert int(tr.state.seen) == steps * GO_CHECK
+            first[where] = losses[0]
+            trained[where, steps] = [{k: v.cpu() for k, v in p.items()}
+                                     for p in tr.state.params]
+        del tr
+    assert abs(first["card"] - first["cpu"]) <= 1e-5 * abs(first["cpu"]), \
+        first
+    # the same steps on the CPU in float64 (the loss's delta excepted):
+    # the BN biases' gradients sum 5,776 positions a channel with heavy
+    # cancellation, so float32 on the CPU lands ~8e-3 of their update
+    # from float64 after 1 step and ~8e-2 after 2, whatever its thread
+    # count (tools/go_train_noise.py); the card must come as near
+    # float64 as the CPU's float32 does
+    brng, all_moves = np.random.default_rng(0), G.load_go_moves(moves)
+    batches = []
+    for _ in range(2):
+        b, l = G.random_go_moves(all_moves, brng, GO_CHECK)
+        batches.append((b.reshape(GO_CHECK, 19, 19, 1),
+                        l.reshape(GO_CHECK, 361)))
+    wide = train_float64(spec_c, load_weights(spec_c, str(weights))[0],
+                         batches)
+    init = params_to_torch(spec, load_weights(spec, str(weights))[0], "cpu")
+    norm = torch.linalg.vector_norm
+    upd_err = {1: 0.0, 2: 0.0}
+    upd_floor = 0.0
+    still = {}
+    of_f64 = {(where, steps): 0.0 for where in ("card", "cpu")
+              for steps in (1, 2)}
+    for steps, tol in ((1, GO_UPDATE_TOL), (2, GO_UPDATE_TOL_2)):
+        for i, p in enumerate(trained["cpu", steps]):
+            for k, want in p.items():
+                step = float(norm(want - init[i][k]))
+                if (i, k) == (13, "biases"):
+                    # the head's bias: a constant over the 361 points,
+                    # which the softmax's identity backward gives the
+                    # gradient sum(truth - out) = 1 - 1 over each board,
+                    # zero up to rounding
+                    got = trained["card", steps][i][k]
+                    assert float((got - want).abs().max()) <= \
+                        1e-6 * float(want.abs().max()), (i, k)
+                    still[steps] = step / float(norm(init[i][k]))
+                    continue
+                assert step > 0, (steps, i, k)
+                if steps == 1:
+                    floor = float(norm(trained["cpu 1 thread", 1][i][k]
+                                       - want)) / step
+                    assert floor <= tol, ("CPU floor", i, k, floor)
+                    upd_floor = max(upd_floor, floor)
+                d = float(norm(trained["card", steps][i][k] - want)) / step
+                assert d <= tol, (steps, i, k, d)
+                upd_err[steps] = max(upd_err[steps], d)
+                w64 = wide[steps - 1][i][k]
+                step64 = float(norm(w64 - init[i][k].double()))
+                for where in ("card", "cpu"):
+                    of_f64[where, steps] = max(of_f64[where, steps], float(
+                        norm(trained[where, steps][i][k].double() - w64))
+                        / step64)
+        assert of_f64["card", steps] <= 2 * of_f64["cpu", steps], of_f64
+    # go valid, a GTP session (single and -multi) and one self-play game
+    acc = {}
+    for where, flag in (("card", []), ("cpu", ["-cpu"])):
+        acc[where], _ = quiet(cli.COMMANDS["go"], [
+            "valid", str(cfg), str(weights), "-moves", test_moves] + flag)
+    assert acc["card"] == acc["cpu"], acc
+    gtp = {}
+    for mode in ([], ["-multi"]):
+        for where, flag in (("card", []), ("cpu", ["-cpu"])):
+            stdin, stderr = sys.stdin, sys.stderr
+            sys.stdin, sys.stderr = io.StringIO(GO_GTP), io.StringIO()
+            try:
+                _, gtp[where, bool(mode)] = quiet(cli.COMMANDS["go"], [
+                    "engine", str(cfg), str(weights)] + mode + flag)
+            finally:
+                sys.stdin, sys.stderr = stdin, stderr
+        assert gtp["card", bool(mode)] == gtp["cpu", bool(mode)], (
+            mode, gtp["card", bool(mode)], gtp["cpu", bool(mode)])
+    gtp_moves = [line.split()[1] for line in gtp["card", False].splitlines()
+                 if re.match(r"=(7|8|9|10|12) ", line)]
+    assert len(gtp_moves) == 5, gtp["card", False]
+    # `go self` writes its records to standard output's binary layer
+    raw = io.BytesIO()
+    wrapper, self_log = io.TextIOWrapper(raw), io.StringIO()
+    stdout, stderr = sys.stdout, sys.stderr
+    sys.stdout, sys.stderr = wrapper, self_log
+    t0 = time.perf_counter()
+    try:
+        scores = cli.COMMANDS["go"](["self", str(cfg), str(weights),
+                                     "-games", "1"])
+        wrapper.flush()
+    finally:
+        sys.stdout, sys.stderr = stdout, stderr
+    self_s = time.perf_counter() - t0
+    recs = np.frombuffer(raw.getvalue(), np.uint8).reshape(-1, G.RECORD)
+    self_log = self_log.getvalue()
+    assert len(scores) == 1 and np.isfinite(scores[0]) and len(recs) > 0
+    assert (recs[:, :2] < 19).all() and (recs[:, -1] == 10).all()
+    assert "Total: 1" in self_log
+    log(f"phase 52 ok: go-19 (13 x 256, 3x3, BN relu; 1x1 to one plane, "
+        f"softmax, sse cost) forward on {GO_CHECK} boards card against CPU "
+        f"{fwd_err} of the largest |value|, the -multi ensemble (one batch "
+        f"of 8) {multi_err} (gate {GO_TOL}); genmove median / p99 batch 1 "
+        f"{lat['genmove', False]} ms, batch 8 {lat['genmove', True]} ms "
+        f"(forward alone {lat['forward', False]} / {lat['forward', True]} "
+        f"ms); `go train` B={GO_BOARDS} {go_rate} boards/s, MFU {go_mfu}, "
+        f"peak {go_peak} GiB, no hand-written kernel launched; `go train` "
+        f"B={GO_CHECK} at a constant rate card against -cpu: each "
+        f"tensor's update within {upd_err[1]} of its norm after 1 step "
+        f"(gate {GO_UPDATE_TOL}; the CPU on 1 thread against {threads} "
+        f"{upd_floor}), {upd_err[2]} after 2 (gate {GO_UPDATE_TOL_2}); "
+        f"the head's bias, whose gradient is zero up to rounding, moved "
+        f"{still[1]} / {still[2]} of its norm on the CPU, the card within "
+        f"1e-6 of it; against "
+        f"the float64 run after 1 / 2 steps the card {of_f64['card', 1]} / "
+        f"{of_f64['card', 2]}, the CPU {of_f64['cpu', 1]} / "
+        f"{of_f64['cpu', 2]} (gate: the card within twice the CPU's); "
+        f"first loss "
+        f"{first['card']} / {first['cpu']}; `go valid` accuracy "
+        f"{acc['card']} on both; the GTP session's moves {gtp_moves} equal "
+        f"on both (and with -multi); `go self` one game of "
+        f"{len(recs)} winner's records, Tromp-Taylor score {scores[0]} in "
+        f"{self_s:.1f} s; {time.perf_counter() - t_phase:.1f} s into phases "
+        f"52-54 [{gpu}]")
+
+    # ---------------------------------------------------------- phase 53
+    adir = WORK / "apps"
+    shutil.rmtree(adir, ignore_errors=True)
+    adir.mkdir()
+
+    def app_cfg(name, text, **kw):
+        p = adir / f"{name}.cfg"
+        p.write_text(text.format(iters=APP_ITERS, **kw))
+        return str(p)
+
+    def both(command, args, name):
+        """`<command> train` on the card and with -cpu: (card losses, CPU
+        losses), within APP_TOL relative of each other."""
+        got = {}
+        for where, flag in (("card", []), ("cpu", ["-cpu"])):
+            got[where], _ = quiet(cli.COMMANDS[command], [
+                "train"] + args + ["-backup", str(adir / f"{name}-{where}")]
+                + flag)
+        assert len(got["card"]) == APP_ITERS, got
+        assert np.allclose(got["card"], got["cpu"], rtol=APP_TOL, atol=0), \
+            (command, got)
+        return got
+
+    losses = {}
+    names = ["ax", "ay", "bx", "by"]
+    lst, paths = app_image_set(adir, names, 4, 530)
+    (adir / "labels.list").write_text("\n".join(names) + "\n")
+    cap = app_cfg("captcha", APP_CLS_CFG, batch=4, ch=3, out=4)
+    losses["captcha"] = both("captcha", [cap, "-list", lst, "-labels",
+                                         str(adir / "labels.list")],
+                             "captcha")
+    # tags: load_tags reads imgs/<name>_<k>.jpg.ppm's file under labels/
+    for i, p in enumerate(paths):
+        pathlib.Path(p.replace("imgs", "labels")).write_text(f"{i % 8}\n")
+    losses["tag"] = both("tag", [app_cfg("tag", APP_CLS_CFG, batch=4, ch=3,
+                                         out=8), "-list", lst], "tag")
+    wdir = adir / "figs"
+    wdir.mkdir()
+    wpaths = []
+    for k in range(6):
+        img = rng.uniform(0, 1, (16, 16, 3)).astype(np.float32)
+        p = wdir / f"fig{k}.png.ppm"
+        write_ppm(str(p), (img * 255).astype(np.uint8))
+        write_ppm(str(p).replace(".png", "-label.png"), np.repeat(
+            (img.mean(-1) > 0.5)[..., None] * 255, 3, -1).astype(np.uint8))
+        wpaths.append(str(p))
+    (adir / "figures.list").write_text("\n".join(wpaths) + "\n")
+    losses["writing"] = both("writing", [
+        app_cfg("writing", APP_WRITING_CFG, batch=4, ch=3), "-list",
+        str(adir / "figures.list")], "writing")
+    cmp_lst, cmp_paths = app_image_set(adir / "cmp", [f"q{i}" for i in
+                                                      range(8)], 2, 531,
+                                       ious=True)
+    # pairs of a dark and a bright image: class 0's labels win / lose,
+    # never masked
+    n = len(cmp_paths)
+    pathlib.Path(cmp_lst).write_text("\n".join(
+        p for i in range(n // 2) for p in (cmp_paths[i],
+                                           cmp_paths[n - 1 - i])) + "\n")
+    cmp_cfg = app_cfg("compare", APP_CLS_CFG, batch=4, ch=6, out=4)
+    losses["compare"] = both("compare", [cmp_cfg, "-list", cmp_lst,
+                                         "-classes", "2"], "compare")
+    cmp_w = str(adir / "compare-card" / "compare.weights")
+    elos = {}
+    for where, flag in (("card", []), ("cpu", ["-cpu"])):
+        cwd = os.getcwd()
+        os.chdir(adir)
+        try:
+            elos[where], _ = quiet(cli.COMMANDS["compare"], [
+                "battle", cmp_cfg, cmp_w, "-list", cmp_lst, "-classes", "2"]
+                + flag)
+        finally:
+            os.chdir(cwd)
+    assert np.allclose(elos["card"], elos["cpu"], rtol=0, atol=1e-6), elos
+    assert np.any(elos["card"] != 1500.0)
+    dice_lst, _ = app_image_set(adir / "dice", [f"face{i}" for i in
+                                                range(1, 7)], 2, 532)
+    dice_cfg = app_cfg("dice", APP_CLS_CFG, batch=4, ch=3, out=6)
+    losses["dice"] = both("dice", [dice_cfg, "-list", dice_lst], "dice")
+    dice_w = str(adir / "dice-card" / "dice.weights")
+    dice_acc = {w: quiet(cli.COMMANDS["dice"], ["valid", dice_cfg, dice_w,
+                                                "-list", dice_lst] + f)[0]
+                for w, f in (("card", []), ("cpu", ["-cpu"]))}
+    assert dice_acc["card"] == dice_acc["cpu"], dice_acc
+    dice_top, _ = quiet(cli.COMMANDS["dice"], [dice_cfg, dice_w,
+                                               open(dice_lst).readline()
+                                               .strip()])
+    sdir = adir / "super"
+    sdir.mkdir()
+    for k in range(4):
+        write_ppm(str(sdir / f"im{k}.ppm"),
+                  rng.integers(0, 256, (24, 24, 3), dtype=np.uint8))
+    (adir / "super.list").write_text("\n".join(
+        str(sdir / f"im{k}.ppm") for k in range(4)) + "\n")
+    sup_cfg = app_cfg("super", APP_SUPER_CFG)
+    for command in ("super", "voxel"):
+        losses[command] = both(command, [sup_cfg, "-list",
+                                         str(adir / "super.list"), "-scale",
+                                         "2"], command)
+    vids = []
+    for v in range(2):
+        d = adir / f"vid{v}"
+        d.mkdir()
+        base = rng.uniform(0, 1, (16, 16, 3))
+        for t in range(8):
+            write_ppm(str(d / f"f{t:03d}.ppm"), (np.clip(
+                base + 0.03 * t, 0, 1) * 255).astype(np.uint8))
+        vids.append(str(d))
+    (adir / "vids.list").write_text("\n".join(vids) + "\n")
+    ext = app_cfg("ext", APP_EXT_CFG)
+    losses["vid"] = both("vid", [app_cfg("vrnn", APP_RNN_CFG), "-list",
+                                 str(adir / "vids.list"), "-extractor", ext],
+                         "vid")
+    gen = {}
+    for where, flag in (("card", []), ("cpu", ["-cpu"])):
+        gen[where], _ = quiet(cli.COMMANDS["vid"], [
+            "generate", str(adir / "vrnn.cfg"),
+            str(adir / "vid-card" / "vrnn.weights"), "-extractor", ext,
+            "-frames", str(adir / "vid0" / "*.ppm"), "-n", "2", "-gen", "2",
+            "-recon-iters", "3", "-out", str(adir / f"gen-{where}")] + flag)
+    gen_err = max(float(np.abs(a - b).max())
+                  for a, b in zip(gen["card"], gen["cpu"]))
+    assert len(gen["card"]) == 2 and gen_err <= APP_TOL, gen_err
+    img = str(sdir / "im0.ppm")
+    art, _ = quiet(cli.COMMANDS["art"], [cap, str(adir / "captcha-card" /
+                                                  "captcha.weights"), img])
+    quiet(cli.COMMANDS["3d"], [img, str(sdir / "im1.ppm"),
+                               str(adir / "3d.ppm")])
+    (adir / "imtest").mkdir()
+    quiet(cli.COMMANDS["imtest"], [img, "-out", str(adir / "imtest")])
+    (adir / "test").mkdir()
+    quiet(cli.COMMANDS["test"], [img, "-out", str(adir / "test")])
+    assert 0.0 <= art <= 1.0 and (adir / "3d.ppm").exists()
+    assert len(os.listdir(adir / "imtest")) == 7
+    assert sorted(os.listdir(adir / "test")) == \
+        sorted(os.listdir(adir / "imtest"))
+    for name, l in losses.items():
+        assert min(np.abs(l["cpu"])) > 0, (name, l)
+    worst = max(float(np.max(np.abs(np.asarray(l["card"]) - l["cpu"])
+                             / np.abs(l["cpu"]))) for l in losses.values())
+    log(f"phase 53 ok: `captcha`, `tag`, `writing`, `compare`, `dice`, "
+        f"`super`, `voxel` and `vid` train through the CLI, {APP_ITERS} "
+        f"iterations each on the card and with -cpu, losses within {worst} "
+        f"relative (gate {APP_TOL}); `compare battle` elos equal within "
+        f"1e-6; `dice valid` accuracy {dice_acc['card']} on both, `dice` "
+        f"{dice_top[2]}; `vid generate` images within {gen_err}; `art` "
+        f"{art}, `3d`, `imtest` and `test` wrote their files; "
+        f"{time.perf_counter() - t_phase:.1f} s into phases 52-54 [{gpu}]")
+
+    # ---------------------------------------------------------- phase 54
+    gemm = {}
+    for flag, dtype in (([], "bfloat16"), (["-f32"], "float32")):
+        rows, _ = quiet(cli.COMMANDS["gemm"], list(flag))
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert len(rows) == 6 and all(r["gflops"] > 0 for r in rows)
+        peak = P.H100_PEAK_FLOPS[dtype]
+        for r in rows:
+            share = r["gflops"] * 1e9 / peak
+            log(f"time gemm {dtype} {r['m']}x{r['k']} * {r['k']}x{r['n']}"
+                f"{' (TA,TB)' if r['ta'] else ''}: {r['gflops']} GFLOP/s, "
+                f"{r['sec'] * 1e6} us a matmul, {share} of "
+                f"{peak / 1e12:g} TFLOP/s [{gpu}]")
+        gemm[dtype] = rows
+    log(f"phase 54 ok: `gemm` (cuBLAS through torch.matmul, 200 queued "
+        f"matmuls from a CUDA graph a shape) at darknet's six shapes, bf16 "
+        f"{[round(r['gflops']) for r in gemm['bfloat16']]} and float32 (TF32 "
+        f"off) {[round(r['gflops']) for r in gemm['float32']]} GFLOP/s; "
+        f"phases 52-54 took {time.perf_counter() - t_phase:.1f} s [{gpu}]")
+
+
 def main() -> int:
     # ---------------------------------------------------------- phase 0
     if not torch.cuda.is_available():
@@ -5342,6 +5826,10 @@ def main() -> int:
     # --------------------------------------------------- phases 48-51
     torch.cuda.empty_cache()
     v1_kernels = last_kinds(gpu, dev, reset_counts, counts)
+
+    # --------------------------------------------------- phases 52-54
+    torch.cuda.empty_cache()
+    go_and_apps(gpu, dev, reset_counts, counts)
 
     replaces = {
         "nms_per_class": "sr_object_detection_tpu/kernels/nms_pallas.py:29",

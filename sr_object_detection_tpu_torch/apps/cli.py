@@ -21,6 +21,28 @@ Counterpart of ``sr_object_detection_tpu/apps/cli.py``
   yolo|coco|swag test|valid|recall|demo <cfg> [weights] ... [-cpu]
   nightmare <cfg> <weights> <image> <layer> [-iters n] ... [-cpu]
   super [test] <cfg> <weights> <image> [-out path] [-cpu]
+  super train <cfg> [weights] -list <list> [-scale s] [-backup dir] [-cpu]
+  go train|valid|test|self|engine <cfg> [weights] ... [-multi] [-cpu]
+  captcha train|valid <cfg> [weights] -list <list> -labels <list> [-cpu]
+  captcha test <cfg> [weights] <image> -labels <list> [-cpu]
+  captcha|art <cfg> <weights> <image> [-cpu]
+  tag train <cfg> [weights] -list <list> [-cpu]
+  tag <cfg> <weights> <image> [-names FILE] [-cpu]
+  writing train <cfg> [weights] -list <list> [-cpu]
+  writing <cfg> <weights> <image> [-out out.ppm] [-cpu]
+  compare train|valid|sort|battle <cfg> [weights] -list <list> ... [-cpu]
+  compare <cfg> <weights> <image a> <image b> [-cpu]
+  dice train|valid <cfg> [weights] -list <list> [-cpu]
+  dice [test] <cfg> <weights> <image> [-cpu]
+  voxel train <cfg> [weights] -list <list> [-cpu]
+  voxel extract <left> <right> <prefix> [-w W -h H -xoff X]
+  voxel [test] <cfg> <weights> <frame glob> [-out dir] [-cpu]
+  vid train <cfg> [weights] -list <dirs> -extractor <cfg> [-cpu]
+  vid generate <cfg> [weights] -extractor <cfg> -frames <src> ... [-cpu]
+  vid <cfg> [weights] -frames <glob> [-cpu]
+  3d <left> <right> [out.ppm] [-delta d]
+  imtest|test <image> [-out dir]
+  gemm [m k n] [-reps N] [-f32] [-cpu]
   speed <cfg> [tics] [-batch N] [-int8 [-phase-stem] [-qhead]] [-cpu]
   ops <cfg>
   partial <cfg> <weights> <out> <n>
@@ -30,13 +52,12 @@ Counterpart of ``sr_object_detection_tpu/apps/cli.py``
   statistics <cfg> <weights>
   visualize <cfg> [weights]
 
-`detect`, `detector`, `classify`, `classifier`, `cifar`, `robot`,
-`rnn`, `yolo`, `coco`, `swag`, `nightmare`, `super` and `speed` run on
-CUDA unless -cpu is given; the weight-surgery and inspection commands
-run on the host in numpy. The other reference commands (and `super
-train`) are listed in ROADMAP queue 1, items 10-12. Flag parsing follows
-the reference's argv-splicing helpers (utils.c:62-118): '-key value'
-pairs are plucked from anywhere.
+Every command that runs a network (and `gemm`) runs on CUDA unless
+-cpu is given; the weight-surgery and inspection commands, `3d`,
+`imtest` / `test` and `voxel extract` run on the host in numpy (they
+take -cpu and ignore it). Flag parsing follows the reference's
+argv-splicing helpers (utils.c:62-118): '-key value' pairs are plucked
+from anywhere.
 """
 
 from __future__ import annotations
@@ -72,6 +93,11 @@ def _load_net(cfg, weights):
     return spec, params, seen
 
 
+def _device(argv):
+    """"cpu" when argv holds -cpu (taken out), else "cuda"."""
+    return "cpu" if find_arg(argv, "-cpu") else "cuda"
+
+
 def cmd_detect(argv):
     thresh = find_value(argv, "-thresh", 0.24, float)
     out_path = find_value(argv, "-out", None)
@@ -79,7 +105,7 @@ def cmd_detect(argv):
     use_int8 = find_arg(argv, "-int8")
     use_presplit = find_arg(argv, "-presplit")
     use_qhead = find_arg(argv, "-qhead")   # int8 head conv too
-    use_cpu = find_arg(argv, "-cpu")
+    device = _device(argv)
     cfg, weights, image = argv[0], argv[1], argv[2]
     from ..config import read_names
     from ..infer.detector import Detector
@@ -96,7 +122,7 @@ def cmd_detect(argv):
         calib = resize_image_np(img, _spec.net.w, _spec.net.h)[None]
     det = Detector(cfg, weights, names=names, int8_calib=calib,
                    presplit=use_presplit, quantize_head=use_qhead,
-                   device="cpu" if use_cpu else "cuda")
+                   device=device)
     t0 = time.time()
     dets = det.detect(img, thresh=thresh)
     print(f"{image}: Predicted in {time.time()-t0:.6f} seconds.")
@@ -116,7 +142,7 @@ def cmd_detect(argv):
 def cmd_classify(argv):
     use_int8 = find_arg(argv, "-int8")
     names_file = find_value(argv, "-names", None)
-    use_cpu = find_arg(argv, "-cpu")
+    device = _device(argv)
     cfg, weights, image = argv[0], argv[1], argv[2]
     from ..config import read_names
     from ..infer.classifier import Classifier
@@ -124,7 +150,7 @@ def cmd_classify(argv):
     names = read_names(names_file) if names_file else None
     img = load_image_rgb(image)
     clf = Classifier(cfg, weights, names=names,
-                     device="cpu" if use_cpu else "cuda")
+                     device=device)
     if use_int8:
         # int8 serving mode: calibrate on the letterboxed input image
         clf.quantize(clf.preprocess(img)[None])
@@ -145,7 +171,7 @@ def cmd_speed(argv):
         else find_arg(argv, "-presplit")
     use_qhead = find_arg(argv, "-qhead")
     use_phase = find_arg(argv, "-phase-stem")
-    use_cpu = find_arg(argv, "-cpu")
+    device = _device(argv)
     batch = find_value(argv, "-batch", 1, int)
     cfg = argv[0]
     tics = int(argv[1]) if len(argv) > 1 else 20
@@ -154,7 +180,6 @@ def cmd_speed(argv):
     from ..io.weights import init_params
     spec = parse_network_cfg(cfg)
     params = init_params(spec)
-    device = "cpu" if use_cpu else "cuda"
     if use_int8:
         from ..infer.quant import QuantizedThroughputEngine
         eng = QuantizedThroughputEngine(spec, params, batch=batch,
@@ -266,41 +291,41 @@ def cmd_detector(argv):
     <image>."""
     if argv[0] == "test":
         return cmd_detect(argv[2:3] + argv[3:])
-    use_cpu = find_arg(argv, "-cpu")
+    device = _device(argv)
     from .detector_app import run_detector
-    return run_detector(argv, device="cpu" if use_cpu else "cuda")
+    return run_detector(argv, device=device)
 
 
 def cmd_classifier(argv):
     """run_classifier (classifier.c:1124-1178): apps/classifier_app.py."""
-    use_cpu = find_arg(argv, "-cpu")
+    device = _device(argv)
     from .classifier_app import run_classifier
-    return run_classifier(argv, device="cpu" if use_cpu else "cuda")
+    return run_classifier(argv, device=device)
 
 
 def cmd_cifar(argv):
     """cifar.c's run_cifar: apps/cifar_app.py."""
-    use_cpu = find_arg(argv, "-cpu")
+    device = _device(argv)
     from .cifar_app import run_cifar
-    return run_cifar(argv, device="cpu" if use_cpu else "cuda")
+    return run_cifar(argv, device=device)
 
 
 def cmd_robot(argv):
-    use_cpu = find_arg(argv, "-cpu")
+    device = _device(argv)
     from .robot_app import run_robot
-    return run_robot(argv, device="cpu" if use_cpu else "cuda")
+    return run_robot(argv, device=device)
 
 
 def cmd_rnn(argv):
-    use_cpu = find_arg(argv, "-cpu")
+    device = _device(argv)
     from .rnn_app import run_char_rnn
-    return run_char_rnn(argv, device="cpu" if use_cpu else "cuda")
+    return run_char_rnn(argv, device=device)
 
 
 def _cmd_yolo_v1(argv, *, coco: bool):
     """run_yolo (yolo.c:341-361) / run_coco (coco.c:368-389) /
     run_swag (swag.c:90): v1 train/test/valid/recall/demo."""
-    device = "cpu" if find_arg(argv, "-cpu") else "cuda"
+    device = _device(argv)
     sub = argv.pop(0)
     from .misc_apps import run_yolo_v1
     if sub == "train":
@@ -343,21 +368,193 @@ def cmd_coco(argv):
 
 
 def cmd_nightmare(argv):
-    use_cpu = find_arg(argv, "-cpu")
+    device = _device(argv)
     from .nightmare_app import run_nightmare
-    return run_nightmare(argv, device="cpu" if use_cpu else "cuda")
+    return run_nightmare(argv, device=device)
+
+
+def _train_args(argv):
+    """`<cfg> [weights] flags...` (after a subcommand such as `train`):
+    (cfg, weights or None, the flags)."""
+    w = argv[1] if len(argv) > 1 and not argv[1].startswith("-") else None
+    return argv[0], w, argv[2:] if w else argv[1:]
 
 
 def cmd_super(argv):
+    device = _device(argv)
     if argv and argv[0] == "train":
-        raise NotImplementedError(
-            "super train (train_super, super.c:10) is not ported yet "
-            "(ROADMAP queue 1, item 10)")
+        # train_super (super.c:10): SUPER_DATA random-crop pairs
+        from .misc_train import train_super
+        return train_super(*_train_args(argv[1:]), device=device)
     if argv and argv[0] == "test":
         argv = argv[1:]
-    use_cpu = find_arg(argv, "-cpu")
     from .super_app import run_super
-    return run_super(argv, device="cpu" if use_cpu else "cuda")
+    return run_super(argv, device=device)
+
+
+def cmd_go(argv):
+    device = _device(argv)
+    from .go_app import run_go
+    return run_go(argv, device=device)
+
+
+def cmd_gemm(argv):
+    """gemm.c:232-341 time_ongpu analog: GFLOP/s of the library's
+    matmul at darknet-shaped GEMMs. `gemm [m k n] [-reps N] [-f32]`
+    (float32 with TF32 off; bf16 otherwise)."""
+    import torch
+    from ..utils.gemm_bench import run_gemm_bench
+    device = _device(argv)
+    reps = find_value(argv, "-reps", 200, int)
+    dtype = torch.float32 if find_arg(argv, "-f32") else torch.bfloat16
+    shapes = None
+    if len(argv) >= 3:
+        shapes = [(0, 0, int(argv[0]), int(argv[1]), int(argv[2]))]
+    return run_gemm_bench(shapes, dtype=dtype, reps=reps, device=device)
+
+
+def cmd_art(argv):
+    device = _device(argv)
+    from .misc_apps import art
+    return art(argv[0], argv[1], argv[2], device=device)
+
+
+def cmd_captcha(argv):
+    device = _device(argv)
+    if argv and argv[0] == "train":
+        from .misc_train import train_captcha
+        return train_captcha(*_train_args(argv[1:]), device=device)
+    if argv and argv[0] == "test":
+        # test_captcha (captcha.c:98): cfg [weights] <image> — two
+        # positionals after cfg mean (weights, image), one means image
+        from .misc_train import test_captcha
+        rest = argv[1:]
+        cfg = rest.pop(0)
+        pos = [a for a in rest[:2] if not a.startswith("-")]
+        w = rest.pop(0) if len(pos) == 2 else None
+        return test_captcha(cfg, w, rest.pop(0), rest, device=device)
+    if argv and argv[0] == "valid":
+        from .misc_train import valid_captcha
+        return valid_captcha(*_train_args(argv[1:]), device=device)
+    from .misc_apps import captcha
+    return captcha(argv[0], argv[1], argv[2], device=device)
+
+
+def cmd_tag(argv):
+    device = _device(argv)
+    if argv and argv[0] == "train":
+        from .misc_train import train_tag
+        return train_tag(*_train_args(argv[1:]), device=device)
+    from .misc_apps import tag
+    from ..config import read_names
+    names_file = find_value(argv, "-names", None)
+    names = read_names(names_file) if names_file else None
+    return tag(argv[0], argv[1], argv[2], names=names, device=device)
+
+
+def cmd_compare(argv):
+    device = _device(argv)
+    if argv and argv[0] == "train":
+        from .misc_train import train_compare
+        return train_compare(*_train_args(argv[1:]), device=device)
+    if argv and argv[0] in ("valid", "sort", "battle"):
+        # run_compare dispatch (compare.c:343-359)
+        from . import compare_app
+        fn = {"valid": compare_app.validate_compare,
+              "sort": compare_app.sort_master,
+              "battle": compare_app.battle_royale}[argv[0]]
+        return fn(*_train_args(argv[1:]), device=device)
+    from .misc_apps import compare
+    return compare(argv[0], argv[1], argv[2], argv[3], device=device)
+
+
+def cmd_writing(argv):
+    device = _device(argv)
+    if argv and argv[0] == "train":
+        from .misc_train import train_writing
+        return train_writing(*_train_args(argv[1:]), device=device)
+    from .misc_apps import writing
+    out = find_value(argv, "-out", "writing_out.ppm")
+    return writing(argv[0], argv[1], argv[2], out_path=out, device=device)
+
+
+def cmd_3d(argv):
+    _device(argv)                      # numpy on the host
+    from .misc_apps import composite_3d
+    delta = find_value(argv, "-delta", 0, int)
+    out = argv[2] if len(argv) > 2 else "out.ppm"
+    return composite_3d(argv[0], argv[1], out, delta=delta)
+
+
+def cmd_imtest(argv):
+    _device(argv)                      # numpy on the host
+    from .misc_apps import imtest
+    return imtest(argv[0], find_value(argv, "-out", "."))
+
+
+def cmd_vid(argv):
+    """rnn_vid: per-frame conv features -> feature-RNN demo; `vid
+    train` / `vid generate` (rnn_vid.c:80, :154)."""
+    device = _device(argv)
+    if argv and argv[0] == "train":
+        from .misc_train import train_vid_rnn
+        return train_vid_rnn(*_train_args(argv[1:]), device=device)
+    if argv and argv[0] == "generate":
+        # generate_vid_rnn (rnn_vid.c:154-198)
+        from .misc_apps import generate_vid_rnn
+        return generate_vid_rnn(*_train_args(argv[1:]), device=device)
+    import numpy as np
+    from .misc_apps import VideoRNN
+    from ..robot.frame_source import ImageDirectorySource
+    cfg = argv[0]
+    weights = argv[1] if len(argv) > 1 and not argv[1].startswith("-") \
+        else None
+    pattern = find_value(argv, "-frames", "frames/*.ppm")
+    vr = VideoRNN(cfg, weights, device=device)
+    src = ImageDirectorySource(pattern)
+    frames = []
+    for f in src:
+        frames.append(f.color.astype(np.float32) / 255.0)
+    feats = vr.features(np.stack(frames))
+    print(f"extracted features: {feats.shape}")
+    return feats
+
+
+def cmd_dice(argv):
+    """run_dice (dice.c:104-118): [train/test/valid] cfg [weights]
+    [image]. A bare cfg (no subcommand) keeps the test behavior."""
+    device = _device(argv)
+    sub = argv[0]
+    if sub in ("train", "valid", "test"):
+        argv = argv[1:]
+    else:
+        sub = "test"
+    cfg, weights, rest = _train_args(argv)
+    if sub == "train":
+        from .misc_train import train_dice
+        return train_dice(cfg, weights, rest, device=device)
+    if sub == "valid":
+        from .misc_train import validate_dice
+        return validate_dice(cfg, weights, rest, device=device)
+    from .misc_apps import dice
+    return dice(cfg, weights, argv[2], device=device)
+
+
+def cmd_voxel(argv):
+    device = _device(argv)
+    if argv and argv[0] == "train":
+        # train_voxel (voxel.c:51) == train_super over SUPER_DATA
+        from .misc_train import train_voxel
+        return train_voxel(*_train_args(argv[1:]), device=device)
+    if argv and argv[0] == "extract":
+        # extract_voxel (voxel.c:15): <left> <right> <prefix>
+        from .misc_apps import extract_voxel
+        return extract_voxel(argv[1], argv[2], argv[3], argv[4:])
+    if argv and argv[0] == "test":
+        argv = argv[1:]
+    from .misc_apps import voxel
+    out = find_value(argv, "-out", ".")
+    return voxel(argv[0], argv[1], argv[2], out_dir=out, device=device)
 
 
 COMMANDS = {
@@ -370,16 +567,29 @@ COMMANDS = {
     "rnn": cmd_rnn,
     "nightmare": cmd_nightmare,
     "super": cmd_super,
+    "go": cmd_go,
+    "dice": cmd_dice,
+    "voxel": cmd_voxel,
     "yolo": cmd_yolo,
     "coco": cmd_coco,
     "swag": cmd_yolo,
+    "art": cmd_art,
+    "captcha": cmd_captcha,
+    "tag": cmd_tag,
+    "compare": cmd_compare,
+    "writing": cmd_writing,
     "speed": cmd_speed,
+    "gemm": cmd_gemm,
     "ops": cmd_ops,
     "partial": cmd_partial,
     "average": cmd_average,
     "rescale": _surgery_cmd("rescale_net"),
     "reset": _surgery_cmd("reset_normalize_net"),
     "oneoff": cmd_oneoff,
+    "3d": cmd_3d,
+    "imtest": cmd_imtest,
+    "test": cmd_imtest,
+    "vid": cmd_vid,
     "rgbgr": _surgery_cmd("rgbgr_net"),
     "denormalize": _surgery_cmd("denormalize_net"),
     "normalize": _surgery_cmd("normalize_net"),

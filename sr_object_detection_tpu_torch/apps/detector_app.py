@@ -25,8 +25,8 @@ The input: ``-packed <prefix>`` trains from a packed record file
 otherwise the data cfg's image list is decoded, with ``-device-aug`` on
 the device's batched augmentation (``data/device_aug.py``) and with
 ``-decoder process`` in spawned processes. Augmented batches on the
-device come in the trainer's compute dtype. ``valid``/``recall``/
-``demo`` come with ROADMAP queue 1, item 9.
+device come in the trainer's compute dtype. ``valid``, ``recall`` and
+``demo`` are below.
 """
 
 from __future__ import annotations

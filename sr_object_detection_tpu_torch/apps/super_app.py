@@ -7,8 +7,7 @@ Counterpart of ``sr_object_detection_tpu/apps/super_app.py``:
 The reference's super-resolution net ends in a deconvolutional layer;
 the network is resized to the image, the image forwarded on ``device``
 (CUDA unless the CLI's -cpu) in float32 and the upscaled output saved.
-``super train`` (train_super, super.c:10) comes with the next slice
-(ROADMAP queue 1, item 10).
+``super train`` (train_super, super.c:10) is ``apps/misc_train.py``'s.
 """
 
 from __future__ import annotations

@@ -58,8 +58,27 @@ FUNCTION_COPIES = [
     ("eval/reval_voc.py", n) for n in ("read_det_file", "gt_from_xml")] + [
     ("apps/rnn_app.py", n) for n in ("VOCAB", "CharStream")] + [
     ("apps/misc_apps.py", n) for n in ("VOC_NAMES", "decode_detection_boxes",
-                                       "fill_truth_region_np")] + [
-    ("apps/yolo_v1_app.py", n) for n in ("COCO_IDS", "_iou_centers")]
+                                       "fill_truth_region_np", "NUMCHARS",
+                                       "_int_to_alphanum", "DICE_LABELS",
+                                       "composite_3d", "imtest",
+                                       "_dist_array", "best_3d_shift_r",
+                                       "_frame_iter", "extract_voxel")] + [
+    ("apps/yolo_v1_app.py", n) for n in ("COCO_IDS", "_iou_centers")] + [
+    ("apps/go_app.py", n) for n in (
+        "BOARD", "N", "NIND", "KOMI", "RECORD", "load_go_moves",
+        "string_to_board", "board_to_string", "random_go_moves",
+        "_group_and_liberties", "move_go", "suicide_go", "legal_go",
+        "_gnugo_available", "tromp_taylor_score", "_gnugo_game_lines",
+        "score_game", "_dihedral", "_dihedral_inv", "format_board",
+        "_apply_test_input", "_VALUE_FLAGS", "_positionals")] + [
+    ("apps/misc_train.py", n) for n in (
+        "SECRET_NUM", "_read_list", "_find_replace_path", "_train_loop",
+        "_load_resized", "fix_data_captcha", "load_tags", "_load_gray",
+        "load_compare_labels", "FrameDirVideos", "DICE_LABELS")] + [
+    ("apps/compare_app.py", "_elo_update")] + [
+    ("utils/profiler.py", n) for n in ("StepTimer", "MetricsLog",
+                                       "train_flops")] + [
+    ("utils/gemm_bench.py", "DARKNET_SHAPES")]
 # a copy whose original lies outside the JAX package
 ORIGINALS = {"eval/reval_voc.py": REPO / "tools" / "reval_voc.py"}
 
@@ -268,3 +287,10 @@ def test_weights_byte_equal(net, tmp_path):
         assert p.keys() == q.keys()
         for k, v in q.items():
             assert torch.equal(p[k], v), k
+
+
+def test_cli_has_every_jax_command():
+    """The port's CLI dispatches every command of the JAX package's."""
+    from sr_object_detection_tpu.apps import cli as JCLI
+    from sr_object_detection_tpu_torch.apps import cli as TCLI
+    assert set(JCLI.COMMANDS) <= set(TCLI.COMMANDS)

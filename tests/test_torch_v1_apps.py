@@ -341,5 +341,16 @@ def test_super_matches_jax(super_files, tmp_path, capsys):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
     assert "(40x48)" in capsys.readouterr().out
     assert _read_ppm(out).shape == (48, 40, 3)
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-        cli.COMMANDS["super"](["train", cfg])
+    # `super train` (train_super, apps/misc_train.py) runs: two
+    # iterations from the weights on crops of the image, the net with an
+    # sse [cost] head
+    (tmp_path / "super.list").write_text(img + "\n")
+    cfg2 = tmp_path / "super2.cfg"
+    cfg2.write_text(pathlib.Path(cfg).read_text().replace(
+        "[net]\n", "[net]\nmax_batches=2\n", 1) + "\n[cost]\ntype=sse\n")
+    losses = cli.COMMANDS["super"](["train", str(cfg2), weights, "-list",
+                                    str(tmp_path / "super.list"), "-scale",
+                                    "2", "-backup", str(tmp_path / "bk"),
+                                    "-cpu"])
+    assert len(losses) == 2 and np.all(np.isfinite(losses))
+    assert (tmp_path / "bk" / "super2.weights").exists()

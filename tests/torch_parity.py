@@ -1054,3 +1054,236 @@ def zoo_cfg_text(zoo_fn, **kw):
     finally:
         Z.CfgBuilder.build = build
     return texts[-1]
+
+
+GO19_FILTERS = 256  # go-19's width: thirteen 3x3 convolutions of 256
+GO19_CONVS = 13
+
+
+def go19_cfg_text(batch=1, max_batches=10000000, filters=GO19_FILTERS,
+                  convs=GO19_CONVS, learning_rate=0.1, policy="poly"):
+    """go-19, the Go policy net after darknet's public cfg/go.cfg, written
+    from its published shape (the file is not in the repository): a 19x19
+    one-plane board, ``convs`` 3x3 convolutions of ``filters`` (stride 1,
+    pad 1, batch-normalized, relu), a 1x1 convolution to one plane
+    (linear), [softmax] over the 361 points and [cost] sse. The later
+    cfg's [reorg] extra=1 pass plane is left out: the spec does not parse
+    ``extra``. The [net] training settings (momentum 0.9, decay 0.0005,
+    by default the poly policy of power 4) are this function's choice."""
+    from sr_object_detection_tpu_torch.models.zoo import CfgBuilder
+    b = CfgBuilder()
+    b.net(batch=batch, subdivisions=1, height=19, width=19, channels=1,
+          momentum=0.9, decay=0.0005, learning_rate=learning_rate,
+          policy=policy, power=4, max_batches=max_batches)
+    for _ in range(convs):
+        b.conv(filters, size=3, stride=1, act="relu")
+    b.conv(1, size=1, stride=1, bn=False, act="linear")
+    b.section("softmax")
+    b.section("cost", type="sse")
+    return b.text()
+
+
+def write_go_moves(path, n, seed, stones=(8, 60)):
+    """A moves file of ``n`` seeded 94-byte records (row, col, the packed
+    board, newline; go.c:21-52): boards of a random stone count in
+    ``stones``, the move on a random empty point."""
+    from sr_object_detection_tpu_torch.apps.go_app import board_to_string
+    rng = np.random.default_rng(seed)
+    with open(path, "wb") as f:
+        for _ in range(n):
+            k = int(rng.integers(*stones))
+            idx = rng.choice(361, k + 1, replace=False)
+            b = np.zeros(361, np.float32)
+            b[idx[1:k // 2 + 1]] = 1
+            b[idx[k // 2 + 1:]] = -1
+            r, c = divmod(int(idx[0]), 19)
+            f.write(bytes([r, c]) + board_to_string(b.reshape(19, 19))
+                    .tobytes() + b"\n")
+    return str(path)
+
+
+# The small apps' toy nets (those of tests/test_misc_train.py, kept here
+# JAX-free for chip_smoke.py): a classifier trunk with a connected head,
+# a dense per-pixel net, a vid-rnn feature RNN and its extractor, and a
+# super-resolution net with an sse cost
+APP_NET = """\
+[net]
+batch={batch}
+subdivisions=1
+height=16
+width=16
+channels={ch}
+learning_rate=0.05
+momentum=0.9
+decay=0.0001
+policy=constant
+max_batches={iters}
+"""
+
+APP_CLS_CFG = APP_NET + """
+[convolutional]
+filters=8
+size=3
+stride=2
+pad=1
+activation=leaky
+batch_normalize=1
+
+[avgpool]
+
+[connected]
+output={out}
+activation=logistic
+
+[cost]
+type=masked
+"""
+
+APP_WRITING_CFG = APP_NET + """
+[convolutional]
+filters=8
+size=3
+stride=1
+pad=1
+activation=leaky
+batch_normalize=1
+
+[convolutional]
+filters=1
+size=3
+stride=1
+pad=1
+activation=logistic
+
+[cost]
+type=masked
+"""
+
+APP_RNN_CFG = """\
+[net]
+batch=8
+subdivisions=1
+time_steps=4
+height=1
+width=1
+channels=8
+learning_rate=0.02
+momentum=0.9
+decay=0.0001
+policy=constant
+max_batches={iters}
+
+[rnn]
+output=16
+hidden=16
+activation=tanh
+batch_normalize=0
+
+[connected]
+output=8
+activation=linear
+
+[cost]
+type=masked
+"""
+
+APP_EXT_CFG = """\
+[net]
+batch=5
+subdivisions=1
+height=16
+width=16
+channels=3
+learning_rate=0.01
+momentum=0.9
+decay=0.0001
+
+[convolutional]
+filters=8
+size=3
+stride=2
+pad=1
+activation=leaky
+
+[avgpool]
+"""
+
+APP_SUPER_CFG = """\
+[net]
+batch=2
+subdivisions=1
+height=8
+width=8
+channels=3
+learning_rate=0.02
+momentum=0.9
+decay=0.0001
+policy=constant
+max_batches={iters}
+
+[convolutional]
+filters=8
+size=3
+stride=1
+pad=1
+activation=leaky
+batch_normalize=1
+
+[deconvolutional]
+filters=3
+size=2
+stride=2
+activation=logistic
+
+[cost]
+type=sse
+"""
+
+
+def app_image_set(root, names, n_per, seed, *, ious=False):
+    """16x16 PPMs under root/imgs whose brightness follows the class and
+    whose names hold it (``<name>_<k>.jpg.ppm``), and root/<seed>.list.
+    ``ious``: a root/labels/<name>_<k>.txt of "0 <brightness>" each (the
+    compare apps' pair labels). Returns (list path, paths)."""
+    import pathlib
+    root = pathlib.Path(root)
+    (root / "imgs").mkdir(parents=True, exist_ok=True)
+    (root / "labels").mkdir(exist_ok=True)
+    rng = np.random.default_rng(seed)
+    paths = []
+    for ci, name in enumerate(names):
+        level = (ci + 1) / (len(names) + 1)
+        for k in range(n_per):
+            img = np.clip(level + rng.normal(0, .05, (16, 16, 3)), 0, 1)
+            p = root / "imgs" / f"{name}_{k}.jpg.ppm"
+            p.write_bytes(b"P6\n16 16\n255\n"
+                          + (img * 255).astype(np.uint8).tobytes())
+            if ious:
+                (root / "labels" / f"{name}_{k}.txt.ppm").write_text(
+                    f"0 {img.mean():.4f}\n")
+            paths.append(str(p))
+    lst = root / f"{seed}.list"
+    lst.write_text("\n".join(paths) + "\n")
+    return str(lst), paths
+
+
+def train_float64(spec, params, batches):
+    """The port's Trainer on the CPU with its state in float64: the
+    params after each of ``batches`` ([(x, truth)] of numpy arrays), a
+    list of one param tree a step — a yardstick
+    for float32 runs whose sums cancel (go-19's BN biases)."""
+    import torch
+    from sr_object_detection_tpu_torch.train.trainer import (Trainer,
+                                                             TrainState)
+    tr = Trainer(spec, params=params, device="cpu")
+
+    def wide(tree):
+        return [{k: v.double() for k, v in p.items()} for p in tree]
+    tr.state = TrainState(wide(tr.state.params), wide(tr.state.velocity),
+                          tr.state.seen)
+    after = []
+    for x, t in batches:
+        tr.step(torch.from_numpy(np.asarray(x)).double(), t)
+        after.append([{k: v.clone() for k, v in p.items()}
+                      for p in tr.state.params])
+    return after
